@@ -1,0 +1,99 @@
+"""Rules of the PyTorch port that hold without a card: it imports nothing of
+JAX or of the JAX package, its entry points default to the card, and its
+weight carrier refuses trees that do not fit."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from transformerupscaler_torch.device import resolve_device
+from transformerupscaler_torch.infer_lib import UpscalerEngine
+from transformerupscaler_torch.registry import get_model
+from transformerupscaler_torch.weights import params_from_jax, seeded_params
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(transformer_dim=32, num_window_blocks=1, num_heads=2)
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port, in a fresh interpreter, loads no
+    jax, flax or transformerupscaler_tpu module."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import transformerupscaler_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'transformerupscaler_tpu'))\n"
+        "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15  # the modules really loaded
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UpscalerEngine(dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model("FastTransformer")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_params_from_jax_rejects_missing_and_leftover_leaves():
+    model = get_model("FastTransformer", device="cpu", **SMALL)
+    tree = seeded_params(model, 0)
+    del tree["conv1"]["bias"]
+    tree["extra"] = {"kernel": np.zeros(3, np.float32)}
+    tree["conv2"]["kernel"] = np.zeros((3, 3, 64, 32), np.float32)
+    with pytest.raises(ValueError) as err:
+        params_from_jax(model, tree)
+    msg = str(err.value)
+    assert "conv1/bias" in msg and "extra/kernel" in msg
+    assert "conv2/kernel" in msg
+
+
+def test_params_from_jax_round_trip():
+    model = get_model("FastTransformer", device="cpu", **SMALL)
+    tree = seeded_params(model, 5)
+    params_from_jax(model, {"params": tree})
+    np.testing.assert_array_equal(
+        model.blocks[0].attn.qkv_kernel.numpy(),
+        tree["blocks_0"]["attn"]["qkv_kernel"])
+    np.testing.assert_array_equal(model.up1.s4_c1_bias.numpy(),
+                                  tree["up1"]["s4_c1_bias"])
+
+
+def test_other_routes_and_geometries_raise():
+    with pytest.raises(NotImplementedError, match="attn_impl"):
+        get_model("FastTransformer", device="cpu", attn_impl="fused2")
+    with pytest.raises(NotImplementedError, match="split_tail"):
+        get_model("FastTransformer", device="cpu", split_tail=True)
+    with pytest.raises(KeyError):
+        get_model("WindowTransformer", device="cpu")
+    engine = UpscalerEngine(device="cpu", **SMALL)
+    img = np.zeros((16, 32, 3), np.uint8)
+    with pytest.raises(NotImplementedError):
+        engine.upscale(img, upscale_factor=6)
+    with pytest.raises(NotImplementedError):
+        engine.upscale(np.zeros((12, 32, 3), np.uint8), upscale_factor=2)
+
+
+def test_engine_upscale_contract():
+    """uint8 HWC in, float32 HWC out in [0, 1]; NHWC keeps its batch."""
+    engine = UpscalerEngine(device="cpu", dtype=torch.bfloat16, **SMALL)
+    img = np.random.default_rng(0).integers(0, 256, (16, 32, 3), np.uint8)
+    out = engine.upscale(img, res_out=(24, 48))
+    assert out.shape == (24, 48, 3) and out.dtype == np.float32
+    assert 0.0 <= out.min() and out.max() <= 1.0
+    batch = engine.upscale(np.stack([img, img]).astype(np.float32) / 255.0,
+                           upscale_factor=2)
+    assert batch.shape == (2, 32, 64, 3)
+    np.testing.assert_array_equal(batch[0], batch[1])

@@ -1,0 +1,262 @@
+"""The serving path's four hand-written Hopper kernels, their wrappers and
+their plain PyTorch versions.
+
+=========================  ====================  ================================
+wrapper                    CUDA source           TPU kernel it replaces
+=========================  ====================  ================================
+``conv3x3_stream``         csrc/conv_nhwc.cu     ops/pallas/stream.py:425
+                                                 ``conv3x3_deint_stream``
+``tail_conv_stream``       csrc/conv_nhwc.cu     ops/pallas/stream.py:777
+                                                 ``tail_macro8_stream``
+``embed_stream``           csrc/patch_gemm.cu    ops/pallas/stream.py:325
+                                                 ``embed_stream``
+``unembed_combine_stream`` csrc/patch_gemm.cu    ops/pallas/stream.py:239
+                                                 ``unembed_combine_stream``
+=========================  ====================  ================================
+
+All tensors are NHWC. Each kernel takes bf16 activations and weights,
+accumulates in f32, adds an f32 bias (and, for the unembed, the skip tensor)
+in an f32 epilogue with an optional ReLU, and rounds once to the output type.
+The bounds at the 720x1280 serving shapes are stated in each CUDA source.
+
+A wrapper given CPU tensors computes its plain version: the CPU tests run
+that. Given CUDA tensors it checks them, launches the kernel on the current
+stream, adds one to ``LAUNCHES[<wrapper name>]`` and returns; it never falls
+back to the plain version. The plain versions compute in f32 from the same
+rounded inputs, with products as ``torch.matmul`` (which runs full f32 on the
+card unless a caller enables TF32), so they hold the kernels' arithmetic up
+to summation order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from transformerupscaler_torch.kernels import _build
+
+KERNELS = ("conv3x3_stream", "tail_conv_stream", "embed_stream",
+           "unembed_combine_stream")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+TAIL_NPAD = (16, 32, 48)  # supported padded output widths of the tail
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """False for CPU tensors (plain version), True for CUDA tensors (kernel);
+    raises on anything else or on a mix. None entries are skipped."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return True
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned")
+
+
+def _raise_on(err: int, fn: str) -> None:
+    if err:
+        raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _bias32(bias, n: int, like: torch.Tensor) -> torch.Tensor:
+    if bias is None:
+        return torch.zeros(n, dtype=torch.float32, device=like.device)
+    return bias.to(torch.float32).contiguous()
+
+
+# ------------------------------------------------------------------ convs
+def _conv_plain(x, kernel, bias, relu, out_dtype):
+    """Zero-padded k x k conv as one f32 matmul per tap."""
+    k = kernel.shape[0]
+    pad = (k - 1) // 2
+    b, h, w, c = x.shape
+    co = kernel.shape[3]
+    xp = torch.nn.functional.pad(x.float(), (0, 0, pad, pad, pad, pad))
+    wf = kernel.to(x.dtype).float()
+    y = torch.zeros(b, h, w, co, dtype=torch.float32, device=x.device)
+    for dy in range(k):
+        for dx in range(k):
+            y += xp[:, dy:dy + h, dx:dx + w, :] @ wf[dy, dx]
+    y = y + _bias32(bias, co, x)
+    if relu:
+        y = torch.relu(y)
+    return y.to(out_dtype)
+
+
+def conv3x3_plain(x, kernel, bias=None, relu: bool = False):
+    """Plain version of ``conv3x3_stream``."""
+    return _conv_plain(x, kernel, bias, relu, x.dtype)
+
+
+def conv3x3_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
+                   relu: bool = False) -> torch.Tensor:
+    """3x3 zero-padded conv, 64 -> 64 channels.
+
+    x: (B, H, W, 64); kernel: (3, 3, 64, 64) HWIO, rounded to x's dtype;
+    bias: (64,), kept f32. Returns (B, H, W, 64) in x's dtype.
+    """
+    if not _on_card(x, kernel, bias):
+        return conv3x3_plain(x, kernel, bias, relu)
+    b, h, w, _ = x.shape
+    _check(x, "x", torch.bfloat16, (b, h, w, 64))
+    if tuple(kernel.shape) != (3, 3, 64, 64):
+        raise ValueError(f"kernel: expected (3, 3, 64, 64), got "
+                         f"{tuple(kernel.shape)}")
+    wt = kernel.to(torch.bfloat16).permute(0, 1, 3, 2).contiguous()
+    bb = _bias32(bias, 64, x)
+    _check(bb, "bias", torch.float32, (64,))
+    out = torch.empty_like(x)
+    err = _build.load("conv_nhwc").tux_conv3x3(
+        x.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w,
+        int(relu), x.device.index, _stream(x))
+    _raise_on(err, "conv3x3_stream")
+    LAUNCHES["conv3x3_stream"] += 1
+    return out
+
+
+def tail_conv_plain(x, kernel, bias=None, relu: bool = False,
+                    out_dtype=None):
+    """Plain version of ``tail_conv_stream``."""
+    return _conv_plain(x, kernel, bias, relu, out_dtype or x.dtype)
+
+
+def tail_conv_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
+                     relu: bool = False, out_dtype=None) -> torch.Tensor:
+    """Composed-tail conv: k x k zero-padded, 64 -> co channels.
+
+    x: (B, H, W, 64); kernel: (k, k, 64, co) HWIO with k in {5, 7} and
+    co <= 48, rounded to x's dtype; bias: (co,), kept f32 (the model passes
+    the composed bias already rounded to the compute dtype). ``out_dtype``
+    (default x's dtype) may be float32: only the final store changes.
+    """
+    out_dtype = out_dtype or x.dtype
+    if not _on_card(x, kernel, bias):
+        return tail_conv_plain(x, kernel, bias, relu, out_dtype)
+    b, h, w, _ = x.shape
+    k, _, cin, co = kernel.shape
+    _check(x, "x", torch.bfloat16, (b, h, w, 64))
+    npad = next((n for n in TAIL_NPAD if co <= n), None)
+    if k not in (5, 7) or kernel.shape[1] != k or cin != 64 or npad is None:
+        raise ValueError(f"kernel: expected (k, k, 64, co), k in (5, 7), "
+                         f"co <= {TAIL_NPAD[-1]}; got {tuple(kernel.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype: bfloat16 or float32, got {out_dtype}")
+    wt = torch.zeros(k, k, npad, 64, dtype=torch.bfloat16, device=x.device)
+    wt[:, :, :co] = kernel.to(torch.bfloat16).permute(0, 1, 3, 2)
+    bb = _bias32(bias, co, x)
+    _check(bb, "bias", torch.float32, (co,))
+    out = torch.empty(b, h, w, co, dtype=out_dtype, device=x.device)
+    err = _build.load("conv_nhwc").tux_tail_conv(
+        x.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w,
+        k, co, npad, int(relu), int(out_dtype == torch.float32),
+        x.device.index, _stream(x))
+    _raise_on(err, "tail_conv_stream")
+    LAUNCHES["tail_conv_stream"] += 1
+    return out
+
+
+# ---------------------------------------------------------- patch GEMMs
+def embed_plain(feat, kernel, bias=None):
+    """Plain version of ``embed_stream``: an f32 matmul over the patch view."""
+    b, h, w, c = feat.shape
+    ps, _, _, d = kernel.shape
+    patches = (feat.reshape(b, h // ps, ps, w // ps, ps, c)
+               .permute(0, 1, 3, 2, 4, 5).reshape(b, h // ps, w // ps, -1))
+    y = patches.float() @ kernel.to(feat.dtype).float().reshape(-1, d)
+    return (y + _bias32(bias, d, feat)).to(feat.dtype)
+
+
+def embed_stream(feat: torch.Tensor, kernel: torch.Tensor,
+                 bias=None) -> torch.Tensor:
+    """8x8/8 patch embed.
+
+    feat: (B, 8 Ht, 8 Wt, 64); kernel: (8, 8, 64, D) rounded to feat's
+    dtype, D % 64 == 0 on the card; bias: (D,), kept f32. Returns tokens
+    (B, Ht, Wt, D) in feat's dtype.
+    """
+    if not _on_card(feat, kernel, bias):
+        return embed_plain(feat, kernel, bias)
+    b, h, w, _ = feat.shape
+    ps, _, c, d = kernel.shape
+    _check(feat, "feat", torch.bfloat16, (b, h, w, 64))
+    if (ps, c) != (8, 64) or kernel.shape[1] != 8 or d % 64 or h % 8 or w % 8:
+        raise ValueError(f"embed: feat {tuple(feat.shape)} / kernel "
+                         f"{tuple(kernel.shape)} not supported")
+    wt = kernel.to(torch.bfloat16).reshape(-1, d).t().contiguous()
+    bb = _bias32(bias, d, feat)
+    _check(bb, "bias", torch.float32, (d,))
+    out = torch.empty(b, h // 8, w // 8, d, dtype=torch.bfloat16,
+                      device=feat.device)
+    err = _build.load("patch_gemm").tux_embed(
+        feat.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b,
+        h // 8, w // 8, d, feat.device.index, _stream(feat))
+    _raise_on(err, "embed_stream")
+    LAUNCHES["embed_stream"] += 1
+    return out
+
+
+def unembed_combine_plain(tokens, skip, kernel, bias=None,
+                          relu: bool = False):
+    """Plain version of ``unembed_combine_stream``."""
+    b, ht, wt, d = tokens.shape
+    _, ps, _, c = kernel.shape
+    g = tokens.float() @ kernel.to(tokens.dtype).float().reshape(d, -1)
+    g = (g.reshape(b, ht, wt, ps, ps, c).permute(0, 1, 3, 2, 4, 5)
+         .reshape(b, ht * ps, wt * ps, c))
+    y = g + _bias32(bias, c, tokens) + skip.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(tokens.dtype)
+
+
+def unembed_combine_stream(tokens: torch.Tensor, skip: torch.Tensor,
+                           kernel: torch.Tensor, bias=None,
+                           relu: bool = False) -> torch.Tensor:
+    """8x8 patch unembed plus the skip add: ``act(unembed(tokens) + skip)``.
+
+    tokens: (B, Ht, Wt, D); skip: (B, 8 Ht, 8 Wt, 64); kernel: (D, 8, 8, 64)
+    rounded to tokens' dtype, D % 16 == 0 on the card; bias: (64,), kept f32.
+    The skip is added in f32 before the one rounding. Returns
+    (B, 8 Ht, 8 Wt, 64) in tokens' dtype.
+    """
+    if not _on_card(tokens, skip, kernel, bias):
+        return unembed_combine_plain(tokens, skip, kernel, bias, relu)
+    b, ht, wt_, d = tokens.shape
+    _check(tokens, "tokens", torch.bfloat16, (b, ht, wt_, d))
+    _check(skip, "skip", torch.bfloat16, (b, 8 * ht, 8 * wt_, 64))
+    if tuple(kernel.shape) != (d, 8, 8, 64) or d % 16:
+        raise ValueError(f"unembed: kernel {tuple(kernel.shape)} not "
+                         f"supported for D={d}")
+    wt = kernel.to(torch.bfloat16).reshape(d, -1).t().contiguous()
+    bb = _bias32(bias, 64, tokens)
+    _check(bb, "bias", torch.float32, (64,))
+    out = torch.empty_like(skip)
+    err = _build.load("patch_gemm").tux_unembed_combine(
+        tokens.data_ptr(), wt.data_ptr(), bb.data_ptr(), skip.data_ptr(),
+        out.data_ptr(), b, ht, wt_, d, int(relu), tokens.device.index,
+        _stream(tokens))
+    _raise_on(err, "unembed_combine_stream")
+    LAUNCHES["unembed_combine_stream"] += 1
+    return out

@@ -1,0 +1,130 @@
+"""Shared model pieces: geometry resolution, the window transformer block and
+the window trunk.
+
+JAX counterpart: transformerupscaler_tpu models/common.py:26 and :123-243
+(the XLA trunk, ``attn_impl="xla"``). Parameters are kept in the JAX layout,
+(in, out) dense kernels, and in f32; compute runs in the activation dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from transformerupscaler_torch.ops.attention import window_attention
+from transformerupscaler_torch.ops.windows import window_partition, window_reverse
+
+
+def resolve_geometry(in_hw: tuple[int, int], res_out, upscale_factor):
+    """``upscale_factor`` wins and redefines res_out; otherwise
+    scale = ceil(max(res_out / in)) (reference FastTransformer/model.py:244-248)."""
+    h, w = in_hw
+    if upscale_factor is not None:
+        res_out = (h * upscale_factor, w * upscale_factor)
+    else:
+        upscale_factor = math.ceil(max(res_out[0] / h, res_out[1] / w))
+    return tuple(res_out), int(upscale_factor)
+
+
+def param(*shape) -> nn.Parameter:
+    """An inference parameter, zeros until weights are loaded."""
+    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+
+
+class Dense(nn.Module):
+    """``x @ kernel + bias`` in x's dtype, kernel (in, out)."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.kernel = param(d_in, d_out)
+        self.bias = param(d_out)
+
+    def forward(self, x):
+        return x @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(epsilon=1e-5)`` numerics: f32 statistics with
+    var = E[x^2] - E[x]^2 clipped at 0, the affine in f32, one rounding to
+    x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.scale = param(dim)
+        self.bias = param(dim)
+        self.eps = eps
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+class WindowAttention(nn.Module):
+    def __init__(self, dim: int, window_size: int, num_heads: int):
+        super().__init__()
+        self.qkv_kernel = param(dim, 3 * dim)
+        self.qkv_bias = param(3 * dim)
+        self.proj_kernel = param(dim, dim)
+        self.proj_bias = param(dim)
+        self.bias_table = param((2 * window_size - 1) ** 2, num_heads)
+        self.window_size = window_size
+        self.num_heads = num_heads
+
+    def forward(self, x):
+        return window_attention(x, self.qkv_kernel, self.qkv_bias,
+                                self.proj_kernel, self.proj_bias,
+                                self.bias_table, self.num_heads,
+                                self.window_size)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU written as ``jax.nn.gelu(approximate=False)`` is,
+    0.5 * x * erfc(-x * sqrt(1/2)) with each step in x's dtype, so that
+    bf16 rounds where the JAX reference rounds."""
+    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype)
+    return 0.5 * x * torch.special.erfc(-x * sqrt_half)
+
+
+class WindowBlock(nn.Module):
+    """Pre-LN window attention + pre-LN 4x exact-GELU MLP, with residuals
+    (inference: no dropout)."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int,
+                 mlp_ratio: float = 4.0):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.norm1 = LayerNorm(dim)
+        self.attn = WindowAttention(dim, window_size, num_heads)
+        self.norm2 = LayerNorm(dim)
+        self.mlp_fc1 = Dense(dim, hidden)
+        self.mlp_fc2 = Dense(hidden, dim)
+
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x))
+        h = gelu(self.mlp_fc1(self.norm2(x)))
+        return x + self.mlp_fc2(h)
+
+
+def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int) -> torch.Tensor:
+    """tokens (B, Ht, Wt, D) -> same shape: zero-pad the grid to a window
+    multiple, run the blocks on the windows, unpad."""
+    b, ht, wt, d = tokens.shape
+    ws = window_size
+    pad_b = (ws - ht % ws) % ws
+    pad_r = (ws - wt % ws) % ws
+    if pad_b or pad_r:
+        tokens = F.pad(tokens, (0, 0, 0, pad_r, 0, pad_b))
+    hp, wp = ht + pad_b, wt + pad_r
+    win = window_partition(tokens, ws)
+    n_win = win.shape[1]
+    win = win.reshape(b * n_win, ws * ws, d)
+    for block in blocks:
+        win = block(win)
+    tokens = window_reverse(win.reshape(b, n_win, ws * ws, d), ws, hp, wp)
+    return tokens[:, :ht, :wt, :]

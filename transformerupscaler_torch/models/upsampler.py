@@ -1,0 +1,98 @@
+"""Multi-scale sub-pixel Upsampler weights and their composition into one
+base-resolution tail conv.
+
+JAX counterpart: transformerupscaler_tpu models/upsampler.py:32-129 (the
+parameter bank for every scale) and :206-279 (``composed_tail_kernel``). The
+serving path never runs the Upsampler's convs one by one: each branch tail is
+folded into a single k x k conv at base resolution whose outputs are
+``pixel_shuffle(scale)``-ordered channels.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from transformerupscaler_torch.models.common import param
+from transformerupscaler_torch.ops.conv import compose_conv3x3_kernels
+from transformerupscaler_torch.ops.pixel_shuffle import commute_conv_through_shuffle
+from transformerupscaler_torch.resolutions import VALID_SCALES
+
+# scale -> list of (channel multiplier, shuffle factor) stages
+STAGES = {2: [(4, 2)], 3: [(9, 3)], 4: [(4, 2), (4, 2)], 6: [(36, 6)]}
+
+
+class Upsampler(nn.Module):
+    """The conv + shuffle stages of every scale: parameters
+    ``s{scale}_c{i}_kernel`` (3, 3, n, mult*n) HWIO and ``s{scale}_c{i}_bias``."""
+
+    def __init__(self, n_feats: int):
+        super().__init__()
+        for scale in VALID_SCALES:
+            for i, (mult, _) in enumerate(STAGES[scale]):
+                self.register_parameter(f"s{scale}_c{i}_kernel",
+                                        param(3, 3, n_feats, mult * n_feats))
+                self.register_parameter(f"s{scale}_c{i}_bias",
+                                        param(mult * n_feats))
+
+    def stage_params(self) -> dict[str, torch.Tensor]:
+        return dict(self.named_parameters())
+
+
+def last_shuffle_factor(scale: int) -> int:
+    """Shuffle factor of the last Upsampler stage for this scale."""
+    return STAGES[scale][-1][1]
+
+
+def composed_tail_kernel(up_params: dict, scale: int, tail_kernel, tail_bias,
+                         dtype, pre_kernel=None, pre_bias=None):
+    """Fold an Upsampler chain, the trailing 3x3 tail conv commuted through
+    its shuffle, and optionally a preceding conv, into ONE base-resolution
+    conv emitting ``pixel_shuffle(scale)``-ordered channels.
+
+    Scale 4 also commutes its second stage and the tail through the first
+    shuffle, so all the work lands at base resolution; the nested output
+    phase order (o, a2, b2, a1, b1) is permuted to shuffle-4 order
+    (o, 2*a1+a2, 2*b1+b2). All composition runs in f32 and the result is cast
+    to ``dtype`` once. The composed conv zero-pads its input, not the
+    intermediates, so a border ring deviates from the sequential form.
+    Returns (kernel, bias).
+    """
+    stages = STAGES[scale]
+    cf = torch.float32
+    tb = None if tail_bias is None else tail_bias.to(cf)
+    tk = tail_kernel.to(cf)
+    if len(stages) == 1:
+        r = stages[0][1]
+        tko = commute_conv_through_shuffle(tk, r)
+        tbo = None if tb is None else tb.repeat_interleave(r * r)
+        kc, bc = compose_conv3x3_kernels(
+            up_params[f"s{scale}_c0_kernel"].to(cf),
+            up_params[f"s{scale}_c0_bias"].to(cf), tko, tbo)
+    else:
+        if scale != 4 or len(stages) != 2:
+            raise ValueError(f"no two-stage composition for scale {scale}")
+        o = tk.shape[3]
+        t2 = commute_conv_through_shuffle(tk, 2)
+        tb2 = None if tb is None else tb.repeat_interleave(4)
+        u, ub = compose_conv3x3_kernels(up_params["s4_c1_kernel"].to(cf),
+                                        up_params["s4_c1_bias"].to(cf), t2, tb2)
+        u2 = commute_conv_through_shuffle(u, 2)
+        ub2 = None if ub is None else ub.repeat_interleave(4)
+        kc, bc = compose_conv3x3_kernels(up_params["s4_c0_kernel"].to(cf),
+                                         up_params["s4_c0_bias"].to(cf), u2, ub2)
+        perm = []
+        for oc in range(o):
+            for i in range(4):
+                for j in range(4):
+                    a1, a2 = i // 2, i % 2
+                    b1, b2 = j // 2, j % 2
+                    perm.append((((oc * 2 + a2) * 2 + b2) * 2 + a1) * 2 + b1)
+        perm = torch.tensor(perm, device=kc.device)
+        kc = kc[..., perm]
+        bc = None if bc is None else bc[perm]
+    if pre_kernel is not None:
+        kc, bc = compose_conv3x3_kernels(
+            pre_kernel.to(cf), None if pre_bias is None else pre_bias.to(cf),
+            kc, bc)
+    return kc.to(dtype), None if bc is None else bc.to(dtype)

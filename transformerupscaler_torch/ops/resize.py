@@ -1,0 +1,119 @@
+"""Separable resize as dense matrix products, with PyTorch/PIL semantics.
+
+JAX counterpart: transformerupscaler_tpu ops/resize.py:27-112 (the numpy
+``resize_matrix``) and :228-284 (``resize_shuffled``, dense phase-split form
+only). The matrices are built once per geometry in numpy.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+def _cubic(x: np.ndarray, a: float) -> np.ndarray:
+    """Keys cubic kernel: a=-0.75 is PyTorch's bicubic, a=-0.5 PIL's."""
+    ax = np.abs(x)
+    ax2 = ax * ax
+    ax3 = ax2 * ax
+    inner = (a + 2.0) * ax3 - (a + 3.0) * ax2 + 1.0
+    outer = a * ax3 - 5.0 * a * ax2 + 8.0 * a * ax - 4.0 * a
+    return np.where(ax <= 1.0, inner, np.where(ax < 2.0, outer, 0.0))
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0.0, 1.0 - np.abs(x))
+
+
+def _matrix_no_antialias(in_size, out_size, method, a):
+    """``F.interpolate(align_corners=False)``: fixed-width kernel, source
+    coords (i + 0.5) * in/out - 0.5, indices clamped to the border."""
+    scale = in_size / out_size
+    i = np.arange(out_size, dtype=np.float64)
+    src = (i + 0.5) * scale - 0.5
+    base = np.floor(src).astype(np.int64)
+    t = src - base
+    if method == "bilinear":
+        offsets = np.array([0, 1])
+        weights = np.stack([1.0 - t, t], axis=1)
+    elif method == "bicubic":
+        offsets = np.array([-1, 0, 1, 2])
+        weights = np.stack([_cubic(t - off, a) for off in offsets], axis=1)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    idx = np.clip(base[:, None] + offsets[None, :], 0, in_size - 1)
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+    np.add.at(mat, (np.repeat(i.astype(np.int64), len(offsets)), idx.ravel()),
+              weights.ravel())
+    return mat
+
+
+def _matrix_antialias(in_size, out_size, method, a):
+    """PIL / torchvision(antialias=True): support widened by the downscale
+    factor, weights renormalized per output pixel."""
+    if method == "bilinear":
+        filt, base_support = _triangle, 1.0
+    elif method == "bicubic":
+        filt, base_support = (lambda x: _cubic(x, a)), 2.0
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = base_support * filterscale
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        j = np.arange(xmin, xmax, dtype=np.float64)
+        w = filt((j + 0.5 - center) / filterscale)
+        s = w.sum()
+        if s != 0.0:
+            w = w / s
+        mat[i, xmin:xmax] = w
+    return mat
+
+
+@lru_cache(maxsize=None)
+def resize_matrix(in_size: int, out_size: int, method: str = "bicubic",
+                  antialias: bool = False, a: float | None = None) -> np.ndarray:
+    """1-D resampling matrix (out_size, in_size), float32. ``a`` defaults to
+    -0.75 without antialias (PyTorch) and -0.5 with it (PIL/torchvision)."""
+    if a is None:
+        a = -0.5 if antialias else -0.75
+    if in_size == out_size:
+        return np.eye(out_size, dtype=np.float32)
+    build = _matrix_antialias if antialias else _matrix_no_antialias
+    return build(in_size, out_size, method, a).astype(np.float32)
+
+
+def resize_shuffled(z: torch.Tensor, r: int, out_hw: tuple[int, int],
+                    method: str = "bilinear", antialias: bool = True,
+                    a: float | None = None) -> torch.Tensor:
+    """``resize(pixel_shuffle(z, r), out_hw)`` without building the shuffled
+    image. z: (B, H, W, C*r*r), channels ordered (c, i, j).
+
+    The resize matrices split by phase, M_i[o, h] = M[o, h*r + i], and apply
+    in the packed domain. Both products run in z's dtype with the matrices
+    rounded to it, and the height pass is rounded to it before the width
+    pass, as in the JAX op.
+    """
+    b, h, w, crr = z.shape
+    c = crr // (r * r)
+    oh, ow = out_hw
+    z6 = z.reshape(b, h, w, c, r, r)
+    mh = _phase_matrix(h, r, oh, method, antialias, a, z.device, z.dtype)
+    t = torch.einsum("ohi,nhwcij->nowcj", mh, z6)
+    mw = _phase_matrix(w, r, ow, method, antialias, a, z.device, z.dtype)
+    return torch.einsum("pwj,nowcj->nopc", mw, t)
+
+
+@lru_cache(maxsize=32)
+def _phase_matrix(in_size, r, out_size, method, antialias, a, device, dtype):
+    """``resize_matrix(in_size * r, out_size)`` split by phase to
+    (out, in, r), on ``device`` in ``dtype``: built and copied once per
+    geometry, not on every frame."""
+    m = resize_matrix(in_size * r, out_size, method, antialias, a)
+    return torch.from_numpy(m.reshape(out_size, in_size, r)).to(device, dtype)

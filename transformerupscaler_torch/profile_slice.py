@@ -1,0 +1,74 @@
+"""Where one serving frame's time goes on the GPU.
+
+    python3 -m transformerupscaler_torch.profile_slice
+
+Runs FastTransformer (bf16, seeded full-width weights) on 720x1280 frames at
+res_out 1080x1920, as ``chip_smoke.py`` serves them, and prints JSON lines:
+the forward's time by CUDA events, then a ``torch.profiler`` trace of five
+forwards summed by kernel name (device milliseconds per frame), the device's
+busy time per frame and its idle share of the forward.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from transformerupscaler_torch.infer_lib import UpscalerEngine
+
+FRAMES, TOP = 5, 25
+
+
+def main() -> None:
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16, seed=0)
+    g = torch.Generator(device=engine.device).manual_seed(0)
+    x = torch.rand(1, 720, 1280, 3, generator=g, device=engine.device)
+
+    def forward():
+        return engine.model(x, res_out=(1080, 1920))
+
+    for _ in range(3):
+        forward()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FRAMES):
+        forward()
+    end.record()
+    torch.cuda.synchronize()
+    fwd_ms = start.elapsed_time(end) / FRAMES
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(FRAMES):
+            forward()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for ev in prof.key_averages():
+        # Device-side events only (kernels, copies): an operator's device
+        # time is its kernels' time again.
+        t = ev.self_device_time_total
+        if t > 0 and ev.device_type == DeviceType.CUDA:
+            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + t
+    busy_ms = sum(per_kernel.values()) / 1e3 / FRAMES
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:TOP]
+    print(json.dumps({"device": smi, "forward_ms": fwd_ms,
+                      "device_busy_ms": busy_ms,
+                      "idle_share": 1.0 - busy_ms / fwd_ms,
+                      "kernel_names": len(per_kernel)}))
+    for name, t in top:
+        print(json.dumps({"kernel": name[:120],
+                          "ms_per_frame": t / 1e3 / FRAMES}))
+
+
+if __name__ == "__main__":
+    main()
