@@ -9,12 +9,22 @@ JAX, so on a GPU host without JAX it runs without the repo's conftest:
 
 bf16 outputs must agree within one bf16 rounding step (rtol 2^-7) plus
 atol 1e-3 (f32 summation order); f32 outputs within rtol 1e-5, atol 1e-4.
+The split tail's output sits behind the mid's bf16 rounding, where a
+different summation order can flip a mid element by one bf16 step (up to
+2^-7 of a mid value of order 1), which a finish weight (std 0.1) carries
+into the output: atol 4e-3 for both output types. The trunk rounds to bf16
+some twenty times a layer, and one flipped element shifts its token's whole
+next product, so after a layer about half of the elements sit one step
+apart: after two layers at values of a few units, max abs <= 0.125 and
+mean abs <= 1e-2.
 """
 
 import pytest
 import torch
 
 from transformerupscaler_torch.kernels import stream as S
+from transformerupscaler_torch.kernels import trunk2 as T
+from transformerupscaler_torch.models.common import WindowBlock
 
 pytestmark = pytest.mark.gpu
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
@@ -58,6 +68,43 @@ def test_tail_kernel_matches_plain(gen, kh, co, out_dtype):
            F32_TOL if out_dtype == torch.float32 else BF16_TOL)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hi_lo_fin", S.HI_LO_FIN)
+@pytest.mark.parametrize("kh,cm,co", [(5, 12, 12), (3, 27, 27), (5, 12, 48)])
+def test_tail_finish_kernel_matches_plain(gen, kh, cm, co, hi_lo_fin,
+                                          out_dtype):
+    x = _rn(gen, 2, 13, 37, 64).bfloat16()
+    km, bm = _rn(gen, kh, kh, 64, cm, std=0.03), _rn(gen, cm, std=0.1)
+    kf, bf = _rn(gen, 3, 3, cm, co, std=0.1), _rn(gen, co, std=0.1)
+    got = S.tail_finish_stream(x, km, bm, kf, bf, out_dtype, hi_lo_fin)
+    assert got.dtype == out_dtype and got.shape == (2, 13, 37, co)
+    _close(got, S.tail_finish_plain(x, km, bm, kf, bf, out_dtype, hi_lo_fin),
+           dict(rtol=1e-5 if out_dtype == torch.float32 else 2.0 ** -7,
+                atol=4e-3))
+
+
+@pytest.mark.parametrize("n_win,layers", [(1, 1), (5, 2)])
+def test_window_trunk_kernel_matches_plain(gen, n_win, layers):
+    blocks = [WindowBlock(192, 8, 12).cuda() for _ in range(layers)]
+    for blk in blocks:
+        for name, p in blk.named_parameters():
+            z = _rn(gen, *p.shape)
+            if name.endswith("scale"):
+                p.copy_(1.0 + 0.1 * z)
+            elif name.endswith("bias") or name.endswith("bias_table"):
+                p.copy_(0.1 * z)
+            else:
+                p.copy_(z * p.shape[0] ** -0.5)
+    params = T.stack_trunk_params(blocks, torch.bfloat16)
+    win = _rn(gen, n_win, 64, 192).bfloat16()
+    got = T.fused_window_trunk(win, params)
+    want = T.fused_window_trunk_plain(win, params)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got.float()).all()
+    assert err.max() <= 0.125 and err.mean() <= 1e-2, (err.max(), err.mean())
+
+
 @pytest.mark.parametrize("b,ht,wt,d", [(2, 3, 5, 64), (1, 2, 4, 192)])
 def test_embed_kernel_matches_plain(gen, b, ht, wt, d):
     f = _rn(gen, b, 8 * ht, 8 * wt, 64).bfloat16()
@@ -80,6 +127,14 @@ def test_wrappers_count_launches_and_reject_bad_input(gen):
     S.reset_launches()
     S.conv3x3_stream(x, k)
     assert S.LAUNCHES["conv3x3_stream"] == 1
+    with pytest.raises(ValueError):
+        S.tail_finish_stream(x, _rn(gen, 7, 7, 64, 12), None,
+                             _rn(gen, 3, 3, 12, 12), None)
+    blocks = [WindowBlock(64, 8, 4).cuda()]
+    with pytest.raises(ValueError):
+        T.fused_window_trunk(_rn(gen, 1, 64, 64).bfloat16(),
+                             T.stack_trunk_params(blocks, torch.bfloat16))
+    assert sum(S.LAUNCHES.values()) == 1
     with pytest.raises(TypeError):
         S.conv3x3_stream(x.float(), k)
     with pytest.raises(ValueError):

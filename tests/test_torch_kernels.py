@@ -1,6 +1,7 @@
-"""Plain versions of the port's four serving kernels
+"""Plain versions of the port's conv and patch kernels
 (transformerupscaler_torch/kernels/stream.py) against the JAX Pallas kernels
-they replace, run in interpret mode on the CPU.
+they replace, run in interpret mode on the CPU (the split tail is in
+test_torch_split_tail.py, the trunk in test_torch_fused_trunk.py).
 
 The Pallas kernels read the TPU's deinterleave4 layout; inputs are converted
 at the boundary as tests/test_pallas_stream.py does (NHWC ->
@@ -22,6 +23,7 @@ from transformerupscaler_tpu.ops.pallas.stream import (
     tail_macro8_stream,
     unembed_combine_stream as jax_unembed_combine_stream,
 )
+from transformerupscaler_torch import kernels as K
 from transformerupscaler_torch.kernels import stream as S
 
 TOL = dict(atol=5e-5, rtol=1e-4)
@@ -108,6 +110,16 @@ def test_cpu_wrappers_count_no_launches(rng):
     x = _t(rng.standard_normal((1, 8, 16, 64)))
     S.conv3x3_stream(x, _t(rng.standard_normal((3, 3, 64, 64))), None)
     assert all(v == 0 for v in S.LAUNCHES.values())
+
+
+def test_every_wrapper_has_a_counter_and_a_plain_version():
+    """The package's explicit wrapper -> plain mapping covers every launch
+    counter, and no wrapper is mapped to itself."""
+    assert set(K.PLAIN_VERSIONS) == set(K.LAUNCHES)
+    for name, plain in K.PLAIN_VERSIONS.items():
+        wrapper = getattr(K.trunk2 if name == "fused_window_trunk" else S, name)
+        assert callable(wrapper) and plain is not wrapper
+        assert plain.__name__.endswith("_plain")
 
 
 def test_wrapper_rejects_mixed_devices(rng):

@@ -73,9 +73,15 @@ def test_params_from_jax_round_trip():
 
 def test_other_routes_and_geometries_raise():
     with pytest.raises(NotImplementedError, match="attn_impl"):
-        get_model("FastTransformer", device="cpu", attn_impl="fused2")
-    with pytest.raises(NotImplementedError, match="split_tail"):
-        get_model("FastTransformer", device="cpu", split_tail=True)
+        get_model("FastTransformer", device="cpu", attn_impl="fused")
+    with pytest.raises(NotImplementedError, match="pallas_serve"):
+        get_model("FastTransformer", device="cpu", pallas_serve=False)
+    with pytest.raises(NotImplementedError, match="compose_tails"):
+        get_model("FastTransformer", device="cpu", compose_tails=False)
+    for route in (dict(attn_impl="fused2"), dict(split_tail=True),
+                  dict(attn_impl="xla", split_tail=False, hi_lo_fin="wf")):
+        get_model("FastTransformer", device="cpu", compose_tails=True,
+                  pallas_serve=True, **route, **SMALL)
     with pytest.raises(KeyError):
         get_model("WindowTransformer", device="cpu")
     engine = UpscalerEngine(device="cpu", **SMALL)

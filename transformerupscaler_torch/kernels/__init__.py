@@ -1,1 +1,17 @@
-"""Hand-written Hopper kernels (``csrc/``), their build and their wrappers."""
+"""Hand-written Hopper kernels of the port: wrappers, plain PyTorch versions
+and launch counters. ``PLAIN_VERSIONS`` maps every wrapper to the plain
+version that computes the same function."""
+
+from transformerupscaler_torch.kernels import stream, trunk2
+from transformerupscaler_torch.kernels._common import LAUNCHES, reset_launches
+
+PLAIN_VERSIONS = {
+    "conv3x3_stream": stream.conv3x3_plain,
+    "tail_conv_stream": stream.tail_conv_plain,
+    "embed_stream": stream.embed_plain,
+    "unembed_combine_stream": stream.unembed_combine_plain,
+    "tail_finish_stream": stream.tail_finish_plain,
+    "fused_window_trunk": trunk2.fused_window_trunk_plain,
+}
+
+__all__ = ["LAUNCHES", "PLAIN_VERSIONS", "reset_launches", "stream", "trunk2"]

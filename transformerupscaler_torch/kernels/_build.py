@@ -38,6 +38,12 @@ SIGNATURES = {
         "tux_embed": [_P] * 4 + [_I] * 5 + [_P],
         "tux_unembed_combine": [_P] * 5 + [_I] * 6 + [_P],
     },
+    "tail_finish": {
+        "tux_tail_finish": [_P] * 6 + [_I] * 10 + [_P],
+    },
+    "window_trunk": {
+        "tux_window_trunk": [_P] * 5 + [_I] * 3 + [_P],
+    },
 }
 
 _lock = threading.Lock()

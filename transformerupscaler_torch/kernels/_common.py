@@ -1,0 +1,52 @@
+"""What the kernel wrappers share: the launch counters and the checks a
+wrapper makes before it hands pointers to a CUDA kernel."""
+
+from __future__ import annotations
+
+import torch
+
+# Wrapper name -> launches of its CUDA kernel since the last reset. A wrapper
+# adds one where it launches its kernel and nowhere else.
+LAUNCHES = dict.fromkeys(
+    ("conv3x3_stream", "tail_conv_stream", "embed_stream",
+     "unembed_combine_stream", "fused_window_trunk", "tail_finish_stream"), 0)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """False for CPU tensors (plain version), True for CUDA tensors (kernel);
+    raises on anything else or on a mix. None entries are skipped."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return True
+
+
+def check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned")
+
+
+def raise_on(err: int, fn: str) -> None:
+    if err:
+        raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+
+
+def stream_of(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream

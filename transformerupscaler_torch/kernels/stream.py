@@ -1,5 +1,5 @@
-"""The serving path's four hand-written Hopper kernels, their wrappers and
-their plain PyTorch versions.
+"""The serving path's conv and patch kernels for Hopper, their wrappers and
+their plain PyTorch versions (the window trunk is in ``kernels/trunk2.py``).
 
 =========================  ====================  ================================
 wrapper                    CUDA source           TPU kernel it replaces
@@ -12,11 +12,15 @@ wrapper                    CUDA source           TPU kernel it replaces
                                                  ``embed_stream``
 ``unembed_combine_stream`` csrc/patch_gemm.cu    ops/pallas/stream.py:239
                                                  ``unembed_combine_stream``
+``tail_finish_stream``     csrc/tail_finish.cu   ops/pallas/stream.py:1078
+                                                 ``tail_finish_stream``
 =========================  ====================  ================================
 
-All tensors are NHWC. Each kernel takes bf16 activations and weights,
-accumulates in f32, adds an f32 bias (and, for the unembed, the skip tensor)
-in an f32 epilogue with an optional ReLU, and rounds once to the output type.
+All tensors are NHWC. Each of the first four kernels takes bf16 activations
+and weights, accumulates in f32, adds an f32 bias (and, for the unembed, the
+skip tensor) in an f32 epilogue with an optional ReLU, and rounds once to the
+output type. ``tail_finish_stream`` is two convs in one kernel and states its
+own rounding points.
 The bounds at the 720x1280 serving shapes are stated in each CUDA source.
 
 A wrapper given CPU tensors computes its plain version: the CPU tests run
@@ -33,51 +37,17 @@ from __future__ import annotations
 import torch
 
 from transformerupscaler_torch.kernels import _build
+from transformerupscaler_torch.kernels._common import (
+    LAUNCHES,
+    check as _check,
+    on_card as _on_card,
+    raise_on as _raise_on,
+    reset_launches,
+    stream_of as _stream,
+)
 
-KERNELS = ("conv3x3_stream", "tail_conv_stream", "embed_stream",
-           "unembed_combine_stream")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
 TAIL_NPAD = (16, 32, 48)  # supported padded output widths of the tail
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _on_card(*tensors: torch.Tensor) -> bool:
-    """False for CPU tensors (plain version), True for CUDA tensors (kernel);
-    raises on anything else or on a mix. None entries are skipped."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return True
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data must be 16-byte aligned")
-
-
-def _raise_on(err: int, fn: str) -> None:
-    if err:
-        raise RuntimeError(f"{fn}: CUDA error {err} at launch")
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+HI_LO_FIN = ("off", "wf", "full")
 
 
 def _bias32(bias, n: int, like: torch.Tensor) -> torch.Tensor:
@@ -87,19 +57,23 @@ def _bias32(bias, n: int, like: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ convs
-def _conv_plain(x, kernel, bias, relu, out_dtype):
-    """Zero-padded k x k conv as one f32 matmul per tap."""
+def _conv_f32(x, kernel):
+    """Zero-padded k x k conv of f32 tensors as one f32 matmul per tap."""
     k = kernel.shape[0]
     pad = (k - 1) // 2
-    b, h, w, c = x.shape
-    co = kernel.shape[3]
-    xp = torch.nn.functional.pad(x.float(), (0, 0, pad, pad, pad, pad))
-    wf = kernel.to(x.dtype).float()
-    y = torch.zeros(b, h, w, co, dtype=torch.float32, device=x.device)
+    b, h, w, _ = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
+    y = torch.zeros(b, h, w, kernel.shape[3], dtype=torch.float32,
+                    device=x.device)
     for dy in range(k):
         for dx in range(k):
-            y += xp[:, dy:dy + h, dx:dx + w, :] @ wf[dy, dx]
-    y = y + _bias32(bias, co, x)
+            y += xp[:, dy:dy + h, dx:dx + w, :] @ kernel[dy, dx]
+    return y
+
+
+def _conv_plain(x, kernel, bias, relu, out_dtype):
+    y = _conv_f32(x.float(), kernel.to(x.dtype).float())
+    y = y + _bias32(bias, kernel.shape[3], x)
     if relu:
         y = torch.relu(y)
     return y.to(out_dtype)
@@ -174,6 +148,93 @@ def tail_conv_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
         x.device.index, _stream(x))
     _raise_on(err, "tail_conv_stream")
     LAUNCHES["tail_conv_stream"] += 1
+    return out
+
+
+def _hi_lo(v: torch.Tensor):
+    """f32 -> (hi, lo) bf16 halves with hi + lo == v to about 2^-17."""
+    hi = v.to(torch.bfloat16)
+    return hi, (v - hi.float()).to(torch.bfloat16)
+
+
+def tail_finish_plain(x, k_mid, b_mid, k_fin, b_fin, out_dtype=None,
+                      hi_lo_fin: str = "off"):
+    """Plain version of ``tail_finish_stream``: the two convs in sequence,
+    with its rounding points."""
+    if hi_lo_fin not in HI_LO_FIN:
+        raise ValueError(f"hi_lo_fin: one of {HI_LO_FIN}, got {hi_lo_fin!r}")
+    mid = _conv_f32(x.float(), k_mid.to(x.dtype).float())
+    mid = mid + _bias32(b_mid, k_mid.shape[3], x)
+    mid_hi, mid_lo = _hi_lo(mid)
+    w_hi, w_lo = _hi_lo(k_fin.float())
+    y = _conv_f32(mid_hi.float(), w_hi.float())
+    if hi_lo_fin != "off":
+        y = y + _conv_f32(mid_hi.float(), w_lo.float())
+    if hi_lo_fin == "full":
+        y = y + _conv_f32(mid_lo.float(), w_hi.float())
+    y = y + _bias32(b_fin, k_fin.shape[3], x)
+    return y.to(out_dtype or x.dtype)
+
+
+def tail_finish_stream(x: torch.Tensor, k_mid: torch.Tensor, b_mid,
+                       k_fin: torch.Tensor, b_fin, out_dtype=None,
+                       hi_lo_fin: str = "off") -> torch.Tensor:
+    """Split branch-B tail in one kernel: a mid conv 64 -> cm and a 3x3
+    finish conv cm -> co on the mid tile, which never goes to device memory.
+
+    x: (B, H, W, 64); k_mid: (k, k, 64, cm) HWIO with k in {3, 5}, rounded
+    to x's dtype; b_mid: (cm,), kept f32; k_fin: (3, 3, cm, co) f32;
+    b_fin: (co,) f32; (cm, co) padded up to (16, 16), (32, 32) or (16, 48).
+
+    mid = conv(x, k_mid) + b_mid with zero-padded x, in f32. Mid positions
+    outside the image are zero (not bias, not a conv of padding): the
+    sequential two-conv zero pad. The mid is rounded once to bf16, whatever
+    x's dtype. out = conv3x3(mid, k_fin) + b_fin with f32 accumulation and
+    one rounding to ``out_dtype`` (default x's dtype; may be float32).
+    ``hi_lo_fin``: "off" rounds k_fin to bf16; "wf" keeps it exact as
+    hi + lo bf16 halves, two products summed in f32; "full" also splits the
+    f32 mid into hi + lo and sums hi.hi, hi.lo and lo.hi (lo.lo dropped).
+    """
+    out_dtype = out_dtype or x.dtype
+    if not _on_card(x, k_mid, b_mid, k_fin, b_fin):
+        return tail_finish_plain(x, k_mid, b_mid, k_fin, b_fin, out_dtype,
+                                 hi_lo_fin)
+    if hi_lo_fin not in HI_LO_FIN:
+        raise ValueError(f"hi_lo_fin: one of {HI_LO_FIN}, got {hi_lo_fin!r}")
+    b, h, w, _ = x.shape
+    k, _, cin, cm = k_mid.shape
+    co = k_fin.shape[3]
+    _check(x, "x", torch.bfloat16, (b, h, w, 64))
+    pads = next((p for p in ((16, 16), (32, 32), (16, 48))
+                 if cm <= p[0] and co <= p[1]), None)
+    if k not in (3, 5) or k_mid.shape[1] != k or cin != 64 or pads is None \
+            or tuple(k_fin.shape[:3]) != (3, 3, cm):
+        raise ValueError(f"tail_finish: k_mid {tuple(k_mid.shape)} / k_fin "
+                         f"{tuple(k_fin.shape)} not supported")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype: bfloat16 or float32, got {out_dtype}")
+    cmp_, cop = pads
+    dev = x.device
+    # Mid weights as [dy][dx][cm][cin], a 3x3 centred in the 5x5 frame.
+    o = (5 - k) // 2
+    wm = torch.zeros(5, 5, cmp_, 64, dtype=torch.bfloat16, device=dev)
+    wm[o:o + k, o:o + k, :cm] = k_mid.to(torch.bfloat16).permute(0, 1, 3, 2)
+    # Finish weights as [hi, lo][dy][dx][co][cm].
+    wf = torch.zeros(2, 3, 3, cop, cmp_, dtype=torch.bfloat16, device=dev)
+    w_hi, w_lo = _hi_lo(k_fin.float())
+    wf[0, :, :, :co, :cm] = w_hi.permute(0, 1, 3, 2)
+    wf[1, :, :, :co, :cm] = w_lo.permute(0, 1, 3, 2)
+    bm, bf = _bias32(b_mid, cm, x), _bias32(b_fin, co, x)
+    _check(bm, "b_mid", torch.float32, (cm,))
+    _check(bf, "b_fin", torch.float32, (co,))
+    out = torch.empty(b, h, w, co, dtype=out_dtype, device=dev)
+    err = _build.load("tail_finish").tux_tail_finish(
+        x.data_ptr(), wm.data_ptr(), bm.data_ptr(), wf.data_ptr(),
+        bf.data_ptr(), out.data_ptr(), b, h, w, cm, cmp_, co, cop,
+        HI_LO_FIN.index(hi_lo_fin), int(out_dtype == torch.float32),
+        dev.index, _stream(x))
+    _raise_on(err, "tail_finish_stream")
+    LAUNCHES["tail_finish_stream"] += 1
     return out
 
 

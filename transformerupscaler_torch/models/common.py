@@ -2,8 +2,9 @@
 the window trunk.
 
 JAX counterpart: transformerupscaler_tpu models/common.py:26 and :123-243
-(the XLA trunk, ``attn_impl="xla"``). Parameters are kept in the JAX layout,
-(in, out) dense kernels, and in f32; compute runs in the activation dtype.
+(the XLA trunk, ``attn_impl="xla"``, and the fused one, ``"fused2"``).
+Parameters are kept in the JAX layout, (in, out) dense kernels, and in f32;
+compute runs in the activation dtype.
 """
 
 from __future__ import annotations
@@ -14,6 +15,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from transformerupscaler_torch.kernels.trunk2 import (
+    fused_window_trunk,
+    stack_trunk_params,
+)
 from transformerupscaler_torch.ops.attention import window_attention
 from transformerupscaler_torch.ops.windows import window_partition, window_reverse
 
@@ -111,9 +116,21 @@ class WindowBlock(nn.Module):
         return x + self.mlp_fc2(h)
 
 
-def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int) -> torch.Tensor:
+TRUNK_IMPLS = ("xla", "fused2")
+
+
+def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int,
+                     impl: str = "xla", stacked=None) -> torch.Tensor:
     """tokens (B, Ht, Wt, D) -> same shape: zero-pad the grid to a window
-    multiple, run the blocks on the windows, unpad."""
+    multiple, run the blocks on the windows, unpad.
+
+    ``impl`` follows the JAX ``attn_impl``: "xla" runs the blocks one by one
+    in PyTorch; "fused2" hands all windows to ``fused_window_trunk`` once,
+    with ``stacked`` (default: ``stack_trunk_params(blocks, dtype)``, which
+    a caller may compute once and keep). The zero tokens of the padding go
+    through either as ordinary tokens, unmasked, as in JAX."""
+    if impl not in TRUNK_IMPLS:
+        raise ValueError(f"impl: one of {TRUNK_IMPLS}, got {impl!r}")
     b, ht, wt, d = tokens.shape
     ws = window_size
     pad_b = (ws - ht % ws) % ws
@@ -124,7 +141,12 @@ def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int) -> torch.Te
     win = window_partition(tokens, ws)
     n_win = win.shape[1]
     win = win.reshape(b * n_win, ws * ws, d)
-    for block in blocks:
-        win = block(win)
+    if impl == "fused2":
+        if stacked is None:
+            stacked = stack_trunk_params(blocks, tokens.dtype)
+        win = fused_window_trunk(win.contiguous(), stacked)
+    else:
+        for block in blocks:
+            win = block(win)
     tokens = window_reverse(win.reshape(b, n_win, ws * ws, d), ws, hp, wp)
     return tokens[:, :ht, :wt, :]

@@ -2,10 +2,11 @@
 base-resolution tail conv.
 
 JAX counterpart: transformerupscaler_tpu models/upsampler.py:32-129 (the
-parameter bank for every scale) and :206-279 (``composed_tail_kernel``). The
-serving path never runs the Upsampler's convs one by one: each branch tail is
-folded into a single k x k conv at base resolution whose outputs are
-``pixel_shuffle(scale)``-ordered channels.
+parameter bank for every scale), :132-203 (``split_tail_kernels``) and
+:206-279 (``composed_tail_kernel``). The serving path never runs the
+Upsampler's convs one by one: each branch tail is folded at base resolution
+into a single k x k conv, or for branch B into a mid conv and a small finish
+conv, whose outputs are ``pixel_shuffle(scale)``-ordered channels.
 """
 
 from __future__ import annotations
@@ -44,6 +45,66 @@ def last_shuffle_factor(scale: int) -> int:
     return STAGES[scale][-1][1]
 
 
+def _shuffle4_perm(o: int, device) -> torch.Tensor:
+    """Output-channel permutation of the two-stage x4 composition: from the
+    nested phase order (o, a2, b2, a1, b1) to ``pixel_shuffle(4)`` order
+    (o, i, j) with i = 2*a1 + a2 and j = 2*b1 + b2."""
+    perm = []
+    for oc in range(o):
+        for i in range(4):
+            for j in range(4):
+                a1, a2 = i // 2, i % 2
+                b1, b2 = j // 2, j % 2
+                perm.append((((oc * 2 + a2) * 2 + b2) * 2 + a1) * 2 + b1)
+    return torch.tensor(perm, device=device)
+
+
+def split_tail_kernels(up_params: dict, scale: int, tail_kernel, tail_bias,
+                       dtype, pre_kernel=None, pre_bias=None):
+    """Branch-B tail as two convs instead of one fold: folding the RGB tail
+    into the 64-channel kernel inflates the work through the rank-3 RGB
+    bottleneck. Returns ((k_mid, b_mid), (k_fin, b_fin)):
+
+      k_mid: [pre o first stage] without the RGB tail, 5x5 with ``pre``,
+             64 -> 3 r_mid^2 at base resolution (r_mid 2 at x2 and x4,
+             3 at x3), cast to ``dtype`` with its bias.
+      k_fin: the RGB tail (at x4: stage 2 and the tail) commuted through
+             every shuffle to base resolution, a 3x3 conv
+             3 r_mid^2 -> 3 scale^2 applied after k_mid. It stays f32 with
+             its bias: the fold rounds one composed kernel, and
+             ``tail_finish_stream`` chooses how the finish weights round.
+
+    Same interior math as ``composed_tail_kernel``; the border ring follows
+    the sequential two-conv zero pad. All composition runs in f32.
+    """
+    stages = STAGES[scale]
+    cf = torch.float32
+    tb = None if tail_bias is None else tail_bias.to(cf)
+    tk = tail_kernel.to(cf)
+    k_mid = up_params[f"s{scale}_c0_kernel"].to(cf)
+    b_mid = up_params[f"s{scale}_c0_bias"].to(cf)
+    if len(stages) == 1:
+        r = stages[0][1]
+        k_fin = commute_conv_through_shuffle(tk, r)
+        b_fin = None if tb is None else tb.repeat_interleave(r * r)
+    else:
+        if scale != 4 or len(stages) != 2:
+            raise ValueError(f"no two-stage split for scale {scale}")
+        t2 = commute_conv_through_shuffle(tk, 2)
+        tb2 = None if tb is None else tb.repeat_interleave(4)
+        u, ub = compose_conv3x3_kernels(up_params["s4_c1_kernel"].to(cf),
+                                        up_params["s4_c1_bias"].to(cf), t2, tb2)
+        perm = _shuffle4_perm(tk.shape[3], u.device)
+        k_fin = commute_conv_through_shuffle(u, 2)[..., perm]
+        b_fin = None if ub is None else ub.repeat_interleave(4)[perm]
+    if pre_kernel is not None:
+        k_mid, b_mid = compose_conv3x3_kernels(
+            pre_kernel.to(cf), None if pre_bias is None else pre_bias.to(cf),
+            k_mid, b_mid)
+    return ((k_mid.to(dtype), None if b_mid is None else b_mid.to(dtype)),
+            (k_fin, b_fin))
+
+
 def composed_tail_kernel(up_params: dict, scale: int, tail_kernel, tail_bias,
                          dtype, pre_kernel=None, pre_bias=None):
     """Fold an Upsampler chain, the trailing 3x3 tail conv commuted through
@@ -72,7 +133,6 @@ def composed_tail_kernel(up_params: dict, scale: int, tail_kernel, tail_bias,
     else:
         if scale != 4 or len(stages) != 2:
             raise ValueError(f"no two-stage composition for scale {scale}")
-        o = tk.shape[3]
         t2 = commute_conv_through_shuffle(tk, 2)
         tb2 = None if tb is None else tb.repeat_interleave(4)
         u, ub = compose_conv3x3_kernels(up_params["s4_c1_kernel"].to(cf),
@@ -81,14 +141,7 @@ def composed_tail_kernel(up_params: dict, scale: int, tail_kernel, tail_bias,
         ub2 = None if ub is None else ub.repeat_interleave(4)
         kc, bc = compose_conv3x3_kernels(up_params["s4_c0_kernel"].to(cf),
                                          up_params["s4_c0_bias"].to(cf), u2, ub2)
-        perm = []
-        for oc in range(o):
-            for i in range(4):
-                for j in range(4):
-                    a1, a2 = i // 2, i % 2
-                    b1, b2 = j // 2, j % 2
-                    perm.append((((oc * 2 + a2) * 2 + b2) * 2 + a1) * 2 + b1)
-        perm = torch.tensor(perm, device=kc.device)
+        perm = _shuffle4_perm(tk.shape[3], kc.device)
         kc = kc[..., perm]
         bc = None if bc is None else bc[perm]
     if pre_kernel is not None:

@@ -2,15 +2,20 @@
 
     python3 -m transformerupscaler_torch.profile_slice
 
+    python3 -m transformerupscaler_torch.profile_slice --route xla_fold
+
 Runs FastTransformer (bf16, seeded full-width weights) on 720x1280 frames at
 res_out 1080x1920, as ``chip_smoke.py`` serves them, and prints JSON lines:
 the forward's time by CUDA events, then a ``torch.profiler`` trace of five
 forwards summed by kernel name (device milliseconds per frame), the device's
-busy time per frame and its idle share of the forward.
+busy time per frame and its idle share of the forward. The default route is
+the one bench.py runs (fused trunk, split tail); ``xla_fold`` is the route
+with the PyTorch trunk and the folded tail.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 
@@ -21,14 +26,22 @@ from torch.profiler import ProfilerActivity, profile
 from transformerupscaler_torch.infer_lib import UpscalerEngine
 
 FRAMES, TOP = 5, 25
+ROUTES = {
+    "bench": dict(compose_tails=True, pallas_serve=True, attn_impl="fused2"),
+    "xla_fold": dict(compose_tails=True, pallas_serve=True, attn_impl="xla",
+                     split_tail=False),
+}
 
 
 def main() -> None:
-
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--route", choices=sorted(ROUTES), default="bench")
+    route = parser.parse_args().route
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16, seed=0)
+    engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16, seed=0,
+                            **ROUTES[route])
     g = torch.Generator(device=engine.device).manual_seed(0)
     x = torch.rand(1, 720, 1280, 3, generator=g, device=engine.device)
 
@@ -52,19 +65,21 @@ def main() -> None:
         for _ in range(FRAMES):
             forward()
         torch.cuda.synchronize()
-    per_kernel = {}
+    per_kernel, launches = {}, 0
     for ev in prof.key_averages():
         # Device-side events only (kernels, copies): an operator's device
         # time is its kernels' time again.
         t = ev.self_device_time_total
         if t > 0 and ev.device_type == DeviceType.CUDA:
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + t
+            launches += ev.count
     busy_ms = sum(per_kernel.values()) / 1e3 / FRAMES
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:TOP]
-    print(json.dumps({"device": smi, "forward_ms": fwd_ms,
+    print(json.dumps({"device": smi, "route": route, "forward_ms": fwd_ms,
                       "device_busy_ms": busy_ms,
                       "idle_share": 1.0 - busy_ms / fwd_ms,
-                      "kernel_names": len(per_kernel)}))
+                      "kernel_names": len(per_kernel),
+                      "launches_per_frame": launches / FRAMES}))
     for name, t in top:
         print(json.dumps({"kernel": name[:120],
                           "ms_per_frame": t / 1e3 / FRAMES}))
