@@ -8,18 +8,22 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
 2. the kernel build (nvcc, sm_90a) from transformerupscaler_torch/csrc/;
 3. each hand-written kernel against its plain PyTorch version on the card,
-   at the shapes of the 720x1280 -> 1080x1920 (x2) serving frame, with its
-   time, the plain version's, one PyTorch library call's (where one computes
-   the same function) and the card's bound for the same work;
-4. both served routes at a small geometry against the committed JAX outputs
-   (tests/fixtures/torch_port/*.npz), weights rebuilt from the numpy seed;
-   then at x3 and x4 against the same model on the plain versions;
+   at the shapes the served 720x1280 frames give it, with its time, the
+   plain version's, one PyTorch library call's (where one computes the same
+   function) and the card's bound for the same work;
+4. each served route with a fixture at a small geometry against the
+   committed JAX outputs (tests/fixtures/torch_port/*.npz), weights rebuilt
+   from the numpy seed; FastTransformer's routes then at x3 and x4 against
+   the same model on the plain versions;
 5. the full slices: UpscalerEngine at full model width with seeded weights,
-   serving 720x1280 frames at res_out 1080x1920, first on the route with
-   the PyTorch trunk and the folded tail, then on the route bench.py runs
-   (fused trunk, split tail); each with the launch counts per frame, set to
-   zero just before, and the output held against the same engine on the
-   plain versions;
+   serving 720x1280 frames: FastTransformer on the route with the PyTorch
+   trunk and the folded tail, then on the route bench.py runs (fused trunk,
+   split tail); WindowTransformer with the stream conv and the
+   window-attention kernel; ResidualTransformer on its packed x2 route and
+   on its exact route at 1080x1920, both on the global attention kernel;
+   BicubicInterpolation. Each with the launch counts per frame, set to zero
+   just before, and the output held against the same engine on the plain
+   versions;
 6. the status of every TPU kernel of the JAX package in the port.
 
 Then one JSON line of kernel records and, last, {"ok": true, "device": ...}.
@@ -41,24 +45,53 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 WARMUP, REPS = 3, 20
 FRAME_HW, RES_OUT, SCALE = (720, 1280), (1080, 1920), 2
-# The two served routes: JAX flags, the committed JAX output, closed-loop
-# requests to serve, and the kernel launches one frame must make.
+WRAPPERS = ("conv3x3_stream", "tail_conv_stream", "embed_stream",
+            "unembed_combine_stream", "fused_window_trunk",
+            "tail_finish_stream", "window_attention_core", "global_mha")
+
+
+def counts(**launched) -> dict:
+    """Launches per frame of every wrapper: zero unless named."""
+    return {**dict.fromkeys(WRAPPERS, 0), **launched}
+
+
+# The served routes: model, JAX flags, the committed JAX output (with the
+# fields that shrink the model for it), res_out of the served frames,
+# closed-loop requests to serve, and the kernel launches one frame must make.
 ROUTE = dict(compose_tails=True, pallas_serve=True, split_tail=False,
              attn_impl="xla")
 ROUTE_BENCH = dict(compose_tails=True, pallas_serve=True, attn_impl="fused2")
+ROUTE_RESID = dict(packed_serve=True, pallas_serve=True, attn_impl="fused2")
+FIXTURES = "tests/fixtures/torch_port/"
 ROUTES = {
     "xla_fold": dict(
-        route=ROUTE, fixture="tests/fixtures/torch_port/slice_x2_bf16.npz",
-        requests=5,
-        launches={"conv3x3_stream": 2, "tail_conv_stream": 2,
-                  "embed_stream": 1, "unembed_combine_stream": 1,
-                  "fused_window_trunk": 0, "tail_finish_stream": 0}),
+        model="FastTransformer", route=ROUTE,
+        fixture=FIXTURES + "slice_x2_bf16.npz", res_out=RES_OUT, requests=3,
+        launches=counts(conv3x3_stream=2, tail_conv_stream=2, embed_stream=1,
+                        unembed_combine_stream=1)),
     "bench": dict(
-        route=ROUTE_BENCH,
-        fixture="tests/fixtures/torch_port/bench_x2_bf16.npz", requests=20,
-        launches={"conv3x3_stream": 2, "tail_conv_stream": 1,
-                  "embed_stream": 1, "unembed_combine_stream": 1,
-                  "fused_window_trunk": 1, "tail_finish_stream": 1}),
+        model="FastTransformer", route=ROUTE_BENCH,
+        fixture=FIXTURES + "bench_x2_bf16.npz", res_out=RES_OUT, requests=20,
+        launches=counts(conv3x3_stream=2, tail_conv_stream=1, embed_stream=1,
+                        unembed_combine_stream=1, fused_window_trunk=1,
+                        tail_finish_stream=1)),
+    "window_pallas": dict(
+        model="WindowTransformer",
+        route=dict(pallas_serve=True, attn_impl="pallas"),
+        fixture=FIXTURES + "window_pallas_bf16.npz", res_out=RES_OUT,
+        requests=20,
+        launches=counts(conv3x3_stream=1, window_attention_core=8)),
+    "resid_packed": dict(
+        model="ResidualTransformer", route=ROUTE_RESID,
+        fixture=FIXTURES + "resid_packed_x2_bf16.npz",
+        fixture_config=dict(token_hw=(4, 6)), res_out=(1440, 2560),
+        requests=20, launches=counts(conv3x3_stream=2, global_mha=8)),
+    "resid_exact": dict(
+        model="ResidualTransformer", route=ROUTE_RESID, res_out=RES_OUT,
+        requests=5, launches=counts(global_mha=8)),
+    "bicubic": dict(
+        model="BicubicInterpolation", route={}, res_out=RES_OUT, requests=5,
+        launches=counts()),
 }
 
 # Every function of transformerupscaler_tpu/ops/pallas that reaches
@@ -78,16 +111,19 @@ TPU_KERNELS = [
      "TPU bodies; int8_gemms modes not yet)"),
     ("stream.py:1078 tail_finish_stream",
      "ported and checked: tail_finish_stream (hi_lo_fin off, wf, full)"),
-    ("stream.py:82 conv3x3_packed_stream", "not yet"),
+    ("stream.py:82 conv3x3_packed_stream",
+     "ported and checked: conv3x3_stream (the same conv without the "
+     "width-2 packing; bf16)"),
     ("stream.py:147 conv3x3_packed_int8_stream", "not yet"),
     ("stream.py:893 tail_macro8_stream_int8", "not yet"),
     ("stream.py:584 conv3x3_tail_stream", "not yet"),
     ("stream.py:662 conv3x3_tail_emit_stream", "not yet"),
     ("stream.py:1269 conv1_dots_stream", "not yet"),
     ("stream.py:1385 conv1_flat_stream", "not yet"),
-    ("gmha.py:60 global_mha", "not yet"),
+    ("gmha.py:60 global_mha", "ported and checked: global_mha (bf16)"),
     ("trunk.py:128 fused_window_trunk", "not yet"),
-    ("window_attn.py:58 fused_window_attention", "not yet"),
+    ("window_attn.py:58 fused_window_attention",
+     "ported and checked: window_attention_core (bf16)"),
     ("encoder.py:239 fused_encoder", "not yet"),
     ("encoder.py:279 fused_decoder", "not yet"),
     ("conv3x3.py:73 conv3x3_pallas", "not yet"),
@@ -192,7 +228,9 @@ def phase_kernels() -> list[dict]:
     bf16 = dict(rtol=2.0 ** -7, atol=1e-3)  # one bf16 rounding step
     records = []
 
-    def conv_case(name, k, co, relu, replaces):
+    def conv_case(name, k, co, relu, replaces, on="bench", x=x):
+        h, w = x.shape[1:3]
+        x_cl = x.permute(0, 3, 1, 2)  # channels-last NCHW view for F.conv2d
         kern = rn(k, k, 64, co, std=(k * k * 64) ** -0.5)
         bias = rn(co, std=0.1)
         if k == 3:
@@ -215,14 +253,19 @@ def phase_kernels() -> list[dict]:
             source="transformerupscaler_torch/csrc/conv_nhwc.cu",
             replaces=replaces, max_abs_err=err, ms=cuda_ms(run),
             plain_ms=cuda_ms(plain, 3), bound_ms=bnd, bound_by=by,
-            library_ms=cuda_ms(lib)))
+            library_ms=cuda_ms(lib), on=on))
 
     conv_case("conv3x3_stream", 3, 64, True,
               "transformerupscaler_tpu/ops/pallas/stream.py:425")
+    # ResidualTransformer's decoder conv, behind the stride-2 downsample.
+    conv_case("conv3x3_stream/360x640", 3, 64, True,
+              "transformerupscaler_tpu/ops/pallas/stream.py:82",
+              on="resid_packed", x=rn(1, h // 2, w // 2, 64).bfloat16())
     conv_case("tail_conv_stream/5x5", 5, 12, True,
               "transformerupscaler_tpu/ops/pallas/stream.py:777")
     conv_case("tail_conv_stream/7x7", 7, 12, False,
-              "transformerupscaler_tpu/ops/pallas/stream.py:777")
+              "transformerupscaler_tpu/ops/pallas/stream.py:777",
+              on="xla_fold")
 
     ke, be = rn(8, 8, 64, d, std=4096 ** -0.5), rn(d, std=0.1)
     out = S.embed_stream(x, ke, be)
@@ -238,7 +281,7 @@ def phase_kernels() -> list[dict]:
         max_abs_err=err, ms=cuda_ms(lambda: S.embed_stream(x, ke, be)),
         plain_ms=cuda_ms(lambda: S.embed_plain(x, ke, be), 3),
         bound_ms=bnd, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.matmul(patches, ke16))))
+        library_ms=cuda_ms(lambda: torch.matmul(patches, ke16)), on="bench"))
 
     ku, bu = rn(d, 8, 8, 64, std=d ** -0.5), rn(64, std=0.1)
     out = S.unembed_combine_stream(tok, x, ku, bu)
@@ -257,9 +300,11 @@ def phase_kernels() -> list[dict]:
         ms=cuda_ms(lambda: S.unembed_combine_stream(tok, x, ku, bu)),
         plain_ms=cuda_ms(lambda: S.unembed_combine_plain(tok, x, ku, bu), 3),
         bound_ms=bnd, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.matmul(tok2, ku16))))
+        library_ms=cuda_ms(lambda: torch.matmul(tok2, ku16)), on="bench"))
     records.append(tail_finish_case(x, x_cl, rn, bf16))
     records.append(trunk_case(rn))
+    records.append(window_attention_case(rn, bf16))
+    records.append(global_mha_case(rn, bf16))
     torch.cuda.synchronize()
     for r in records:
         say("kernel", **r)
@@ -319,7 +364,91 @@ def tail_finish_case(x, x_cl, rn, bf16) -> dict:
         max_abs_err=err, tolerance=t,
         ms=cuda_ms(lambda: S.tail_finish_stream(x, km, bm, kf, bf)),
         plain_ms=cuda_ms(lambda: S.tail_finish_plain(x, km, bm, kf, bf), 3),
-        bound_ms=bnd, bound_by=by, library_ms=cuda_ms(lib))
+        bound_ms=bnd, bound_by=by, library_ms=cuda_ms(lib), on="bench")
+
+
+def window_attention_case(rn, bf16) -> dict:
+    """WindowTransformer's attention core on one 720x1280 frame: 45 x 80
+    tokens padded to 48 x 80 are 60 windows of 64 tokens, 8 heads of 16.
+
+    Tolerance: the kernel's fast exponential can round a probability to the
+    next bf16 value than the plain version's; a share of about 2^-20 / 2^-8
+    of them does, each moving the f32 context by at most 2^-8 p |v|, far
+    below atol; the context then rounds once: one bf16 step."""
+    import torch.nn.functional as F
+
+    from transformerupscaler_torch.kernels import window_attn as A
+
+    nw, n, heads, c = 60, 64, 8, 128
+    qkv = rn(nw, n, 3 * c).bfloat16()
+    bias = rn(heads, n, n, std=0.5)
+    run = lambda: A.window_attention_core(qkv, bias, heads)  # noqa: E731
+    plain = lambda: A.window_attention_plain(qkv, bias, heads)  # noqa: E731
+    out = run()
+    err = close_enough(out, plain(), **bf16)
+    q, k, v = (t.reshape(nw, n, heads, 16).transpose(1, 2).contiguous()
+               for t in qkv.split(c, dim=-1))
+    mask = bias.bfloat16()[None]
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
+    bnd, by = bound_ms(nbytes(qkv, bias, out), 2.0 * 2 * nw * heads * n * n * 16)
+    return dict(
+        name="window_attention_core", route="cuda",
+        source="transformerupscaler_torch/csrc/window_attn.cu",
+        replaces="transformerupscaler_tpu/ops/pallas/window_attn.py:58",
+        max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain, 3),
+        bound_ms=bnd, bound_by=by, library_ms=cuda_ms(lib),
+        on="window_pallas")
+
+
+def global_mha_case(rn, bf16) -> dict:
+    """ResidualTransformer's attention core on one 720x1280 frame: 3600
+    tokens (56 key tiles of 64 and one of 16), 8 heads of 16, q, k, v as the
+    slices of the packed qkv the model hands over; then two batches of 1000
+    tokens. Tolerance: as for the window attention core (the kernel keeps
+    the TPU body's rounding point by making two passes over the keys)."""
+    import torch.nn.functional as F
+
+    from transformerupscaler_torch.kernels import gmha as G
+    from transformerupscaler_torch.ops.attention import multihead_attention
+
+    n, heads, c = 3600, 8, 128
+
+    def sliced(b, n):
+        qkv = rn(b, n, 3 * c, std=1.5).bfloat16()
+        return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+
+    q, k, v = sliced(1, n)
+    run = lambda: G.global_mha(q, k, v, heads)  # noqa: E731
+    plain = lambda: G.global_mha_plain(q, k, v, heads)  # noqa: E731
+    out = run()
+    err = close_enough(out, plain(), **bf16)
+    q2, k2, v2 = sliced(2, 1000)
+    err = max(err, close_enough(G.global_mha(q2, k2, v2, heads),
+                                G.global_mha_plain(q2, k2, v2, heads), **bf16))
+    qh, kh, vh = (t.reshape(1, n, heads, 16).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+    bnd, by = bound_ms(nbytes(q, k, v, out), 2.0 * 2 * n * n * c)
+    # One whole attention layer (qkv product, core, output product) through
+    # the kernel and through the eager branch, which writes the
+    # (8, 3600, 3600) f32 scores: the other value of ``attn_impl``.
+    x = rn(1, n, c).bfloat16()
+    wts = (rn(c, 3 * c, std=c ** -0.5), rn(3 * c, std=0.1),
+           rn(c, c, std=c ** -0.5), rn(c, std=0.1))
+    say("gmha_layer",
+        kernel_branch_ms=cuda_ms(
+            lambda: multihead_attention(x, *wts, heads, "fused2")),
+        eager_branch_ms=cuda_ms(
+            lambda: multihead_attention(x, *wts, heads, "xla"), 5),
+        note="multihead_attention at (1, 3600, 128): impl 'fused2' against "
+             "impl 'xla', the eager form; not a yardstick")
+    return dict(
+        name="global_mha", route="cuda",
+        source="transformerupscaler_torch/csrc/global_mha.cu",
+        replaces="transformerupscaler_tpu/ops/pallas/gmha.py:60",
+        max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain, 3),
+        bound_ms=bnd, bound_by=by, library_ms=cuda_ms(lib),
+        on="resid_packed")
 
 
 def trunk_case(rn) -> dict:
@@ -385,7 +514,7 @@ def trunk_case(rn) -> dict:
         max_abs_err=err.max().item(), tolerance=tolerance,
         ms=cuda_ms(lambda: T.fused_window_trunk(win, params)),
         plain_ms=cuda_ms(lambda: T.fused_window_trunk_plain(win, params), 3),
-        bound_ms=bnd, bound_by=by, library_ms=None)
+        bound_ms=bnd, bound_by=by, library_ms=None, on="bench")
 
 
 @contextlib.contextmanager
@@ -394,10 +523,17 @@ def plain_versions():
     by the kernels package's explicit mapping. No launch counter may move
     inside."""
     from transformerupscaler_torch import kernels as K
-    from transformerupscaler_torch.models import common, fast_transformer
+    from transformerupscaler_torch.models import (
+        common,
+        fast_transformer,
+        residual_transformer,
+        window_transformer,
+    )
+    from transformerupscaler_torch.ops import attention
 
     saved = [(mod, name, getattr(mod, name))
-             for mod in (common, fast_transformer)
+             for mod in (common, fast_transformer, residual_transformer,
+                         window_transformer, attention)
              for name in K.PLAIN_VERSIONS if hasattr(mod, name)]
     missing = set(K.PLAIN_VERSIONS) - {name for _, name, _ in saved}
     if missing:
@@ -428,16 +564,18 @@ def within_limit(emax: float, emean: float) -> bool:
 
 
 def phase_fixture(name: str) -> None:
-    """One route at a small geometry against its committed JAX output, then
-    at x3 and x4 (other tail widths) against itself on the plain versions."""
+    """One route at a small geometry against its committed JAX output;
+    FastTransformer then at x3 and x4 (other tail widths) against itself on
+    the plain versions."""
     from transformerupscaler_torch.registry import get_model
     from transformerupscaler_torch.weights import params_from_jax, seeded_params
 
-    with np.load(ROUTES[name]["fixture"]) as f:
+    spec = ROUTES[name]
+    with np.load(spec["fixture"]) as f:
         seed, x, want = int(f["seed"]), f["x"], f["y"]
         res_out = tuple(int(v) for v in f["res_out"])
-    model = get_model("FastTransformer", dtype=torch.bfloat16,
-                      **ROUTES[name]["route"])
+    model = get_model(spec["model"], dtype=torch.bfloat16, **spec["route"],
+                      **spec.get("fixture_config", {}))
     params_from_jax(model, seeded_params(model, seed))
     got = model(torch.from_numpy(x).cuda(), res_out=res_out).float().cpu()
     emax, emean = interior_err(got.numpy(), want, 4)
@@ -446,6 +584,8 @@ def phase_fixture(name: str) -> None:
     if not within_limit(emax, emean):
         raise AssertionError(f"{name}: the port on the card disagrees with "
                              f"the JAX fixture")
+    if spec["model"] != "FastTransformer":
+        return
     xs = torch.rand(1, 64, 128, 3, generator=torch.Generator().manual_seed(1))
     for scale in (3, 4):
         got = model(xs.cuda(), upscale_factor=scale).float().cpu().numpy()
@@ -465,19 +605,20 @@ def phase_slice(name: str) -> dict:
     from transformerupscaler_torch.infer_lib import UpscalerEngine
 
     spec = ROUTES[name]
-    engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16, seed=0,
+    res_out = spec["res_out"]
+    engine = UpscalerEngine(spec["model"], dtype=torch.bfloat16, seed=0,
                             **spec["route"])
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (*FRAME_HW, 3), np.uint8)
               for _ in range(spec["requests"])]
     for fr in frames[:WARMUP]:
-        engine.upscale(fr, res_out=RES_OUT)
+        engine.upscale(fr, res_out=res_out)
     torch.cuda.synchronize()
     K.reset_launches()
     outs, request_ms = [], []
     for fr in frames:  # closed loop: one request after the other
         t0 = time.perf_counter()
-        outs.append(engine.upscale(fr, res_out=RES_OUT))
+        outs.append(engine.upscale(fr, res_out=res_out))
         request_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(K.LAUNCHES)
     per_frame = {k: v / len(frames) for k, v in launches.items()}
@@ -485,19 +626,22 @@ def phase_slice(name: str) -> dict:
         raise AssertionError(f"{name}: launches per frame {per_frame} != "
                              f"{spec['launches']}")
     out = outs[0]
-    if out.shape != (*RES_OUT, 3) or not np.isfinite(out).all() or \
-            out.min() < 0.0 or out.max() > 1.0:
+    # Every model clips to [0, 1] but the bicubic baseline, which overshoots.
+    lo, hi = (-0.5, 1.5) if spec["model"] == "BicubicInterpolation" else (0, 1)
+    if out.shape != (*res_out, 3) or not np.isfinite(out).all() or \
+            out.min() < lo or out.max() > hi:
         raise AssertionError(f"bad output: {out.shape} [{out.min()}, "
                              f"{out.max()}]")
 
     xd = torch.from_numpy(frames[0]).cuda().float().div(255.0)[None]
-    fwd_ms = cuda_ms(lambda: engine.model(xd, res_out=RES_OUT), 10)
+    fwd_ms = cuda_ms(lambda: engine.model(xd, res_out=res_out), 10)
 
     with plain_versions():
-        plain = engine.upscale(frames[0], res_out=RES_OUT)
+        plain = engine.upscale(frames[0], res_out=res_out)
     emax, emean = interior_err(out, plain, 8)
     med = float(np.median(request_ms))
-    say("slice", route=name, flags=spec["route"], frames=len(frames),
+    say("slice", route=name, model=spec["model"], flags=spec["route"],
+        res_out=list(res_out), frames=len(frames),
         request_ms_median=med, request_ms_min=min(request_ms),
         request_ms_max=max(request_ms), fps_median=1e3 / med,
         forward_ms=fwd_ms, launches=launches, launches_per_frame=per_frame,
@@ -514,17 +658,17 @@ def main() -> None:
     kind = phase_device()
     phase_build()
     records = phase_kernels()
-    for name in ROUTES:
-        phase_fixture(name)
+    for name, spec in ROUTES.items():
+        if "fixture" in spec:
+            phase_fixture(name)
     launches = {name: phase_slice(name) for name in ROUTES}
     say("tpu_kernels", kernels=[dict(kernel=k, port=s) for k, s in TPU_KERNELS])
     for r in records:
-        # The count of the record's wrapper on the bench.py route; the 7x7
-        # tail shape runs only on the other route and takes its count there.
+        # The count of the record's wrapper on the route that runs the
+        # record's shape (``on``): the bench.py route unless named.
         wrapper = r["name"].split("/")[0]
         r.pop("tolerance", None)
-        r["launches"] = (launches["xla_fold"] if r["name"].endswith("/7x7")
-                         else launches["bench"])[wrapper]
+        r["launches"] = launches[r.pop("on")][wrapper]
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on its path")
     print(json.dumps({"kernels": records}), flush=True)

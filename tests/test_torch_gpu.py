@@ -16,14 +16,20 @@ into the output: atol 4e-3 for both output types. The trunk rounds to bf16
 some twenty times a layer, and one flipped element shifts its token's whole
 next product, so after a layer about half of the elements sit one step
 apart: after two layers at values of a few units, max abs <= 0.125 and
-mean abs <= 1e-2.
+mean abs <= 1e-2. The two attention cores use fast exponentials, so a
+probability can round to the next bf16 value than in the plain version; a
+share of 2^-20 / 2^-8 of them does, each moving the f32 context by at most
+2^-8 p |v|, far below atol, and the context then rounds once: the bf16
+tolerance above holds for them as it stands.
 """
 
 import pytest
 import torch
 
+from transformerupscaler_torch.kernels import gmha as G
 from transformerupscaler_torch.kernels import stream as S
 from transformerupscaler_torch.kernels import trunk2 as T
+from transformerupscaler_torch.kernels import window_attn as A
 from transformerupscaler_torch.models.common import WindowBlock
 
 pytestmark = pytest.mark.gpu
@@ -105,6 +111,32 @@ def test_window_trunk_kernel_matches_plain(gen, n_win, layers):
     assert err.max() <= 0.125 and err.mean() <= 1e-2, (err.max(), err.mean())
 
 
+@pytest.mark.parametrize("nw,heads", [(1, 1), (7, 8), (3, 5), (2, 16)])
+def test_window_attention_kernel_matches_plain(gen, nw, heads):
+    """One head, WindowTransformer's eight, an odd count (the last block of
+    two heads is half empty) and the widest C = 256."""
+    qkv = _rn(gen, nw, 64, 3 * 16 * heads).bfloat16()
+    bias = _rn(gen, heads, 64, 64, std=0.5)
+    got = A.window_attention_core(qkv, bias, heads)
+    assert got.shape == (nw, 64, 16 * heads) and got.dtype == torch.bfloat16
+    _close(got, A.window_attention_plain(qkv, bias, heads), BF16_TOL)
+
+
+@pytest.mark.parametrize("b,n,heads", [(1, 64, 1), (2, 200, 8), (1, 1, 4),
+                                       (1, 333, 16), (3, 65, 2)])
+def test_global_mha_kernel_matches_plain(gen, b, n, heads):
+    """Token counts that are no multiple of the 64-key tile (one key past a
+    tile, one key in all), batches, and q, k, v as slices of a packed qkv."""
+    c = 16 * heads
+    qkv = _rn(gen, b, n, 3 * c, std=1.5).bfloat16()
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    got = G.global_mha(q, k, v, heads)
+    assert got.shape == (b, n, c) and got.is_contiguous()
+    _close(got, G.global_mha_plain(q, k, v, heads), BF16_TOL)
+    _close(G.global_mha(q.contiguous(), k.contiguous(), v.contiguous(), heads),
+           got, dict(rtol=0, atol=0))
+
+
 @pytest.mark.parametrize("b,ht,wt,d", [(2, 3, 5, 64), (1, 2, 4, 192)])
 def test_embed_kernel_matches_plain(gen, b, ht, wt, d):
     f = _rn(gen, b, 8 * ht, 8 * wt, 64).bfloat16()
@@ -134,6 +166,20 @@ def test_wrappers_count_launches_and_reject_bad_input(gen):
     with pytest.raises(ValueError):
         T.fused_window_trunk(_rn(gen, 1, 64, 64).bfloat16(),
                              T.stack_trunk_params(blocks, torch.bfloat16))
+    assert sum(S.LAUNCHES.values()) == 1
+    with pytest.raises(ValueError):  # heads of 8 channels
+        A.window_attention_core(_rn(gen, 1, 64, 96).bfloat16(),
+                                _rn(gen, 4, 64, 64), 4)
+    with pytest.raises(ValueError):  # 16 tokens a window
+        A.window_attention_core(_rn(gen, 1, 16, 96).bfloat16(),
+                                _rn(gen, 2, 16, 16), 2)
+    q = _rn(gen, 1, 10, 32).bfloat16()
+    with pytest.raises(ValueError):  # heads of 8 channels
+        G.global_mha(q, q, q, 4)
+    with pytest.raises(ValueError):  # k's strides differ from q's
+        G.global_mha(q, _rn(gen, 1, 10, 64).bfloat16()[..., :32], q, 2)
+    with pytest.raises(TypeError):
+        G.global_mha(q.float(), q.float(), q.float(), 2)
     assert sum(S.LAUNCHES.values()) == 1
     with pytest.raises(TypeError):
         S.conv3x3_stream(x.float(), k)

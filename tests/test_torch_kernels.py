@@ -17,6 +17,7 @@ import torch
 
 from transformerupscaler_tpu.ops.pallas.stream import (
     conv3x3_deint_stream,
+    conv3x3_packed_stream,
     deinterleave4,
     embed_stream as jax_embed_stream,
     interleave4,
@@ -54,6 +55,23 @@ def test_conv3x3_plain_matches_pallas(rng, relu):
                                       interpret=True))
     got = S.conv3x3_stream(_t(x), _t(k), _t(b), relu=relu).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("hw", [(16, 64), (24, 32)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3x3_plain_matches_packed_pallas(rng, relu, hw):
+    """``conv3x3_packed_stream`` (stream.py:82) computes the same conv on the
+    width-2 packed layout, a free reshape of NHWC at the boundary; the
+    port's ``conv3x3_stream`` answers for it too."""
+    h, w = hw
+    x = rng.standard_normal((1, h, w, 64)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, 64, 64)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(64).astype(np.float32)
+    want = np.asarray(conv3x3_packed_stream(
+        jnp.asarray(x).reshape(1, h, w // 2, 128), jnp.asarray(k),
+        jnp.asarray(b), relu=relu, rows=8, interpret=True))
+    got = S.conv3x3_stream(_t(x), _t(k), _t(b), relu=relu).numpy()
+    np.testing.assert_allclose(got, want.reshape(1, h, w, 64), **TOL)
 
 
 @pytest.mark.parametrize("relu", [False, True])
@@ -116,8 +134,10 @@ def test_every_wrapper_has_a_counter_and_a_plain_version():
     """The package's explicit wrapper -> plain mapping covers every launch
     counter, and no wrapper is mapped to itself."""
     assert set(K.PLAIN_VERSIONS) == set(K.LAUNCHES)
+    homes = {"fused_window_trunk": K.trunk2, "global_mha": K.gmha,
+             "window_attention_core": K.window_attn}
     for name, plain in K.PLAIN_VERSIONS.items():
-        wrapper = getattr(K.trunk2 if name == "fused_window_trunk" else S, name)
+        wrapper = getattr(homes.get(name, S), name)
         assert callable(wrapper) and plain is not wrapper
         assert plain.__name__.endswith("_plain")
 

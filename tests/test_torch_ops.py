@@ -12,12 +12,19 @@ from transformerupscaler_tpu.models.upsampler import (
 )
 from transformerupscaler_tpu.ops.conv import (
     compose_conv3x3_kernels as jax_compose,
+    conv2d as jax_conv2d,
+)
+from transformerupscaler_tpu.ops.patch import (
+    patch_embed as jax_patch_embed,
+    patch_unembed as jax_patch_unembed,
 )
 from transformerupscaler_tpu.ops.pixel_shuffle import (
     commute_conv_through_shuffle as jax_commute,
     pixel_shuffle as jax_pixel_shuffle,
 )
 from transformerupscaler_tpu.ops.resize import (
+    interpolate_bicubic as jax_interpolate_bicubic,
+    resize as jax_resize,
     resize_matrix as jax_resize_matrix,
     resize_shuffled as jax_resize_shuffled,
 )
@@ -26,12 +33,18 @@ from transformerupscaler_torch.models.upsampler import (
     composed_tail_kernel,
     last_shuffle_factor,
 )
-from transformerupscaler_torch.ops.conv import compose_conv3x3_kernels
+from transformerupscaler_torch.ops.conv import compose_conv3x3_kernels, conv2d
+from transformerupscaler_torch.ops.patch import patch_embed, patch_unembed
 from transformerupscaler_torch.ops.pixel_shuffle import (
     commute_conv_through_shuffle,
     pixel_shuffle,
 )
-from transformerupscaler_torch.ops.resize import resize_matrix, resize_shuffled
+from transformerupscaler_torch.ops.resize import (
+    interpolate_bicubic,
+    resize,
+    resize_matrix,
+    resize_shuffled,
+)
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 
@@ -121,3 +134,78 @@ def test_resize_shuffled_matches_jax(rng, r, out_hw):
     got = resize_shuffled(_t(z), r, out_hw).numpy()
     assert got.shape == (1, *out_hw, 3)
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("hw", [(16, 24), (15, 21)])
+@pytest.mark.parametrize("stride,relu", [(1, True), (2, False)])
+def test_conv2d_matches_jax(rng, hw, stride, relu):
+    """Stride 2 is the models' downsample; odd extents round as PyTorch's
+    ``padding=1`` does."""
+    x = rng.standard_normal((2, *hw, 8)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, 8, 24)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(24).astype(np.float32)
+    want = np.asarray(jax_conv2d(jnp.asarray(x), jnp.asarray(k),
+                                 jnp.asarray(b), stride=stride, relu=relu))
+    got = conv2d(_t(x), _t(k), _t(b), stride=stride, relu=relu).numpy()
+    assert got.shape == want.shape == (2, -(-hw[0] // stride),
+                                       -(-hw[1] // stride), 24)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("method,antialias", [("bicubic", False),
+                                              ("bilinear", True)])
+@pytest.mark.parametrize("out_hw", [(24, 48), (27, 32), (16, 20)])
+def test_resize_matches_jax(rng, method, antialias, out_hw):
+    """Up, down and one unchanged extent (16 rows stay 16)."""
+    x = rng.random((2, 16, 32, 3)).astype(np.float32)
+    want = np.asarray(jax_resize(jnp.asarray(x), out_hw, method, antialias))
+    got = resize(_t(x), out_hw, method, antialias).numpy()
+    assert got.shape == (2, *out_hw, 3)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(resize(_t(x[0]), out_hw, method,
+                                      antialias).numpy(), want[0], **TOL)
+
+
+def test_interpolate_bicubic_matches_jax_and_torch(rng):
+    x = rng.random((1, 12, 20, 3)).astype(np.float32)
+    got = interpolate_bicubic(_t(x), (18, 30)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jax_interpolate_bicubic(jnp.asarray(x), (18, 30))),
+        **TOL)
+    ref = torch.nn.functional.interpolate(
+        _t(x).permute(0, 3, 1, 2), size=(18, 30), mode="bicubic",
+        align_corners=False).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_interpolate_bicubic_bf16_matches_jax(rng):
+    """bf16: the matrices are rounded to bf16 and the height pass is rounded
+    before the width pass on both sides; summation order may flip single
+    roundings of values in [0, 1.2]: max abs <= 2^-7."""
+    x = rng.random((1, 12, 20, 3)).astype(np.float32)
+    want = np.asarray(jax_interpolate_bicubic(
+        jnp.asarray(x).astype(jnp.bfloat16), (24, 40)).astype(jnp.float32))
+    got = interpolate_bicubic(_t(x).bfloat16(), (24, 40))
+    assert got.dtype == torch.bfloat16
+    assert np.abs(got.float().numpy() - want).max() <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("c,d", [(64, 128), (8, 24)])
+def test_patch_embed_and_unembed_match_jax(rng, c, d):
+    x = rng.standard_normal((2, 16, 24, c)).astype(np.float32)
+    ke = (rng.standard_normal((8, 8, c, d)) * 0.05).astype(np.float32)
+    be = rng.standard_normal(d).astype(np.float32)
+    want = np.asarray(jax_patch_embed(jnp.asarray(x), jnp.asarray(ke),
+                                      jnp.asarray(be)))
+    tok = patch_embed(_t(x), _t(ke), _t(be))
+    assert tok.shape == (2, 2, 3, d)
+    np.testing.assert_allclose(tok.numpy(), want, **TOL)
+    ku = (rng.standard_normal((d, 8, 8, c)) * 0.05).astype(np.float32)
+    bu = rng.standard_normal(c).astype(np.float32)
+    want = np.asarray(jax_patch_unembed(jnp.asarray(want), jnp.asarray(ku),
+                                        jnp.asarray(bu)))
+    got = patch_unembed(tok, _t(ku), _t(bu))
+    assert got.shape == (2, 16, 24, c)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    with pytest.raises(ValueError, match="patch size"):
+        patch_embed(_t(x[:, :4]), _t(ke))

@@ -2,6 +2,7 @@
 JAX or of the JAX package, its entry points default to the card, and its
 weight carrier refuses trees that do not fit."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -21,20 +22,41 @@ SMALL = dict(transformer_dim=32, num_window_blocks=1, num_heads=2)
 
 def test_port_imports_no_jax():
     """Importing every module of the port, in a fresh interpreter, loads no
-    jax, flax or transformerupscaler_tpu module."""
+    jax, flax, orbax or transformerupscaler_tpu module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import transformerupscaler_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'transformerupscaler_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'orbax',\n"
+        "              'transformerupscaler_tpu'))\n"
+        "for m in ('ops.patch', 'kernels.gmha', 'kernels.window_attn',\n"
+        "          'models.bicubic', 'models.window_transformer',\n"
+        "          'models.residual_transformer'):\n"
+        "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15  # the modules really loaded
+    assert int(out.stdout.split()[-1]) >= 21  # the modules really loaded
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs on a host without JAX: no import statement in it,
+    at any depth, names jax, flax, orbax or the JAX package."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+    assert "transformerupscaler_torch" in names
+    assert not names & {"jax", "jaxlib", "flax", "orbax",
+                        "transformerupscaler_tpu"}
 
 
 def test_entry_points_default_to_the_card():
@@ -42,8 +64,12 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a GPU is visible: the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         UpscalerEngine(dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        get_model("FastTransformer")
+    for name in ("FastTransformer", "WindowTransformer",
+                 "ResidualTransformer", "BicubicInterpolation"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_model(name)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            UpscalerEngine(name)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -83,7 +109,9 @@ def test_other_routes_and_geometries_raise():
         get_model("FastTransformer", device="cpu", compose_tails=True,
                   pallas_serve=True, **route, **SMALL)
     with pytest.raises(KeyError):
-        get_model("WindowTransformer", device="cpu")
+        get_model("SwinIR", device="cpu")
+    with pytest.raises(NotImplementedError, match="attn_impl"):
+        get_model("WindowTransformer", device="cpu", attn_impl="fused2")
     engine = UpscalerEngine(device="cpu", **SMALL)
     img = np.zeros((16, 32, 3), np.uint8)
     with pytest.raises(NotImplementedError):

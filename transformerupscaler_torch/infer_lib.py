@@ -1,9 +1,12 @@
 """Inference engine (JAX counterpart: transformerupscaler_tpu
 infer_lib.py:27-180, the ``upscale`` contract).
 
-Checkpoint loading waits for the weight bridge: the engine takes a JAX
-parameter tree, or draws seeded random weights when given none (the JAX
-engine random-inits when it finds no checkpoint).
+It serves every model of ``registry.get_model``. The engine takes a JAX
+parameter tree (``weights.params_from_jax`` maps all four models' trees by
+name), or draws seeded random weights when given none, as the JAX engine
+random-inits when it finds no checkpoint. Reading the committed Orbax
+checkpoints needs JAX and is done by the tests only; a reader for the card
+waits until the weights exist in a numpy- or torch-readable form.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ class UpscalerEngine:
     def __init__(self, model_name: str = "FastTransformer", params=None,
                  dtype=torch.float32, device=None, seed: int = 0, **config):
         self.device = resolve_device(device)
+        self.model_name = model_name
         self.dtype = dtype
         self.model = get_model(model_name, device=self.device, dtype=dtype,
                                **config)
@@ -38,8 +42,15 @@ class UpscalerEngine:
         x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
         if squeeze:
             x = x[None]
-        kwargs = {"upscale_factor": upscale_factor,
-                  "require_ratio": require_ratio}
+        if self.model_name == "BicubicInterpolation":
+            # It takes res_out only: a scale is resolved to one here.
+            if upscale_factor is not None:
+                res_out = (x.shape[1] * upscale_factor,
+                           x.shape[2] * upscale_factor)
+            kwargs = {}
+        else:
+            kwargs = {"upscale_factor": upscale_factor,
+                      "require_ratio": require_ratio}
         if res_out is not None:
             kwargs["res_out"] = tuple(res_out)
         out = self.model(x, **kwargs).float().cpu().numpy()

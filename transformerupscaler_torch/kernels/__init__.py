@@ -2,7 +2,7 @@
 and launch counters. ``PLAIN_VERSIONS`` maps every wrapper to the plain
 version that computes the same function."""
 
-from transformerupscaler_torch.kernels import stream, trunk2
+from transformerupscaler_torch.kernels import gmha, stream, trunk2, window_attn
 from transformerupscaler_torch.kernels._common import LAUNCHES, reset_launches
 
 PLAIN_VERSIONS = {
@@ -12,6 +12,9 @@ PLAIN_VERSIONS = {
     "unembed_combine_stream": stream.unembed_combine_plain,
     "tail_finish_stream": stream.tail_finish_plain,
     "fused_window_trunk": trunk2.fused_window_trunk_plain,
+    "window_attention_core": window_attn.window_attention_plain,
+    "global_mha": gmha.global_mha_plain,
 }
 
-__all__ = ["LAUNCHES", "PLAIN_VERSIONS", "reset_launches", "stream", "trunk2"]
+__all__ = ["LAUNCHES", "PLAIN_VERSIONS", "gmha", "reset_launches", "stream",
+           "trunk2", "window_attn"]

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Library -> {C function: argument types}. Every function returns the
 # cudaError_t of its launch as an int.
 SIGNATURES = {
@@ -34,12 +34,18 @@ SIGNATURES = {
         "tux_conv3x3": [_P] * 4 + [_I] * 5 + [_P],
         "tux_tail_conv": [_P] * 4 + [_I] * 9 + [_P],
     },
+    "global_mha": {
+        "tux_global_mha": [_P] * 4 + [_I] * 4 + [_L] * 2 + [_I, _P],
+    },
     "patch_gemm": {
         "tux_embed": [_P] * 4 + [_I] * 5 + [_P],
         "tux_unembed_combine": [_P] * 5 + [_I] * 6 + [_P],
     },
     "tail_finish": {
         "tux_tail_finish": [_P] * 6 + [_I] * 10 + [_P],
+    },
+    "window_attn": {
+        "tux_window_attn": [_P] * 3 + [_I] * 4 + [_P],
     },
     "window_trunk": {
         "tux_window_trunk": [_P] * 5 + [_I] * 3 + [_P],

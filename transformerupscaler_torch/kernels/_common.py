@@ -9,7 +9,8 @@ import torch
 # adds one where it launches its kernel and nowhere else.
 LAUNCHES = dict.fromkeys(
     ("conv3x3_stream", "tail_conv_stream", "embed_stream",
-     "unembed_combine_stream", "fused_window_trunk", "tail_finish_stream"), 0)
+     "unembed_combine_stream", "fused_window_trunk", "tail_finish_stream",
+     "window_attention_core", "global_mha"), 0)
 
 
 def reset_launches() -> None:

@@ -1,10 +1,11 @@
-"""Shared model pieces: geometry resolution, the window transformer block and
-the window trunk.
+"""Shared model pieces: geometry resolution, the conv layer, the window
+transformer block and the window trunk.
 
-JAX counterpart: transformerupscaler_tpu models/common.py:26 and :123-243
-(the XLA trunk, ``attn_impl="xla"``, and the fused one, ``"fused2"``).
-Parameters are kept in the JAX layout, (in, out) dense kernels, and in f32;
-compute runs in the activation dtype.
+JAX counterpart: transformerupscaler_tpu models/common.py:26, :55-76 and
+:123-243 (the trunk block by block, ``attn_impl="xla"`` or ``"pallas"``, and
+the fused one, ``"fused2"``). Parameters are kept in the JAX layout, HWIO conv
+kernels and (in, out) dense kernels, and in f32; compute runs in the
+activation dtype.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from transformerupscaler_torch.kernels.trunk2 import (
     stack_trunk_params,
 )
 from transformerupscaler_torch.ops.attention import window_attention
+from transformerupscaler_torch.ops.conv import conv2d
 from transformerupscaler_torch.ops.windows import window_partition, window_reverse
 
 
@@ -37,6 +39,22 @@ def resolve_geometry(in_hw: tuple[int, int], res_out, upscale_factor):
 def param(*shape) -> nn.Parameter:
     """An inference parameter, zeros until weights are loaded."""
     return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+
+
+class ConvLayer(nn.Module):
+    """k x k conv with an HWIO ``kernel`` and a ``bias``, PyTorch's
+    ``padding=1`` output extents, optional ReLU."""
+
+    def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
+                 relu: bool = False):
+        super().__init__()
+        self.kernel = param(k, k, cin, cout)
+        self.bias = param(cout)
+        self.stride, self.relu = stride, relu
+
+    def forward(self, x):
+        return conv2d(x, self.kernel, self.bias, stride=self.stride,
+                      relu=self.relu)
 
 
 class Dense(nn.Module):
@@ -81,11 +99,11 @@ class WindowAttention(nn.Module):
         self.window_size = window_size
         self.num_heads = num_heads
 
-    def forward(self, x):
+    def forward(self, x, impl: str = "xla"):
         return window_attention(x, self.qkv_kernel, self.qkv_bias,
                                 self.proj_kernel, self.proj_bias,
                                 self.bias_table, self.num_heads,
-                                self.window_size)
+                                self.window_size, impl)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -110,13 +128,13 @@ class WindowBlock(nn.Module):
         self.mlp_fc1 = Dense(dim, hidden)
         self.mlp_fc2 = Dense(hidden, dim)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x, impl: str = "xla"):
+        x = x + self.attn(self.norm1(x), impl)
         h = gelu(self.mlp_fc1(self.norm2(x)))
         return x + self.mlp_fc2(h)
 
 
-TRUNK_IMPLS = ("xla", "fused2")
+TRUNK_IMPLS = ("xla", "pallas", "fused2")
 
 
 def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int,
@@ -125,9 +143,11 @@ def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int,
     multiple, run the blocks on the windows, unpad.
 
     ``impl`` follows the JAX ``attn_impl``: "xla" runs the blocks one by one
-    in PyTorch; "fused2" hands all windows to ``fused_window_trunk`` once,
-    with ``stacked`` (default: ``stack_trunk_params(blocks, dtype)``, which
-    a caller may compute once and keep). The zero tokens of the padding go
+    in PyTorch; "pallas" does too, with each block's attention core on the
+    ``window_attention_core`` kernel; "fused2" hands all windows to
+    ``fused_window_trunk`` once, with ``stacked`` (default:
+    ``stack_trunk_params(blocks, dtype)``, which a caller may compute once
+    and keep). The zero tokens of the padding go
     through either as ordinary tokens, unmasked, as in JAX."""
     if impl not in TRUNK_IMPLS:
         raise ValueError(f"impl: one of {TRUNK_IMPLS}, got {impl!r}")
@@ -147,6 +167,6 @@ def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int,
         win = fused_window_trunk(win.contiguous(), stacked)
     else:
         for block in blocks:
-            win = block(win)
+            win = block(win, impl)
     tokens = window_reverse(win.reshape(b, n_win, ws * ws, d), ws, hp, wp)
     return tokens[:, :ht, :wt, :]

@@ -13,6 +13,9 @@ forward runs:
   trunk: window blocks            attn_impl "fused2":
                                     kernels.trunk2.fused_window_trunk
                                   attn_impl "xla": the blocks in PyTorch
+                                  attn_impl "pallas": the blocks in PyTorch
+                                    around kernels.window_attn
+                                    .window_attention_core
   unembed + feature skip          kernels.stream.unembed_combine_stream
   decoder conv 64->64 + ReLU      kernels.stream.conv3x3_stream
   branch B tail                   split: kernels.stream.tail_finish_stream
@@ -48,6 +51,7 @@ from transformerupscaler_torch.kernels.stream import (
 from transformerupscaler_torch.kernels.trunk2 import stack_trunk_params
 from transformerupscaler_torch.models.common import (
     TRUNK_IMPLS,
+    ConvLayer,
     WindowBlock,
     param,
     resolve_geometry,
@@ -65,21 +69,13 @@ from transformerupscaler_torch.ops.resize import resize_shuffled
 SERVE_SCALES = (2, 3, 4)
 
 
-class ConvParams(nn.Module):
-    """HWIO kernel and bias of one conv layer."""
-
-    def __init__(self, cin: int, cout: int, k: int = 3):
-        super().__init__()
-        self.kernel = param(k, k, cin, cout)
-        self.bias = param(cout)
-
-
 class FastTransformer(nn.Module):
     """Inference-only FastTransformer. Parameters are f32 in the JAX layout
     (see ``transformerupscaler_torch.weights``); compute runs in ``dtype``.
     Input x: (B, H, W, 3) in [0, 1]; output (B, res_out..., 3).
 
-    ``attn_impl``: "xla" or "fused2" (the trunk, see the module docstring);
+    ``attn_impl``: "xla", "pallas" or "fused2" (the trunk, see the module
+    docstring);
     ``split_tail``: None (automatic), True or False; ``hi_lo_fin``: how the
     split tail's finish rounds, None (= "off"), "off", "wf" or "full"."""
 
@@ -107,8 +103,8 @@ class FastTransformer(nn.Module):
         self.attn_impl = attn_impl
         self.split_tail = split_tail
         self.hi_lo_fin = hi_lo_fin
-        self.conv1 = ConvParams(ic, bc)
-        self.conv2 = ConvParams(bc, bc)
+        self.conv1 = ConvLayer(ic, bc)
+        self.conv2 = ConvLayer(bc, bc)
         self.up1 = Upsampler(bc)
         self.up1_conv_kernel = param(3, 3, bc, ic)
         self.final_upscale = Upsampler(ic)
@@ -121,8 +117,8 @@ class FastTransformer(nn.Module):
             for _ in range(num_window_blocks))
         self.patch_unembed_kernel = param(td, ps, ps, bc)
         self.patch_unembed_bias = param(bc)
-        self.decoder_conv1 = ConvParams(bc, bc)
-        self.decoder_conv2 = ConvParams(bc, ic)
+        self.decoder_conv1 = ConvLayer(bc, bc)
+        self.decoder_conv2 = ConvLayer(bc, ic)
         self._tails: dict[tuple, tuple] = {}
         self._trunk: dict = {}
 

@@ -1,0 +1,174 @@
+"""ResidualTransformer: global-attention upscaler with a fixed token grid.
+
+JAX counterpart: transformerupscaler_tpu models/residual_transformer.py:31-280.
+Pipeline: two 3x3 convs to 64 channels with ReLU, a stride-2 downsample, an
+8x8/8 patch embed to dim 128 (45x80 = 3600 tokens from a 720x1280 frame), a
+learned absolute ``pos_embed``, eight blocks of global attention (8 heads of
+16) with a 4x exact-GELU MLP, the patch unembed, a skip add, two decoder convs,
+and the bicubic upscale of that residual added to the bicubic upscale of the
+input, clipped to [0, 1]. The positional embedding fixes the token grid
+(``token_hw``): another input size raises ``ValueError``.
+
+Routes, as in the JAX model:
+
+- the exact ``forward``: every conv through ``ops.conv.conv2d``;
+- ``packed_serve=True`` at an integer scale >= 2 with h % 2 == 0 and
+  w % 16 == 0 takes ``_packed_forward``. The JAX method runs the same
+  arithmetic on the TPU's width-2 packed layout, which is not carried: here it
+  is NHWC. With ``pallas_serve=True`` conv2 and ``decoder_conv1`` run on
+  ``kernels.stream.conv3x3_stream`` (JAX: ``conv3x3_packed_stream``). Both
+  bicubic branches are the resize products (the JAX default,
+  ``TUX_RESID_BICUBIC=matmul``);
+- on either route ``attn_impl`` other than "xla" puts each block's attention
+  core on ``kernels.gmha.global_mha``.
+
+The JAX package's ``TUX_RESID_BICUBIC=conv`` and ``TUX_RESID_DEC_PALLAS=0``
+switches are not served and raise ``NotImplementedError`` when set.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.nn as nn
+
+from transformerupscaler_torch.kernels.stream import conv3x3_stream
+from transformerupscaler_torch.models.common import (
+    ConvLayer,
+    Dense,
+    LayerNorm,
+    gelu,
+    param,
+    resolve_geometry,
+)
+from transformerupscaler_torch.ops.attention import multihead_attention
+from transformerupscaler_torch.ops.patch import patch_embed, patch_unembed
+from transformerupscaler_torch.ops.resize import interpolate_bicubic
+
+# JAX environment switches of this model and the one value the port serves.
+SERVED_SWITCHES = {"TUX_RESID_BICUBIC": "matmul", "TUX_RESID_DEC_PALLAS": "1"}
+
+
+class GlobalAttentionBlock(nn.Module):
+    """Pre-LN global multi-head attention + pre-LN 4x exact-GELU MLP, with
+    residuals (inference: no dropout)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.in_kernel = param(dim, 3 * dim)
+        self.in_bias = param(3 * dim)
+        self.out_kernel = param(dim, dim)
+        self.out_bias = param(dim)
+        self.norm1 = LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
+        self.mlp_fc1 = Dense(dim, int(dim * mlp_ratio))
+        self.mlp_fc2 = Dense(int(dim * mlp_ratio), dim)
+        self.num_heads = num_heads
+
+    def forward(self, x, impl: str = "xla"):
+        x = x + multihead_attention(self.norm1(x), self.in_kernel,
+                                    self.in_bias, self.out_kernel,
+                                    self.out_bias, self.num_heads, impl)
+        return x + self.mlp_fc2(gelu(self.mlp_fc1(self.norm2(x))))
+
+
+class ResidualTransformer(nn.Module):
+    """Inference-only ResidualTransformer. Parameters are f32 in the JAX
+    layout (see ``transformerupscaler_torch.weights``); compute runs in
+    ``dtype``. Input x: (B, H, W, 3) in [0, 1] with H / 16 x W / 16 equal to
+    ``token_hw``; output (B, res_out..., 3)."""
+
+    def __init__(self, in_channels: int = 3, base_channels: int = 64,
+                 transformer_dim: int = 128, num_transformer_blocks: int = 8,
+                 num_heads: int = 8, mlp_ratio: float = 4.0,
+                 patch_size: int = 8, token_hw: tuple[int, int] = (45, 80),
+                 packed_serve: bool = False, pallas_serve: bool = False,
+                 attn_impl: str = "xla", dtype=torch.float32):
+        super().__init__()
+        bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
+        self.token_hw = tuple(token_hw)
+        self.packed_serve = packed_serve
+        self.pallas_serve = pallas_serve
+        self.attn_impl = attn_impl
+        self.dtype = dtype
+        self.conv1 = ConvLayer(ic, bc, relu=True)
+        self.conv2 = ConvLayer(bc, bc, relu=True)
+        self.downsample = ConvLayer(bc, bc, stride=2)
+        self.patch_embed_kernel = param(ps, ps, bc, td)
+        self.patch_embed_bias = param(td)
+        self.pos_embed = param(1, self.token_hw[0] * self.token_hw[1], td)
+        self.blocks = nn.ModuleList(
+            GlobalAttentionBlock(td, num_heads, mlp_ratio)
+            for _ in range(num_transformer_blocks))
+        self.patch_unembed_kernel = param(td, ps, ps, bc)
+        self.patch_unembed_bias = param(bc)
+        self.decoder_conv1 = ConvLayer(bc, bc, relu=True)
+        self.decoder_conv2 = ConvLayer(bc, ic)
+
+    def _transformer(self, feat_down: torch.Tensor) -> torch.Tensor:
+        """Embed, add ``pos_embed``, run the blocks, unembed."""
+        tokens = patch_embed(feat_down, self.patch_embed_kernel,
+                             self.patch_embed_bias)
+        b, ht, wt, d = tokens.shape
+        if (ht, wt) != self.token_hw:
+            raise ValueError(
+                f"ResidualTransformer pos_embed is baked for token grid "
+                f"{self.token_hw} ({16 * self.token_hw[0]}x"
+                f"{16 * self.token_hw[1]} input); got {(ht, wt)}")
+        seq = tokens.reshape(b, ht * wt, d) + self.pos_embed.to(self.dtype)
+        for block in self.blocks:
+            seq = block(seq, self.attn_impl)
+        return patch_unembed(seq.reshape(b, ht, wt, d),
+                             self.patch_unembed_kernel,
+                             self.patch_unembed_bias)
+
+    @torch.inference_mode()
+    def forward(self, x: torch.Tensor, res_out=(1080, 1920),
+                upscale_factor: int | None = None,
+                require_ratio: bool = True) -> torch.Tensor:
+        del require_ratio  # accepted and unused, as in the reference
+        res_out, _ = resolve_geometry(x.shape[1:3], res_out, upscale_factor)
+        x = x.to(self.dtype)
+        h, w = x.shape[1:3]
+        if (self.packed_serve and res_out[0] % h == 0 and res_out[1] % w == 0
+                and res_out[0] // h == res_out[1] // w
+                and res_out[0] // h >= 2 and h % 2 == 0 and w % 16 == 0):
+            return self._packed_forward(x, res_out[0] // h)
+
+        upscaled_input = interpolate_bicubic(x, res_out)
+        feat_down = self.downsample(self.conv2(self.conv1(x)))
+        combined = feat_down + self._transformer(feat_down)
+        residual = self.decoder_conv2(self.decoder_conv1(combined))
+        out = upscaled_input + interpolate_bicubic(residual, res_out)
+        return out.clamp(0.0, 1.0)
+
+    def _packed_forward(self, x: torch.Tensor, scale: int) -> torch.Tensor:
+        """The integer-scale serving path: the exact path's arithmetic with
+        the two 64 -> 64 stride-1 convs on the stream kernel when
+        ``pallas_serve`` is set."""
+        for name, served in SERVED_SWITCHES.items():
+            if os.environ.get(name, served) != served:
+                raise NotImplementedError(
+                    f"{name}={os.environ[name]}: the port serves "
+                    f"{name}={served} only")
+        dt = self.dtype
+        h, w = x.shape[1:3]
+        feat = self.conv1(x)
+        if self.pallas_serve:
+            feat = conv3x3_stream(feat, self.conv2.kernel.to(dt),
+                                  self.conv2.bias, relu=True)
+        else:
+            feat = self.conv2(feat)
+        feat_down = self.downsample(feat)
+        combined = feat_down + self._transformer(feat_down)
+        if self.pallas_serve:
+            dec = conv3x3_stream(combined, self.decoder_conv1.kernel.to(dt),
+                                 self.decoder_conv1.bias, relu=True)
+        else:
+            dec = self.decoder_conv1(combined)
+        residual = self.decoder_conv2(dec)
+        res_out = (h * scale, w * scale)
+        out = interpolate_bicubic(x, res_out) + interpolate_bicubic(residual,
+                                                                    res_out)
+        return out.clamp(0.0, 1.0)

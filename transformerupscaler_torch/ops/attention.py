@@ -1,33 +1,71 @@
-"""Window multi-head self-attention with relative position bias.
+"""Window multi-head self-attention with relative position bias, and global
+multi-head self-attention.
 
-JAX counterpart: transformerupscaler_tpu ops/attention.py:56-78 (the XLA
-path). Written out as matrix products rather than a fused attention call so
-that the roundings follow the reference: the qkv and output projections run
-in the activation dtype, the scores and the softmax in f32, and the
-probabilities are rounded to the activation dtype before the product with v.
-Dense weights are (in, out).
+JAX counterpart: transformerupscaler_tpu ops/attention.py:33
+(``window_attention``) and :81 (``multihead_attention``). The eager forms are
+written out as matrix products rather than a fused attention call so that the
+roundings follow the reference: the qkv and output projections run in the
+activation dtype, the scores and the softmax in f32, and the probabilities
+are rounded to the activation dtype before the product with v. Dense weights
+are (in, out).
+
+``impl`` follows the JAX ``attn_impl``. ``window_attention``: "xla" is the
+eager form, "pallas" puts ``kernels.window_attn.window_attention_core``
+between the two projections. ``multihead_attention``: "xla" is the eager
+form, which materializes the (B, heads, N, N) f32 scores; any other value puts
+``kernels.gmha.global_mha`` between the two projections.
 """
 
 from __future__ import annotations
 
 import torch
 
+from transformerupscaler_torch.kernels.gmha import global_mha
+from transformerupscaler_torch.kernels.window_attn import window_attention_core
 from transformerupscaler_torch.ops.relpos import gather_relative_bias
+
+WINDOW_IMPLS = ("xla", "pallas")
 
 
 def window_attention(x: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
-                     bias_table, num_heads: int,
-                     window_size: int) -> torch.Tensor:
+                     bias_table, num_heads: int, window_size: int,
+                     impl: str = "xla") -> torch.Tensor:
     """x: (B, N, C) with N == window_size**2 tokens per window."""
+    if impl not in WINDOW_IMPLS:
+        raise ValueError(f"impl: one of {WINDOW_IMPLS}, got {impl!r}")
     b, n, c = x.shape
     dt = x.dtype
     hd = c // num_heads
     qkv = x @ qkv_w.to(dt) + qkv_b.to(dt)
+    bias = gather_relative_bias(bias_table.float(), window_size)
+    if impl == "pallas":
+        out = window_attention_core(qkv, bias.contiguous(), num_heads)
+        return out @ proj_w.to(dt) + proj_b.to(dt)
     qkv = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, hd)
     q = q * hd ** -0.5
     attn = q.float() @ k.float().transpose(-1, -2)
-    attn = attn + gather_relative_bias(bias_table.float(), window_size)
-    attn = torch.softmax(attn, dim=-1).to(dt)
+    attn = torch.softmax(attn + bias, dim=-1).to(dt)
     out = (attn @ v).permute(0, 2, 1, 3).reshape(b, n, c)
     return out @ proj_w.to(dt) + proj_b.to(dt)
+
+
+def multihead_attention(x: torch.Tensor, in_w, in_b, out_w, out_b,
+                        num_heads: int, impl: str = "xla") -> torch.Tensor:
+    """Self-attention as ``nn.MultiheadAttention(batch_first=True)`` computes
+    it. x: (B, N, C); in_w: (C, 3C) packed q/k/v projection; out_w: (C, C)."""
+    b, n, c = x.shape
+    dt = x.dtype
+    hd = c // num_heads
+    qkv = x @ in_w.to(dt) + in_b.to(dt)
+    if impl != "xla":
+        ctx = global_mha(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                         num_heads)
+        return ctx @ out_w.to(dt) + out_b.to(dt)
+    qkv = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, hd)
+    q = q * torch.tensor(hd ** -0.5, dtype=dt)
+    attn = q.float() @ k.float().transpose(-1, -2)
+    attn = torch.softmax(attn, dim=-1).to(dt)
+    out = (attn @ v).permute(0, 2, 1, 3).reshape(b, n, c)
+    return out @ out_w.to(dt) + out_b.to(dt)

@@ -1,9 +1,11 @@
 """NHWC convolution and the composition of two convs into one.
 
 JAX counterpart: transformerupscaler_tpu ops/conv.py:36 (``conv2d``) and
-:653 (``compose_conv3x3_kernels``). On the serving path ``conv2d`` runs only
-conv1 (3 -> 64 channels), which the JAX package leaves to XLA; the 64-channel
-convs run the kernels in ``transformerupscaler_torch.kernels.stream``.
+:653 (``compose_conv3x3_kernels``). ``conv2d`` runs the convs the JAX package
+leaves to XLA: the models' exact paths, and on the serving paths conv1
+(3 -> 64 channels), the stride-2 downsample and the last decoder conv; the
+64 -> 64 convs of the serving paths run the kernels in
+``transformerupscaler_torch.kernels.stream``.
 """
 
 from __future__ import annotations
@@ -12,16 +14,18 @@ import torch
 import torch.nn.functional as F
 
 
-def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias=None, padding: int = 1,
-           relu: bool = False) -> torch.Tensor:
-    """Stride-1 zero-padded conv. x: NHWC; kernel: HWIO.
+def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride: int = 1,
+           padding: int = 1, relu: bool = False) -> torch.Tensor:
+    """Zero-padded conv. x: NHWC; kernel: HWIO. With ``padding`` on every side
+    the output extent is floor((n + 2 padding - k) / stride) + 1, PyTorch's
+    rule, which the JAX op's explicit padding reproduces.
 
     Like the JAX op, the conv runs in x's dtype (f32 accumulation inside),
     its result is rounded to that dtype, and the bias is added and the ReLU
     applied in that dtype.
     """
     w = kernel.to(x.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
-    out = F.conv2d(x.permute(0, 3, 1, 2), w, padding=padding)
+    out = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding)
     out = out.permute(0, 2, 3, 1)
     if bias is not None:
         out = out + bias.to(x.dtype)

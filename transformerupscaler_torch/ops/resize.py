@@ -1,8 +1,11 @@
 """Separable resize as dense matrix products, with PyTorch/PIL semantics.
 
 JAX counterpart: transformerupscaler_tpu ops/resize.py:27-112 (the numpy
-``resize_matrix``) and :228-284 (``resize_shuffled``, dense phase-split form
-only). The matrices are built once per geometry in numpy.
+``resize_matrix``), :180 ``resize``, :344 ``interpolate_bicubic`` and
+:228-284 ``resize_shuffled``, each in its dense form only: the banded form
+(:113-176) is a TPU tiling. The matrices are built once per geometry in numpy
+float64, cast to the compute dtype as the JAX ops cast them, and kept on the
+device per (sizes, dtype).
 """
 
 from __future__ import annotations
@@ -87,6 +90,32 @@ def resize_matrix(in_size: int, out_size: int, method: str = "bicubic",
         return np.eye(out_size, dtype=np.float32)
     build = _matrix_antialias if antialias else _matrix_no_antialias
     return build(in_size, out_size, method, a).astype(np.float32)
+
+
+def resize(x: torch.Tensor, out_hw: tuple[int, int], method: str = "bicubic",
+           antialias: bool = False, a: float | None = None) -> torch.Tensor:
+    """Resize NHWC (or HWC) images to ``out_hw`` by two matrix products, the
+    height pass first, each in x's dtype with its matrix rounded to it. An
+    extent that does not change is skipped."""
+    squeeze = x.ndim == 3
+    if squeeze:
+        x = x[None]
+    _, h, w, _ = x.shape
+    oh, ow = out_hw
+    if oh != h:
+        wh = _phase_matrix(h, 1, oh, method, antialias, a, x.device, x.dtype)
+        x = torch.einsum("oh,bhwc->bowc", wh[:, :, 0], x)
+    if ow != w:
+        ww = _phase_matrix(w, 1, ow, method, antialias, a, x.device, x.dtype)
+        x = torch.einsum("pw,bhwc->bhpc", ww[:, :, 0], x)
+    return x[0] if squeeze else x
+
+
+def interpolate_bicubic(x: torch.Tensor,
+                        out_hw: tuple[int, int]) -> torch.Tensor:
+    """``F.interpolate(x, size, mode="bicubic", align_corners=False)`` on
+    NHWC: cubic a = -0.75, no antialias, border indices clamped."""
+    return resize(x, out_hw, method="bicubic", antialias=False)
 
 
 def resize_shuffled(z: torch.Tensor, r: int, out_hw: tuple[int, int],

@@ -4,13 +4,17 @@
 
     python3 -m transformerupscaler_torch.profile_slice --route xla_fold
 
-Runs FastTransformer (bf16, seeded full-width weights) on 720x1280 frames at
-res_out 1080x1920, as ``chip_smoke.py`` serves them, and prints JSON lines:
-the forward's time by CUDA events, then a ``torch.profiler`` trace of five
-forwards summed by kernel name (device milliseconds per frame), the device's
-busy time per frame and its idle share of the forward. The default route is
-the one bench.py runs (fused trunk, split tail); ``xla_fold`` is the route
-with the PyTorch trunk and the folded tail.
+Runs one model (bf16, seeded full-width weights) on 720x1280 frames, as
+``chip_smoke.py`` serves them, and prints JSON lines: the forward's time by
+CUDA events, then a ``torch.profiler`` trace of five forwards summed by
+kernel name (device milliseconds per frame), the device's busy time per
+frame and its idle share of the forward. Routes: ``bench`` (the default:
+FastTransformer as bench.py runs it, fused trunk, split tail), ``xla_fold``
+(FastTransformer with the PyTorch trunk and the folded tail),
+``window_pallas`` (WindowTransformer on the stream conv and the
+window-attention kernel), ``resid_packed`` (ResidualTransformer's packed x2
+route, res_out 1440x2560) and ``resid_exact`` (its exact route), both on the
+global attention kernel; every other route at res_out 1080x1920.
 """
 
 from __future__ import annotations
@@ -26,10 +30,19 @@ from torch.profiler import ProfilerActivity, profile
 from transformerupscaler_torch.infer_lib import UpscalerEngine
 
 FRAMES, TOP = 5, 25
+RES_OUT = (1080, 1920)
+_RESID = dict(packed_serve=True, pallas_serve=True, attn_impl="fused2")
+# route -> (model, flags, res_out)
 ROUTES = {
-    "bench": dict(compose_tails=True, pallas_serve=True, attn_impl="fused2"),
-    "xla_fold": dict(compose_tails=True, pallas_serve=True, attn_impl="xla",
-                     split_tail=False),
+    "bench": ("FastTransformer", dict(compose_tails=True, pallas_serve=True,
+                                      attn_impl="fused2"), RES_OUT),
+    "xla_fold": ("FastTransformer", dict(compose_tails=True,
+                                         pallas_serve=True, attn_impl="xla",
+                                         split_tail=False), RES_OUT),
+    "window_pallas": ("WindowTransformer", dict(pallas_serve=True,
+                                                attn_impl="pallas"), RES_OUT),
+    "resid_packed": ("ResidualTransformer", _RESID, (1440, 2560)),
+    "resid_exact": ("ResidualTransformer", _RESID, RES_OUT),
 }
 
 
@@ -40,13 +53,13 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16, seed=0,
-                            **ROUTES[route])
+    model, flags, res_out = ROUTES[route]
+    engine = UpscalerEngine(model, dtype=torch.bfloat16, seed=0, **flags)
     g = torch.Generator(device=engine.device).manual_seed(0)
     x = torch.rand(1, 720, 1280, 3, generator=g, device=engine.device)
 
     def forward():
-        return engine.model(x, res_out=(1080, 1920))
+        return engine.model(x, res_out=res_out)
 
     for _ in range(3):
         forward()
@@ -75,7 +88,8 @@ def main() -> None:
             launches += ev.count
     busy_ms = sum(per_kernel.values()) / 1e3 / FRAMES
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:TOP]
-    print(json.dumps({"device": smi, "route": route, "forward_ms": fwd_ms,
+    print(json.dumps({"device": smi, "route": route, "model": model,
+                      "res_out": res_out, "forward_ms": fwd_ms,
                       "device_busy_ms": busy_ms,
                       "idle_share": 1.0 - busy_ms / fwd_ms,
                       "kernel_names": len(per_kernel),

@@ -1,25 +1,59 @@
 """Model lookup by name (JAX counterpart: transformerupscaler_tpu
 registry.py:38).
 
-The port serves FastTransformer with composed tails on the stream kernels
-(JAX ``compose_tails=True, pallas_serve=True``), with the trunk fused
-(``attn_impl="fused2"``) or in plain PyTorch (``"xla"``) and the branch-B
-tail split, folded or chosen by dtype (``split_tail`` True, False, None).
-Asking for another route raises.
+The port serves the four models of the JAX package:
+
+- ``FastTransformer`` with composed tails on the stream kernels (JAX
+  ``compose_tails=True, pallas_serve=True``), the trunk fused
+  (``attn_impl="fused2"``), block by block in PyTorch (``"xla"``) or block by
+  block around the window-attention kernel (``"pallas"``), and the branch-B
+  tail split, folded or chosen by dtype (``split_tail`` True, False, None);
+- ``WindowTransformer``: the exact path, ``pallas_serve`` and
+  ``attn_impl`` "xla" or "pallas";
+- ``ResidualTransformer``: the exact path, ``packed_serve``, ``pallas_serve``
+  and any ``attn_impl`` ("xla" is the eager attention, every other value the
+  ``global_mha`` kernel, as in the JAX model);
+- ``BicubicInterpolation``, which has no fields.
+
+Asking for a route the port does not serve raises ``NotImplementedError``.
+Like the JAX ``get_model``, fields a model does not have are dropped, so that
+one set of serving flags can go to every model.
 """
 
 from __future__ import annotations
 
+import inspect
+
 import torch
 
 from transformerupscaler_torch.device import resolve_device
+from transformerupscaler_torch.models.bicubic import BicubicInterpolation
 from transformerupscaler_torch.models.common import TRUNK_IMPLS
 from transformerupscaler_torch.models.fast_transformer import FastTransformer
+from transformerupscaler_torch.models.residual_transformer import (
+    ResidualTransformer,
+)
+from transformerupscaler_torch.models.window_transformer import (
+    WindowTransformer,
+)
+from transformerupscaler_torch.ops.attention import WINDOW_IMPLS
 
-_MODELS = {"FastTransformer": FastTransformer}
-# JAX route flags that are not fields of the port's model, with the one value
-# the port serves.
-FIXED_ROUTE = {"compose_tails": True, "pallas_serve": True}
+_MODELS = {"BicubicInterpolation": BicubicInterpolation,
+           "FastTransformer": FastTransformer,
+           "ResidualTransformer": ResidualTransformer,
+           "WindowTransformer": WindowTransformer}
+# Per model: JAX fields that are not fields of the port's model, with the one
+# value the port serves; and the ``attn_impl`` values it serves (a model not
+# named takes any).
+FIXED_ROUTE = {
+    "FastTransformer": {"compose_tails": True, "pallas_serve": True},
+    "WindowTransformer": {"int8_mlp": False},
+}
+ATTN_IMPLS = {"FastTransformer": TRUNK_IMPLS, "WindowTransformer": WINDOW_IMPLS}
+# JAX fields the port's models accept and ignore (inference only; the other
+# models take FastTransformer's serving flags without having them).
+IGNORED = ("dropout", "compose_tails", "packed_serve", "pallas_serve",
+           "int8_mlp", "attn_impl", "split_tail", "hi_lo_fin")
 
 
 def list_models() -> list[str]:
@@ -29,19 +63,25 @@ def list_models() -> list[str]:
 def get_model(name: str, device=None, dtype=torch.float32, **config):
     """Build model ``name`` on ``device`` (default: the card).
 
-    ``config`` takes the model's constructor fields (``attn_impl``,
-    ``split_tail`` and ``hi_lo_fin`` among them) and the JAX serving route
-    flags of ``FIXED_ROUTE``; a route the port does not serve raises
-    ``NotImplementedError``.
+    ``config`` takes the model's constructor fields and the JAX serving route
+    flags; a route the port does not serve raises ``NotImplementedError``.
     """
     if name not in _MODELS:
         raise KeyError(f"unknown model {name!r}; available: {list_models()}")
-    for key, want in FIXED_ROUTE.items():
+    for key, want in FIXED_ROUTE.get(name, {}).items():
         if config.pop(key, want) != want:
-            raise NotImplementedError(f"the port serves {key}={want!r} only")
-    if config.get("attn_impl", "xla") not in TRUNK_IMPLS:
+            raise NotImplementedError(
+                f"{name}: the port serves {key}={want!r} only")
+    impls = ATTN_IMPLS.get(name)
+    if impls is not None and config.get("attn_impl", "xla") not in impls:
         raise NotImplementedError(
-            f"attn_impl={config['attn_impl']!r}: the port serves attn_impl "
-            f"in {TRUNK_IMPLS}")
+            f"attn_impl={config['attn_impl']!r}: the port serves {name} "
+            f"with attn_impl in {impls}")
     dev = resolve_device(device)
-    return _MODELS[name](dtype=dtype, **config).to(dev)
+    cls = _MODELS[name]
+    fields = set(inspect.signature(cls.__init__).parameters) - {"self"}
+    config = {k: v for k, v in config.items()
+              if k in fields or k not in IGNORED}
+    if "dtype" in fields:
+        config["dtype"] = dtype
+    return cls(**config).to(dev)

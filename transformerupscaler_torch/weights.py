@@ -55,16 +55,25 @@ def params_from_jax(model: nn.Module, tree: dict) -> nn.Module:
     return model
 
 
+# Model class name -> {JAX path: factor on the leaf's seeded values}.
+SMALL_LEAVES = {name: {"decoder_conv2/kernel": 0.1} for name in (
+    "FastTransformer", "WindowTransformer", "ResidualTransformer")}
+
+
 def seeded_params(model: nn.Module, seed: int) -> dict:
     """Random parameters for ``model`` as a JAX tree of float32 numpy arrays,
     drawn from ``numpy.random.default_rng(seed)`` in sorted path order, so the
     same seed gives the same tree wherever numpy runs. Kernels are normal
     with std 1/sqrt(fan_in), biases and the LayerNorm shift normal with std
     0.1, LayerNorm scales 1 + 0.1 normal, relative-bias tables normal with
-    std 0.5. Biases are non-zero so that a mis-threaded bias shows. The
-    decoder's last conv is drawn 10x smaller, so that branch B stays a small
-    residual beside branch A, as in a trained model, instead of reaching
-    magnitudes where one bf16 rounding step is several hundredths."""
+    std 0.5, ``pos_embed`` normal with std 1.0 (as the JAX model initialises
+    it). Biases are non-zero so that a mis-threaded bias shows. The leaves of
+    ``SMALL_LEAVES`` are drawn smaller: each model's last decoder conv 10x,
+    so that its output stays a small residual beside the other branch
+    (FastTransformer's branch A, the bicubic upscale of the input in the
+    other two), as in a trained model, instead of reaching magnitudes where
+    one bf16 rounding step is several hundredths."""
+    small = SMALL_LEAVES.get(type(model).__name__, {})
     rng = np.random.default_rng(seed)
     shapes = {jax_path(n): tuple(p.shape) for n, p in model.named_parameters()}
     tree: dict = {}
@@ -78,12 +87,14 @@ def seeded_params(model: nn.Module, seed: int) -> dict:
             v = 1.0 + 0.1 * z
         elif leaf.endswith("bias"):
             v = 0.1 * z
+        elif leaf == "pos_embed":
+            v = z
         else:
             fan_in = shape[0] if leaf == "patch_unembed_kernel" else int(
                 np.prod(shape[:-1]))
             v = z / np.sqrt(fan_in)
-            if path == "decoder_conv2/kernel":
-                v = 0.1 * v
+            if path in small:
+                v = small[path] * v
         node = tree
         for part in path.split("/")[:-1]:
             node = node.setdefault(part, {})
