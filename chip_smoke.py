@@ -18,12 +18,14 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
 5. the full slices: UpscalerEngine at full model width with seeded weights,
    serving 720x1280 frames: FastTransformer on the route with the PyTorch
    trunk and the folded tail, then on the route bench.py runs (fused trunk,
-   split tail); WindowTransformer with the stream conv and the
-   window-attention kernel; ResidualTransformer on its packed x2 route and
-   on its exact route at 1080x1920, both on the global attention kernel;
-   BicubicInterpolation. Each with the launch counts per frame, set to zero
-   just before, and the output held against the same engine on the plain
-   versions;
+   split tail), with its trunk's GEMMs in int8 (``int8_trunk``) and with the
+   v1 trunk (``attn_impl="fused"``); WindowTransformer with the stream conv
+   and the window-attention kernel, then with the fused trunk (the
+   ``--fast`` route) and the v1 trunk; ResidualTransformer on its packed x2
+   route and on its exact route at 1080x1920, both on the global attention
+   kernel; BicubicInterpolation. Each with the launch counts per frame (the
+   trunk's also by kernel mode), set to zero just before, and the output
+   held against the same engine on the plain versions;
 6. the status of every TPU kernel of the JAX package in the port.
 
 Then one JSON line of kernel records and, last, {"ok": true, "device": ...}.
@@ -42,17 +44,25 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 WARMUP, REPS = 3, 20
 FRAME_HW, RES_OUT, SCALE = (720, 1280), (1080, 1920), 2
+# Launch counters: one per wrapper, and the trunk's by kernel mode.
 WRAPPERS = ("conv3x3_stream", "tail_conv_stream", "embed_stream",
             "unembed_combine_stream", "fused_window_trunk",
             "tail_finish_stream", "window_attention_core", "global_mha")
+COUNTERS = WRAPPERS + tuple(f"fused_window_trunk.{m}"
+                            for m in ("v2", "v1", "int8_rowwise"))
 
 
-def counts(**launched) -> dict:
-    """Launches per frame of every wrapper: zero unless named."""
-    return {**dict.fromkeys(WRAPPERS, 0), **launched}
+def counts(trunk_mode=None, **launched) -> dict:
+    """Launches per frame of every counter: zero unless named; one trunk
+    launch in ``trunk_mode`` if given."""
+    if trunk_mode is not None:
+        launched.update({"fused_window_trunk": 1,
+                         f"fused_window_trunk.{trunk_mode}": 1})
+    return {**dict.fromkeys(COUNTERS, 0), **launched}
 
 
 # The served routes: model, JAX flags, the committed JAX output (with the
@@ -61,6 +71,9 @@ def counts(**launched) -> dict:
 ROUTE = dict(compose_tails=True, pallas_serve=True, split_tail=False,
              attn_impl="xla")
 ROUTE_BENCH = dict(compose_tails=True, pallas_serve=True, attn_impl="fused2")
+ROUTE_WINDOW = dict(pallas_serve=True, attn_impl="fused2")
+BENCH_LAUNCHES = dict(conv3x3_stream=2, tail_conv_stream=1, embed_stream=1,
+                      unembed_combine_stream=1, tail_finish_stream=1)
 ROUTE_RESID = dict(packed_serve=True, pallas_serve=True, attn_impl="fused2")
 FIXTURES = "tests/fixtures/torch_port/"
 ROUTES = {
@@ -72,15 +85,27 @@ ROUTES = {
     "bench": dict(
         model="FastTransformer", route=ROUTE_BENCH,
         fixture=FIXTURES + "bench_x2_bf16.npz", res_out=RES_OUT, requests=20,
-        launches=counts(conv3x3_stream=2, tail_conv_stream=1, embed_stream=1,
-                        unembed_combine_stream=1, fused_window_trunk=1,
-                        tail_finish_stream=1)),
+        launches=counts("v2", **BENCH_LAUNCHES)),
+    "bench_int8_trunk": dict(
+        model="FastTransformer", route=dict(ROUTE_BENCH, int8_trunk=True),
+        fixture=FIXTURES + "bench_int8_trunk_x2_bf16.npz", res_out=RES_OUT,
+        requests=20, launches=counts("int8_rowwise", **BENCH_LAUNCHES)),
+    "fast_fused": dict(
+        model="FastTransformer", route=dict(ROUTE_BENCH, attn_impl="fused"),
+        res_out=RES_OUT, requests=5, launches=counts("v1", **BENCH_LAUNCHES)),
     "window_pallas": dict(
         model="WindowTransformer",
         route=dict(pallas_serve=True, attn_impl="pallas"),
         fixture=FIXTURES + "window_pallas_bf16.npz", res_out=RES_OUT,
         requests=20,
         launches=counts(conv3x3_stream=1, window_attention_core=8)),
+    "window_fused2": dict(
+        model="WindowTransformer", route=ROUTE_WINDOW,
+        fixture=FIXTURES + "window_fused2_bf16.npz", res_out=RES_OUT,
+        requests=20, launches=counts("v2", conv3x3_stream=1)),
+    "window_fused": dict(
+        model="WindowTransformer", route=dict(ROUTE_WINDOW, attn_impl="fused"),
+        res_out=RES_OUT, requests=5, launches=counts("v1", conv3x3_stream=1)),
     "resid_packed": dict(
         model="ResidualTransformer", route=ROUTE_RESID,
         fixture=FIXTURES + "resid_packed_x2_bf16.npz",
@@ -107,8 +132,9 @@ TPU_KERNELS = [
      "ported and checked: unembed_combine_stream (bf16; int8 feat_scale "
      "not yet)"),
     ("trunk2.py:524 fused_window_trunk_v2",
-     "ported and checked: fused_window_trunk (bf16, one kernel for the five "
-     "TPU bodies; int8_gemms modes not yet)"),
+     "ported and checked: fused_window_trunk (one kernel for the five TPU "
+     "bodies, C=192 and 128; bf16 and int8_acts='rowwise' at C=192; the "
+     "static int8_gemms mode, reached by no model, not yet)"),
     ("stream.py:1078 tail_finish_stream",
      "ported and checked: tail_finish_stream (hi_lo_fin off, wf, full)"),
     ("stream.py:82 conv3x3_packed_stream",
@@ -121,7 +147,9 @@ TPU_KERNELS = [
     ("stream.py:1269 conv1_dots_stream", "not yet"),
     ("stream.py:1385 conv1_flat_stream", "not yet"),
     ("gmha.py:60 global_mha", "ported and checked: global_mha (bf16)"),
-    ("trunk.py:128 fused_window_trunk", "not yet"),
+    ("trunk.py:128 fused_window_trunk",
+     "ported and checked: fused_window_trunk mode 'v1' (the same kernel, "
+     "its residual association, C=128 and 192)"),
     ("window_attn.py:58 fused_window_attention",
      "ported and checked: window_attention_core (bf16)"),
     ("encoder.py:239 fused_encoder", "not yet"),
@@ -152,8 +180,12 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+def bound_ms(n_bytes: float, flops: float,
+             int8_ops: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: bytes at the memory rate or the
+    operations (bf16, plus any int8 ones at the int8 rate), the larger."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -302,7 +334,7 @@ def phase_kernels() -> list[dict]:
         bound_ms=bnd, bound_by=by,
         library_ms=cuda_ms(lambda: torch.matmul(tok2, ku16)), on="bench"))
     records.append(tail_finish_case(x, x_cl, rn, bf16))
-    records.append(trunk_case(rn))
+    records.extend(trunk_case(rn, *case) for case in TRUNK_CASES)
     records.append(window_attention_case(rn, bf16))
     records.append(global_mha_case(rn, bf16))
     torch.cuda.synchronize()
@@ -451,70 +483,107 @@ def global_mha_case(rn, bf16) -> dict:
         on="resid_packed")
 
 
-def trunk_case(rn) -> dict:
-    """The fused trunk on the 240 windows of the serving frame (90 x 160
-    tokens padded to 96 x 160), six layers of seeded full-width weights.
+# The fused trunk's records: name (its counter before any "/"), model and
+# route whose frame gives the windows and weights, kernel mode, the TPU
+# kernel it replaces, and the route that launches it.
+TRUNK_CASES = (
+    ("fused_window_trunk", "FastTransformer", ROUTE_BENCH, "v2",
+     "trunk2.py:524", "bench"),
+    ("fused_window_trunk.v2/128", "WindowTransformer", ROUTE_WINDOW, "v2",
+     "trunk2.py:524", "window_fused2"),
+    ("fused_window_trunk.v1/128", "WindowTransformer",
+     dict(ROUTE_WINDOW, attn_impl="fused"), "v1", "trunk.py:128",
+     "window_fused"),
+    ("fused_window_trunk.v1", "FastTransformer",
+     dict(ROUTE_BENCH, attn_impl="fused"), "v1", "trunk.py:128",
+     "fast_fused"),
+    ("fused_window_trunk.int8_rowwise", "FastTransformer",
+     dict(ROUTE_BENCH, int8_trunk=True), "int8_rowwise", "trunk2.py:524",
+     "bench_int8_trunk"),
+)
+
+
+def trunk_case(rn, name, model_name, route, mode, replaces, on) -> dict:
+    """The fused trunk in one mode on the windows of one serving frame, with
+    the seeded full-width weights of the model that runs it there:
+    FastTransformer's 90 x 160 tokens padded to 96 x 160 are 240 windows of
+    dim 192 through six layers, WindowTransformer's 45 x 80 tokens (behind
+    its stride-2 downsample) padded to 48 x 80 are 60 windows of dim 128
+    through eight.
 
     Both the kernel and its plain version round to bf16 some twenty times a
     layer, and one element that rounds the other way shifts its token's next
-    product by a fraction of a bf16 step, so after six layers most elements
-    sit a step or two apart. The bound is therefore stated against the same
-    arithmetic carried in f32 from the same bf16 weights: the kernel's mean
-    error against it may be at most 1.25 times the plain version's, and
-    against the plain version itself max abs <= 0.5 and mean abs <= 0.03 at
-    values of a few units."""
+    product by a fraction of a bf16 step (in the int8 mode it can also move
+    a GEMM input to the neighbouring int8 value), so after the layers most
+    elements sit a step or two apart. The bound is therefore stated against
+    the same arithmetic carried in f32 from the same bf16 (and int8)
+    weights: the kernel's mean error against it may be at most 1.25 times
+    the plain version's, and against the plain version itself max abs <= 0.5
+    and mean abs <= 0.03 at values of a few units. The bound on time counts
+    the GEMMs at the card's dense int8 rate in the int8 mode, attention at
+    the bf16 rate."""
     from transformerupscaler_torch.kernels import trunk2 as T
     from transformerupscaler_torch.models.common import run_window_trunk
     from transformerupscaler_torch.registry import get_model
     from transformerupscaler_torch.weights import params_from_jax, seeded_params
 
-    model = get_model("FastTransformer", dtype=torch.bfloat16, **ROUTE_BENCH)
+    model = get_model(model_name, dtype=torch.bfloat16, **route)
     params_from_jax(model, seeded_params(model, 0))
     params = model.trunk_params()
-    ht, wt = FRAME_HW[0] // 8, FRAME_HW[1] // 8
+    down = 8 if model_name == "FastTransformer" else 16
+    ht, wt = FRAME_HW[0] // down, FRAME_HW[1] // down
     n_win = -(-ht // 8) * -(-wt // 8)
-    layers, tokens, dim = params["wpack"].shape[0], T.TOKENS, T.DIM
+    layers, _, tokens, dim = params["wpack"].shape
+    int8 = mode == "int8_rowwise"
     win = rn(n_win, tokens, dim).bfloat16()
-    out = T.fused_window_trunk(win, params)
+    run = lambda: T.fused_window_trunk(win, params, mode)  # noqa: E731
+    plain = lambda: T.fused_window_trunk_plain(win, params, mode)  # noqa: E731
+    out = run()
     torch.cuda.synchronize()
-    plain = T.fused_window_trunk_plain(win, params)
+    want = plain()
     exact = T.fused_window_trunk_plain(
-        win.float(), {k: v.float() if torch.is_tensor(v) else v
-                      for k, v in params.items()})
+        win.float(), {k: v.float() if torch.is_tensor(v)
+                      and v.is_floating_point() else v
+                      for k, v in params.items()}, mode)
     if not torch.isfinite(out.float()).all():
-        raise AssertionError("fused_window_trunk: output is not finite")
-    err = (out.float() - plain.float()).abs()
+        raise AssertionError(f"{name}: output is not finite")
+    err = (out.float() - want.float()).abs()
     e_kernel = (out.float() - exact).abs().mean().item()
-    e_plain = (plain.float() - exact).abs().mean().item()
+    e_plain = (want.float() - exact).abs().mean().item()
     tolerance = ("vs plain max <= 0.5, mean <= 0.03; mean error vs the f32 "
                  "arithmetic <= 1.25 x the plain version's")
-    say("trunk_check", vs_plain_max_abs=err.max().item(),
+    say("trunk_check", name=name, shape=[n_win, tokens, dim], layers=layers,
+        mode=mode, vs_plain_max_abs=err.max().item(),
         vs_plain_mean_abs=err.mean().item(), kernel_vs_f32_mean_abs=e_kernel,
         plain_vs_f32_mean_abs=e_plain, out_abs_mean=exact.abs().mean().item(),
         tolerance=tolerance)
     if not (err.max().item() <= 0.5 and err.mean().item() <= 0.03
             and e_kernel <= 1.25 * e_plain):
-        raise AssertionError("fused_window_trunk disagrees with its plain "
-                             "version")
-    hidden = params["fc1w"].shape[2]
-    per_token = (2.0 * (3 * dim * dim + dim * dim + 2 * dim * hidden)
-                 + 2.0 * 2 * tokens * dim)
-    bnd, by = bound_ms(
-        nbytes(win, out, params["wpack"], params["vpack"], params["bias"]),
-        per_token * layers * n_win * tokens)
-    tok = win.reshape(1, 8 * n_win, 8, dim)  # any grid of whole windows
-    eager = cuda_ms(lambda: run_window_trunk(tok, model.blocks, 8, "xla"), 5)
-    say("trunk_eager", eager_trunk_ms=eager,
-        note="run_window_trunk(impl='xla') on the same windows: the other "
-             "route's trunk, not a yardstick")
+        raise AssertionError(f"{name} disagrees with its plain version")
+    count = layers * n_win * tokens
+    gemm_ops = 2.0 * 12 * dim * dim * count  # qkv, proj, fc1, fc2
+    attn_ops = 2.0 * 2 * tokens * dim * count
+    wkey = "wpack_i8" if int8 else "wpack"
+    n_bytes = nbytes(win, out, params[wkey], params["vpack"], params["bias"],
+                     *([params["swpack"]] if int8 else []))
+    if int8:
+        bnd, by = bound_ms(n_bytes, attn_ops, int8_ops=gemm_ops)
+    else:
+        bnd, by = bound_ms(n_bytes, gemm_ops + attn_ops)
+    if name == "fused_window_trunk":
+        tok = win.reshape(1, 8 * n_win, 8, dim)  # any grid of whole windows
+        eager = cuda_ms(
+            lambda: run_window_trunk(tok, model.blocks, 8, "xla"), 5)
+        say("trunk_eager", eager_trunk_ms=eager,
+            note="run_window_trunk(impl='xla') on the same windows: the "
+                 "other route's trunk, not a yardstick")
     return dict(
-        name="fused_window_trunk", route="cuda",
+        name=name, route="cuda",
         source="transformerupscaler_torch/csrc/window_trunk.cu",
-        replaces="transformerupscaler_tpu/ops/pallas/trunk2.py:524",
+        replaces="transformerupscaler_tpu/ops/pallas/" + replaces,
         max_abs_err=err.max().item(), tolerance=tolerance,
-        ms=cuda_ms(lambda: T.fused_window_trunk(win, params)),
-        plain_ms=cuda_ms(lambda: T.fused_window_trunk_plain(win, params), 3),
-        bound_ms=bnd, bound_by=by, library_ms=None, on="bench")
+        ms=cuda_ms(run), plain_ms=cuda_ms(plain, 3), bound_ms=bnd,
+        bound_by=by, library_ms=None, on=on)
 
 
 @contextlib.contextmanager
@@ -538,7 +607,7 @@ def plain_versions():
     missing = set(K.PLAIN_VERSIONS) - {name for _, name, _ in saved}
     if missing:
         raise AssertionError(f"no model module calls {sorted(missing)}")
-    before = dict(K.LAUNCHES)
+    before = K.launch_counts()
     try:
         for mod, name, _ in saved:
             setattr(mod, name, K.PLAIN_VERSIONS[name])
@@ -546,9 +615,9 @@ def plain_versions():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    if dict(K.LAUNCHES) != before:
+    if K.launch_counts() != before:
         raise AssertionError(f"a kernel launched on the plain versions: "
-                             f"{before} -> {dict(K.LAUNCHES)}")
+                             f"{before} -> {K.launch_counts()}")
 
 
 def interior_err(got: np.ndarray, want: np.ndarray, crop: int):
@@ -620,7 +689,7 @@ def phase_slice(name: str) -> dict:
         t0 = time.perf_counter()
         outs.append(engine.upscale(fr, res_out=res_out))
         request_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(K.LAUNCHES)
+    launches = K.launch_counts()
     per_frame = {k: v / len(frames) for k, v in launches.items()}
     if per_frame != spec["launches"]:
         raise AssertionError(f"{name}: launches per frame {per_frame} != "
@@ -664,8 +733,8 @@ def main() -> None:
     launches = {name: phase_slice(name) for name in ROUTES}
     say("tpu_kernels", kernels=[dict(kernel=k, port=s) for k, s in TPU_KERNELS])
     for r in records:
-        # The count of the record's wrapper on the route that runs the
-        # record's shape (``on``): the bench.py route unless named.
+        # The count of the record's counter (its wrapper, or the trunk's
+        # mode) on the route that runs the record's shape (``on``).
         wrapper = r["name"].split("/")[0]
         r.pop("tolerance", None)
         r["launches"] = launches[r.pop("on")][wrapper]

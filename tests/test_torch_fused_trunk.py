@@ -132,4 +132,5 @@ def test_run_window_trunk_fused2_matches_jax(rng):
 def test_run_window_trunk_rejects_unknown_impl(rng):
     trunk, _ = _trunk(1, 0)
     with pytest.raises(ValueError, match="impl"):
-        run_window_trunk(torch.zeros(1, 8, 8, DIM), trunk.blocks, WS, "fused")
+        run_window_trunk(torch.zeros(1, 8, 8, DIM), trunk.blocks, WS,
+                         "fused3")

@@ -89,9 +89,8 @@ def test_tail_finish_kernel_matches_plain(gen, kh, cm, co, hi_lo_fin,
                 atol=4e-3))
 
 
-@pytest.mark.parametrize("n_win,layers", [(1, 1), (5, 2)])
-def test_window_trunk_kernel_matches_plain(gen, n_win, layers):
-    blocks = [WindowBlock(192, 8, 12).cuda() for _ in range(layers)]
+def _trunk_blocks(gen, dim, layers):
+    blocks = [WindowBlock(dim, 8, dim // 16).cuda() for _ in range(layers)]
     for blk in blocks:
         for name, p in blk.named_parameters():
             z = _rn(gen, *p.shape)
@@ -101,6 +100,12 @@ def test_window_trunk_kernel_matches_plain(gen, n_win, layers):
                 p.copy_(0.1 * z)
             else:
                 p.copy_(z * p.shape[0] ** -0.5)
+    return blocks
+
+
+@pytest.mark.parametrize("n_win,layers", [(1, 1), (5, 2)])
+def test_window_trunk_kernel_matches_plain(gen, n_win, layers):
+    blocks = _trunk_blocks(gen, 192, layers)
     params = T.stack_trunk_params(blocks, torch.bfloat16)
     win = _rn(gen, n_win, 64, 192).bfloat16()
     got = T.fused_window_trunk(win, params)
@@ -109,6 +114,35 @@ def test_window_trunk_kernel_matches_plain(gen, n_win, layers):
     err = (got.float() - want.float()).abs()
     assert torch.isfinite(got.float()).all()
     assert err.max() <= 0.125 and err.mean() <= 1e-2, (err.max(), err.mean())
+
+
+TRUNK_MODES = [(128, "v2"), (128, "v1"), (192, "v1"), (192, "int8_rowwise")]
+
+
+@pytest.mark.parametrize("n_win", [1, 3, 61])
+@pytest.mark.parametrize("dim,mode", TRUNK_MODES,
+                         ids=[f"{d}-{m}" for d, m in TRUNK_MODES])
+def test_window_trunk_modes_match_plain(gen, dim, mode, n_win):
+    """Every width and mode the kernel takes besides 192 / v2, two layers.
+    bf16 modes: the bound above. int8: a GEMM input one bf16 step apart can
+    round to the neighbouring int8 value, which moves its row's product by
+    one quantization step and, through attention, the window's other tokens
+    (tests/test_torch_int8_trunk.py, against JAX): max abs <= 0.25, mean
+    abs <= 0.03."""
+    blocks = _trunk_blocks(gen, dim, 2)
+    params = T.stack_trunk_params(blocks, torch.bfloat16,
+                                  mode == "int8_rowwise")
+    win = _rn(gen, n_win, 64, dim).bfloat16()
+    S.reset_launches()
+    got = T.fused_window_trunk(win, params, mode)
+    assert T.MODE_LAUNCHES[mode] == T.LAUNCHES["fused_window_trunk"] == 1
+    want = T.fused_window_trunk_plain(win, params, mode)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got.float()).all()
+    bound = (0.25, 0.03) if mode == "int8_rowwise" else (0.125, 1e-2)
+    assert err.max() <= bound[0] and err.mean() <= bound[1], (err.max(),
+                                                              err.mean())
 
 
 @pytest.mark.parametrize("nw,heads", [(1, 1), (7, 8), (3, 5), (2, 16)])
@@ -166,6 +200,16 @@ def test_wrappers_count_launches_and_reject_bad_input(gen):
     with pytest.raises(ValueError):
         T.fused_window_trunk(_rn(gen, 1, 64, 64).bfloat16(),
                              T.stack_trunk_params(blocks, torch.bfloat16))
+    p128 = T.stack_trunk_params(_trunk_blocks(gen, 128, 1), torch.bfloat16,
+                                True)
+    with pytest.raises(ValueError):  # the int8 mode is compiled at C=192
+        T.fused_window_trunk(_rn(gen, 1, 64, 128).bfloat16(), p128,
+                             "int8_rowwise")
+    with pytest.raises(ValueError):  # int8 weights not stacked
+        T.fused_window_trunk(
+            _rn(gen, 1, 64, 192).bfloat16(),
+            T.stack_trunk_params(_trunk_blocks(gen, 192, 1), torch.bfloat16),
+            "int8_rowwise")
     assert sum(S.LAUNCHES.values()) == 1
     with pytest.raises(ValueError):  # heads of 8 channels
         A.window_attention_core(_rn(gen, 1, 64, 96).bfloat16(),

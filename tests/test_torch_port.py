@@ -18,6 +18,12 @@ from transformerupscaler_torch.weights import params_from_jax, seeded_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(transformer_dim=32, num_window_blocks=1, num_heads=2)
+# The model flags of the JAX command lines' ``--fast`` on the accelerator
+# (inference.py:83-98, speed_test.py:35-48; stream.py:51-61 and
+# app_overlay.py:101-114 pass a subset), ``--int8_trunk`` off.
+FAST_FLAGS = dict(compose_tails=True, packed_serve=True, pallas_serve=True,
+                  attn_impl="fused2", serve_quality=False, int8_serve=False,
+                  int8_scope="full", int8_mlp=False, int8_trunk=False)
 
 
 def test_port_imports_no_jax():
@@ -98,20 +104,37 @@ def test_params_from_jax_round_trip():
 
 
 def test_other_routes_and_geometries_raise():
-    with pytest.raises(NotImplementedError, match="attn_impl"):
-        get_model("FastTransformer", device="cpu", attn_impl="fused")
-    with pytest.raises(NotImplementedError, match="pallas_serve"):
-        get_model("FastTransformer", device="cpu", pallas_serve=False)
-    with pytest.raises(NotImplementedError, match="compose_tails"):
-        get_model("FastTransformer", device="cpu", compose_tails=False)
+    """The fused trunks build for both window models and the ``--fast``
+    flag set for all four; int8_serve and int8_mlp, other tails and other
+    geometries raise."""
+    for name, flags in (("FastTransformer", dict(attn_impl="fused")),
+                        ("FastTransformer", FAST_FLAGS),
+                        ("FastTransformer", {**FAST_FLAGS,
+                                             "int8_trunk": True}),
+                        ("WindowTransformer", dict(attn_impl="fused")),
+                        ("WindowTransformer", FAST_FLAGS),
+                        ("ResidualTransformer", FAST_FLAGS),
+                        ("BicubicInterpolation", FAST_FLAGS)):
+        m = get_model(name, device="cpu", **flags, **(
+            SMALL if name == "FastTransformer" else {}))
+        assert getattr(m, "attn_impl", flags["attn_impl"]) == \
+            flags["attn_impl"]
+        assert getattr(m, "int8_trunk", False) == flags.get("int8_trunk",
+                                                            False)
+    for flags, field in ((dict(int8_serve=True), "int8_serve"),
+                         (dict(int8_mlp=True), "int8_mlp"),
+                         (dict(pallas_serve=False), "pallas_serve"),
+                         (dict(compose_tails=False), "compose_tails")):
+        with pytest.raises(NotImplementedError, match=field):
+            get_model("FastTransformer", device="cpu", **flags)
     for route in (dict(attn_impl="fused2"), dict(split_tail=True),
                   dict(attn_impl="xla", split_tail=False, hi_lo_fin="wf")):
         get_model("FastTransformer", device="cpu", compose_tails=True,
                   pallas_serve=True, **route, **SMALL)
     with pytest.raises(KeyError):
         get_model("SwinIR", device="cpu")
-    with pytest.raises(NotImplementedError, match="attn_impl"):
-        get_model("WindowTransformer", device="cpu", attn_impl="fused2")
+    with pytest.raises(NotImplementedError, match="int8_mlp"):
+        get_model("WindowTransformer", device="cpu", int8_mlp=True)
     engine = UpscalerEngine(device="cpu", **SMALL)
     img = np.zeros((16, 32, 3), np.uint8)
     with pytest.raises(NotImplementedError):

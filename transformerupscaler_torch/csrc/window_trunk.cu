@@ -2,15 +2,18 @@
 // the model in one kernel, one thread block per window of 64 tokens.
 //
 // Replaces transformerupscaler_tpu/ops/pallas/trunk2.py:524
-// fused_window_trunk_v2. That function has five kernel bodies (_trunk2_kernel
-// :51, _trunk2_pair_kernel :105, _trunk2_pair_chunked_kernel :255,
+// fused_window_trunk_v2 and transformerupscaler_tpu/ops/pallas/trunk.py:128
+// fused_window_trunk. The first has five kernel bodies (_trunk2_kernel :51,
+// _trunk2_pair_kernel :105, _trunk2_pair_chunked_kernel :255,
 // _trunk2_group_kernel :335, _trunk2_pair_truedot_kernel :432) which tile one
 // arithmetic in five ways to fill 128-lane MXU tiles (head masks, window
 // pairing, block-diagonal key matrices, a ones-matmul softmax denominator,
 // padding of the window count). None of that is carried over: this one kernel
-// computes per-head products directly and answers for all five.
+// computes per-head products directly and answers for all of them, at model
+// width C = 128 (8 heads) or 192 (12 heads), in three modes chosen at compile
+// time.
 //
-// Per layer, on a window x (64 x 192, bf16), with every rounding point of
+// Per layer, on a window x (64 x C, bf16), with every rounding point of
 // _trunk2_pair_kernel (trunk2.py:187-252):
 //   y   = LN(x)            f32 mean, var = E[x^2] - mean^2, eps 1e-5, f32
 //                          affine from bf16 scale and shift, one rounding
@@ -27,54 +30,96 @@
 //   h   = gelu(bf16(LN(x) Wfc1) + b)   0.5 h (1 + erf(h / sqrt 2)) in f32,
 //                                      one rounding
 //   x   = x + (bf16(h Wfc2) + b)
+// The modes:
+//   V2    as above (trunk2.py:237-240, 247-250).
+//   V1    trunk.py:109, 114-115: the residual adds associate the other way,
+//         x = bf16(bf16(x + bf16(ctx Wproj)) + b), and so for fc2: three
+//         roundings where V2 has three in another order.
+//   INT8  V2 with the four GEMMs as int8 x int8 -> int32 (trunk2.py:165-181,
+//         int8_gemms="rowwise"): per token row of the bf16 GEMM input,
+//         srow = max(max|a_row|, 1e-6) * (1/127), aq = round_half_even(a *
+//         (1/srow)); weights arrive quantized per output channel with f32
+//         scales sw; the product is (float(acc) * srow) * sw, then rounded to
+//         bf16 and the bias added as above. Attention stays bf16 / f32.
 //
-// Design. Shared memory holds the residual stream x (64 x 192), the LN
-// output / attention context (64 x 192) and one 64 x 768 buffer used for qkv
-// (64 x 576) and then for the MLP hidden: no intermediate goes to device
-// memory. The weights (0.885 MB a layer) cannot live in shared memory; they
-// arrive pre-cut into slabs of [64 outputs][192 inputs] in the order the
-// kernel consumes them (36 a layer), and a three-slab ring is filled with
-// cp.async two slabs ahead of the mma.sync m16n8k16 products, also across the
-// LN and attention phases. The 8 warps tile a slab's 64 x 64 output as 2 x 4
-// warp tiles of 32 x 16. Attention runs flash-style per (head, 16 query
+// Design. Shared memory holds the residual stream x (64 x C), the LN
+// output / attention context (64 x C) and one 64 x 4C buffer used for qkv
+// (64 x 3C) and then for the MLP hidden: no intermediate goes to device
+// memory. The weights (0.885 MB a layer at C = 192) cannot live in shared
+// memory; they arrive pre-cut into slabs of [64 outputs][C inputs] in the
+// order the kernel consumes them (12C/64 a layer: qkv 3C/64, proj C/64, fc1
+// 4C/64, fc2 C/64 output chunks x 4 input chunks), and a three-slab ring is
+// filled with cp.async two slabs ahead of the mma.sync products, also across
+// the LN and attention phases. The 8 warps tile a slab's 64 x 64 output as
+// 2 x 4 warp tiles of 32 x 16. Attention runs flash-style per (head, 16 query
 // rows): the 16 x 64 scores stay in registers, the row statistics come from
 // quad shuffles, and the probabilities feed P.V straight from the accumulator
 // registers. Row strides of (multiple of 64) + 8 elements keep the fragment
-// reads free of bank conflicts.
+// reads free of bank conflicts, for bf16 and for int8 fragments alike.
 //
-// Bound on the H100 at 240 windows x 6 layers: 86.1 G operations, 0.087 ms at
-// 989 TF/s; x, out, weights and bias are ~13 MB, 0.004 ms. Every block streams
-// all weights from L2 (1.27 GB in total), which bounds this design near
-// 0.25 ms; sharing slabs across a cluster with TMA multicast and wgmma are
-// later work (see PERF.md).
+// INT8 at C = 192 uses 227,328 - 37 KB of shared memory for the bf16 tiles
+// and a ring of int8 slabs: there is no room for int8 copies of the
+// activations beside the bf16 ones. Each GEMM input is consumed by its GEMM
+// alone, so it is quantized in place: one warp per row reads the row's bf16
+// values into registers, takes their maximum, and writes the int8 row over
+// the first half of the same bytes, and the row's scale to a 64-float array.
+// An A fragment is then a plain 4-byte load, as fast as the bf16 one, where
+// quantizing fragments as they are loaded would redo each element's
+// conversion for every output slab and warp column (36 times for qkv). The
+// LN output is quantized inside LayerNorm; the attention context and the
+// GELU output, whose row maxima need every head and every fc1 slab first, in
+// a pass of their own after the phase that writes them.
+//
+// Bound on the H100 at 240 windows x 6 layers, C = 192: 86.1 G operations,
+// 0.087 ms at 989 TF/s; x, out, weights and bias are ~13 MB, 0.004 ms. Every
+// block streams all weights from L2 (1.27 GB in total), which bounds this
+// design near 0.25 ms; sharing slabs across a cluster with TMA multicast and
+// wgmma are later work (see PERF.md). WindowTransformer's 720p frame is 60
+// windows: 60 of 132 SMs hold a block.
 #include "common.cuh"
 
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int NT = 64;     // tokens per window
-constexpr int C = 192;     // model width
-constexpr int HEADS = 12;
-constexpr int HD = 16;     // head width
-constexpr int XS = C + 8;        // row stride of the 64 x 192 tiles
-constexpr int BS = 4 * C + 8;    // row stride of the 64 x 768 tile
-constexpr int SLAB_N = 64;       // outputs per weight slab
-constexpr int SLAB_K = 192;      // inputs per weight slab
-constexpr int WS = SLAB_K + 8;   // row stride of a slab in shared memory
-constexpr int SLABS = 36;        // slabs per layer: qkv 9, proj 3, fc1 12, fc2 12
-constexpr int STAGES = 3;        // slabs in the shared-memory ring
+constexpr int NT = 64;       // tokens per window
+constexpr int HD = 16;       // head width
+constexpr int SLAB_N = 64;   // outputs per weight slab
+constexpr int STAGES = 3;    // slabs in the shared-memory ring
 constexpr int THREADS = 256;
-// Offsets into a layer's packed vectors (bf16 elements).
-constexpr int V_LN1S = 0, V_LN1B = 192, V_QKVB = 384, V_PROJB = 960,
-              V_LN2S = 1152, V_LN2B = 1344, V_FC1B = 1536, V_FC2B = 2304,
-              VEC = 2496;
-constexpr size_t SMEM_BYTES =
-    size_t(2 * NT * XS + NT * BS + STAGES * SLAB_N * WS) *
-    sizeof(__nv_bfloat16);
+enum Mode { V2 = 0, V1 = 1, INT8 = 2 };
 
 using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
+
+template <int C_, int MODE_>
+struct Cfg {
+  static constexpr int C = C_;
+  static constexpr int MODE = MODE_;
+  static constexpr bool I8 = MODE == INT8;
+  static constexpr int HEADS = C / HD;
+  static constexpr int XS = C + 8;       // row stride of the 64 x C tiles
+  static constexpr int BS = 4 * C + 8;   // row stride of the 64 x 4C tile
+  // A slab row: C weights of 2 bytes (bf16) or 1 (int8); in shared memory
+  // its stride is 16 bytes longer.
+  static constexpr int ROW_BYTES = I8 ? C : 2 * C;
+  static constexpr int WSB = ROW_BYTES + 16;
+  static constexpr int SLABS = 12 * C / SLAB_N;
+  // Offsets into a layer's packed vectors (bf16 elements) and, in INT8, into
+  // its packed weight scales (f32).
+  static constexpr int V_LN1S = 0, V_LN1B = C, V_QKVB = 2 * C,
+                       V_PROJB = 5 * C, V_LN2S = 6 * C, V_LN2B = 7 * C,
+                       V_FC1B = 8 * C, V_FC2B = 12 * C, VEC = 13 * C;
+  static constexpr int S_QKV = 0, S_PROJ = 3 * C, S_FC1 = 4 * C,
+                       S_FC2 = 8 * C, SW = 9 * C;
+  static constexpr size_t TILE_BYTES =
+      size_t(2 * NT * XS + NT * BS) * sizeof(bf16);
+  static constexpr size_t SMEM_BYTES =
+      TILE_BYTES + size_t(STAGES) * SLAB_N * WSB +
+      (I8 ? NT * sizeof(float) : 0);
+};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -89,6 +134,21 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// acc += A (16 x 32 int8, row major) . B (32 x 8 int8, stored as Bt[n][k]).
+// Fragments (PTX ISA, "Matrix fragments for mma.m16n8k32", .s8), with
+// g = lane / 4 and t = lane % 4: a0 = A[g][4t..4t+3], a1 = A[g+8][4t..],
+// a2 = A[g][16+4t..], a3 = A[g+8][16+4t..]; b0 = Bt[g][4t..4t+3],
+// b1 = Bt[g][16+4t..]; the s32 accumulator as the f32 one of m16n8k16.
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Two floats rounded to bf16 and widened again; the packed conversion is one
@@ -110,23 +170,47 @@ __device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
   return uint32_t(__bfloat16_as_ushort(lo)) |
          (uint32_t(__bfloat16_as_ushort(hi)) << 16);
 }
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The row scale of the rowwise int8 mode and the pair a * inv, b * inv
+// rounded half to even into two int8 at p (trunk2.py:176-178). 1/127 is
+// the f32 value of the double 1/127, as the reference's weakly typed
+// constant; 1 / srow is a correctly rounded f32 division.
+__device__ __forceinline__ float row_scale(float absmax) {
+  return fmaxf(absmax, 1e-6f) * float(1.0 / 127.0);
+}
+__device__ __forceinline__ void st_q2(int8_t* p, float a, float b, float inv) {
+  *reinterpret_cast<char2*>(p) = make_char2(
+      static_cast<signed char>(__float2int_rn(a * inv)),
+      static_cast<signed char>(__float2int_rn(b * inv)));
+}
+__device__ __forceinline__ float warp_max(float m) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
+}
 
 // The flat sequence of weight slabs, fetched STAGES - 1 ahead into a ring.
+template <class K>
 struct WeightStream {
-  const bf16* src;  // (total, 64, 192) in device memory
-  bf16* ring;       // STAGES slabs of 64 rows, stride WS
+  const unsigned char* src;  // (total, 64, C) weights in device memory
+  unsigned char* ring;       // STAGES slabs of 64 rows, stride K::WSB bytes
   int total, fetched, used, tid;
 
   // Start the copy of the next slab; past the end, commit an empty group so
   // that the group count stays one per call.
   __device__ __forceinline__ void prefetch() {
+    constexpr int CHUNKS = K::ROW_BYTES / 16;
     if (fetched < total) {
-      bf16* dst = ring + (fetched % STAGES) * SLAB_N * WS;
-      const bf16* s = src + size_t(fetched) * SLAB_N * SLAB_K;
-      for (int i = tid; i < SLAB_N * (SLAB_K / 8); i += THREADS) {
-        const int r = i / (SLAB_K / 8);
-        const int c = i % (SLAB_K / 8);
-        cp_async16(dst + r * WS + c * 8, s + r * SLAB_K + c * 8);
+      unsigned char* dst = ring + (fetched % STAGES) * SLAB_N * K::WSB;
+      const unsigned char* s = src + size_t(fetched) * SLAB_N * K::ROW_BYTES;
+      for (int i = tid; i < SLAB_N * CHUNKS; i += THREADS) {
+        const int r = i / CHUNKS;
+        const int c = i % CHUNKS;
+        cp_async16(dst + r * K::WSB + c * 16, s + r * K::ROW_BYTES + c * 16);
       }
     }
     cp_async_commit();
@@ -137,30 +221,35 @@ struct WeightStream {
   // previous phase wrote to shared memory is published, and every warp is
   // done with the slab before this one, whose place in the ring the next
   // fetch takes.
-  __device__ __forceinline__ const bf16* acquire() {
+  __device__ __forceinline__ const unsigned char* acquire() {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
     prefetch();
-    return ring + (used++ % STAGES) * SLAB_N * WS;
+    return ring + (used++ % STAGES) * SLAB_N * K::WSB;
   }
 };
 
-// acc += A[64 x 192] . slab^T for this warp's 32 x 16 tile. ``a`` points at
-// the first of the 192 input columns; ``w`` at the slab, [64 outputs][WS].
+// acc += A[64 x C] . slab^T for this warp's 32 x 16 tile. ``a`` points at
+// the first of the C input columns, row stride ``sa`` elements; ``slab`` at
+// the slab, [64 outputs][C inputs], row stride K::WSB bytes.
+template <class K>
 __device__ __forceinline__ void mma_slab(float (&acc)[2][2][4], const bf16* a,
-                                         int sa, const bf16* w, int wm, int wn,
-                                         int g, int t) {
+                                         int sa, const unsigned char* slab,
+                                         int wm, int wn, int g, int t) {
+  constexpr int WS = K::WSB / 2;
+  const bf16* w = reinterpret_cast<const bf16*>(slab);
   const bf16* a0 = a + (32 * wm + g) * sa;
   const bf16* w0 = w + (16 * wn + g) * WS;
 #pragma unroll
-  for (int kk = 0; kk < SLAB_K / 16; ++kk) {
+  for (int kk = 0; kk < K::C / 16; ++kk) {
     uint32_t af[2][4], bfr[2][2];
 #pragma unroll
     for (int f = 0; f < 2; ++f)
       tux::load_a(af[f], a0 + (16 * f) * sa + kk * 16,
                   a0 + (16 * f + 8) * sa + kk * 16, t);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) tux::load_b(bfr[j], w0 + 8 * j * WS + kk * 16, t);
+    for (int j = 0; j < 2; ++j)
+      tux::load_b(bfr[j], w0 + 8 * j * WS + kk * 16, t);
 #pragma unroll
     for (int f = 0; f < 2; ++f)
 #pragma unroll
@@ -170,19 +259,58 @@ __device__ __forceinline__ void mma_slab(float (&acc)[2][2][4], const bf16* a,
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[2][2][4]) {
+// The same in int8: ``a`` is the quantized rows, row stride ``sa`` bytes.
+template <class K>
+__device__ __forceinline__ void mma_slab(int (&acc)[2][2][4], const int8_t* a,
+                                         int sa, const unsigned char* slab,
+                                         int wm, int wn, int g, int t) {
+  const int8_t* w = reinterpret_cast<const int8_t*>(slab);
+  const int8_t* a0 = a + (32 * wm + g) * sa + 4 * t;
+  const int8_t* w0 = w + (16 * wn + g) * K::WSB + 4 * t;
+#pragma unroll
+  for (int kk = 0; kk < K::C / 32; ++kk) {
+    uint32_t af[2][4], bfr[2][2];
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const int8_t* r0 = a0 + (16 * f) * sa + kk * 32;
+      const int8_t* r8 = r0 + 8 * sa;
+      af[f][0] = ld32(r0);
+      af[f][1] = ld32(r8);
+      af[f][2] = ld32(r0 + 16);
+      af[f][3] = ld32(r8 + 16);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int8_t* c0 = w0 + 8 * j * K::WSB + kk * 32;
+      bfr[j][0] = ld32(c0);
+      bfr[j][1] = ld32(c0 + 16);
+    }
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        mma_s8(acc[f][j], af[f][0], af[f][1], af[f][2], af[f][3], bfr[j][0],
+               bfr[j][1]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void zero(T (&acc)[2][2][4]) {
 #pragma unroll
   for (int f = 0; f < 2; ++f)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[f][j][e] = T(0);
 }
 
 // Calls fn(row, col, v0, v1) for each adjacent pair of this thread's
-// accumulators; (row, col) are within the slab's 64 x 64 output.
+// accumulators, as the f32 products; (row, col) are within the slab's
+// 64 x 64 output. An int32 accumulator becomes (float(acc) * srow[row]) *
+// sw[col].
 template <typename F>
 __device__ __forceinline__ void for_each_pair(const float (&acc)[2][2][4],
+                                              const float*, const float*,
                                               int wm, int wn, int g, int t,
                                               F fn) {
 #pragma unroll
@@ -194,6 +322,25 @@ __device__ __forceinline__ void for_each_pair(const float (&acc)[2][2][4],
         fn(32 * wm + 16 * f + g + 8 * hh, 16 * wn + 8 * j + 2 * t,
            acc[f][j][2 * hh], acc[f][j][2 * hh + 1]);
 }
+template <typename F>
+__device__ __forceinline__ void for_each_pair(const int (&acc)[2][2][4],
+                                              const float* srow,
+                                              const float* sw, int wm, int wn,
+                                              int g, int t, F fn) {
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 32 * wm + 16 * f + g + 8 * hh;
+        const int c = 16 * wn + 8 * j + 2 * t;
+        const float s = srow[r];
+        const float2 w = *reinterpret_cast<const float2*>(sw + c);
+        fn(r, c, __int2float_rn(acc[f][j][2 * hh]) * s * w.x,
+           __int2float_rn(acc[f][j][2 * hh + 1]) * s * w.y);
+      }
+}
 
 // bf16(acc) + bias in bf16 for a pair of outputs: the reference's two
 // roundings.
@@ -202,20 +349,40 @@ __device__ __forceinline__ float2 dense_out(float v0, float v1, float2 bias) {
   return round_bf16(r.x + bias.x, r.y + bias.y);
 }
 
+// The residual x += product + bias at p, in the mode's association.
+template <int MODE>
+__device__ __forceinline__ void add_residual(bf16* p, float v0, float v1,
+                                             float2 bias) {
+  const float2 xv = ld2(p);
+  if constexpr (MODE == V1) {
+    const float2 r = round_bf16(v0, v1);
+    const float2 s = round_bf16(xv.x + r.x, xv.y + r.y);
+    st2(p, s.x + bias.x, s.y + bias.y);
+  } else {
+    const float2 d = dense_out(v0, v1, bias);
+    st2(p, xv.x + d.x, xv.y + d.y);
+  }
+}
+
 __device__ __forceinline__ float gelu_erf(float h) {
   return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
 }
 
-// ys = bf16(LN(xs)): one warp per row, six channels per lane.
+// ys = bf16(LN(xs)): one warp per row, C / 32 channels per lane. In INT8 the
+// row is quantized as well: ys receives its int8 values (row stride 2 XS
+// bytes) and srow its scale.
+template <class K>
 __device__ __forceinline__ void layernorm(const bf16* xs, bf16* ys,
-                                          const bf16* scale, const bf16* shift,
-                                          int warp, int lane) {
+                                          float* srow, const bf16* scale,
+                                          const bf16* shift, int warp,
+                                          int lane) {
+  constexpr int P = K::C / 64;  // pairs per lane
   for (int r = warp; r < NT; r += THREADS / 32) {
-    const bf16* xr = xs + r * XS;
-    float2 v[3];
+    const bf16* xr = xs + r * K::XS;
+    float2 v[P];
     float s = 0.f, ss = 0.f;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
+    for (int j = 0; j < P; ++j) {
       v[j] = ld2(xr + 2 * lane + 64 * j);
       s += v[j].x + v[j].y;
       ss += v[j].x * v[j].x + v[j].y * v[j].y;
@@ -225,27 +392,70 @@ __device__ __forceinline__ void layernorm(const bf16* xs, bf16* ys,
       s += __shfl_xor_sync(0xffffffffu, s, o);
       ss += __shfl_xor_sync(0xffffffffu, ss, o);
     }
-    const float mu = s / float(C);
-    const float var = ss / float(C) - mu * mu;
+    const float mu = s / float(K::C);
+    const float var = ss / float(K::C) - mu * mu;
     const float rstd = rsqrtf(var + 1e-5f);
+    float m = 0.f;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
+    for (int j = 0; j < P; ++j) {
       const int col = 2 * lane + 64 * j;
       const float2 sc = ld2(scale + col);
       const float2 sh = ld2(shift + col);
-      st2(ys + r * XS + col, (v[j].x - mu) * rstd * sc.x + sh.x,
-          (v[j].y - mu) * rstd * sc.y + sh.y);
+      v[j] = round_bf16((v[j].x - mu) * rstd * sc.x + sh.x,
+                        (v[j].y - mu) * rstd * sc.y + sh.y);
+      m = fmaxf(m, fmaxf(fabsf(v[j].x), fabsf(v[j].y)));
+      if constexpr (!K::I8) st2(ys + r * K::XS + col, v[j].x, v[j].y);
     }
+    if constexpr (K::I8) {
+      const float sr = row_scale(warp_max(m));
+      const float inv = 1.0f / sr;
+      int8_t* q = reinterpret_cast<int8_t*>(ys + r * K::XS);
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        st_q2(q + 2 * lane + 64 * j, v[j].x, v[j].y, inv);
+      if (lane == 0) srow[r] = sr;
+    }
+  }
+}
+
+// In place, each of the 64 rows of ``buf`` (KW bf16 values, row stride
+// ``stride`` elements) becomes KW int8 values over the first half of its
+// bytes, and srow[row] its scale: one warp per row, which holds the whole
+// row in registers before any lane writes.
+template <int KW>
+__device__ __forceinline__ void quantize_rows(bf16* buf, int stride,
+                                              float* srow, int warp,
+                                              int lane) {
+  constexpr int P = KW / 64;
+  for (int r = warp; r < NT; r += THREADS / 32) {
+    bf16* row = buf + r * stride;
+    float2 v[P];
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      v[j] = ld2(row + 2 * lane + 64 * j);
+      m = fmaxf(m, fmaxf(fabsf(v[j].x), fabsf(v[j].y)));
+    }
+    const float sr = row_scale(warp_max(m));
+    const float inv = 1.0f / sr;
+    __syncwarp();
+    int8_t* q = reinterpret_cast<int8_t*>(row);
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      st_q2(q + 2 * lane + 64 * j, v[j].x, v[j].y, inv);
+    if (lane == 0) srow[r] = sr;
   }
 }
 
 // ctx (into ys) = softmax(q k^T / 4 + bias) v per head, from qkv in ``big``
 // (q at columns 0.., k at C.., v at 2C..). One unit of work is one head and
-// 16 query rows; 48 units over 8 warps.
+// 16 query rows; 4 HEADS units over 8 warps.
+template <class K>
 __device__ __forceinline__ void attention(const bf16* big, bf16* ys,
                                           const float* bias_l, int warp, int g,
                                           int t) {
-  for (int u = warp; u < HEADS * (NT / 16); u += THREADS / 32) {
+  constexpr int C = K::C, BS = K::BS, XS = K::XS;
+  for (int u = warp; u < K::HEADS * (NT / 16); u += THREADS / 32) {
     const int h = u >> 2;
     const int r0 = 16 * (u & 3);
     uint32_t aq[4];
@@ -313,7 +523,8 @@ __device__ __forceinline__ void attention(const bf16* big, bf16* ys,
       for (int j = 0; j < 2; ++j) {
         // B[k][n] = v[key 16 kk + k][dim 8 j + n]: keys run down the rows of
         // ``big``, so the pairs along k are gathered from two rows.
-        const bf16* v0 = big + (16 * kk + 2 * t) * BS + 2 * C + h * HD + 8 * j + g;
+        const bf16* v0 =
+            big + (16 * kk + 2 * t) * BS + 2 * C + h * HD + 8 * j + g;
         uint32_t bv[2];
         bv[0] = pack_raw(v0[0], v0[BS]);
         bv[1] = pack_raw(v0[8 * BS], v0[9 * BS]);
@@ -329,18 +540,31 @@ __device__ __forceinline__ void attention(const bf16* big, bf16* ys,
   }
 }
 
-// x, out (nW, 64, 192) bf16; wpack (layers, 36, 64, 192) bf16; vpack
-// (layers, 2496) bf16; bias (layers, 12, 64, 64) f32.
+// x, out (nW, 64, C) bf16; wpack (layers, 12C/64, 64, C) bf16, int8 in INT8;
+// vpack (layers, 13C) bf16; bias (layers, C/16, 64, 64) f32; swpack
+// (layers, 9C) f32 in INT8 (qkv, proj, fc1, fc2 side by side), else unused.
+template <class K>
 __global__ void __launch_bounds__(THREADS, 1)
-window_trunk_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpack,
+window_trunk_kernel(const bf16* __restrict__ x,
+                    const unsigned char* __restrict__ wpack,
                     const bf16* __restrict__ vpack,
-                    const float* __restrict__ bias, bf16* __restrict__ out,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ swpack, bf16* __restrict__ out,
                     int layers) {
+  constexpr int C = K::C, XS = K::XS, BS = K::BS;
+  // The GEMM inputs: bf16 tiles, or the int8 rows quantized over them.
+  using A = std::conditional_t<K::I8, int8_t, bf16>;
+  using Acc = std::conditional_t<K::I8, int, float>;
+  constexpr int ASX = K::I8 ? 2 * XS : XS;  // row strides in A elements
+  constexpr int ASB = K::I8 ? 2 * BS : BS;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);  // residual stream
   bf16* ys = xs + NT * XS;                   // LN output, then context
   bf16* big = ys + NT * XS;                  // qkv, then the MLP hidden
-  bf16* ring = big + NT * BS;
+  unsigned char* ring = smem + K::TILE_BYTES;
+  float* srow = reinterpret_cast<float*>(ring + STAGES * SLAB_N * K::WSB);
+  const A* ya = reinterpret_cast<const A*>(ys);
+  const A* ba = reinterpret_cast<const A*>(big);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -350,7 +574,7 @@ window_trunk_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpack,
   const int wm = warp >> 2;
   const int wn = warp & 3;
 
-  WeightStream ws{wpack, ring, layers * SLABS, 0, 0, tid};
+  WeightStream<K> ws{wpack, ring, layers * K::SLABS, 0, 0, tid};
   for (int i = 0; i < STAGES - 1; ++i) ws.prefetch();
 
   const bf16* xw = x + size_t(blockIdx.x) * NT * C;
@@ -361,74 +585,84 @@ window_trunk_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpack,
         *reinterpret_cast<const uint4*>(xw + r * C + c * 8);
   }
 
-  float acc[2][2][4];
+  Acc acc[2][2][4];
   for (int l = 0; l < layers; ++l) {
-    const bf16* vp = vpack + size_t(l) * VEC;
+    const bf16* vp = vpack + size_t(l) * K::VEC;
+    const float* sw = swpack + size_t(l) * K::SW;  // read in INT8 only
 
     // Each phase that reads what a GEMM's epilogues wrote starts behind a
     // barrier; a GEMM's first acquire() is the barrier after the others.
     __syncthreads();
-    layernorm(xs, ys, vp + V_LN1S, vp + V_LN1B, warp, lane);
+    layernorm<K>(xs, ys, srow, vp + K::V_LN1S, vp + K::V_LN1B, warp, lane);
 #pragma unroll 1
     for (int nc = 0; nc < 3 * C / SLAB_N; ++nc) {  // qkv -> big
-      const bf16* w = ws.acquire();
+      const unsigned char* w = ws.acquire();
       zero(acc);
-      mma_slab(acc, ys, XS, w, wm, wn, g, t);
-      const bf16* b = vp + V_QKVB + nc * SLAB_N;
+      mma_slab<K>(acc, ya, ASX, w, wm, wn, g, t);
+      const bf16* b = vp + K::V_QKVB + nc * SLAB_N;
       bf16* dst = big + nc * SLAB_N;
-      for_each_pair(acc, wm, wn, g, t, [&](int r, int c, float v0, float v1) {
-        const float2 d = dense_out(v0, v1, ld2(b + c));
-        st2(dst + r * BS + c, d.x, d.y);
-      });
+      for_each_pair(acc, srow, sw + K::S_QKV + nc * SLAB_N, wm, wn, g, t,
+                    [&](int r, int c, float v0, float v1) {
+                      const float2 d = dense_out(v0, v1, ld2(b + c));
+                      st2(dst + r * BS + c, d.x, d.y);
+                    });
     }
 
     __syncthreads();
-    attention(big, ys, bias + size_t(l) * HEADS * NT * NT, warp, g, t);
+    attention<K>(big, ys, bias + size_t(l) * K::HEADS * NT * NT, warp, g, t);
+    if constexpr (K::I8) {
+      __syncthreads();
+      quantize_rows<C>(ys, XS, srow, warp, lane);
+    }
 
 #pragma unroll 1
     for (int nc = 0; nc < C / SLAB_N; ++nc) {  // proj, residual -> xs
-      const bf16* w = ws.acquire();
+      const unsigned char* w = ws.acquire();
       zero(acc);
-      mma_slab(acc, ys, XS, w, wm, wn, g, t);
-      const bf16* b = vp + V_PROJB + nc * SLAB_N;
+      mma_slab<K>(acc, ya, ASX, w, wm, wn, g, t);
+      const bf16* b = vp + K::V_PROJB + nc * SLAB_N;
       bf16* dst = xs + nc * SLAB_N;
-      for_each_pair(acc, wm, wn, g, t, [&](int r, int c, float v0, float v1) {
-        const float2 d = dense_out(v0, v1, ld2(b + c));
-        const float2 xv = ld2(dst + r * XS + c);
-        st2(dst + r * XS + c, xv.x + d.x, xv.y + d.y);
-      });
+      for_each_pair(acc, srow, sw + K::S_PROJ + nc * SLAB_N, wm, wn, g, t,
+                    [&](int r, int c, float v0, float v1) {
+                      add_residual<K::MODE>(dst + r * XS + c, v0, v1,
+                                            ld2(b + c));
+                    });
     }
 
     __syncthreads();
-    layernorm(xs, ys, vp + V_LN2S, vp + V_LN2B, warp, lane);
+    layernorm<K>(xs, ys, srow, vp + K::V_LN2S, vp + K::V_LN2B, warp, lane);
 #pragma unroll 1
     for (int nc = 0; nc < 4 * C / SLAB_N; ++nc) {  // fc1, GELU -> big
-      const bf16* w = ws.acquire();
+      const unsigned char* w = ws.acquire();
       zero(acc);
-      mma_slab(acc, ys, XS, w, wm, wn, g, t);
-      const bf16* b = vp + V_FC1B + nc * SLAB_N;
+      mma_slab<K>(acc, ya, ASX, w, wm, wn, g, t);
+      const bf16* b = vp + K::V_FC1B + nc * SLAB_N;
       bf16* dst = big + nc * SLAB_N;
-      for_each_pair(acc, wm, wn, g, t, [&](int r, int c, float v0, float v1) {
-        const float2 d = dense_out(v0, v1, ld2(b + c));
-        st2(dst + r * BS + c, gelu_erf(d.x), gelu_erf(d.y));
-      });
+      for_each_pair(acc, srow, sw + K::S_FC1 + nc * SLAB_N, wm, wn, g, t,
+                    [&](int r, int c, float v0, float v1) {
+                      const float2 d = dense_out(v0, v1, ld2(b + c));
+                      st2(dst + r * BS + c, gelu_erf(d.x), gelu_erf(d.y));
+                    });
+    }
+    if constexpr (K::I8) {
+      __syncthreads();
+      quantize_rows<4 * C>(big, BS, srow, warp, lane);
     }
 
 #pragma unroll 1
     for (int nc = 0; nc < C / SLAB_N; ++nc) {  // fc2, residual -> xs
       zero(acc);
 #pragma unroll 1
-      for (int kc = 0; kc < 4 * C / SLAB_K; ++kc) {
-        const bf16* w = ws.acquire();
-        mma_slab(acc, big + kc * SLAB_K, BS, w, wm, wn, g, t);
-        if (kc == 4 * C / SLAB_K - 1) {
-          const bf16* b = vp + V_FC2B + nc * SLAB_N;
+      for (int kc = 0; kc < 4; ++kc) {
+        const unsigned char* w = ws.acquire();
+        mma_slab<K>(acc, ba + kc * C, ASB, w, wm, wn, g, t);
+        if (kc == 3) {
+          const bf16* b = vp + K::V_FC2B + nc * SLAB_N;
           bf16* dst = xs + nc * SLAB_N;
-          for_each_pair(acc, wm, wn, g, t,
+          for_each_pair(acc, srow, sw + K::S_FC2 + nc * SLAB_N, wm, wn, g, t,
                         [&](int r, int c, float v0, float v1) {
-                          const float2 d = dense_out(v0, v1, ld2(b + c));
-                          const float2 xv = ld2(dst + r * XS + c);
-                          st2(dst + r * XS + c, xv.x + d.x, xv.y + d.y);
+                          add_residual<K::MODE>(dst + r * XS + c, v0, v1,
+                                                ld2(b + c));
                         });
         }
       }
@@ -445,24 +679,44 @@ window_trunk_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wpack,
   }
 }
 
+template <int C, int MODE>
+int launch(const void* x, const void* wpack, const void* vpack,
+           const void* bias, const void* swpack, void* out, int n_windows,
+           int layers, cudaStream_t stream) {
+  using K = Cfg<C, MODE>;
+  static_assert(K::SMEM_BYTES <= 232448, "shared memory of one block");
+  cudaError_t err = cudaFuncSetAttribute(
+      window_trunk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(K::SMEM_BYTES));
+  if (err != cudaSuccess) return int(err);
+  if (n_windows == 0) return 0;
+  window_trunk_kernel<K><<<n_windows, THREADS, K::SMEM_BYTES, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const unsigned char*>(wpack),
+      static_cast<const bf16*>(vpack), static_cast<const float*>(bias),
+      static_cast<const float*>(swpack), static_cast<bf16*>(out), layers);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).
+// dim 128 or 192; mode 0 (V2), 1 (V1) or, at dim 192, 2 (INT8); wpack holds
+// int8 slabs in INT8. Returns the cudaError_t of the launch (0 on success).
 extern "C" int tux_window_trunk(const void* x, const void* wpack,
-                                const void* vpack, const void* bias, void* out,
-                                int n_windows, int layers, int device,
+                                const void* vpack, const void* bias,
+                                const void* swpack, void* out, int n_windows,
+                                int layers, int dim, int mode, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(window_trunk_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(SMEM_BYTES));
-  if (err != cudaSuccess) return int(err);
-  if (n_windows == 0) return 0;
-  window_trunk_kernel<<<n_windows, THREADS, SMEM_BYTES,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wpack),
-      static_cast<const bf16*>(vpack), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), layers);
-  return int(cudaGetLastError());
+  decltype(&launch<192, V2>) fn = nullptr;
+  switch (dim * 4 + mode) {
+    case 128 * 4 + V2: fn = launch<128, V2>; break;
+    case 128 * 4 + V1: fn = launch<128, V1>; break;
+    case 192 * 4 + V2: fn = launch<192, V2>; break;
+    case 192 * 4 + V1: fn = launch<192, V1>; break;
+    case 192 * 4 + INT8: fn = launch<192, INT8>; break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return fn(x, wpack, vpack, bias, swpack, out, n_windows, layers,
+            static_cast<cudaStream_t>(stream));
 }

@@ -3,7 +3,12 @@ and launch counters. ``PLAIN_VERSIONS`` maps every wrapper to the plain
 version that computes the same function."""
 
 from transformerupscaler_torch.kernels import gmha, stream, trunk2, window_attn
-from transformerupscaler_torch.kernels._common import LAUNCHES, reset_launches
+from transformerupscaler_torch.kernels._common import (
+    LAUNCHES,
+    MODE_LAUNCHES,
+    launch_counts,
+    reset_launches,
+)
 
 PLAIN_VERSIONS = {
     "conv3x3_stream": stream.conv3x3_plain,
@@ -16,5 +21,6 @@ PLAIN_VERSIONS = {
     "global_mha": gmha.global_mha_plain,
 }
 
-__all__ = ["LAUNCHES", "PLAIN_VERSIONS", "gmha", "reset_launches", "stream",
-           "trunk2", "window_attn"]
+__all__ = ["LAUNCHES", "MODE_LAUNCHES", "PLAIN_VERSIONS", "gmha",
+           "launch_counts", "reset_launches", "stream", "trunk2",
+           "window_attn"]

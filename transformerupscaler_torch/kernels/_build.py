@@ -48,7 +48,7 @@ SIGNATURES = {
         "tux_window_attn": [_P] * 3 + [_I] * 4 + [_P],
     },
     "window_trunk": {
-        "tux_window_trunk": [_P] * 5 + [_I] * 3 + [_P],
+        "tux_window_trunk": [_P] * 6 + [_I] * 5 + [_P],
     },
 }
 

@@ -13,9 +13,23 @@ LAUNCHES = dict.fromkeys(
      "window_attention_core", "global_mha"), 0)
 
 
+# The fused trunk's kernel modes, in the order of the kernel's mode argument,
+# and its launches by mode (each also counts under "fused_window_trunk").
+TRUNK_MODES = ("v2", "v1", "int8_rowwise")
+MODE_LAUNCHES = dict.fromkeys(TRUNK_MODES, 0)
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, MODE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Every counter in one flat dict: the wrappers' and, as
+    ``fused_window_trunk.<mode>``, the trunk's by mode."""
+    return {**LAUNCHES, **{f"fused_window_trunk.{m}": n
+                           for m, n in MODE_LAUNCHES.items()}}
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -1,18 +1,23 @@
 """The fused window trunk: every window block in one Hopper kernel, its
-wrapper, its plain PyTorch version and the stacking of the blocks' weights.
+wrapper, its plain PyTorch versions and the stacking of the blocks' weights.
 
 =====================  =====================  ===============================
-wrapper                CUDA source            TPU kernel it replaces
+wrapper                CUDA source            TPU kernels it replaces
 =====================  =====================  ===============================
 ``fused_window_trunk`` csrc/window_trunk.cu   ops/pallas/trunk2.py:524
-                                              ``fused_window_trunk_v2``
+                                              ``fused_window_trunk_v2`` (mode
+                                              "v2"; "int8_rowwise" is its
+                                              ``int8_acts="rowwise"``)
+                                              ops/pallas/trunk.py:128
+                                              ``fused_window_trunk`` ("v1")
 =====================  =====================  ===============================
 
-The TPU function has five kernel bodies (trunk2.py:51, :105, :255, :335,
-:432) that tile the same arithmetic in five ways for the MXU; one CUDA
-kernel answers for all of them. The rounding points, with ``dt`` the
-activations' dtype (bf16 on the card), are those of ``_trunk2_pair_kernel``
-(trunk2.py:187-252) and the plain version has the same ones:
+The first TPU function has five kernel bodies (trunk2.py:51, :105, :255,
+:335, :432) that tile the same arithmetic in five ways for the MXU; one CUDA
+kernel answers for all of them, and for trunk.py's, at widths 128 (8 heads)
+and 192 (12 heads). The rounding points, with ``dt`` the activations' dtype
+(bf16 on the card), are those of ``_trunk2_pair_kernel`` (trunk2.py:187-252)
+and the plain versions have the same ones:
 
 - every stacked parameter is cast to ``dt`` first, LayerNorm scales and
   shifts and all biases included; the relative-position bias stays f32;
@@ -23,12 +28,16 @@ activations' dtype (bf16 on the card), are those of ``_trunk2_pair_kernel``
 - q * head_dim^-0.5 in ``dt``; scores f32 plus the f32 bias; softmax in f32
   per window and head; probabilities rounded to ``dt``; P.V accumulated in
   f32 and rounded to ``dt``;
-- residual adds in ``dt``;
-- GELU in f32 as 0.5 x (1 + erf(x / sqrt 2)), one rounding to ``dt``.
+- residual adds in ``dt``: x + (product + bias) in "v2" and
+  "int8_rowwise", (x + product) + bias in "v1" (trunk.py:109, 114-115);
+- GELU in f32 as 0.5 x (1 + erf(x / sqrt 2)), one rounding to ``dt``;
+- "int8_rowwise" (trunk2.py:165-181): each GEMM input quantized per token
+  row, the weights per output channel (``ops.quant``), the product
+  int8 x int8 summed exactly, then (float(sum) * srow) * sw in f32.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel, adds one to ``LAUNCHES["fused_window_trunk"]`` and
-never falls back.
+to ``MODE_LAUNCHES[mode]``, and never falls back.
 """
 
 from __future__ import annotations
@@ -38,20 +47,27 @@ import torch
 from transformerupscaler_torch.kernels import _build
 from transformerupscaler_torch.kernels._common import (
     LAUNCHES,
+    MODE_LAUNCHES,
+    TRUNK_MODES,
     check,
     on_card,
     raise_on,
     stream_of,
 )
+from transformerupscaler_torch.ops.quant import quantize_rows, rowwise_weights
 from transformerupscaler_torch.ops.relpos import gather_relative_bias
 
-# What the CUDA kernel is compiled for.
-TOKENS, DIM, HEADS, HIDDEN = 64, 192, 12, 768
-SLAB_N, SLAB_K = 64, 192  # one streamed weight slab: 64 outputs x 192 inputs
+# What the CUDA kernel is compiled for: windows of 64 tokens, heads of 16,
+# hidden 4 x dim; per width the modes it takes (by their index in
+# TRUNK_MODES, which is the kernel's mode argument).
+TOKENS, HEAD_DIM, SLAB_N = 64, 16, 64
+KERNEL_MODES = {128: ("v2", "v1"), 192: TRUNK_MODES}
+GEMMS = ("qkvw", "projw", "fc1w", "fc2w")
 EPS = 1e-5
 
 
-def stack_trunk_params(blocks, dtype) -> dict[str, torch.Tensor]:
+def stack_trunk_params(blocks, dtype, int8_rowwise: bool = False
+                       ) -> dict[str, torch.Tensor]:
     """Stack the ``WindowBlock`` modules' parameters over layers, cast to
     ``dtype`` (JAX: the ``stack`` closure and the bias gather of
     trunk2.py:573-599).
@@ -61,11 +77,17 @@ def stack_trunk_params(blocks, dtype) -> dict[str, torch.Tensor]:
     (L, C, 3C), ``projw`` (L, C, C), ``fc1w`` (L, C, H), ``fc2w`` (L, H, C)
     as (in, out); ``bias`` (L, heads, n, n) f32; ``heads``. At the widths
     the CUDA kernel takes, also its two packed operands: ``wpack``
-    (L, 36, 64, 192), each layer's GEMM weights cut into the slabs
-    [64 outputs][192 inputs] that the kernel streams, in the order it
-    consumes them (qkv 9, proj 3, fc1 12, then fc2 as 3 output chunks x 4
-    input chunks), and ``vpack`` (L, 2496): ln1s, ln1b, qkvb, projb, ln2s,
-    ln2b, fc1b, fc2b side by side.
+    (L, 12C/64, 64, C), each layer's GEMM weights cut into the slabs
+    [64 outputs][C inputs] that the kernel streams, in the order it
+    consumes them (qkv 3C/64, proj C/64, fc1 4C/64, then fc2 as C/64 output
+    chunks x 4 input chunks), and ``vpack`` (L, 13C): ln1s, ln1b, qkvb,
+    projb, ln2s, ln2b, fc1b, fc2b side by side.
+
+    ``int8_rowwise`` adds the rowwise mode's weights, quantized from the
+    ``dtype`` values (``ops.quant.rowwise_weights``): ``<gemm>_q`` int8
+    (in, out) and ``<gemm>_sw`` f32 (L, out) for each of the four GEMMs and,
+    where the kernel takes the mode, ``wpack_i8`` (``wpack`` of the int8
+    weights) and ``swpack`` (L, 9C), the four scales side by side.
     """
     def stack(get):
         return torch.stack([get(b).to(dtype) for b in blocks]).contiguous()
@@ -89,20 +111,30 @@ def stack_trunk_params(blocks, dtype) -> dict[str, torch.Tensor]:
             for b in blocks]).contiguous(),
         "heads": blocks[0].attn.num_heads,
     }
+    if int8_rowwise:
+        for k in GEMMS:
+            p[k + "_q"], p[k + "_sw"] = rowwise_weights(p[k])
     layers, c, hidden = p["fc1w"].shape
-    if (ws * ws, c, p["heads"], hidden) == (TOKENS, DIM, HEADS, HIDDEN):
-        def slabs(w):  # (L, in, out) -> (L, out/64 * in/192, 64, 192)
+    if (ws * ws, c // HEAD_DIM, hidden) == (TOKENS, p["heads"], 4 * c) \
+            and c in KERNEL_MODES:
+        def slabs(w):  # (L, in, out) -> (L, out/64 * in/C, 64, C)
             k, n = w.shape[1:]
             w = w.transpose(1, 2).reshape(layers, n // SLAB_N, SLAB_N,
-                                          k // SLAB_K, SLAB_K)
-            return w.permute(0, 1, 3, 2, 4).reshape(layers, -1, SLAB_N, SLAB_K)
+                                          k // c, c)
+            return w.permute(0, 1, 3, 2, 4).reshape(layers, -1, SLAB_N, c)
 
-        p["wpack"] = torch.cat([slabs(p[k]) for k in
-                                ("qkvw", "projw", "fc1w", "fc2w")],
-                               dim=1).contiguous()
+        def pack(suffix):
+            return torch.cat([slabs(p[k + suffix]) for k in GEMMS],
+                             dim=1).contiguous()
+
+        p["wpack"] = pack("")
         p["vpack"] = torch.cat([p[k] for k in (
             "ln1s", "ln1b", "qkvb", "projb", "ln2s", "ln2b", "fc1b",
             "fc2b")], dim=1).contiguous()
+        if int8_rowwise and "int8_rowwise" in KERNEL_MODES[c]:
+            p["wpack_i8"] = pack("_q")
+            p["swpack"] = torch.cat([p[k + "_sw"] for k in GEMMS],
+                                    dim=1).contiguous()
     return p
 
 
@@ -114,22 +146,35 @@ def _layernorm(x, scale, shift):
     return (y * scale.float() + shift.float()).to(x.dtype)
 
 
-def _dense(x, w, b):
-    """f32-accumulated product rounded to x's dtype, then the bias added in
-    that dtype."""
-    return (x.float() @ w.float()).to(x.dtype) + b
+def _product(x, params, name, l, int8):
+    """x @ W rounded to x's dtype, before the bias: the f32-accumulated
+    product, or in the int8 mode (float(xq @ wq) * srow) * sw with the int8
+    product summed exactly in float64."""
+    if not int8:
+        return (x.float() @ params[name][l].float()).to(x.dtype)
+    xq, srow = quantize_rows(x)
+    acc = (xq.double() @ params[name + "_q"][l].double()).float()
+    return (acc * srow * params[name + "_sw"][l]).to(x.dtype)
 
 
-def fused_window_trunk_plain(win: torch.Tensor, params: dict) -> torch.Tensor:
+def fused_window_trunk_plain(win: torch.Tensor, params: dict,
+                             mode: str = "v2") -> torch.Tensor:
     """Plain version of ``fused_window_trunk``; any widths."""
+    if mode not in TRUNK_MODES:
+        raise ValueError(f"mode: one of {TRUNK_MODES}, got {mode!r}")
     nw, n, c = win.shape
     dt = win.dtype
     heads = params["heads"]
     hd = c // heads
+    int8 = mode == "int8_rowwise"
+
+    def residual(x, y, b):
+        return (x + y) + b if mode == "v1" else x + (y + b)
+
     x = win
     for l in range(params["qkvw"].shape[0]):
         y = _layernorm(x, params["ln1s"][l], params["ln1b"][l])
-        qkv = _dense(y, params["qkvw"][l], params["qkvb"][l])
+        qkv = _product(y, params, "qkvw", l, int8) + params["qkvb"][l]
         q, k, v = (t.reshape(nw, n, heads, hd).transpose(1, 2)
                    for t in qkv.split(c, dim=-1))  # (nW, heads, n, hd)
         q = q * torch.tensor(hd ** -0.5, dtype=dt)
@@ -137,43 +182,60 @@ def fused_window_trunk_plain(win: torch.Tensor, params: dict) -> torch.Tensor:
         prob = torch.softmax(s, dim=-1).to(dt)
         ctx = (prob.float() @ v.float()).to(dt)
         ctx = ctx.transpose(1, 2).reshape(nw, n, c)
-        x = x + _dense(ctx, params["projw"][l], params["projb"][l])
+        x = residual(x, _product(ctx, params, "projw", l, int8),
+                     params["projb"][l])
         y = _layernorm(x, params["ln2s"][l], params["ln2b"][l])
-        hf = _dense(y, params["fc1w"][l], params["fc1b"][l]).float()
+        hf = (_product(y, params, "fc1w", l, int8)
+              + params["fc1b"][l]).float()
         hid = (0.5 * hf * (1.0 + torch.erf(hf * 2.0 ** -0.5))).to(dt)
-        x = x + _dense(hid, params["fc2w"][l], params["fc2b"][l])
+        x = residual(x, _product(hid, params, "fc2w", l, int8),
+                     params["fc2b"][l])
     return x
 
 
-def fused_window_trunk(win: torch.Tensor, params: dict) -> torch.Tensor:
+def fused_window_trunk(win: torch.Tensor, params: dict,
+                       mode: str = "v2") -> torch.Tensor:
     """All window blocks on window tokens.
 
-    win: (nW, 64, 192) windows of 8x8 tokens; params: what
-    ``stack_trunk_params(blocks, win.dtype)`` returns, for 12 heads and
-    hidden 768 on the card; any number of layers and windows. Returns the
-    same shape and dtype.
+    win: (nW, 64, C) windows of 8x8 tokens; params: what
+    ``stack_trunk_params(blocks, win.dtype, mode == "int8_rowwise")``
+    returns; mode: "v2", "v1" or "int8_rowwise" (module docstring). The
+    card takes C = 128 and 192 with heads of 16 and hidden 4C, the int8
+    mode at C = 192; any number of layers and windows. Returns the same
+    shape and dtype.
     """
+    if mode not in TRUNK_MODES:
+        raise ValueError(f"mode: one of {TRUNK_MODES}, got {mode!r}")
     tensors = [v for v in params.values() if isinstance(v, torch.Tensor)]
     if not on_card(win, *tensors):
-        return fused_window_trunk_plain(win, params)
-    nw = win.shape[0]
-    if "wpack" not in params:
+        return fused_window_trunk_plain(win, params, mode)
+    nw, _, c = win.shape
+    wkey = "wpack_i8" if mode == "int8_rowwise" else "wpack"
+    if wkey not in params or mode not in KERNEL_MODES.get(c, ()):
         raise ValueError(
-            f"fused_window_trunk: the kernel takes {TOKENS} tokens, dim "
-            f"{DIM}, {HEADS} heads, hidden {HIDDEN}; got fc1 "
-            f"{tuple(params['fc1w'].shape[1:])}, {params['heads']} heads")
+            f"fused_window_trunk: the kernel takes {TOKENS} tokens, heads of "
+            f"{HEAD_DIM}, hidden 4 x dim, in modes {KERNEL_MODES} by dim; got "
+            f"dim {c}, fc1 {tuple(params['fc1w'].shape[1:])}, "
+            f"{params['heads']} heads, mode {mode!r}"
+            + ("" if wkey in params else f" without {wkey!r}"))
     layers = params["wpack"].shape[0]
-    check(win, "win", torch.bfloat16, (nw, TOKENS, DIM))
-    check(params["wpack"], "wpack", torch.bfloat16,
-          (layers, 36, SLAB_N, SLAB_K))
-    check(params["vpack"], "vpack", torch.bfloat16, (layers, 2496))
+    check(win, "win", torch.bfloat16, (nw, TOKENS, c))
+    check(params[wkey], wkey,
+          torch.int8 if mode == "int8_rowwise" else torch.bfloat16,
+          (layers, 12 * c // SLAB_N, SLAB_N, c))
+    check(params["vpack"], "vpack", torch.bfloat16, (layers, 13 * c))
     check(params["bias"], "bias", torch.float32,
-          (layers, HEADS, TOKENS, TOKENS))
+          (layers, c // HEAD_DIM, TOKENS, TOKENS))
+    sw = 0
+    if mode == "int8_rowwise":
+        check(params["swpack"], "swpack", torch.float32, (layers, 9 * c))
+        sw = params["swpack"].data_ptr()
     out = torch.empty_like(win)
     err = _build.load("window_trunk").tux_window_trunk(
-        win.data_ptr(), params["wpack"].data_ptr(),
-        params["vpack"].data_ptr(), params["bias"].data_ptr(),
-        out.data_ptr(), nw, layers, win.device.index, stream_of(win))
+        win.data_ptr(), params[wkey].data_ptr(), params["vpack"].data_ptr(),
+        params["bias"].data_ptr(), sw, out.data_ptr(), nw, layers, c,
+        TRUNK_MODES.index(mode), win.device.index, stream_of(win))
     raise_on(err, "fused_window_trunk")
     LAUNCHES["fused_window_trunk"] += 1
+    MODE_LAUNCHES[mode] += 1
     return out

@@ -3,9 +3,9 @@ transformer block and the window trunk.
 
 JAX counterpart: transformerupscaler_tpu models/common.py:26, :55-76 and
 :123-243 (the trunk block by block, ``attn_impl="xla"`` or ``"pallas"``, and
-the fused one, ``"fused2"``). Parameters are kept in the JAX layout, HWIO conv
-kernels and (in, out) dense kernels, and in f32; compute runs in the
-activation dtype.
+the fused one, ``"fused"`` or ``"fused2"``). Parameters are kept in the JAX
+layout, HWIO conv kernels and (in, out) dense kernels, and in f32; compute
+runs in the activation dtype.
 """
 
 from __future__ import annotations
@@ -134,23 +134,39 @@ class WindowBlock(nn.Module):
         return x + self.mlp_fc2(h)
 
 
-TRUNK_IMPLS = ("xla", "pallas", "fused2")
+TRUNK_IMPLS = ("xla", "pallas", "fused", "fused2")
+# The fused trunk's kernel mode per ``attn_impl``: "fused" is trunk.py's v1
+# (the other residual association), "fused2" trunk2.py's v2.
+FUSED_MODES = {"fused": "v1", "fused2": "v2"}
 
 
 def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int,
-                     impl: str = "xla", stacked=None) -> torch.Tensor:
+                     impl: str = "xla", stacked=None,
+                     int8_acts=None) -> torch.Tensor:
     """tokens (B, Ht, Wt, D) -> same shape: zero-pad the grid to a window
     multiple, run the blocks on the windows, unpad.
 
     ``impl`` follows the JAX ``attn_impl``: "xla" runs the blocks one by one
     in PyTorch; "pallas" does too, with each block's attention core on the
-    ``window_attention_core`` kernel; "fused2" hands all windows to
-    ``fused_window_trunk`` once, with ``stacked`` (default:
-    ``stack_trunk_params(blocks, dtype)``, which a caller may compute once
-    and keep). The zero tokens of the padding go
-    through either as ordinary tokens, unmasked, as in JAX."""
+    ``window_attention_core`` kernel; "fused" and "fused2" hand all windows
+    to ``fused_window_trunk`` once, in its mode "v1" or "v2", with
+    ``stacked`` (default: ``stack_trunk_params(blocks, dtype, ...)``, which a
+    caller may compute once and keep). ``int8_acts="rowwise"`` turns
+    "fused2" into the mode "int8_rowwise" (``stacked`` must then hold the
+    int8 weights) and, as in JAX, is ignored by every other impl; the static
+    per-channel scales (a tuple) are not ported. The zero tokens of the
+    padding go through either as ordinary tokens, unmasked, as in JAX."""
     if impl not in TRUNK_IMPLS:
         raise ValueError(f"impl: one of {TRUNK_IMPLS}, got {impl!r}")
+    mode = FUSED_MODES.get(impl)
+    if mode == "v2" and int8_acts is not None:
+        if not isinstance(int8_acts, str):
+            raise NotImplementedError(
+                "int8_acts: the static per-channel scales (int8_gemms=True) "
+                "are not ported; the port serves int8_acts='rowwise'")
+        if int8_acts != "rowwise":
+            raise ValueError(f"unknown int8_acts mode {int8_acts!r}")
+        mode = "int8_rowwise"
     b, ht, wt, d = tokens.shape
     ws = window_size
     pad_b = (ws - ht % ws) % ws
@@ -161,12 +177,41 @@ def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int,
     win = window_partition(tokens, ws)
     n_win = win.shape[1]
     win = win.reshape(b * n_win, ws * ws, d)
-    if impl == "fused2":
+    if mode is not None:
         if stacked is None:
-            stacked = stack_trunk_params(blocks, tokens.dtype)
-        win = fused_window_trunk(win.contiguous(), stacked)
+            stacked = stack_trunk_params(blocks, tokens.dtype,
+                                         mode == "int8_rowwise")
+        win = fused_window_trunk(win.contiguous(), stacked, mode)
     else:
         for block in blocks:
             win = block(win, impl)
     tokens = window_reverse(win.reshape(b, n_win, ws * ws, d), ws, hp, wp)
     return tokens[:, :ht, :wt, :]
+
+
+class FusedTrunk:
+    """For a model with ``blocks``, ``window_size``, ``dtype``,
+    ``attn_impl`` and ``int8_trunk``: its trunk, with the blocks' weights
+    stacked for the fused kernel once per device."""
+
+    int8_trunk = False
+
+    def clear_derived(self) -> None:
+        """Drop what was derived from the parameters; call after changing
+        them (``weights.params_from_jax`` does)."""
+        self._trunk = {}
+
+    def trunk_params(self) -> dict:
+        key = self.blocks[0].norm1.scale.device
+        if key not in self._trunk:
+            self._trunk[key] = stack_trunk_params(
+                self.blocks, self.dtype,
+                self.int8_trunk and self.attn_impl == "fused2")
+        return self._trunk[key]
+
+    def run_trunk(self, tokens: torch.Tensor) -> torch.Tensor:
+        fused = self.attn_impl in FUSED_MODES
+        return run_window_trunk(
+            tokens, self.blocks, self.window_size, self.attn_impl,
+            self.trunk_params() if fused else None,
+            "rowwise" if self.int8_trunk else None)

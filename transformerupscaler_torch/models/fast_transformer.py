@@ -10,8 +10,10 @@ forward runs:
   conv2 64->64 + ReLU             kernels.stream.conv3x3_stream
   branch A: composed tail + ReLU  kernels.stream.tail_conv_stream (5x5 at x2)
   patch embed 8x8/8               kernels.stream.embed_stream
-  trunk: window blocks            attn_impl "fused2":
-                                    kernels.trunk2.fused_window_trunk
+  trunk: window blocks            attn_impl "fused2" / "fused":
+                                    kernels.trunk2.fused_window_trunk,
+                                    mode "v2" / "v1"; "fused2" with
+                                    ``int8_trunk``: mode "int8_rowwise"
                                   attn_impl "xla": the blocks in PyTorch
                                   attn_impl "pallas": the blocks in PyTorch
                                     around kernels.window_attn
@@ -27,8 +29,10 @@ forward runs:
 The B tail is split when ``split_tail`` is True, or None (the default) and
 the compute dtype is bfloat16 (fast_transformer.py:829-851; the JAX
 ``serve_quality`` mode is not ported, so its exception does not arise): an
-f32 model keeps the fold unless asked. The JAX package's ``TUX_*``
-environment switches are not carried.
+f32 model keeps the fold unless asked. ``int8_trunk`` (fast_transformer.py:
+91-96, :699-701) runs the trunk's four GEMMs as int8 with per-token scales
+under ``attn_impl="fused2"`` and, as in JAX, is ignored by the other trunks.
+The JAX package's ``TUX_*`` environment switches are not carried.
 
 Other geometries (outside scale 2/3/4 with h % 8 == 0 and w % 16 == 0, where
 the JAX model takes its exact path, and x6, whose tails run other kernels)
@@ -48,14 +52,13 @@ from transformerupscaler_torch.kernels.stream import (
     tail_finish_stream,
     unembed_combine_stream,
 )
-from transformerupscaler_torch.kernels.trunk2 import stack_trunk_params
 from transformerupscaler_torch.models.common import (
     TRUNK_IMPLS,
     ConvLayer,
+    FusedTrunk,
     WindowBlock,
     param,
     resolve_geometry,
-    run_window_trunk,
 )
 from transformerupscaler_torch.models.upsampler import (
     Upsampler,
@@ -69,13 +72,13 @@ from transformerupscaler_torch.ops.resize import resize_shuffled
 SERVE_SCALES = (2, 3, 4)
 
 
-class FastTransformer(nn.Module):
+class FastTransformer(FusedTrunk, nn.Module):
     """Inference-only FastTransformer. Parameters are f32 in the JAX layout
     (see ``transformerupscaler_torch.weights``); compute runs in ``dtype``.
     Input x: (B, H, W, 3) in [0, 1]; output (B, res_out..., 3).
 
-    ``attn_impl``: "xla", "pallas" or "fused2" (the trunk, see the module
-    docstring);
+    ``attn_impl``: "xla", "pallas", "fused" or "fused2" (the trunk, see the
+    module docstring); ``int8_trunk``: the fused2 trunk's GEMMs in int8;
     ``split_tail``: None (automatic), True or False; ``hi_lo_fin``: how the
     split tail's finish rounds, None (= "off"), "off", "wf" or "full"."""
 
@@ -85,7 +88,7 @@ class FastTransformer(nn.Module):
                  window_size: int = 8, patch_size: int = 8,
                  dtype=torch.float32, attn_impl: str = "xla",
                  split_tail: bool | None = None,
-                 hi_lo_fin: str | None = None):
+                 hi_lo_fin: str | None = None, int8_trunk: bool = False):
         super().__init__()
         bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
         if bc != 64 or ps != 8:
@@ -101,6 +104,7 @@ class FastTransformer(nn.Module):
         self.patch_size = ps
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.int8_trunk = int8_trunk
         self.split_tail = split_tail
         self.hi_lo_fin = hi_lo_fin
         self.conv1 = ConvLayer(ic, bc)
@@ -119,14 +123,13 @@ class FastTransformer(nn.Module):
         self.patch_unembed_bias = param(bc)
         self.decoder_conv1 = ConvLayer(bc, bc)
         self.decoder_conv2 = ConvLayer(bc, ic)
-        self._tails: dict[tuple, tuple] = {}
-        self._trunk: dict = {}
+        self.clear_derived()
 
-    def clear_tail_cache(self) -> None:
+    def clear_derived(self) -> None:
         """Drop what was derived from the parameters (the composed tail
         kernels, the stacked trunk weights); call after changing them."""
+        super().clear_derived()
         self._tails = {}
-        self._trunk = {}
 
     @property
     def splits_tail(self) -> bool:
@@ -156,13 +159,6 @@ class FastTransformer(nn.Module):
             self._tails[key] = (ka, kb)
         return self._tails[key]
 
-    def trunk_params(self):
-        """The blocks' weights stacked for ``fused_window_trunk``, once."""
-        key = self.conv1.kernel.device
-        if key not in self._trunk:
-            self._trunk[key] = stack_trunk_params(self.blocks, self.dtype)
-        return self._trunk[key]
-
     @torch.inference_mode()
     def forward(self, x: torch.Tensor, res_out=(1080, 1920),
                 upscale_factor: int | None = None,
@@ -190,9 +186,7 @@ class FastTransformer(nn.Module):
         a = tail_conv_stream(feat, ka, ba, relu=True)
         tokens = embed_stream(feat, self.patch_embed_kernel,
                               self.patch_embed_bias)
-        tokens = run_window_trunk(
-            tokens, self.blocks, self.window_size, self.attn_impl,
-            self.trunk_params() if self.attn_impl == "fused2" else None)
+        tokens = self.run_trunk(tokens)
         combined = unembed_combine_stream(tokens.contiguous(), feat,
                                           self.patch_unembed_kernel,
                                           self.patch_unembed_bias)

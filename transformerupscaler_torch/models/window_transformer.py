@@ -13,13 +13,16 @@ Kernels (``pallas_serve`` and ``attn_impl`` as in the JAX model):
   conv2 64->64 + ReLU         pallas_serve at base_channels 64, h % 8 == 0,
                               w % 16 == 0: kernels.stream.conv3x3_stream
                               (JAX: conv3x3_packed_stream); else ops.conv.conv2d
-  window blocks               attn_impl "pallas": each block's attention core
-                              on kernels.window_attn.window_attention_core;
+  window blocks               attn_impl "fused2" / "fused": all eight in one
+                              kernels.trunk2.fused_window_trunk launch, mode
+                              "v2" / "v1" (JAX: trunk2.py / trunk.py, the
+                              route ``--fast`` picks); "pallas": each block's
+                              attention core on
+                              kernels.window_attn.window_attention_core;
                               "xla": plain PyTorch
   everything else             plain PyTorch, as it is XLA in the JAX package
 
-``attn_impl`` "fused" and "fused2" (the whole trunk in one kernel) and
-``int8_mlp`` are not served: the registry raises ``NotImplementedError``.
+``int8_mlp`` is not served: the registry raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,18 +32,18 @@ import torch.nn as nn
 
 from transformerupscaler_torch.kernels.stream import conv3x3_stream
 from transformerupscaler_torch.models.common import (
+    TRUNK_IMPLS,
     ConvLayer,
+    FusedTrunk,
     WindowBlock,
     param,
     resolve_geometry,
-    run_window_trunk,
 )
-from transformerupscaler_torch.ops.attention import WINDOW_IMPLS
 from transformerupscaler_torch.ops.patch import patch_embed, patch_unembed
 from transformerupscaler_torch.ops.resize import interpolate_bicubic
 
 
-class WindowTransformer(nn.Module):
+class WindowTransformer(FusedTrunk, nn.Module):
     """Inference-only WindowTransformer. Parameters are f32 in the JAX layout
     (see ``transformerupscaler_torch.weights``); compute runs in ``dtype``.
     Input x: (B, H, W, 3) in [0, 1]; output (B, res_out..., 3)."""
@@ -53,8 +56,8 @@ class WindowTransformer(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
-        if attn_impl not in WINDOW_IMPLS:
-            raise ValueError(f"attn_impl: one of {WINDOW_IMPLS}, got "
+        if attn_impl not in TRUNK_IMPLS:
+            raise ValueError(f"attn_impl: one of {TRUNK_IMPLS}, got "
                              f"{attn_impl!r}")
         self.base_channels = bc
         self.window_size = window_size
@@ -74,6 +77,7 @@ class WindowTransformer(nn.Module):
         self.patch_unembed_bias = param(bc)
         self.decoder_conv1 = ConvLayer(bc, bc, relu=True)
         self.decoder_conv2 = ConvLayer(bc, ic)
+        self.clear_derived()
 
     @torch.inference_mode()
     def forward(self, x: torch.Tensor, res_out=(1080, 1920),
@@ -100,8 +104,7 @@ class WindowTransformer(nn.Module):
         ht, wt = hd // ps, wd // ps
         tokens = patch_embed(feat_down[:, :ht * ps, :wt * ps, :],
                              self.patch_embed_kernel, self.patch_embed_bias)
-        tokens = run_window_trunk(tokens, self.blocks, self.window_size,
-                                  self.attn_impl)
+        tokens = self.run_trunk(tokens)
         feat_trans = patch_unembed(tokens, self.patch_unembed_kernel,
                                    self.patch_unembed_bias)
 

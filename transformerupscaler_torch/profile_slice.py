@@ -11,10 +11,13 @@ kernel name (device milliseconds per frame), the device's busy time per
 frame and its idle share of the forward. Routes: ``bench`` (the default:
 FastTransformer as bench.py runs it, fused trunk, split tail), ``xla_fold``
 (FastTransformer with the PyTorch trunk and the folded tail),
+``bench_int8_trunk`` (``bench`` with the trunk's GEMMs in int8),
 ``window_pallas`` (WindowTransformer on the stream conv and the
-window-attention kernel), ``resid_packed`` (ResidualTransformer's packed x2
-route, res_out 1440x2560) and ``resid_exact`` (its exact route), both on the
-global attention kernel; every other route at res_out 1080x1920.
+window-attention kernel), ``window_fused2`` (WindowTransformer as ``--fast``
+serves it: the stream conv and the fused trunk), ``resid_packed``
+(ResidualTransformer's packed x2 route, res_out 1440x2560) and
+``resid_exact`` (its exact route), both on the global attention kernel;
+every other route at res_out 1080x1920.
 """
 
 from __future__ import annotations
@@ -33,14 +36,18 @@ FRAMES, TOP = 5, 25
 RES_OUT = (1080, 1920)
 _RESID = dict(packed_serve=True, pallas_serve=True, attn_impl="fused2")
 # route -> (model, flags, res_out)
+_BENCH = dict(compose_tails=True, pallas_serve=True, attn_impl="fused2")
 ROUTES = {
-    "bench": ("FastTransformer", dict(compose_tails=True, pallas_serve=True,
-                                      attn_impl="fused2"), RES_OUT),
+    "bench": ("FastTransformer", _BENCH, RES_OUT),
+    "bench_int8_trunk": ("FastTransformer", dict(_BENCH, int8_trunk=True),
+                         RES_OUT),
     "xla_fold": ("FastTransformer", dict(compose_tails=True,
                                          pallas_serve=True, attn_impl="xla",
                                          split_tail=False), RES_OUT),
     "window_pallas": ("WindowTransformer", dict(pallas_serve=True,
                                                 attn_impl="pallas"), RES_OUT),
+    "window_fused2": ("WindowTransformer", dict(pallas_serve=True,
+                                                attn_impl="fused2"), RES_OUT),
     "resid_packed": ("ResidualTransformer", _RESID, (1440, 2560)),
     "resid_exact": ("ResidualTransformer", _RESID, RES_OUT),
 }

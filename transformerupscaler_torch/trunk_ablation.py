@@ -6,8 +6,9 @@ Builds ``csrc/window_trunk.cu`` as it is and in variants with one part
 switched off by a textual edit of the source (so the variants compute wrong
 values: only their times mean anything), and times each on seeded inputs at
 the serving shape (240 windows, six layers) and on one wave of windows (one
-per SM). Prints one JSON line per variant; the difference from ``full`` is
-what the part costs where it is not hidden behind another.
+per SM), in the kernel's mode "v2" at C=192. Prints one JSON line per
+variant; the difference from ``full`` is what the part costs where it is
+not hidden behind another.
 """
 
 from __future__ import annotations
@@ -25,12 +26,11 @@ OFF = "if (layers < 0) "  # never true: the call stays, the work goes
 # variant -> [(text that stands once in the source, its replacement)]
 EDITS = {
     "full": [],
-    "no_attention": [("    attention(big, ys,",
-                      "    " + OFF + "attention(big, ys,")],
-    "no_layernorm": [("    layernorm(xs, ys, vp + V_LN1S",
-                      "    " + OFF + "layernorm(xs, ys, vp + V_LN1S"),
-                     ("    layernorm(xs, ys, vp + V_LN2S",
-                      "    " + OFF + "layernorm(xs, ys, vp + V_LN2S")],
+    "no_attention": [("    attention<K>(big, ys,",
+                      "    " + OFF + "attention<K>(big, ys,")],
+    "no_layernorm": [(f"    layernorm<K>(xs, ys, srow, vp + K::V_LN{i}S",
+                      f"    {OFF}layernorm<K>(xs, ys, srow, vp + K::V_LN{i}S")
+                     for i in (1, 2)],
     "no_mma": [("        tux::mma_bf16(acc[f][j], af[f][0]",
                 "        if (sa < 0) tux::mma_bf16(acc[f][j], af[f][0]")],
     "no_weight_fetch": [("    if (fetched < total) {",
@@ -96,7 +96,8 @@ def main() -> None:
         def run():
             err = lib.tux_window_trunk(
                 win.data_ptr(), wpack.data_ptr(), vpack.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), n_windows, LAYERS, 0, stream)
+                bias.data_ptr(), None, out.data_ptr(), n_windows, LAYERS,
+                192, 0, 0, stream)
             if err:
                 raise RuntimeError(f"CUDA error {err} at launch")
         for _ in range(3):

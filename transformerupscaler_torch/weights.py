@@ -50,8 +50,8 @@ def params_from_jax(model: nn.Module, tree: dict) -> nn.Module:
     with torch.no_grad():
         for path, p in params.items():
             p.copy_(torch.as_tensor(np.asarray(flat[path], np.float32)))
-    if hasattr(model, "clear_tail_cache"):
-        model.clear_tail_cache()
+    if hasattr(model, "clear_derived"):
+        model.clear_derived()
     return model
 
 
