@@ -23,9 +23,14 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
    and the window-attention kernel, then with the fused trunk (the
    ``--fast`` route) and the v1 trunk; ResidualTransformer on its packed x2
    route and on its exact route at 1080x1920, both on the global attention
-   kernel; BicubicInterpolation. Each with the launch counts per frame (the
-   trunk's also by kernel mode), set to zero just before, and the output
-   held against the same engine on the plain versions;
+   kernel; BicubicInterpolation; FastTransformer's int8 serving scopes
+   (``int8_serve``): "tails" calibrated (bench.py's ``int8_tails``) and with
+   dynamic scales (the command lines' ``--int8``), "residual" and "full"
+   calibrated, each calibrated with ``UpscalerEngine.calibrate_int8`` on a
+   few seeded frames. Each with the launch counts per frame (the trunk's
+   also by kernel mode, the int8 options by option), set to zero just
+   before, and the output held against the same engine on the plain
+   versions;
 6. the status of every TPU kernel of the JAX package in the port.
 
 Then one JSON line of kernel records and, last, {"ok": true, "device": ...}.
@@ -51,9 +56,14 @@ FRAME_HW, RES_OUT, SCALE = (720, 1280), (1080, 1920), 2
 # Launch counters: one per wrapper, and the trunk's by kernel mode.
 WRAPPERS = ("conv3x3_stream", "tail_conv_stream", "embed_stream",
             "unembed_combine_stream", "fused_window_trunk",
-            "tail_finish_stream", "window_attention_core", "global_mha")
+            "tail_finish_stream", "window_attention_core", "global_mha",
+            "conv3x3_int8_stream", "tail_conv_int8_stream")
+INT8_OUT, INT8_IN, INT8_SKIP = ("conv3x3_stream.int8_out",
+                                "embed_stream.int8_in",
+                                "unembed_combine_stream.int8_skip")
 COUNTERS = WRAPPERS + tuple(f"fused_window_trunk.{m}"
-                            for m in ("v2", "v1", "int8_rowwise"))
+                            for m in ("v2", "v1", "int8_rowwise")) + (
+    INT8_OUT, INT8_IN, INT8_SKIP)
 
 
 def counts(trunk_mode=None, **launched) -> dict:
@@ -63,6 +73,23 @@ def counts(trunk_mode=None, **launched) -> dict:
         launched.update({"fused_window_trunk": 1,
                          f"fused_window_trunk.{trunk_mode}": 1})
     return {**dict.fromkeys(COUNTERS, 0), **launched}
+
+
+def int8_counts(scope: str, static: bool) -> dict:
+    """Launches per frame of FastTransformer's int8 scope at x2: the two
+    tails always int8; the tails scope's convs with int8 out when the
+    scales are static, its embed and unembed on the int8 map."""
+    if scope == "tails":
+        return counts("v2", conv3x3_stream=2, tail_conv_int8_stream=2,
+                      embed_stream=1, unembed_combine_stream=1,
+                      **{INT8_OUT: 2 if static else 0, INT8_IN: 1,
+                         INT8_SKIP: 1})
+    if scope == "residual":
+        return counts("v2", conv3x3_stream=1, tail_conv_stream=1,
+                      embed_stream=1, unembed_combine_stream=1,
+                      conv3x3_int8_stream=1, tail_conv_int8_stream=1)
+    return counts("v2", conv3x3_int8_stream=2, tail_conv_int8_stream=2,
+                  embed_stream=1, unembed_combine_stream=1)
 
 
 # The served routes: model, JAX flags, the committed JAX output (with the
@@ -76,6 +103,14 @@ BENCH_LAUNCHES = dict(conv3x3_stream=2, tail_conv_stream=1, embed_stream=1,
                       unembed_combine_stream=1, tail_finish_stream=1)
 ROUTE_RESID = dict(packed_serve=True, pallas_serve=True, attn_impl="fused2")
 FIXTURES = "tests/fixtures/torch_port/"
+# The int8 routes' fixtures hold their static scales; bound of their
+# interior error against JAX (tests/test_torch_int8_serve.py).
+INT8_LIMIT = (1.5e-2, 2.5e-3)
+INT8_TENSORS = ("feat1", "feat", "combined", "dec", "tokens")
+
+
+def int8_route(scope: str) -> dict:
+    return dict(ROUTE_BENCH, int8_serve=True, int8_scope=scope)
 ROUTES = {
     "xla_fold": dict(
         model="FastTransformer", route=ROUTE,
@@ -117,20 +152,35 @@ ROUTES = {
     "bicubic": dict(
         model="BicubicInterpolation", route={}, res_out=RES_OUT, requests=5,
         launches=counts()),
+    "int8_tails": dict(
+        model="FastTransformer", route=int8_route("tails"), calibrate=True,
+        fixture=FIXTURES + "int8_tails_x2_bf16.npz", res_out=RES_OUT,
+        requests=10, launches=int8_counts("tails", True)),
+    "int8_tails_dyn": dict(
+        model="FastTransformer", route=int8_route("tails"), res_out=RES_OUT,
+        requests=10, launches=int8_counts("tails", False)),
+    "int8_residual": dict(
+        model="FastTransformer", route=int8_route("residual"),
+        calibrate=True, res_out=RES_OUT, requests=10,
+        launches=int8_counts("residual", True)),
+    "int8_full": dict(
+        model="FastTransformer", route=int8_route("full"), calibrate=True,
+        fixture=FIXTURES + "int8_full_x2_bf16.npz", res_out=RES_OUT,
+        requests=10, launches=int8_counts("full", True)),
 }
 
 # Every function of transformerupscaler_tpu/ops/pallas that reaches
 # pl.pallas_call, and where the port stands on it.
 TPU_KERNELS = [
     ("stream.py:425 conv3x3_deint_stream",
-     "ported and checked: conv3x3_stream (bf16; int8 out_scale not yet)"),
+     "ported and checked: conv3x3_stream (bf16, and its int8 out_scale)"),
     ("stream.py:777 tail_macro8_stream",
      "ported and checked: tail_conv_stream"),
     ("stream.py:325 embed_stream",
-     "ported and checked: embed_stream (bf16; int8 in_scale not yet)"),
+     "ported and checked: embed_stream (bf16, and its int8 in_scale)"),
     ("stream.py:239 unembed_combine_stream",
-     "ported and checked: unembed_combine_stream (bf16; int8 feat_scale "
-     "not yet)"),
+     "ported and checked: unembed_combine_stream (bf16, and its int8 "
+     "feat_scale)"),
     ("trunk2.py:524 fused_window_trunk_v2",
      "ported and checked: fused_window_trunk (one kernel for the five TPU "
      "bodies, C=192 and 128; bf16 and int8_acts='rowwise' at C=192; the "
@@ -140,8 +190,11 @@ TPU_KERNELS = [
     ("stream.py:82 conv3x3_packed_stream",
      "ported and checked: conv3x3_stream (the same conv without the "
      "width-2 packing; bf16)"),
-    ("stream.py:147 conv3x3_packed_int8_stream", "not yet"),
-    ("stream.py:893 tail_macro8_stream_int8", "not yet"),
+    ("stream.py:147 conv3x3_packed_int8_stream",
+     "ported and checked: conv3x3_int8_stream (int8 x int8 -> int32)"),
+    ("stream.py:893 tail_macro8_stream_int8",
+     "ported and checked: tail_conv_int8_stream (5x5 and 7x7; also serves "
+     "the XLA conv2d_tail_packed_int8)"),
     ("stream.py:584 conv3x3_tail_stream", "not yet"),
     ("stream.py:662 conv3x3_tail_emit_stream", "not yet"),
     ("stream.py:1269 conv1_dots_stream", "not yet"),
@@ -337,6 +390,7 @@ def phase_kernels() -> list[dict]:
     records.extend(trunk_case(rn, *case) for case in TRUNK_CASES)
     records.append(window_attention_case(rn, bf16))
     records.append(global_mha_case(rn, bf16))
+    records.extend(int8_cases(x, tok, rn, bf16))
     torch.cuda.synchronize()
     for r in records:
         say("kernel", **r)
@@ -483,6 +537,94 @@ def global_mha_case(rn, bf16) -> dict:
         on="resid_packed")
 
 
+def int8_cases(x, tok, rn, bf16) -> list[dict]:
+    """The int8 scopes' kernels and kernel options at the x2 serving shapes:
+    the 720x1280 feature map quantized per channel (59 MB of int8), weights
+    folded and quantized as the model folds them. The two int8 convs must
+    equal their plain versions bit for bit (exact int32 sums, the same f32
+    epilogue); the conv's int8 output may differ by one step on under 0.1%
+    of elements (an f32 sum in another order near a half step); the int8
+    embed and unembed within one bf16 step. No single PyTorch call computes
+    an int8 convolution, or a product with an int8 quantize or dequantize
+    around it, on CUDA: library_ms is null."""
+    from transformerupscaler_torch.kernels import stream as S
+    from transformerupscaler_torch.ops import quant as Q
+
+    _, h, w, _ = x.shape
+    _, ht, wt, d = tok.shape
+    s = Q.act_scale(x)
+    xq, _ = Q.quantize_act_ch(x, s)
+    conv_src = "transformerupscaler_torch/csrc/conv_int8.cu"
+    records = []
+
+    def record(name, source, replaces, err, tol, run, plain, n_bytes, on,
+               flops=0.0, int8_ops=0.0):
+        bnd, by = bound_ms(n_bytes, flops, int8_ops)
+        records.append(dict(
+            name=name, route="cuda", source=source,
+            replaces="transformerupscaler_tpu/ops/pallas/" + replaces,
+            max_abs_err=err, tolerance=tol, ms=cuda_ms(run),
+            plain_ms=cuda_ms(plain, 3), bound_ms=bnd, bound_by=by,
+            library_ms=None, on=on))
+
+    for name, k, co, relu, replaces, on in (
+            ("conv3x3_int8_stream", 3, 64, True, "stream.py:147",
+             "int8_full"),
+            ("tail_conv_int8_stream/5x5", 5, 12, True, "stream.py:893",
+             "int8_tails"),
+            ("tail_conv_int8_stream/7x7", 7, 12, False, "stream.py:893",
+             "int8_tails")):
+        kq, ks = Q.fold_conv_kernel(rn(k, k, 64, co, std=(k * k * 64) ** -0.5),
+                                    s)
+        bias = rn(co, std=0.1)
+        wrap = S.conv3x3_int8_stream if k == 3 else S.tail_conv_int8_stream
+        plain_fn = S.conv3x3_int8_plain if k == 3 else S.tail_conv_int8_plain
+        run = lambda: wrap(xq, kq, ks, bias, relu)  # noqa: E731
+        plain = lambda: plain_fn(xq, kq, ks, bias, relu)  # noqa: E731
+        out = run()
+        if not torch.equal(out, plain()):
+            raise AssertionError(f"{name} differs from its plain version")
+        record(name, conv_src, replaces, 0.0, "bit for bit", run, plain,
+               nbytes(xq, out, kq, ks) + co * 4, on,
+               int8_ops=2.0 * h * w * k * k * 64 * co)
+
+    k3, b3 = rn(3, 3, 64, 64, std=576 ** -0.5), rn(64, std=0.1)
+    so = Q.act_scale(S.conv3x3_plain(x, k3, b3, True)) * 1.1
+    run = lambda: S.conv3x3_stream(x, k3, b3, True, out_scale=so)  # noqa: E731
+    plain = lambda: S.conv3x3_plain(x, k3, b3, True, out_scale=so)  # noqa: E731
+    out = run()
+    diff = (out.int() - plain().int()).abs()
+    flipped = (diff != 0).float().mean().item()
+    say("int8_out_check", max_step=diff.max().item(), flipped_share=flipped,
+        tolerance="at most 1 step on under 0.1% of elements")
+    if diff.max().item() > 1 or flipped >= 1e-3:
+        raise AssertionError("conv3x3_stream out_scale disagrees with its "
+                             "plain version")
+    record(INT8_OUT, "transformerupscaler_torch/csrc/conv_nhwc.cu",
+           "stream.py:425", diff.max().item(), "1 step", run, plain,
+           nbytes(x, out) + 9 * 64 * 64 * 2 + 3 * 64 * 4, "int8_tails",
+           flops=2.0 * h * w * 9 * 64 * 64)
+
+    ke, be = rn(8, 8, 64, d, std=4096 ** -0.5), rn(d, std=0.1)
+    run = lambda: S.embed_stream(xq, ke, be, in_scale=s)  # noqa: E731
+    plain = lambda: S.embed_plain(xq, ke, be, in_scale=s)  # noqa: E731
+    out = run()
+    record(INT8_IN, "transformerupscaler_torch/csrc/patch_gemm.cu",
+           "stream.py:325", close_enough(out, plain(), **bf16), bf16, run,
+           plain, nbytes(xq, out) + 4096 * d * 2 + d * 4 + 64 * 4,
+           "int8_tails", flops=2.0 * ht * wt * 4096 * d)
+
+    ku, bu = rn(d, 8, 8, 64, std=d ** -0.5), rn(64, std=0.1)
+    run = lambda: S.unembed_combine_stream(tok, xq, ku, bu, feat_scale=s)  # noqa: E731
+    plain = lambda: S.unembed_combine_plain(tok, xq, ku, bu, feat_scale=s)  # noqa: E731
+    out = run()
+    record(INT8_SKIP, "transformerupscaler_torch/csrc/patch_gemm.cu",
+           "stream.py:239", close_enough(out, plain(), **bf16), bf16, run,
+           plain, nbytes(tok, xq, out) + d * 4096 * 2 + 2 * 64 * 4,
+           "int8_tails", flops=2.0 * ht * wt * d * 4096)
+    return records
+
+
 # The fused trunk's records: name (its counter before any "/"), model and
 # route whose frame gives the windows and weights, kernel mode, the TPU
 # kernel it replaces, and the route that launches it.
@@ -625,11 +767,15 @@ def interior_err(got: np.ndarray, want: np.ndarray, crop: int):
     return float(err.max()), float(err.mean())
 
 
-LIMIT = "interior max <= 3e-2, mean <= 3e-3"
+LIMIT = (3e-2, 3e-3)
 
 
-def within_limit(emax: float, emean: float) -> bool:
-    return emax <= 3e-2 and emean <= 3e-3
+def within_limit(emax: float, emean: float, limit=LIMIT) -> bool:
+    return emax <= limit[0] and emean <= limit[1]
+
+
+def limit_text(limit=LIMIT) -> str:
+    return f"interior max <= {limit[0]}, mean <= {limit[1]}"
 
 
 def phase_fixture(name: str) -> None:
@@ -640,17 +786,22 @@ def phase_fixture(name: str) -> None:
     from transformerupscaler_torch.weights import params_from_jax, seeded_params
 
     spec = ROUTES[name]
+    config = dict(spec.get("fixture_config", {}))
     with np.load(spec["fixture"]) as f:
         seed, x, want = int(f["seed"]), f["x"], f["y"]
         res_out = tuple(int(v) for v in f["res_out"])
+        if "scale_feat" in f.files:  # an int8 route's static JAX scales
+            config["int8_scales"] = tuple(tuple(f[f"scale_{n}"].tolist())
+                                          for n in INT8_TENSORS)
+    limit = INT8_LIMIT if "int8_scales" in config else LIMIT
     model = get_model(spec["model"], dtype=torch.bfloat16, **spec["route"],
-                      **spec.get("fixture_config", {}))
+                      **config)
     params_from_jax(model, seeded_params(model, seed))
     got = model(torch.from_numpy(x).cuda(), res_out=res_out).float().cpu()
     emax, emean = interior_err(got.numpy(), want, 4)
     say("fixture", route=name, shape=list(got.shape), max_abs=emax,
-        mean_abs=emean, tolerance=LIMIT)
-    if not within_limit(emax, emean):
+        mean_abs=emean, tolerance=limit_text(limit))
+    if not within_limit(emax, emean, limit):
         raise AssertionError(f"{name}: the port on the card disagrees with "
                              f"the JAX fixture")
     if spec["model"] != "FastTransformer":
@@ -662,7 +813,8 @@ def phase_fixture(name: str) -> None:
             ref = model(xs.cuda(), upscale_factor=scale).float().cpu().numpy()
         emax, emean = interior_err(got, ref, 2 * scale)
         say("scale", route=name, scale=scale, shape=list(got.shape),
-            vs_plain_max_abs=emax, vs_plain_mean_abs=emean, tolerance=LIMIT)
+            vs_plain_max_abs=emax, vs_plain_mean_abs=emean,
+            tolerance=limit_text())
         if not within_limit(emax, emean):
             raise AssertionError(f"{name} x{scale}: kernels and plain "
                                  f"versions disagree")
@@ -680,6 +832,18 @@ def phase_slice(name: str) -> dict:
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (*FRAME_HW, 3), np.uint8)
               for _ in range(spec["requests"])]
+    calibration = None
+    if spec.get("calibrate"):
+        # Static scales from three other seeded frames, as a user
+        # calibrates before serving; a served frame is held against them.
+        cal = np.random.default_rng(1).integers(0, 256, (3, *FRAME_HW, 3),
+                                                np.uint8)
+        t0 = time.perf_counter()
+        engine.calibrate_int8(cal, res_out=res_out)
+        calibration = dict(frames=len(cal),
+                           seconds=time.perf_counter() - t0,
+                           check=engine.calibration_check(frames[0],
+                                                          res_out=res_out))
     for fr in frames[:WARMUP]:
         engine.upscale(fr, res_out=res_out)
     torch.cuda.synchronize()
@@ -716,7 +880,8 @@ def phase_slice(name: str) -> dict:
         forward_ms=fwd_ms, launches=launches, launches_per_frame=per_frame,
         out_shape=list(out.shape),
         out_range=[float(out.min()), float(out.max())],
-        vs_plain_max_abs=emax, vs_plain_mean_abs=emean, tolerance=LIMIT)
+        vs_plain_max_abs=emax, vs_plain_mean_abs=emean,
+        tolerance=limit_text(), calibration=calibration)
     if not within_limit(emax, emean):
         raise AssertionError(f"{name}: kernels and plain versions disagree "
                              f"end to end")

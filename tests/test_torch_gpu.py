@@ -20,7 +20,10 @@ mean abs <= 1e-2. The two attention cores use fast exponentials, so a
 probability can round to the next bf16 value than in the plain version; a
 share of 2^-20 / 2^-8 of them does, each moving the f32 context by at most
 2^-8 p |v|, far below atol, and the context then rounds once: the bf16
-tolerance above holds for them as it stands.
+tolerance above holds for them as it stands. The two int8 convs sum their
+products exactly and round their epilogue as the plain version does: bit
+for bit. The 3x3 conv's int8 output quantizes an f32 sum taken in another
+order: at most one int8 step on under 0.1% of elements.
 """
 
 import pytest
@@ -31,6 +34,7 @@ from transformerupscaler_torch.kernels import stream as S
 from transformerupscaler_torch.kernels import trunk2 as T
 from transformerupscaler_torch.kernels import window_attn as A
 from transformerupscaler_torch.models.common import WindowBlock
+from transformerupscaler_torch.ops import quant as Q
 
 pytestmark = pytest.mark.gpu
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
@@ -185,6 +189,86 @@ def test_unembed_kernel_matches_plain(gen, relu):
     k, bias = _rn(gen, 48, 8, 8, 64, std=0.05), _rn(gen, 64)
     _close(S.unembed_combine_stream(tok, f, k, bias, relu),
            S.unembed_combine_plain(tok, f, k, bias, relu), BF16_TOL)
+
+
+def _int8_case(gen, shape, co, kh):
+    """An int8 map and int8 weights with per-output-channel scales (one
+    all-zero output channel), as the int8 scopes fold them."""
+    x = _rn(gen, *shape, 64).abs()
+    s = Q.act_scale(x)
+    xq, _ = Q.quantize_act_ch(x, s)
+    k = _rn(gen, kh, kh, 64, co, std=0.05)
+    k[..., 0] = 0.0
+    kq, ks = Q.fold_conv_kernel(k, s)
+    return xq, kq, ks, _rn(gen, co, std=0.1)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 24, 48), (2, 13, 37)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3x3_int8_kernel_matches_plain_exactly(gen, shape, relu,
+                                                   out_dtype):
+    """The int32 sums are exact and the epilogue rounds as the plain
+    version does: bit for bit."""
+    xq, kq, ks, b = _int8_case(gen, shape, 64, 3)
+    S.reset_launches()
+    got = S.conv3x3_int8_stream(xq, kq, ks, b, relu, out_dtype)
+    assert S.LAUNCHES["conv3x3_int8_stream"] == 1 and got.dtype == out_dtype
+    _close(got, S.conv3x3_int8_plain(xq, kq, ks, b, relu, out_dtype),
+           dict(rtol=0, atol=0))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("co", [12, 27, 48])
+@pytest.mark.parametrize("kh,relu", [(5, True), (7, False)])
+def test_tail_int8_kernel_matches_plain_exactly(gen, kh, relu, co,
+                                                out_dtype):
+    xq, kq, ks, b = _int8_case(gen, (2, 13, 37), co, kh)
+    got = S.tail_conv_int8_stream(xq, kq, ks, b, relu, out_dtype)
+    assert got.shape == (2, 13, 37, co) and got.dtype == out_dtype
+    _close(got, S.tail_conv_int8_plain(xq, kq, ks, b, relu, out_dtype),
+           dict(rtol=0, atol=0))
+
+
+@pytest.mark.parametrize("shape", [(1, 24, 48), (2, 13, 37)])
+def test_conv3x3_out_scale_kernel_matches_plain(gen, shape):
+    """The int8 epilogue quantizes the f32 sum, which runs in another order
+    than the plain version's: at most one int8 step, on under 0.1% of
+    elements (tests/test_pallas_stream.py:221-243)."""
+    x = _rn(gen, *shape, 64).bfloat16()
+    k, b = _rn(gen, 3, 3, 64, 64, std=0.05), _rn(gen, 64)
+    s = _rn(gen, 64).abs() * 0.02 + 1e-3
+    S.reset_launches()
+    got = S.conv3x3_stream(x, k, b, True, out_scale=s)
+    assert got.dtype == torch.int8
+    assert S.OPTION_LAUNCHES["conv3x3_stream.int8_out"] == 1
+    want = S.conv3x3_plain(x, k, b, True, out_scale=s)
+    torch.cuda.synchronize()
+    d = (got.int() - want.int()).abs()
+    assert d.max() <= 1 and (d != 0).float().mean() < 1e-3
+
+
+@pytest.mark.parametrize("b,ht,wt,d", [(2, 3, 5, 64), (1, 2, 4, 192)])
+def test_embed_in_scale_kernel_matches_plain(gen, b, ht, wt, d):
+    x = _rn(gen, b, 8 * ht, 8 * wt, 64)
+    fq, s = Q.quantize_act_ch(x)
+    k, bias = _rn(gen, 8, 8, 64, d, std=0.02), _rn(gen, d)
+    S.reset_launches()
+    got = S.embed_stream(fq, k, bias, in_scale=s)
+    assert S.OPTION_LAUNCHES["embed_stream.int8_in"] == 1
+    _close(got, S.embed_plain(fq, k, bias, in_scale=s), BF16_TOL)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_unembed_feat_scale_kernel_matches_plain(gen, relu):
+    tok = _rn(gen, 2, 3, 5, 48).bfloat16()
+    fq, s = Q.quantize_act_ch(_rn(gen, 2, 24, 40, 64))
+    k, bias = _rn(gen, 48, 8, 8, 64, std=0.05), _rn(gen, 64)
+    S.reset_launches()
+    got = S.unembed_combine_stream(tok, fq, k, bias, relu, feat_scale=s)
+    assert S.OPTION_LAUNCHES["unembed_combine_stream.int8_skip"] == 1
+    _close(got, S.unembed_combine_plain(tok, fq, k, bias, relu,
+                                        feat_scale=s), BF16_TOL)
 
 
 def test_wrappers_count_launches_and_reject_bad_input(gen):

@@ -105,12 +105,14 @@ def test_params_from_jax_round_trip():
 
 def test_other_routes_and_geometries_raise():
     """The fused trunks build for both window models and the ``--fast``
-    flag set for all four; int8_serve and int8_mlp, other tails and other
-    geometries raise."""
+    flag set for all four, FastTransformer also with ``int8_serve``;
+    int8_mlp, other tails and other geometries raise."""
     for name, flags in (("FastTransformer", dict(attn_impl="fused")),
                         ("FastTransformer", FAST_FLAGS),
                         ("FastTransformer", {**FAST_FLAGS,
                                              "int8_trunk": True}),
+                        ("FastTransformer", {**FAST_FLAGS,
+                                             "int8_serve": True}),
                         ("WindowTransformer", dict(attn_impl="fused")),
                         ("WindowTransformer", FAST_FLAGS),
                         ("ResidualTransformer", FAST_FLAGS),
@@ -121,8 +123,7 @@ def test_other_routes_and_geometries_raise():
             flags["attn_impl"]
         assert getattr(m, "int8_trunk", False) == flags.get("int8_trunk",
                                                             False)
-    for flags, field in ((dict(int8_serve=True), "int8_serve"),
-                         (dict(int8_mlp=True), "int8_mlp"),
+    for flags, field in ((dict(int8_mlp=True), "int8_mlp"),
                          (dict(pallas_serve=False), "pallas_serve"),
                          (dict(compose_tails=False), "compose_tails")):
         with pytest.raises(NotImplementedError, match=field):

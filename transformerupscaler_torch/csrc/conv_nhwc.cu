@@ -7,6 +7,11 @@
 // f32 accumulation and an f32 epilogue (bias, optional ReLU), rounded once to
 // the output type. The TPU kernels needed the width-2 packing and the
 // deinterleave4 layout to fill 128 MXU lanes; here the tensors stay NHWC.
+// tux_conv3x3 also takes the TPU kernel's int8 output (out_scale,
+// stream.py:417-422, 437-441, 474-475): given qs = f32(1 / s) per channel,
+// it stores q = clamp(rint(act(acc + bias) * qs), -127, 127) as int8, from
+// the f32 sum, never from a bf16-rounded value: half the output bytes
+// (177 MB moved, a bound of ~53 us at 720x1280).
 //
 // Design: implicit GEMM with M = pixels, N = output channels (padded to a
 // multiple of 8 with zero weights), K = taps x 64. One block owns an 8 x 32
@@ -25,6 +30,8 @@
 // sits well above those bounds (see PERF.md); wgmma + TMA is later work.
 #include "common.cuh"
 
+#include <type_traits>
+
 namespace {
 
 constexpr int CIN = 64;
@@ -42,12 +49,13 @@ constexpr size_t conv_smem_bytes() {
 }
 
 // x (B,H,W,64) bf16; w (KS,KS,NPAD,64) bf16, [dy][dx][cout][cin];
-// bias (co) f32; out (B,H,W,co) OutT.
+// bias (co) f32; out (B,H,W,co) OutT; qs (co) f32, read when OutT is int8.
 template <int KS, int NPAD, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 conv_nhwc_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
-                 const float* __restrict__ bias, OutT* __restrict__ out,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ qs, OutT* __restrict__ out,
                  int H, int W, int co, int relu) {
   constexpr int PAD = (KS - 1) / 2;
   constexpr int HW = TW + KS - 1;
@@ -135,7 +143,12 @@ conv_nhwc_kernel(const __nv_bfloat16* __restrict__ x,
         if (n < co) {
           float v = acc[f][j][e] + bias[n];
           if (relu) v = fmaxf(v, 0.f);
-          stage[p * co + n] = tux::from_f32<OutT>(v);
+          if constexpr (std::is_same_v<OutT, int8_t>) {
+            const float q = rintf(__fmul_rn(v, qs[n]));
+            stage[p * co + n] = int8_t(fminf(fmaxf(q, -127.f), 127.f));
+          } else {
+            stage[p * co + n] = tux::from_f32<OutT>(v);
+          }
         }
       }
     }
@@ -152,9 +165,9 @@ conv_nhwc_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 template <int KS, int NPAD, typename OutT>
-int launch_conv(const void* x, const void* w, const void* bias, void* out,
-                int B, int H, int W, int co, int relu, int device,
-                void* stream) {
+int launch_conv(const void* x, const void* w, const void* bias,
+                const void* qs, void* out, int B, int H, int W, int co,
+                int relu, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   constexpr size_t smem = conv_smem_bytes<KS, NPAD, OutT>();
@@ -166,7 +179,8 @@ int launch_conv(const void* x, const void* w, const void* bias, void* out,
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      static_cast<OutT*>(out), H, W, co, relu);
+      static_cast<const float*>(qs), static_cast<OutT*>(out), H, W, co,
+      relu);
   return int(cudaGetLastError());
 }
 
@@ -176,14 +190,14 @@ int dispatch_tail(const void* x, const void* w, const void* bias, void* out,
                   void* stream) {
   switch (npad) {
     case 16:
-      return launch_conv<KS, 16, OutT>(x, w, bias, out, B, H, W, co, relu,
-                                       device, stream);
+      return launch_conv<KS, 16, OutT>(x, w, bias, nullptr, out, B, H, W,
+                                       co, relu, device, stream);
     case 32:
-      return launch_conv<KS, 32, OutT>(x, w, bias, out, B, H, W, co, relu,
-                                       device, stream);
+      return launch_conv<KS, 32, OutT>(x, w, bias, nullptr, out, B, H, W,
+                                       co, relu, device, stream);
     case 48:
-      return launch_conv<KS, 48, OutT>(x, w, bias, out, B, H, W, co, relu,
-                                       device, stream);
+      return launch_conv<KS, 48, OutT>(x, w, bias, nullptr, out, B, H, W,
+                                       co, relu, device, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -192,11 +206,15 @@ int dispatch_tail(const void* x, const void* w, const void* bias, void* out,
 }  // namespace
 
 // All entry points return the cudaError_t of the launch (0 on success).
+// qs null: bf16 out; else int8 out quantized with qs (64) f32.
 extern "C" int tux_conv3x3(const void* x, const void* w, const void* bias,
-                           void* out, int B, int H, int W, int relu,
-                           int device, void* stream) {
-  return launch_conv<3, 64, __nv_bfloat16>(x, w, bias, out, B, H, W, 64, relu,
-                                           device, stream);
+                           const void* qs, void* out, int B, int H, int W,
+                           int relu, int device, void* stream) {
+  if (qs != nullptr)
+    return launch_conv<3, 64, int8_t>(x, w, bias, qs, out, B, H, W, 64, relu,
+                                      device, stream);
+  return launch_conv<3, 64, __nv_bfloat16>(x, w, bias, nullptr, out, B, H, W,
+                                           64, relu, device, stream);
 }
 
 // w is (ks, ks, npad, 64) with npad in {16, 32, 48} and co <= npad.

@@ -11,6 +11,14 @@
 // one rounding to bf16. The TPU kernels permuted the weights to read the
 // deinterleave4 layout; here each patch is gathered straight from NHWC: for
 // a fixed patch row, 8 pixels x 64 channels are 1 KB contiguous.
+// The TPU kernels' int8 options of the int8 tails scope:
+//   embed in_scale (stream.py:317-321): feat is int8, quantized per channel
+//       with s; each value is dequantized to bf16(f32(q) * s[c]) as its A
+//       tile is loaded, before the product: half the input bytes.
+//   unembed feat_scale (stream.py:229-236): the skip is int8 and adds as
+//       f32(q) * s[c] in the f32 epilogue, in the order (g + bias) + skip.
+// With them the bounds become 64 MB moved, ~19 us (embed), and 182 MB,
+// ~54 us (unembed), still bytes-bound.
 //
 // Design: 64-token x 64/128-column block tiles, 8 warps as 2 (M) x 4 (N), each
 // warp a 32 x 16 (embed) or 32 x 32 (unembed) tile of mma.sync m16n8k16.
@@ -35,16 +43,44 @@ constexpr int E_NT = 64;        // output columns per block
 constexpr int E_KC = 2 * C;     // K chunk: two pixels of one patch row
 constexpr int E_S = E_KC + 8;   // shared-memory row stride
 
-// feat (B,H,W,64) bf16; wt (D, 4096) bf16 = W transposed, k = (dy*8+dx)*64+c;
-// bias (D) f32; tokens (B,Ht,Wt,D) bf16. H = 8 Ht, W = 8 Wt.
+// Eight values of one pixel's channels c0..c0+7 as 16 bytes of bf16: copied
+// (bf16 feat) or dequantized, bf16(f32(q) * s) (int8 feat, scales in s).
+template <bool I8>
+__device__ __forceinline__ uint4 load8(const void* feat, size_t off,
+                                       const float* s, int c0) {
+  if constexpr (I8) {
+    const uint2 q = *reinterpret_cast<const uint2*>(
+        static_cast<const int8_t*>(feat) + off);
+    const int8_t* qb = reinterpret_cast<const int8_t*>(&q);
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          __fmul_rn(float(qb[2 * i]), s[c0 + 2 * i]),
+          __fmul_rn(float(qb[2 * i + 1]), s[c0 + 2 * i + 1]));
+      r[i] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+    return make_uint4(r[0], r[1], r[2], r[3]);
+  } else {
+    return *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(feat) + off);
+  }
+}
+
+// feat (B,H,W,64) bf16, or int8 with scales in_scale (64) f32 when I8;
+// wt (D, 4096) bf16 = W transposed, k = (dy*8+dx)*64+c; bias (D) f32;
+// tokens (B,Ht,Wt,D) bf16. H = 8 Ht, W = 8 Wt.
+template <bool I8>
 __global__ void __launch_bounds__(THREADS)
-embed_kernel(const __nv_bfloat16* __restrict__ feat,
+embed_kernel(const void* __restrict__ feat,
              const __nv_bfloat16* __restrict__ wt,
              const float* __restrict__ bias,
+             const float* __restrict__ in_scale,
              __nv_bfloat16* __restrict__ tokens, int M, int Ht, int Wt,
              int D) {
   __shared__ __align__(16) __nv_bfloat16 as[MT * E_S];
   __shared__ __align__(16) __nv_bfloat16 bs[E_NT * E_S];
+  __shared__ float ssc[I8 ? C : 1];
   constexpr int K = PS * PS * C;
   const int H = Ht * PS;
   const int W = Wt * PS;
@@ -57,6 +93,9 @@ embed_kernel(const __nv_bfloat16* __restrict__ feat,
   const int t = lane & 3;
   const int wm = warp >> 2;  // 0..1: 32-token half
   const int wn = warp & 3;   // 0..3: 16-column quarter
+  if constexpr (I8) {
+    if (tid < C) ssc[tid] = in_scale[tid];
+  }
 
   float acc[2][2][4];
 #pragma unroll
@@ -81,7 +120,7 @@ embed_kernel(const __nv_bfloat16* __restrict__ feat,
         const int ty = bt % Ht;
         const int b = bt / Ht;
         const size_t pix = (size_t(b) * H + ty * PS + dy) * W + tx * PS + dx;
-        v = *reinterpret_cast<const uint4*>(feat + pix * C + chunk * 8);
+        v = load8<I8>(feat, pix * C + chunk * 8, ssc, (chunk * 8) % C);
       }
       *reinterpret_cast<uint4*>(as + r * E_S + chunk * 8) = v;
     }
@@ -134,13 +173,15 @@ embed_kernel(const __nv_bfloat16* __restrict__ feat,
 constexpr int U_NT = 128;  // output columns per block: two pixels x 64
 
 // tokens (M, D) bf16; wt (4096, D) bf16 = W transposed, n = (dy*8+dx)*64+c;
-// bias (64) f32; skip, out (B,H,W,64) bf16. Dynamic shared memory holds the
-// token tile and the weight tile, both with row stride D + 8.
+// bias (64) f32; skip (B,H,W,64) bf16, or int8 with scales feat_scale (64)
+// f32 when I8; out (B,H,W,64) bf16. Dynamic shared memory holds the token
+// tile and the weight tile, both with row stride D + 8.
+template <bool I8>
 __global__ void __launch_bounds__(THREADS)
 unembed_kernel(const __nv_bfloat16* __restrict__ tokens,
                const __nv_bfloat16* __restrict__ wt,
-               const float* __restrict__ bias,
-               const __nv_bfloat16* __restrict__ skip,
+               const float* __restrict__ bias, const void* __restrict__ skip,
+               const float* __restrict__ feat_scale,
                __nv_bfloat16* __restrict__ out, int M, int Ht, int Wt, int D,
                int relu) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -221,10 +262,20 @@ unembed_kernel(const __nv_bfloat16* __restrict__ tokens,
         const size_t off =
             ((size_t(b) * H + ty * PS + p / PS) * W + tx * PS + p % PS) * C +
             c;
-        const __nv_bfloat162 s =
-            *reinterpret_cast<const __nv_bfloat162*>(skip + off);
-        float v0 = acc[f][j][2 * h] + bias[c] + __bfloat162float(s.x);
-        float v1 = acc[f][j][2 * h + 1] + bias[c + 1] + __bfloat162float(s.y);
+        float s0, s1;
+        if constexpr (I8) {
+          const char2 q = *reinterpret_cast<const char2*>(
+              static_cast<const int8_t*>(skip) + off);
+          s0 = __fmul_rn(float(q.x), feat_scale[c]);
+          s1 = __fmul_rn(float(q.y), feat_scale[c + 1]);
+        } else {
+          const __nv_bfloat162 s = *reinterpret_cast<const __nv_bfloat162*>(
+              static_cast<const __nv_bfloat16*>(skip) + off);
+          s0 = __bfloat162float(s.x);
+          s1 = __bfloat162float(s.y);
+        }
+        float v0 = acc[f][j][2 * h] + bias[c] + s0;
+        float v1 = acc[f][j][2 * h + 1] + bias[c + 1] + s1;
         if (relu) {
           v0 = fmaxf(v0, 0.f);
           v1 = fmaxf(v1, 0.f);
@@ -237,41 +288,58 @@ unembed_kernel(const __nv_bfloat16* __restrict__ tokens,
     }
 }
 
+template <bool I8>
+int launch_unembed(const void* tokens, const void* wt, const void* bias,
+                   const void* skip, const void* feat_scale, void* out, int B,
+                   int Ht, int Wt, int D, int relu, void* stream) {
+  const int M = B * Ht * Wt;
+  const size_t smem = size_t(MT + U_NT) * (D + 8) * 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      unembed_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((M + MT - 1) / MT, PS * PS * C / U_NT);
+  unembed_kernel<I8>
+      <<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(tokens),
+          static_cast<const __nv_bfloat16*>(wt),
+          static_cast<const float*>(bias), skip,
+          static_cast<const float*>(feat_scale),
+          static_cast<__nv_bfloat16*>(out), M, Ht, Wt, D, relu);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Both entry points return the cudaError_t of the launch (0 on success).
-// D must be a multiple of 64 (embed) or of 16 (unembed).
+// D must be a multiple of 64 (embed) or of 16 (unembed). A null in_scale /
+// feat_scale means bf16 feat / skip; else they are int8 with these (64) f32
+// scales.
 extern "C" int tux_embed(const void* feat, const void* wt, const void* bias,
-                         void* tokens, int B, int Ht, int Wt, int D,
-                         int device, void* stream) {
+                         const void* in_scale, void* tokens, int B, int Ht,
+                         int Wt, int D, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   const int M = B * Ht * Wt;
   const dim3 grid((M + MT - 1) / MT, D / E_NT);
-  embed_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(feat),
-      static_cast<const __nv_bfloat16*>(wt), static_cast<const float*>(bias),
+  auto kern = in_scale != nullptr ? embed_kernel<true> : embed_kernel<false>;
+  kern<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      feat, static_cast<const __nv_bfloat16*>(wt),
+      static_cast<const float*>(bias), static_cast<const float*>(in_scale),
       static_cast<__nv_bfloat16*>(tokens), M, Ht, Wt, D);
   return int(cudaGetLastError());
 }
 
 extern "C" int tux_unembed_combine(const void* tokens, const void* wt,
                                    const void* bias, const void* skip,
-                                   void* out, int B, int Ht, int Wt, int D,
-                                   int relu, int device, void* stream) {
+                                   const void* feat_scale, void* out, int B,
+                                   int Ht, int Wt, int D, int relu,
+                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const int M = B * Ht * Wt;
-  const size_t smem = size_t(MT + U_NT) * (D + 8) * 2;
-  err = cudaFuncSetAttribute(unembed_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((M + MT - 1) / MT, PS * PS * C / U_NT);
-  unembed_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(tokens),
-      static_cast<const __nv_bfloat16*>(wt), static_cast<const float*>(bias),
-      static_cast<const __nv_bfloat16*>(skip),
-      static_cast<__nv_bfloat16*>(out), M, Ht, Wt, D, relu);
-  return int(cudaGetLastError());
+  if (feat_scale != nullptr)
+    return launch_unembed<true>(tokens, wt, bias, skip, feat_scale, out, B,
+                                Ht, Wt, D, relu, stream);
+  return launch_unembed<false>(tokens, wt, bias, skip, nullptr, out, B, Ht,
+                               Wt, D, relu, stream);
 }

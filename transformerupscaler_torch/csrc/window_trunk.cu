@@ -93,6 +93,8 @@ enum Mode { V2 = 0, V1 = 1, INT8 = 2 };
 
 using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
+using tux::ld32;
+using tux::mma_s8;
 
 template <int C_, int MODE_>
 struct Cfg {
@@ -136,21 +138,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// acc += A (16 x 32 int8, row major) . B (32 x 8 int8, stored as Bt[n][k]).
-// Fragments (PTX ISA, "Matrix fragments for mma.m16n8k32", .s8), with
-// g = lane / 4 and t = lane % 4: a0 = A[g][4t..4t+3], a1 = A[g+8][4t..],
-// a2 = A[g][16+4t..], a3 = A[g+8][16+4t..]; b0 = Bt[g][4t..4t+3],
-// b1 = Bt[g][16+4t..]; the s32 accumulator as the f32 one of m16n8k16.
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // Two floats rounded to bf16 and widened again; the packed conversion is one
 // instruction for both.
 __device__ __forceinline__ float2 round_bf16(float a, float b) {
@@ -169,9 +156,6 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 __device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
   return uint32_t(__bfloat16_as_ushort(lo)) |
          (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // The row scale of the rowwise int8 mode and the pair a * inv, b * inv

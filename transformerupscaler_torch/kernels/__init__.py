@@ -6,6 +6,7 @@ from transformerupscaler_torch.kernels import gmha, stream, trunk2, window_attn
 from transformerupscaler_torch.kernels._common import (
     LAUNCHES,
     MODE_LAUNCHES,
+    OPTION_LAUNCHES,
     launch_counts,
     reset_launches,
 )
@@ -19,8 +20,10 @@ PLAIN_VERSIONS = {
     "fused_window_trunk": trunk2.fused_window_trunk_plain,
     "window_attention_core": window_attn.window_attention_plain,
     "global_mha": gmha.global_mha_plain,
+    "conv3x3_int8_stream": stream.conv3x3_int8_plain,
+    "tail_conv_int8_stream": stream.tail_conv_int8_plain,
 }
 
-__all__ = ["LAUNCHES", "MODE_LAUNCHES", "PLAIN_VERSIONS", "gmha",
-           "launch_counts", "reset_launches", "stream", "trunk2",
+__all__ = ["LAUNCHES", "MODE_LAUNCHES", "OPTION_LAUNCHES", "PLAIN_VERSIONS",
+           "gmha", "launch_counts", "reset_launches", "stream", "trunk2",
            "window_attn"]

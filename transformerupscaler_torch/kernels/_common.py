@@ -10,26 +10,35 @@ import torch
 LAUNCHES = dict.fromkeys(
     ("conv3x3_stream", "tail_conv_stream", "embed_stream",
      "unembed_combine_stream", "fused_window_trunk", "tail_finish_stream",
-     "window_attention_core", "global_mha"), 0)
+     "window_attention_core", "global_mha", "conv3x3_int8_stream",
+     "tail_conv_int8_stream"), 0)
 
 
 # The fused trunk's kernel modes, in the order of the kernel's mode argument,
 # and its launches by mode (each also counts under "fused_window_trunk").
 TRUNK_MODES = ("v2", "v1", "int8_rowwise")
 MODE_LAUNCHES = dict.fromkeys(TRUNK_MODES, 0)
+# Launches with an int8 option, by ``<wrapper>.<option>`` (each also counts
+# under its wrapper's name): the conv's int8 output (``out_scale``), the
+# embed's int8 input (``in_scale``), the unembed's int8 skip
+# (``feat_scale``).
+OPTION_LAUNCHES = dict.fromkeys(
+    ("conv3x3_stream.int8_out", "embed_stream.int8_in",
+     "unembed_combine_stream.int8_skip"), 0)
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, MODE_LAUNCHES):
+    for counts in (LAUNCHES, MODE_LAUNCHES, OPTION_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Every counter in one flat dict: the wrappers' and, as
-    ``fused_window_trunk.<mode>``, the trunk's by mode."""
+    """Every counter in one flat dict: the wrappers', the trunk's by mode
+    as ``fused_window_trunk.<mode>``, and the int8 options'."""
     return {**LAUNCHES, **{f"fused_window_trunk.{m}": n
-                           for m, n in MODE_LAUNCHES.items()}}
+                           for m, n in MODE_LAUNCHES.items()},
+            **OPTION_LAUNCHES}
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -14,22 +14,34 @@ wrapper                    CUDA source           TPU kernel it replaces
                                                  ``unembed_combine_stream``
 ``tail_finish_stream``     csrc/tail_finish.cu   ops/pallas/stream.py:1078
                                                  ``tail_finish_stream``
+``conv3x3_int8_stream``    csrc/conv_int8.cu     ops/pallas/stream.py:147
+                                                 ``conv3x3_packed_int8_stream``
+``tail_conv_int8_stream``  csrc/conv_int8.cu     ops/pallas/stream.py:893
+                                                 ``tail_macro8_stream_int8``
 =========================  ====================  ================================
 
 All tensors are NHWC. Each of the first four kernels takes bf16 activations
 and weights, accumulates in f32, adds an f32 bias (and, for the unembed, the
 skip tensor) in an f32 epilogue with an optional ReLU, and rounds once to the
 output type. ``tail_finish_stream`` is two convs in one kernel and states its
-own rounding points.
+own rounding points. Their int8 options, each as the TPU kernel has it:
+``conv3x3_stream(out_scale=)`` quantizes its f32 result to int8 in the
+epilogue, ``embed_stream(in_scale=)`` dequantizes an int8 input to bf16 tap
+by tap, ``unembed_combine_stream(feat_scale=)`` adds an int8 skip
+dequantized in f32. The two int8 convs take int8 activations and int8
+weights quantized per output channel (``ops.quant.fold_conv_kernel``), sum
+the products exactly in int32 and compute ``float(acc) * ks + bias`` in f32
+without a fused multiply-add, so kernel and plain version agree bit for bit.
 The bounds at the 720x1280 serving shapes are stated in each CUDA source.
 
 A wrapper given CPU tensors computes its plain version: the CPU tests run
 that. Given CUDA tensors it checks them, launches the kernel on the current
-stream, adds one to ``LAUNCHES[<wrapper name>]`` and returns; it never falls
-back to the plain version. The plain versions compute in f32 from the same
-rounded inputs, with products as ``torch.matmul`` (which runs full f32 on the
-card unless a caller enables TF32), so they hold the kernels' arithmetic up
-to summation order.
+stream, adds one to ``LAUNCHES[<wrapper name>]`` (and, with an int8 option,
+to ``OPTION_LAUNCHES``) and returns; it never falls back to the plain
+version. The plain versions compute in f32 from the same rounded inputs,
+with products as ``torch.matmul`` (which runs full f32 on the card unless a
+caller enables TF32), so they hold the kernels' arithmetic up to summation
+order; the int8 products they sum in float64, exactly.
 """
 
 from __future__ import annotations
@@ -39,12 +51,14 @@ import torch
 from transformerupscaler_torch.kernels import _build
 from transformerupscaler_torch.kernels._common import (
     LAUNCHES,
+    OPTION_LAUNCHES,
     check as _check,
     on_card as _on_card,
     raise_on as _raise_on,
     reset_launches,
     stream_of as _stream,
 )
+from transformerupscaler_torch.ops.conv import conv2d_int8_q
 
 TAIL_NPAD = (16, 32, 48)  # supported padded output widths of the tail
 HI_LO_FIN = ("off", "wf", "full")
@@ -54,6 +68,22 @@ def _bias32(bias, n: int, like: torch.Tensor) -> torch.Tensor:
     if bias is None:
         return torch.zeros(n, dtype=torch.float32, device=like.device)
     return bias.to(torch.float32).contiguous()
+
+
+def _scale32(scale, name: str, n: int, like: torch.Tensor) -> torch.Tensor:
+    """A per-channel f32 scale vector (n,) on like's device."""
+    s = torch.as_tensor(scale, dtype=torch.float32,
+                        device=like.device).contiguous()
+    if tuple(s.shape) != (n,):
+        raise ValueError(f"{name}: expected ({n},), got {tuple(s.shape)}")
+    return s
+
+
+def _quantize_out(y: torch.Tensor, out_scale) -> torch.Tensor:
+    """The conv epilogue's quantize: clip(round(y * (1 / s)), -127, 127) to
+    int8, with 1 / s computed in f32 (stream.py:474-475, 421)."""
+    qs = 1.0 / _scale32(out_scale, "out_scale", y.shape[-1], y)
+    return torch.clamp(torch.round(y * qs), -127, 127).to(torch.int8)
 
 
 # ------------------------------------------------------------------ convs
@@ -71,28 +101,38 @@ def _conv_f32(x, kernel):
     return y
 
 
-def _conv_plain(x, kernel, bias, relu, out_dtype):
+def _conv_plain(x, kernel, bias, relu, out_dtype, out_scale=None):
     y = _conv_f32(x.float(), kernel.to(x.dtype).float())
     y = y + _bias32(bias, kernel.shape[3], x)
     if relu:
         y = torch.relu(y)
+    if out_scale is not None:
+        return _quantize_out(y, out_scale)
     return y.to(out_dtype)
 
 
-def conv3x3_plain(x, kernel, bias=None, relu: bool = False):
+def conv3x3_plain(x, kernel, bias=None, relu: bool = False,
+                  out_scale=None):
     """Plain version of ``conv3x3_stream``."""
-    return _conv_plain(x, kernel, bias, relu, x.dtype)
+    return _conv_plain(x, kernel, bias, relu, x.dtype, out_scale)
 
 
 def conv3x3_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
-                   relu: bool = False) -> torch.Tensor:
+                   relu: bool = False, out_scale=None) -> torch.Tensor:
     """3x3 zero-padded conv, 64 -> 64 channels.
 
     x: (B, H, W, 64); kernel: (3, 3, 64, 64) HWIO, rounded to x's dtype;
     bias: (64,), kept f32. Returns (B, H, W, 64) in x's dtype.
+
+    ``out_scale``: a (64,) per-channel static activation scale s; the
+    output is then int8, q = clip(round(y * (1 / s)), -127, 127) from the
+    f32 result y (after bias and ReLU), with 1 / s in f32 (the TPU kernel's
+    option, stream.py:417-422, 474-475). Against a division by s it can
+    differ by one step at exact ties; against the plain version, whose f32
+    sum runs in another order, by one step near the half steps.
     """
     if not _on_card(x, kernel, bias):
-        return conv3x3_plain(x, kernel, bias, relu)
+        return conv3x3_plain(x, kernel, bias, relu, out_scale)
     b, h, w, _ = x.shape
     _check(x, "x", torch.bfloat16, (b, h, w, 64))
     if tuple(kernel.shape) != (3, 3, 64, 64):
@@ -101,12 +141,20 @@ def conv3x3_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
     wt = kernel.to(torch.bfloat16).permute(0, 1, 3, 2).contiguous()
     bb = _bias32(bias, 64, x)
     _check(bb, "bias", torch.float32, (64,))
-    out = torch.empty_like(x)
+    qs = None
+    if out_scale is not None:
+        qs = 1.0 / _scale32(out_scale, "out_scale", 64, x)
+        out = torch.empty(b, h, w, 64, dtype=torch.int8, device=x.device)
+    else:
+        out = torch.empty_like(x)
     err = _build.load("conv_nhwc").tux_conv3x3(
-        x.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w,
+        x.data_ptr(), wt.data_ptr(), bb.data_ptr(),
+        None if qs is None else qs.data_ptr(), out.data_ptr(), b, h, w,
         int(relu), x.device.index, _stream(x))
     _raise_on(err, "conv3x3_stream")
     LAUNCHES["conv3x3_stream"] += 1
+    if qs is not None:
+        OPTION_LAUNCHES["conv3x3_stream.int8_out"] += 1
     return out
 
 
@@ -148,6 +196,97 @@ def tail_conv_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
         x.device.index, _stream(x))
     _raise_on(err, "tail_conv_stream")
     LAUNCHES["tail_conv_stream"] += 1
+    return out
+
+
+# ------------------------------------------------------------- int8 convs
+def _int8_weights(kq: torch.Tensor, ks: torch.Tensor, co: int, npad: int,
+                  like: torch.Tensor):
+    """HWIO int8 weights as the kernel reads them, [dy][dx][cout][cin] with
+    cout zero-padded to npad, and the weight scales as f32 (co,)."""
+    k = kq.shape[0]
+    _check(kq.contiguous(), "kq", torch.int8, (k, k, 64, co))
+    wt = torch.zeros(k, k, npad, 64, dtype=torch.int8, device=like.device)
+    wt[:, :, :co] = kq.permute(0, 1, 3, 2)
+    return wt, _scale32(ks, "ks", co, like)
+
+
+def conv3x3_int8_plain(xq, kq, ks, bias=None, relu: bool = False,
+                       out_dtype=torch.bfloat16):
+    """Plain version of ``conv3x3_int8_stream``."""
+    return conv2d_int8_q(xq, kq, ks, bias, 1, relu, out_dtype)
+
+
+def conv3x3_int8_stream(xq: torch.Tensor, kq: torch.Tensor, ks, bias=None,
+                        relu: bool = False,
+                        out_dtype=torch.bfloat16) -> torch.Tensor:
+    """3x3 zero-padded int8 conv, 64 -> 64 channels.
+
+    xq: (B, H, W, 64) int8, quantized per input channel; kq: (3, 3, 64, 64)
+    int8 HWIO with that scale folded in, and ks: (64,) its f32 weight
+    scales (``ops.quant.fold_conv_kernel``); bias: (64,), kept f32.
+    out = act(float(sum xq * kq) * ks + bias) in f32, rounded once to
+    ``out_dtype`` (bfloat16 or float32).
+    """
+    if not _on_card(xq, kq, ks, bias):
+        return conv3x3_int8_plain(xq, kq, ks, bias, relu, out_dtype)
+    b, h, w, _ = xq.shape
+    _check(xq, "xq", torch.int8, (b, h, w, 64))
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype: bfloat16 or float32, got {out_dtype}")
+    if kq.shape[0] != 3:
+        raise ValueError(f"kq: expected (3, 3, 64, 64), got {tuple(kq.shape)}")
+    wt, sc = _int8_weights(kq, ks, 64, 64, xq)
+    bb = _bias32(bias, 64, xq)
+    _check(bb, "bias", torch.float32, (64,))
+    out = torch.empty(b, h, w, 64, dtype=out_dtype, device=xq.device)
+    err = _build.load("conv_int8").tux_conv3x3_int8(
+        xq.data_ptr(), wt.data_ptr(), sc.data_ptr(), bb.data_ptr(),
+        out.data_ptr(), b, h, w, int(relu), int(out_dtype == torch.float32),
+        xq.device.index, _stream(xq))
+    _raise_on(err, "conv3x3_int8_stream")
+    LAUNCHES["conv3x3_int8_stream"] += 1
+    return out
+
+
+def tail_conv_int8_plain(xq, kq, ks, bias=None, relu: bool = False,
+                         out_dtype=torch.bfloat16):
+    """Plain version of ``tail_conv_int8_stream``."""
+    return conv2d_int8_q(xq, kq, ks, bias, None, relu, out_dtype)
+
+
+def tail_conv_int8_stream(xq: torch.Tensor, kq: torch.Tensor, ks, bias=None,
+                          relu: bool = False,
+                          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Composed-tail int8 conv: k x k zero-padded, 64 -> co channels.
+
+    xq: (B, H, W, 64) int8; kq: (k, k, 64, co) int8 HWIO with k in {5, 7}
+    and co <= 48, ks: (co,) f32, as for ``conv3x3_int8_stream``; bias:
+    (co,), kept f32. The one function of the TPU's ``tail_macro8_stream_int8``
+    and the XLA ``conv2d_tail_packed_int8`` (stream.py:897-905,
+    conv.py:424-430).
+    """
+    if not _on_card(xq, kq, ks, bias):
+        return tail_conv_int8_plain(xq, kq, ks, bias, relu, out_dtype)
+    b, h, w, _ = xq.shape
+    k, _, _, co = kq.shape
+    _check(xq, "xq", torch.int8, (b, h, w, 64))
+    npad = next((n for n in TAIL_NPAD if co <= n), None)
+    if k not in (5, 7) or npad is None:
+        raise ValueError(f"kq: expected (k, k, 64, co), k in (5, 7), "
+                         f"co <= {TAIL_NPAD[-1]}; got {tuple(kq.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype: bfloat16 or float32, got {out_dtype}")
+    wt, sc = _int8_weights(kq, ks, co, npad, xq)
+    bb = _bias32(bias, co, xq)
+    _check(bb, "bias", torch.float32, (co,))
+    out = torch.empty(b, h, w, co, dtype=out_dtype, device=xq.device)
+    err = _build.load("conv_int8").tux_tail_conv_int8(
+        xq.data_ptr(), wt.data_ptr(), sc.data_ptr(), bb.data_ptr(),
+        out.data_ptr(), b, h, w, k, co, npad, int(relu),
+        int(out_dtype == torch.float32), xq.device.index, _stream(xq))
+    _raise_on(err, "tail_conv_int8_stream")
+    LAUNCHES["tail_conv_int8_stream"] += 1
     return out
 
 
@@ -239,54 +378,84 @@ def tail_finish_stream(x: torch.Tensor, k_mid: torch.Tensor, b_mid,
 
 
 # ---------------------------------------------------------- patch GEMMs
-def embed_plain(feat, kernel, bias=None):
+def _dequant(q: torch.Tensor, scale, dtype) -> torch.Tensor:
+    """f32(q) * s per channel, rounded to ``dtype``."""
+    s = _scale32(scale, "scale", q.shape[-1], q)
+    return (q.to(torch.float32) * s).to(dtype)
+
+
+def _embed_dtype(feat, in_scale, out_dtype):
+    if in_scale is None:
+        return feat.dtype
+    return out_dtype or torch.bfloat16
+
+
+def embed_plain(feat, kernel, bias=None, in_scale=None, out_dtype=None):
     """Plain version of ``embed_stream``: an f32 matmul over the patch view."""
+    dt = _embed_dtype(feat, in_scale, out_dtype)
+    if in_scale is not None:
+        feat = _dequant(feat, in_scale, dt)
     b, h, w, c = feat.shape
     ps, _, _, d = kernel.shape
     patches = (feat.reshape(b, h // ps, ps, w // ps, ps, c)
                .permute(0, 1, 3, 2, 4, 5).reshape(b, h // ps, w // ps, -1))
-    y = patches.float() @ kernel.to(feat.dtype).float().reshape(-1, d)
-    return (y + _bias32(bias, d, feat)).to(feat.dtype)
+    y = patches.float() @ kernel.to(dt).float().reshape(-1, d)
+    return (y + _bias32(bias, d, feat)).to(dt)
 
 
-def embed_stream(feat: torch.Tensor, kernel: torch.Tensor,
-                 bias=None) -> torch.Tensor:
+def embed_stream(feat: torch.Tensor, kernel: torch.Tensor, bias=None,
+                 in_scale=None, out_dtype=None) -> torch.Tensor:
     """8x8/8 patch embed.
 
     feat: (B, 8 Ht, 8 Wt, 64); kernel: (8, 8, 64, D) rounded to feat's
     dtype, D % 64 == 0 on the card; bias: (D,), kept f32. Returns tokens
     (B, Ht, Wt, D) in feat's dtype.
+
+    ``in_scale``: feat is int8, quantized per channel with this (64,)
+    scale; each tap is dequantized, bf16(f32(q) * s), before its product
+    (the TPU kernel's option, stream.py:317-321), and the tokens, like the
+    products, are in ``out_dtype`` (default bfloat16; the card takes
+    bfloat16 only).
     """
     if not _on_card(feat, kernel, bias):
-        return embed_plain(feat, kernel, bias)
+        return embed_plain(feat, kernel, bias, in_scale, out_dtype)
     b, h, w, _ = feat.shape
     ps, _, c, d = kernel.shape
-    _check(feat, "feat", torch.bfloat16, (b, h, w, 64))
+    i8 = in_scale is not None
+    _check(feat, "feat", torch.int8 if i8 else torch.bfloat16, (b, h, w, 64))
+    if _embed_dtype(feat, in_scale, out_dtype) != torch.bfloat16:
+        raise TypeError("embed_stream: the card's tokens are bfloat16")
     if (ps, c) != (8, 64) or kernel.shape[1] != 8 or d % 64 or h % 8 or w % 8:
         raise ValueError(f"embed: feat {tuple(feat.shape)} / kernel "
                          f"{tuple(kernel.shape)} not supported")
     wt = kernel.to(torch.bfloat16).reshape(-1, d).t().contiguous()
     bb = _bias32(bias, d, feat)
     _check(bb, "bias", torch.float32, (d,))
+    sc = _scale32(in_scale, "in_scale", 64, feat) if i8 else None
     out = torch.empty(b, h // 8, w // 8, d, dtype=torch.bfloat16,
                       device=feat.device)
     err = _build.load("patch_gemm").tux_embed(
-        feat.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b,
-        h // 8, w // 8, d, feat.device.index, _stream(feat))
+        feat.data_ptr(), wt.data_ptr(), bb.data_ptr(),
+        None if sc is None else sc.data_ptr(), out.data_ptr(), b, h // 8,
+        w // 8, d, feat.device.index, _stream(feat))
     _raise_on(err, "embed_stream")
     LAUNCHES["embed_stream"] += 1
+    if i8:
+        OPTION_LAUNCHES["embed_stream.int8_in"] += 1
     return out
 
 
 def unembed_combine_plain(tokens, skip, kernel, bias=None,
-                          relu: bool = False):
+                          relu: bool = False, feat_scale=None):
     """Plain version of ``unembed_combine_stream``."""
     b, ht, wt, d = tokens.shape
     _, ps, _, c = kernel.shape
     g = tokens.float() @ kernel.to(tokens.dtype).float().reshape(d, -1)
     g = (g.reshape(b, ht, wt, ps, ps, c).permute(0, 1, 3, 2, 4, 5)
          .reshape(b, ht * ps, wt * ps, c))
-    y = g + _bias32(bias, c, tokens) + skip.float()
+    sk = (skip.float() if feat_scale is None
+          else _dequant(skip, feat_scale, torch.float32))
+    y = g + _bias32(bias, c, tokens) + sk
     if relu:
         y = torch.relu(y)
     return y.to(tokens.dtype)
@@ -294,30 +463,42 @@ def unembed_combine_plain(tokens, skip, kernel, bias=None,
 
 def unembed_combine_stream(tokens: torch.Tensor, skip: torch.Tensor,
                            kernel: torch.Tensor, bias=None,
-                           relu: bool = False) -> torch.Tensor:
+                           relu: bool = False,
+                           feat_scale=None) -> torch.Tensor:
     """8x8 patch unembed plus the skip add: ``act(unembed(tokens) + skip)``.
 
     tokens: (B, Ht, Wt, D); skip: (B, 8 Ht, 8 Wt, 64); kernel: (D, 8, 8, 64)
     rounded to tokens' dtype, D % 16 == 0 on the card; bias: (64,), kept f32.
-    The skip is added in f32 before the one rounding. Returns
-    (B, 8 Ht, 8 Wt, 64) in tokens' dtype.
+    The skip is added in f32 before the one rounding, as (g + bias) + skip.
+    Returns (B, 8 Ht, 8 Wt, 64) in tokens' dtype.
+
+    ``feat_scale``: skip is int8, quantized per channel with this (64,)
+    scale, and adds as f32(q) * s (the TPU kernel's option,
+    stream.py:229-236).
     """
     if not _on_card(tokens, skip, kernel, bias):
-        return unembed_combine_plain(tokens, skip, kernel, bias, relu)
+        return unembed_combine_plain(tokens, skip, kernel, bias, relu,
+                                     feat_scale)
     b, ht, wt_, d = tokens.shape
+    i8 = feat_scale is not None
     _check(tokens, "tokens", torch.bfloat16, (b, ht, wt_, d))
-    _check(skip, "skip", torch.bfloat16, (b, 8 * ht, 8 * wt_, 64))
+    _check(skip, "skip", torch.int8 if i8 else torch.bfloat16,
+           (b, 8 * ht, 8 * wt_, 64))
     if tuple(kernel.shape) != (d, 8, 8, 64) or d % 16:
         raise ValueError(f"unembed: kernel {tuple(kernel.shape)} not "
                          f"supported for D={d}")
     wt = kernel.to(torch.bfloat16).reshape(d, -1).t().contiguous()
     bb = _bias32(bias, 64, tokens)
     _check(bb, "bias", torch.float32, (64,))
-    out = torch.empty_like(skip)
+    sc = _scale32(feat_scale, "feat_scale", 64, tokens) if i8 else None
+    out = torch.empty(b, 8 * ht, 8 * wt_, 64, dtype=torch.bfloat16,
+                      device=tokens.device)
     err = _build.load("patch_gemm").tux_unembed_combine(
         tokens.data_ptr(), wt.data_ptr(), bb.data_ptr(), skip.data_ptr(),
-        out.data_ptr(), b, ht, wt_, d, int(relu), tokens.device.index,
-        _stream(tokens))
+        None if sc is None else sc.data_ptr(), out.data_ptr(), b, ht, wt_,
+        d, int(relu), tokens.device.index, _stream(tokens))
     _raise_on(err, "unembed_combine_stream")
     LAUNCHES["unembed_combine_stream"] += 1
+    if i8:
+        OPTION_LAUNCHES["unembed_combine_stream.int8_skip"] += 1
     return out

@@ -32,7 +32,39 @@ the compute dtype is bfloat16 (fast_transformer.py:829-851; the JAX
 f32 model keeps the fold unless asked. ``int8_trunk`` (fast_transformer.py:
 91-96, :699-701) runs the trunk's four GEMMs as int8 with per-token scales
 under ``attn_impl="fused2"`` and, as in JAX, is ignored by the other trunks.
-The JAX package's ``TUX_*`` environment switches are not carried.
+
+``int8_serve`` (fast_transformer.py:68-87, 373-398, 495-507, 527-539,
+596-683, 708-715, 747-824, 903-924) quantizes activations per channel to
+int8 in one of three scopes, with the branch-B tail always folded
+(``split_tail`` does not apply):
+
+  conv2         tails: conv3x3_stream with ``out_scale`` (int8 out);
+                residual: conv3x3_stream; full: act_q(feat1),
+                conv3x3_int8_stream
+  tail A        tails: tail_conv_int8_stream; residual: tail_conv_stream;
+                full: act_q(feat), tail_conv_int8_stream
+  embed         embed_stream, in tails with ``in_scale`` (int8 in)
+  unembed       unembed_combine_stream, in tails with ``feat_scale``
+  decoder conv  tails: conv3x3_stream with ``out_scale``; residual, full:
+                act_q(combined), conv3x3_int8_stream
+  tail B        tails: tail_conv_int8_stream; residual, full: act_q(dec),
+                tail_conv_int8_stream
+
+``int8_scales`` holds static per-channel scales (feat1, feat, combined,
+dec, tokens), each a tuple of 64 floats or the placeholder ``(1.0,)`` for a
+tensor the scope does not quantize (``UpscalerEngine.calibrate_int8``
+makes them); with static scales the tails scope quantizes in the convs'
+epilogues. None means dynamic scales, the abs-max of each channel over the
+frame (``ops.quant.act_scale``), quantized by a PyTorch pass, and the
+weights, whose fold depends on the scale, quantized again every frame as
+JAX does at trace time. Every forward records the scales it used in
+``int8_scales_used`` under the JAX ``sow`` names (``int8_scale_feat``, ...).
+JAX's int8 tail is the XLA ``conv2d_tail_packed_int8`` unless
+``TUX_INT8_TAIL=pallas`` picks ``tail_macro8_stream_int8``; both compute one
+function, which the port serves with the one int8 tail kernel, so the
+switch is not carried. The JAX package's other ``TUX_*`` environment
+switches are not carried either, nor the offline GPTQ weights
+(``int8_weights``).
 
 Other geometries (outside scale 2/3/4 with h % 8 == 0 and w % 16 == 0, where
 the JAX model takes its exact path, and x6, whose tails run other kernels)
@@ -46,8 +78,10 @@ import torch.nn as nn
 
 from transformerupscaler_torch.kernels.stream import (
     HI_LO_FIN,
+    conv3x3_int8_stream,
     conv3x3_stream,
     embed_stream,
+    tail_conv_int8_stream,
     tail_conv_stream,
     tail_finish_stream,
     unembed_combine_stream,
@@ -67,9 +101,17 @@ from transformerupscaler_torch.models.upsampler import (
 )
 from transformerupscaler_torch.ops.conv import conv2d
 from transformerupscaler_torch.ops.pixel_shuffle import pixel_shuffle
+from transformerupscaler_torch.ops.quant import (
+    act_scale,
+    fold_conv_kernel,
+    quantize_act_ch,
+)
 from transformerupscaler_torch.ops.resize import resize_shuffled
 
 SERVE_SCALES = (2, 3, 4)
+INT8_SCOPES = ("full", "residual", "tails")
+# The int8 activations in the order of ``int8_scales``.
+INT8_TENSORS = ("feat1", "feat", "combined", "dec", "tokens")
 
 
 class FastTransformer(FusedTrunk, nn.Module):
@@ -80,7 +122,9 @@ class FastTransformer(FusedTrunk, nn.Module):
     ``attn_impl``: "xla", "pallas", "fused" or "fused2" (the trunk, see the
     module docstring); ``int8_trunk``: the fused2 trunk's GEMMs in int8;
     ``split_tail``: None (automatic), True or False; ``hi_lo_fin``: how the
-    split tail's finish rounds, None (= "off"), "off", "wf" or "full"."""
+    split tail's finish rounds, None (= "off"), "off", "wf" or "full";
+    ``int8_serve``, ``int8_scope`` ("full", "residual" or "tails") and
+    ``int8_scales`` (None or five tuples): the int8 serving scopes."""
 
     def __init__(self, in_channels: int = 3, base_channels: int = 64,
                  transformer_dim: int = 192, num_window_blocks: int = 6,
@@ -88,7 +132,9 @@ class FastTransformer(FusedTrunk, nn.Module):
                  window_size: int = 8, patch_size: int = 8,
                  dtype=torch.float32, attn_impl: str = "xla",
                  split_tail: bool | None = None,
-                 hi_lo_fin: str | None = None, int8_trunk: bool = False):
+                 hi_lo_fin: str | None = None, int8_trunk: bool = False,
+                 int8_serve: bool = False, int8_scope: str = "full",
+                 int8_scales: tuple | None = None):
         super().__init__()
         bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
         if bc != 64 or ps != 8:
@@ -100,6 +146,12 @@ class FastTransformer(FusedTrunk, nn.Module):
         if hi_lo_fin is not None and hi_lo_fin not in HI_LO_FIN:
             raise ValueError(f"hi_lo_fin: None or one of {HI_LO_FIN}, got "
                              f"{hi_lo_fin!r}")
+        if int8_scope not in INT8_SCOPES:
+            raise ValueError(f"int8_scope: one of {INT8_SCOPES}, got "
+                             f"{int8_scope!r}")
+        if int8_scales is not None and len(int8_scales) != len(INT8_TENSORS):
+            raise ValueError(f"int8_scales: one tuple for each of "
+                             f"{INT8_TENSORS}")
         self.window_size = window_size
         self.patch_size = ps
         self.dtype = dtype
@@ -107,6 +159,11 @@ class FastTransformer(FusedTrunk, nn.Module):
         self.int8_trunk = int8_trunk
         self.split_tail = split_tail
         self.hi_lo_fin = hi_lo_fin
+        self.int8_serve = int8_serve
+        self.int8_scope = int8_scope
+        self.int8_scales = (None if int8_scales is None else
+                            tuple(tuple(map(float, s)) for s in int8_scales))
+        self.int8_scales_used = {}
         self.conv1 = ConvLayer(ic, bc)
         self.conv2 = ConvLayer(bc, bc)
         self.up1 = Upsampler(bc)
@@ -130,10 +187,14 @@ class FastTransformer(FusedTrunk, nn.Module):
         kernels, the stacked trunk weights); call after changing them."""
         super().clear_derived()
         self._tails = {}
+        self._int8 = {}
 
     @property
     def splits_tail(self) -> bool:
-        """Whether branch B runs as the split tail (mid + finish)."""
+        """Whether branch B runs as the split tail (mid + finish); never
+        under ``int8_serve``, which folds it (fast_transformer.py:747-749)."""
+        if self.int8_serve:
+            return False
         if self.split_tail is not None:
             return bool(self.split_tail)
         return self.dtype == torch.bfloat16
@@ -159,6 +220,53 @@ class FastTransformer(FusedTrunk, nn.Module):
             self._tails[key] = (ka, kb)
         return self._tails[key]
 
+    def _scale(self, name: str, t, device) -> torch.Tensor:
+        """The int8 scale of activation ``name``: static (``int8_scales``),
+        or measured on ``t``; recorded in ``int8_scales_used``."""
+        if self.int8_scales is None:
+            s = act_scale(t)
+        else:
+            key = (name, device)
+            if key not in self._int8:
+                vals = self.int8_scales[INT8_TENSORS.index(name)]
+                if len(vals) != 64:
+                    raise ValueError(f"int8_scales: {name} needs 64 channel "
+                                     f"scales, got {len(vals)}")
+                self._int8[key] = torch.tensor(vals, dtype=torch.float32,
+                                               device=device)
+            s = self._int8[key]
+        self.int8_scales_used[f"int8_scale_{name}"] = s
+        return s
+
+    def _act_q(self, name: str, t: torch.Tensor):
+        """(int8 t, its scale): JAX ``act_q`` / ``tail_scale`` with
+        ``quantize_act_ch``."""
+        s = self._scale(name, t, t.device)
+        return quantize_act_ch(t, s)[0], s
+
+    def _conv_q(self, name: str, x: torch.Tensor, kernel: torch.Tensor,
+                bias):
+        """The tails scope's 3x3 conv + ReLU with int8 output and its scale:
+        static scales quantize in the kernel's epilogue, dynamic ones in a
+        PyTorch pass after the bf16 conv."""
+        k = kernel.to(self.dtype)
+        if self.int8_scales is not None:
+            s = self._scale(name, None, x.device)
+            return conv3x3_stream(x, k, bias, relu=True, out_scale=s), s
+        return self._act_q(name, conv3x3_stream(x, k, bias, relu=True))
+
+    def _fold(self, name: str, kernel: torch.Tensor, s: torch.Tensor,
+              scale: int):
+        """(kq, ks) of ``kernel`` with the input scale ``s`` folded in, kept
+        per upscale factor when the scales are static; with dynamic scales
+        the fold depends on the frame and runs every forward."""
+        if self.int8_scales is None:
+            return fold_conv_kernel(kernel, s)
+        key = (name, scale, kernel.device)
+        if key not in self._int8:
+            self._int8[key] = fold_conv_kernel(kernel, s)
+        return self._int8[key]
+
     @torch.inference_mode()
     def forward(self, x: torch.Tensor, res_out=(1080, 1920),
                 upscale_factor: int | None = None,
@@ -180,24 +288,58 @@ class FastTransformer(FusedTrunk, nn.Module):
                   and tuple(res_out) != out_hw)
         (ka, ba), tail_b = self.tail_kernels(scale)
 
-        feat = conv2d(x, self.conv1.kernel, self.conv1.bias, relu=True)
-        feat = conv3x3_stream(feat, self.conv2.kernel.to(dt), self.conv2.bias,
-                              relu=True)
-        a = tail_conv_stream(feat, ka, ba, relu=True)
+        self.int8_scales_used = {}
+        scope = self.int8_scope if self.int8_serve else None
+        k2, b2 = self.conv2.kernel, self.conv2.bias
+        feat1 = conv2d(x, self.conv1.kernel, self.conv1.bias, relu=True)
+        skip_scale = None
+        if scope == "full":
+            f1q, s1 = self._act_q("feat1", feat1)
+            feat = conv3x3_int8_stream(
+                f1q, *self._fold("conv2", k2, s1, scale), b2, relu=True,
+                out_dtype=dt)
+            fq, s2 = self._act_q("feat", feat)
+            a = tail_conv_int8_stream(fq, *self._fold("tail_a", ka, s2, scale),
+                                      ba, relu=True, out_dtype=dt)
+        elif scope == "tails":
+            # ``feat`` is the int8 map from here on, dequantized in the
+            # embed's and the unembed's kernels.
+            feat, skip_scale = self._conv_q("feat", feat1, k2, b2)
+            a = tail_conv_int8_stream(
+                feat, *self._fold("tail_a", ka, skip_scale, scale), ba,
+                relu=True, out_dtype=dt)
+        else:
+            feat = conv3x3_stream(feat1, k2.to(dt), b2, relu=True)
+            a = tail_conv_stream(feat, ka, ba, relu=True)
         tokens = embed_stream(feat, self.patch_embed_kernel,
-                              self.patch_embed_bias)
+                              self.patch_embed_bias, in_scale=skip_scale,
+                              out_dtype=dt)
         tokens = self.run_trunk(tokens)
         combined = unembed_combine_stream(tokens.contiguous(), feat,
                                           self.patch_unembed_kernel,
-                                          self.patch_unembed_bias)
-        dec = conv3x3_stream(combined, self.decoder_conv1.kernel.to(dt),
-                             self.decoder_conv1.bias, relu=True)
-        if self.splits_tail:
-            (km, bm), (kf, bf) = tail_b
-            bt = tail_finish_stream(dec, km, bm, kf, bf,
-                                    hi_lo_fin=self.hi_lo_fin or "off")
+                                          self.patch_unembed_bias,
+                                          feat_scale=skip_scale)
+        kd, bd = self.decoder_conv1.kernel, self.decoder_conv1.bias
+        if scope is None:
+            dec = conv3x3_stream(combined, kd.to(dt), bd, relu=True)
+            if self.splits_tail:
+                (km, bm), (kf, bf) = tail_b
+                bt = tail_finish_stream(dec, km, bm, kf, bf,
+                                        hi_lo_fin=self.hi_lo_fin or "off")
+            else:
+                bt = tail_conv_stream(dec, *tail_b)
         else:
-            bt = tail_conv_stream(dec, *tail_b)
+            if scope == "tails":
+                dq, s4 = self._conv_q("dec", combined, kd, bd)
+            else:
+                cq, s3 = self._act_q("combined", combined)
+                dec = conv3x3_int8_stream(
+                    cq, *self._fold("dec", kd, s3, scale), bd, relu=True,
+                    out_dtype=dt)
+                dq, s4 = self._act_q("dec", dec)
+            bt = tail_conv_int8_stream(
+                dq, *self._fold("tail_b", tail_b[0], s4, scale), tail_b[1],
+                out_dtype=dt)
         out = a + bt
         if squash:
             out = resize_shuffled(out, scale, res_out)

@@ -1,7 +1,9 @@
-"""NHWC convolution and the composition of two convs into one.
+"""NHWC convolution, its int8 form and the composition of two convs into
+one.
 
-JAX counterpart: transformerupscaler_tpu ops/conv.py:36 (``conv2d``) and
-:653 (``compose_conv3x3_kernels``). ``conv2d`` runs the convs the JAX package
+JAX counterpart: transformerupscaler_tpu ops/conv.py:36 (``conv2d``),
+:336-460 (the int8 convs, ``conv2d_int8``) and :653
+(``compose_conv3x3_kernels``). ``conv2d`` runs the convs the JAX package
 leaves to XLA: the models' exact paths, and on the serving paths conv1
 (3 -> 64 channels), the stride-2 downsample and the last decoder conv; the
 64 -> 64 convs of the serving paths run the kernels in
@@ -32,6 +34,59 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor, bias=None, stride: int = 1,
     if relu:
         out = torch.relu(out)
     return out.contiguous()
+
+
+def conv2d_int8_q(xq: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                  bias=None, padding: int | None = None, relu: bool = False,
+                  out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Integer conv with quantized weights and its f32 epilogue.
+
+    xq: (B, H, W, Cin) int8; kq: (k, k, Cin, O) int8 HWIO; ks: (O,) f32
+    weight scales; bias: (O,), added in f32; ``padding`` zero pixels on
+    every side (default (k - 1) // 2, the same extent). The sum of int8
+    products is taken in float64, where it is exact in any order (a 7x7
+    sum over 64 channels reaches 49 * 64 * 127^2, past f32's 2^24), and
+    rounded once to f32 as the reference's ``acc.astype(f32)`` rounds its
+    int32; then y = acc * ks + bias in f32, two roundings, no fused
+    multiply-add; ReLU; one rounding to ``out_dtype``.
+    """
+    k = kq.shape[0]
+    pad = (k - 1) // 2 if padding is None else padding
+    xp = F.pad(xq.to(torch.float64), (0, 0, pad, pad, pad, pad))
+    ho, wo = xp.shape[1] - k + 1, xp.shape[2] - k + 1
+    w64 = kq.to(torch.float64)
+    acc = torch.zeros(*xq.shape[:1], ho, wo, kq.shape[3],
+                      dtype=torch.float64, device=xq.device)
+    for dy in range(k):
+        for dx in range(k):
+            acc += xp[:, dy:dy + ho, dx:dx + wo, :] @ w64[dy, dx]
+    y = acc.to(torch.float32) * ks.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    if relu:
+        y = torch.relu(y)
+    return y.to(out_dtype)
+
+
+def conv2d_int8(xq: torch.Tensor, kernel: torch.Tensor, x_scale, bias=None,
+                padding: int | None = None, relu: bool = False,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Int8 conv of an input quantized per input channel with ``x_scale``.
+
+    NHWC counterpart of the JAX package's three int8 convs, which compute
+    this one function in their layouts: ``conv2d_packed_int8``
+    (ops/conv.py:336-382, the 3x3 on the width-2 packed layout),
+    ``conv2d_tail_packed_int8`` (:419-460, the composed tails on the macro
+    block layout) and ``conv2d_int8`` (:385-416, NHWC with explicit
+    padding). ``kernel`` is the raw float HWIO kernel: the activation scale
+    folds into it in f32 and the result is quantized per output channel
+    (``ops.quant.fold_conv_kernel``), then ``conv2d_int8_q``. The offline
+    GPTQ weights (``pre_q``) are not ported.
+    """
+    from transformerupscaler_torch.ops.quant import fold_conv_kernel
+
+    kq, ks = fold_conv_kernel(kernel, x_scale)
+    return conv2d_int8_q(xq, kq, ks, bias, padding, relu, out_dtype)
 
 
 def compose_conv3x3_kernels(k1: torch.Tensor, b1, k2: torch.Tensor, b2):

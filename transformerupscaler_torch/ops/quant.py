@@ -1,10 +1,20 @@
-"""Int8 quantization for the fused trunk's rowwise mode.
+"""Int8 quantization: the fused trunk's rowwise mode and the int8 serving
+scopes' convs.
 
-The port's own copy of what that mode needs from the JAX package: the
-weights as ``quantize_gemm_weights`` (transformerupscaler_tpu/ops/pallas/
-trunk2.py:506) quantizes them, with the rowwise scale of trunk2.py:724-734,
-and the per-token activation quantize of trunk2.py:176-178. Symmetric, round
-half to even, every step in f32 as there.
+The port's own copy of what it needs from the JAX package:
+
+- the trunk's rowwise mode: the weights as ``quantize_gemm_weights``
+  (transformerupscaler_tpu/ops/pallas/trunk2.py:506) quantizes them, with
+  the rowwise scale of trunk2.py:724-734, and the per-token activation
+  quantize of trunk2.py:176-178;
+- the int8 serving scopes (models/fast_transformer.py:379-398, 495-507):
+  ``quantize_conv_kernel``, ``quantize_act`` and ``quantize_act_ch``
+  (ops/quant.py:85-130), the dynamic per-channel activation scale of
+  ``act_q`` / ``tail_scale`` and the fold of an activation scale into a
+  conv kernel before its weights are quantized (ops/conv.py:368-371).
+
+Symmetric, round half to even (``torch.round`` as ``jnp.round``), every
+step in f32 as there.
 """
 
 from __future__ import annotations
@@ -40,3 +50,65 @@ def quantize_rows(x: torch.Tensor):
     srow = torch.maximum(xf.abs().amax(dim=-1, keepdim=True),
                          _f32(1e-6)) * _f32(1.0 / 127.0)
     return torch.round(xf * torch.reciprocal(srow)), srow
+
+
+def quantize_conv_kernel(k: torch.Tensor):
+    """HWIO conv kernel -> (int8 kernel, per-output-channel (O,) scale):
+    scale = max|k| over (H, W, I) / 127, 1 where that is 0; q = clip(round(k
+    / scale), -127, 127). Computed in k's dtype, as the reference does."""
+    scale = k.abs().amax(dim=(0, 1, 2)) / 127.0
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(k / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def fold_conv_kernel(kernel: torch.Tensor, x_scale):
+    """The int8 weights of a conv whose input was quantized with the
+    per-input-channel (or scalar) ``x_scale``: the scale folds into the f32
+    kernel, keff = kernel * x_scale, and keff is quantized per output
+    channel (``quantize_conv_kernel``). Returns (kq int8 HWIO, ks f32 (O,)),
+    so that conv(q, kernel) ~ ks * conv_int(q, kq)."""
+    s = torch.as_tensor(x_scale, dtype=_F32, device=kernel.device)
+    return quantize_conv_kernel(kernel.to(_F32) * s.reshape(1, 1, -1, 1))
+
+
+def act_scale(x: torch.Tensor) -> torch.Tensor:
+    """The dynamic per-channel activation scale of the int8 scopes: the
+    abs-max of each channel (last axis) over every pixel and the batch,
+    max(m, 1e-8) / 127 in f32. (JAX takes the maximum over the two pixel
+    parities of its packed layout too: in NHWC that is the channel
+    maximum.) One pass over x in its own dtype: its minimum and maximum
+    per channel, whose magnitudes are exact in any float type."""
+    lo, hi = torch.aminmax(x.reshape(-1, x.shape[-1]), dim=0)
+    m = torch.maximum(-lo, hi).to(_F32)
+    return torch.maximum(m, _f32(1e-8).to(x.device)) / 127.0
+
+
+def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """clip(round(f32(x) / scale), -127, 127) as int8; the division
+    promotes x to f32 as it reads it, with no f32 copy of x (a scale with
+    no dimension would not promote it: it is given one)."""
+    q = torch.round(x / scale.reshape(-1))
+    return q.clamp_(-127, 127).to(torch.int8)
+
+
+def quantize_act(x: torch.Tensor, scale=None):
+    """Symmetric per-tensor int8 activation quant: (q, scale) with scale =
+    max(max|x|, 1e-8) / 127 when not given, q = clip(round(x / scale),
+    -127, 127)."""
+    if scale is None:
+        scale = torch.maximum(x.to(_F32).abs().amax(),
+                              _f32(1e-8).to(x.device)) / 127.0
+    scale = torch.as_tensor(scale, dtype=_F32, device=x.device)
+    return _quantize(x, scale), scale
+
+
+def quantize_act_ch(x: torch.Tensor, scale=None):
+    """Symmetric per-channel (last axis) int8 activation quant: (q, scale)
+    with ``act_scale(x)`` when no scale is given, q = clip(round(x /
+    scale), -127, 127) with a division, as the reference writes it (the
+    conv epilogue's quantize multiplies by 1 / scale instead)."""
+    if scale is None:
+        scale = act_scale(x)
+    scale = torch.as_tensor(scale, dtype=_F32, device=x.device)
+    return _quantize(x, scale), scale

@@ -17,7 +17,12 @@ window-attention kernel), ``window_fused2`` (WindowTransformer as ``--fast``
 serves it: the stream conv and the fused trunk), ``resid_packed``
 (ResidualTransformer's packed x2 route, res_out 1440x2560) and
 ``resid_exact`` (its exact route), both on the global attention kernel;
-every other route at res_out 1080x1920.
+FastTransformer's int8 serving scopes on the ``bench`` route: ``int8_tails``
+(bench.py's ``int8_tails``), ``int8_residual`` and ``int8_full``, each with
+static scales from ``UpscalerEngine.calibrate_int8`` on three seeded
+frames, and ``int8_tails_dyn`` (the tails scope with dynamic scales, as the
+command lines' ``--int8`` serves it); every other route at res_out
+1080x1920.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import argparse
 import json
 import subprocess
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -35,7 +41,8 @@ from transformerupscaler_torch.infer_lib import UpscalerEngine
 FRAMES, TOP = 5, 25
 RES_OUT = (1080, 1920)
 _RESID = dict(packed_serve=True, pallas_serve=True, attn_impl="fused2")
-# route -> (model, flags, res_out)
+# route -> (model, flags, res_out); the int8 routes named in CALIBRATED
+# are served with static scales
 _BENCH = dict(compose_tails=True, pallas_serve=True, attn_impl="fused2")
 ROUTES = {
     "bench": ("FastTransformer", _BENCH, RES_OUT),
@@ -50,7 +57,12 @@ ROUTES = {
                                                 attn_impl="fused2"), RES_OUT),
     "resid_packed": ("ResidualTransformer", _RESID, (1440, 2560)),
     "resid_exact": ("ResidualTransformer", _RESID, RES_OUT),
+    **{f"int8_{scope}{suffix}": (
+        "FastTransformer", dict(_BENCH, int8_serve=True, int8_scope=scope),
+        RES_OUT) for scope, suffix in (("tails", ""), ("tails", "_dyn"),
+                                       ("residual", ""), ("full", ""))},
 }
+CALIBRATED = ("int8_tails", "int8_residual", "int8_full")
 
 
 def main() -> None:
@@ -62,6 +74,9 @@ def main() -> None:
                          text=True, timeout=60, check=True).stdout.strip()
     model, flags, res_out = ROUTES[route]
     engine = UpscalerEngine(model, dtype=torch.bfloat16, seed=0, **flags)
+    if route in CALIBRATED:
+        engine.calibrate_int8(np.random.default_rng(1).integers(
+            0, 256, (3, 720, 1280, 3), np.uint8), res_out=res_out)
     g = torch.Generator(device=engine.device).manual_seed(0)
     x = torch.rand(1, 720, 1280, 3, generator=g, device=engine.device)
 

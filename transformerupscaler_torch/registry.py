@@ -8,7 +8,9 @@ The port serves the four models of the JAX package:
   (``attn_impl="fused2"``, with ``int8_trunk`` its GEMMs in int8, or
   ``"fused"``), block by block in PyTorch (``"xla"``) or block by block
   around the window-attention kernel (``"pallas"``), and the branch-B tail
-  split, folded or chosen by dtype (``split_tail`` True, False, None);
+  split, folded or chosen by dtype (``split_tail`` True, False, None); with
+  ``int8_serve`` in the scopes "full", "residual" and "tails"
+  (``int8_scope``), with dynamic or static (``int8_scales``) scales;
 - ``WindowTransformer``: the exact path, ``pallas_serve`` and
   ``attn_impl`` "xla", "pallas", "fused" or "fused2";
 - ``ResidualTransformer``: the exact path, ``packed_serve``, ``pallas_serve``
@@ -17,10 +19,10 @@ The port serves the four models of the JAX package:
 - ``BicubicInterpolation``, which has no fields.
 
 Asking for a route the port does not serve raises ``NotImplementedError``
-(``int8_serve``, ``int8_mlp``). Like the JAX ``get_model``, fields a model
-does not have are dropped, so that one set of serving flags can go to every
-model: the flags the JAX command lines pass with ``--fast`` (inference.py:
-83-98, speed_test.py:35-48) serve all four.
+(``int8_mlp``, ``serve_quality``, ``pallas_serve=False``). Like the JAX
+``get_model``, fields a model does not have are dropped, so that one set of
+serving flags can go to every model: the flags the JAX command lines pass
+with ``--fast`` (inference.py:83-98, speed_test.py:35-48) serve all four.
 """
 
 from __future__ import annotations
@@ -49,16 +51,16 @@ _MODELS = {"BicubicInterpolation": BicubicInterpolation,
 # named takes any).
 FIXED_ROUTE = {
     "FastTransformer": {"compose_tails": True, "pallas_serve": True,
-                        "int8_serve": False, "int8_mlp": False,
-                        "serve_quality": False},
+                        "int8_mlp": False, "serve_quality": False},
     "WindowTransformer": {"int8_mlp": False},
 }
 ATTN_IMPLS = {"FastTransformer": TRUNK_IMPLS, "WindowTransformer": TRUNK_IMPLS}
 # JAX fields the port's models accept and ignore (inference only; the other
 # models take FastTransformer's serving flags without having them).
 IGNORED = ("dropout", "compose_tails", "packed_serve", "pallas_serve",
-           "int8_mlp", "int8_serve", "int8_scope", "int8_trunk",
-           "serve_quality", "attn_impl", "split_tail", "hi_lo_fin")
+           "int8_mlp", "int8_serve", "int8_scope", "int8_scales",
+           "int8_trunk", "serve_quality", "attn_impl", "split_tail",
+           "hi_lo_fin")
 
 
 def list_models() -> list[str]:
