@@ -10,7 +10,8 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
 3. each hand-written kernel against its plain PyTorch version on the card,
    at the shapes the served 720x1280 frames give it, with its time, the
    plain version's, one PyTorch library call's (where one computes the same
-   function) and the card's bound for the same work;
+   function) and the card's bound for the same work; the fused encoder and
+   decoder adapters against theirs;
 4. each served route with a fixture at a small geometry against the
    committed JAX outputs (tests/fixtures/torch_port/*.npz), weights rebuilt
    from the numpy seed; FastTransformer's routes then at x3 and x4 against
@@ -27,7 +28,11 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
    (``int8_serve``): "tails" calibrated (bench.py's ``int8_tails``) and with
    dynamic scales (the command lines' ``--int8``), "residual" and "full"
    calibrated, each calibrated with ``UpscalerEngine.calibrate_int8`` on a
-   few seeded frames. Each with the launch counts per frame (the trunk's
+   few seeded frames; FastTransformer on the ``bench`` route with conv1 on
+   its kernel (``conv1_stream=True``) and with ``TUX_FUSE_STREAM=1`` (conv2
+   and tail A, and the decoder conv and the folded tail B, each as one
+   kernel; the variable set for that route only). Each with the launch
+   counts per frame (the trunk's
    also by kernel mode, the int8 options by option), set to zero just
    before, and the output held against the same engine on the plain
    versions;
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -57,7 +63,8 @@ FRAME_HW, RES_OUT, SCALE = (720, 1280), (1080, 1920), 2
 WRAPPERS = ("conv3x3_stream", "tail_conv_stream", "embed_stream",
             "unembed_combine_stream", "fused_window_trunk",
             "tail_finish_stream", "window_attention_core", "global_mha",
-            "conv3x3_int8_stream", "tail_conv_int8_stream")
+            "conv3x3_int8_stream", "tail_conv_int8_stream", "conv1_stream",
+            "conv3x3_tail_stream", "conv3x3_tail_emit_stream")
 INT8_OUT, INT8_IN, INT8_SKIP = ("conv3x3_stream.int8_out",
                                 "embed_stream.int8_in",
                                 "unembed_combine_stream.int8_skip")
@@ -121,6 +128,18 @@ ROUTES = {
         model="FastTransformer", route=ROUTE_BENCH,
         fixture=FIXTURES + "bench_x2_bf16.npz", res_out=RES_OUT, requests=20,
         launches=counts("v2", **BENCH_LAUNCHES)),
+    "bench_conv1": dict(
+        model="FastTransformer", route=dict(ROUTE_BENCH, conv1_stream=True),
+        fixture=FIXTURES + "bench_x2_bf16.npz", res_out=RES_OUT, requests=10,
+        launches=counts("v2", conv1_stream=1, **BENCH_LAUNCHES)),
+    "bench_fuse": dict(
+        model="FastTransformer", route=ROUTE_BENCH,
+        env={"TUX_FUSE_STREAM": "1"},
+        fixture=FIXTURES + "fuse_stream_x2_bf16.npz", res_out=RES_OUT,
+        requests=10,
+        launches=counts("v2", conv3x3_tail_emit_stream=1,
+                        conv3x3_tail_stream=1, embed_stream=1,
+                        unembed_combine_stream=1)),
     "bench_int8_trunk": dict(
         model="FastTransformer", route=dict(ROUTE_BENCH, int8_trunk=True),
         fixture=FIXTURES + "bench_int8_trunk_x2_bf16.npz", res_out=RES_OUT,
@@ -195,22 +214,49 @@ TPU_KERNELS = [
     ("stream.py:893 tail_macro8_stream_int8",
      "ported and checked: tail_conv_int8_stream (5x5 and 7x7; also serves "
      "the XLA conv2d_tail_packed_int8)"),
-    ("stream.py:584 conv3x3_tail_stream", "not yet"),
-    ("stream.py:662 conv3x3_tail_emit_stream", "not yet"),
-    ("stream.py:1269 conv1_dots_stream", "not yet"),
-    ("stream.py:1385 conv1_flat_stream", "not yet"),
+    ("stream.py:584 conv3x3_tail_stream",
+     "ported and checked: conv3x3_tail_stream (3x3, 5x5, 7x7 tails; bf16 "
+     "and f32 out)"),
+    ("stream.py:662 conv3x3_tail_emit_stream",
+     "ported and checked: conv3x3_tail_emit_stream (the same kernel, "
+     "emitting the conv output)"),
+    ("stream.py:1269 conv1_dots_stream",
+     "ported and checked: conv1_stream (operand built in shared memory)"),
+    ("stream.py:1385 conv1_flat_stream",
+     "ported and checked: conv1_stream (row 12's kernel: the same "
+     "function, the operand built in the kernel as this one asked)"),
     ("gmha.py:60 global_mha", "ported and checked: global_mha (bf16)"),
     ("trunk.py:128 fused_window_trunk",
      "ported and checked: fused_window_trunk mode 'v1' (the same kernel, "
      "its residual association, C=128 and 192)"),
     ("window_attn.py:58 fused_window_attention",
      "ported and checked: window_attention_core (bf16)"),
-    ("encoder.py:239 fused_encoder", "not yet"),
-    ("encoder.py:279 fused_decoder", "not yet"),
+    ("encoder.py:239 fused_encoder",
+     "ported and checked: kernels.encoder.fused_encoder over "
+     "conv3x3_tail_emit_stream (biases rounded to the compute dtype)"),
+    ("encoder.py:279 fused_decoder",
+     "ported and checked: kernels.encoder.fused_decoder over "
+     "conv3x3_tail_stream (biases rounded to the compute dtype)"),
     ("conv3x3.py:73 conv3x3_pallas", "not yet"),
     ("patch_kernels.py:50 fused_patch_embed", "not yet"),
     ("patch_kernels.py:106 fused_patch_unembed_add", "not yet"),
 ]
+
+
+@contextlib.contextmanager
+def route_env(values: dict):
+    """The environment switches a route sets (``env`` of its spec), the old
+    values restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def say(phase: str, **fields) -> None:
@@ -391,6 +437,7 @@ def phase_kernels() -> list[dict]:
     records.append(window_attention_case(rn, bf16))
     records.append(global_mha_case(rn, bf16))
     records.extend(int8_cases(x, tok, rn, bf16))
+    records.extend(conv1_and_fused_cases(x, x_cl, rn, bf16))
     torch.cuda.synchronize()
     for r in records:
         say("kernel", **r)
@@ -625,6 +672,118 @@ def int8_cases(x, tok, rn, bf16) -> list[dict]:
     return records
 
 
+def conv1_and_fused_cases(x, x_cl, rn, bf16) -> list[dict]:
+    """conv1 on the 720x1280 RGB frame (3 -> 64), and the fused conv + tail
+    at the x2 serving shapes: the decoder's 3x3 64 -> 64 + ReLU with the
+    folded 7x7 64 -> 12 tail, and the encoder's conv2 with the 5x5 64 -> 12
+    tail + ReLU, emitting conv2's output; then the two adapters of
+    kernels/encoder.py on the same inputs.
+
+    Tolerance: conv1 rounds its f32 sum to bf16 before the bias, so a sum
+    near a rounding boundary can land one step of the sum apart (2^-7 of
+    it): atol 2^-7 x max |sum|, rtol one output step. The fused kernels
+    round the conv output to bf16 in between, where a sum in another order
+    can flip an element by one step, which a tail weight carries into the
+    output: one bf16 step plus 2^-7 x max |conv output| x max |tail weight|.
+    The library calls: F.conv2d (channels-last bf16) for conv1, and the two
+    F.conv2d calls of each unfused pair."""
+    import torch.nn.functional as F
+
+    from transformerupscaler_torch.kernels import encoder as E
+    from transformerupscaler_torch.kernels import stream as S
+
+    _, h, w, _ = x.shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    img = torch.rand(1, h, w, 3, generator=g, device="cuda").bfloat16()
+    k1, b1 = rn(3, 3, 3, 64, std=27 ** -0.5), rn(64, std=0.1)
+    run = lambda: S.conv1_stream(img, k1, b1, True)  # noqa: E731
+    plain = lambda: S.conv1_plain(img, k1, b1, True)  # noqa: E731
+    out = run()
+    sums = S.conv1_plain(img, k1).float().abs().max().item()
+    tol = dict(rtol=bf16["rtol"], atol=2.0 ** -7 * sums)
+    err = close_enough(out, plain(), **tol)
+    w1 = k1.bfloat16().permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    img_cl, b1_16 = img.permute(0, 3, 1, 2), b1.bfloat16()
+    bnd, by = bound_ms(nbytes(img, out) + 27 * 64 * 2 + 64 * 4,
+                       2.0 * h * w * 27 * 64)
+    records = [dict(
+        name="conv1_stream", route="cuda",
+        source="transformerupscaler_torch/csrc/conv1.cu",
+        replaces="transformerupscaler_tpu/ops/pallas/stream.py:1269",
+        max_abs_err=err, tolerance=tol, ms=cuda_ms(run),
+        plain_ms=cuda_ms(plain, 3), bound_ms=bnd, bound_by=by,
+        library_ms=cuda_ms(lambda: F.conv2d(img_cl, w1, b1_16, padding=1)),
+        on="bench_conv1")]
+
+    kc, bc = rn(3, 3, 64, 64, std=1 / 24), rn(64, std=0.1)
+    feat = S.conv3x3_plain(x, kc, bc, True)
+    wc = kc.bfloat16().permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    bc16 = bc.bfloat16()
+    adapters = {}
+    for name, kt, relu, replaces in (
+            ("conv3x3_tail_stream", 7, False, "stream.py:584"),
+            ("conv3x3_tail_emit_stream", 5, True, "stream.py:662")):
+        ktl = rn(kt, kt, 64, 12, std=(kt * kt * 64) ** -0.5)
+        bt = rn(12, std=0.1)
+        flip = 2.0 ** -7 * feat.float().abs().max().item() * \
+            ktl.abs().max().item()
+        tol = dict(rtol=bf16["rtol"], atol=bf16["atol"] + flip)
+        emit = name.endswith("emit_stream")
+        wrap = getattr(S, name)
+        plain_fn = (S.conv3x3_tail_emit_plain if emit
+                    else S.conv3x3_tail_plain)
+        run = lambda: wrap(x, kc, bc, ktl, bt, relu)  # noqa: E731
+        plain = lambda: plain_fn(x, kc, bc, ktl, bt, relu)  # noqa: E731
+        got, want = run(), plain()
+        if emit:
+            err = max(close_enough(got[0], want[0], **tol),
+                      close_enough(got[1], want[1], **bf16))
+            outs = got
+        else:
+            err = close_enough(got, want, **tol)
+            outs = (got,)
+        wt = ktl.bfloat16().permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bt16 = bt.bfloat16()
+
+        def lib(wt=wt, bt16=bt16, kt=kt):
+            return F.conv2d(F.conv2d(x_cl, wc, bc16, padding=1), wt, bt16,
+                            padding=kt // 2)
+
+        flops = 2.0 * h * w * (9 * 64 * 64 + kt * kt * 64 * 12)
+        bnd, by = bound_ms(nbytes(x, *outs) + (9 * 64 * 64 + kt * kt * 64 * 12)
+                           * 2 + (64 + 12) * 4, flops)
+        records.append(dict(
+            name=name, route="cuda",
+            source="transformerupscaler_torch/csrc/conv_tail.cu",
+            replaces="transformerupscaler_tpu/ops/pallas/" + replaces,
+            max_abs_err=err, tolerance=tol, ms=cuda_ms(run),
+            plain_ms=cuda_ms(plain, 3), bound_ms=bnd, bound_by=by,
+            library_ms=cuda_ms(lib), on="bench_fuse"))
+        adapters[name] = (ktl, bt, tol)
+
+    # Rows 17 and 18: the adapters round the biases to bf16 first and call
+    # the two wrappers above; held against their plain versions (check
+    # lines, not records).
+    ka, ba, tol_a = adapters["conv3x3_tail_emit_stream"]
+    kb, bb, tol_b = adapters["conv3x3_tail_stream"]
+    feat_k, a_k = E.fused_encoder(x, kc, bc, ka, ba)
+    feat_p, a_p = E.fused_encoder_plain(x, kc, bc, ka, ba)
+    enc_err = max(close_enough(feat_k, feat_p, **bf16),
+                  close_enough(a_k, a_p, **tol_a))
+    dec_err = close_enough(E.fused_decoder(x, kc, bc, kb, bb),
+                           E.fused_decoder_plain(x, kc, bc, kb, bb), **tol_b)
+    for name, replaces, err, tol in (
+            ("fused_encoder", "encoder.py:239", enc_err, tol_a),
+            ("fused_decoder", "encoder.py:279", dec_err, tol_b)):
+        say("adapter_check", name=name,
+            replaces="transformerupscaler_tpu/ops/pallas/" + replaces,
+            shape=list(x.shape), vs_plain_max_abs=err, tolerance=tol)
+    return records
+
+
 # The fused trunk's records: name (its counter before any "/"), model and
 # route whose frame gives the windows and weights, kernel mode, the TPU
 # kernel it replaces, and the route that launches it.
@@ -797,6 +956,11 @@ def phase_fixture(name: str) -> None:
     model = get_model(spec["model"], dtype=torch.bfloat16, **spec["route"],
                       **config)
     params_from_jax(model, seeded_params(model, seed))
+    with route_env(spec.get("env", {})):
+        _fixture_checks(name, spec, model, x, want, res_out, limit)
+
+
+def _fixture_checks(name, spec, model, x, want, res_out, limit) -> None:
     got = model(torch.from_numpy(x).cuda(), res_out=res_out).float().cpu()
     emax, emean = interior_err(got.numpy(), want, 4)
     say("fixture", route=name, shape=list(got.shape), max_abs=emax,
@@ -822,6 +986,11 @@ def phase_fixture(name: str) -> None:
 
 def phase_slice(name: str) -> dict:
     """Serve 720x1280 frames on one route; returns the launch counts."""
+    with route_env(ROUTES[name].get("env", {})):
+        return _serve(name)
+
+
+def _serve(name: str) -> dict:
     from transformerupscaler_torch import kernels as K
     from transformerupscaler_torch.infer_lib import UpscalerEngine
 
@@ -874,6 +1043,7 @@ def phase_slice(name: str) -> dict:
     emax, emean = interior_err(out, plain, 8)
     med = float(np.median(request_ms))
     say("slice", route=name, model=spec["model"], flags=spec["route"],
+        env=spec.get("env", {}),
         res_out=list(res_out), frames=len(frames),
         request_ms_median=med, request_ms_min=min(request_ms),
         request_ms_max=max(request_ms), fps_median=1e3 / med,

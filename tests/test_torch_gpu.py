@@ -24,11 +24,22 @@ tolerance above holds for them as it stands. The two int8 convs sum their
 products exactly and round their epilogue as the plain version does: bit
 for bit. The 3x3 conv's int8 output quantizes an f32 sum taken in another
 order: at most one int8 step on under 0.1% of elements.
+
+conv1 rounds its f32 sum to bf16 before the bias: a sum near a rounding
+boundary can land one bf16 step of the sum apart (2^-7 of it), which the
+bias add can leave larger than a step of the output; atol is therefore
+2^-7 x max |sum|, rtol one output step. The fused conv + tail rounds the
+conv's output to bf16 in between, where an f32 sum in another order can
+flip an element by one step (2^-7 of it), which a tail weight carries
+into the output: atol adds 2^-7 x max |conv output| x max |tail weight| to
+the tolerance of the output type; the emitted conv output is one rounding:
+the bf16 tolerance.
 """
 
 import pytest
 import torch
 
+from transformerupscaler_torch.kernels import encoder as E
 from transformerupscaler_torch.kernels import gmha as G
 from transformerupscaler_torch.kernels import stream as S
 from transformerupscaler_torch.kernels import trunk2 as T
@@ -316,3 +327,98 @@ def test_wrappers_count_launches_and_reject_bad_input(gen):
     with pytest.raises(ValueError):
         S.tail_conv_stream(x, _rn(gen, 3, 3, 64, 12))
     assert S.LAUNCHES["conv3x3_stream"] == 1
+
+
+@pytest.mark.parametrize("shape", [(1, 720, 1280), (2, 20, 52), (1, 13, 37)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv1_kernel_matches_plain(gen, shape, relu):
+    x = torch.rand(*shape, 3, generator=gen, device="cuda").bfloat16()
+    k, b = _rn(gen, 3, 3, 3, 64, std=0.3), _rn(gen, 64, std=0.1)
+    S.reset_launches()
+    got = S.conv1_stream(x, k, b, relu)
+    assert S.LAUNCHES["conv1_stream"] == 1
+    sums = S.conv1_plain(x, k).float().abs().max().item()
+    _close(got, S.conv1_plain(x, k, b, relu),
+           dict(rtol=2.0 ** -7, atol=2.0 ** -7 * sums))
+
+
+def _conv_tail_case(gen, shape, kt, co):
+    x = _rn(gen, *shape, 64).bfloat16()
+    kc, bc = _rn(gen, 3, 3, 64, 64, std=1 / 24), _rn(gen, 64, std=0.1)
+    ktl = _rn(gen, kt, kt, 64, co, std=(kt * kt * 64) ** -0.5)
+    bt = _rn(gen, co, std=0.1)
+    feat = S.conv3x3_plain(x, kc, bc, True).float().abs().max().item()
+    return x, kc, bc, ktl, bt, 2.0 ** -7 * feat * ktl.abs().max().item()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kt,relu,emit", [(7, False, False), (5, True, True),
+                                          (3, False, True), (3, True, False)])
+@pytest.mark.parametrize("shape,co", [((2, 20, 52), 12), ((1, 33, 17), 48),
+                                      ((1, 16, 16), 27)])
+def test_conv_tail_kernel_matches_plain(gen, shape, co, kt, relu, emit,
+                                        out_dtype):
+    x, kc, bc, ktl, bt, flip = _conv_tail_case(gen, shape, kt, co)
+    tol = dict(F32_TOL if out_dtype == torch.float32 else BF16_TOL)
+    tol["atol"] += flip
+    args = (x, kc, bc, ktl, bt, relu, out_dtype)
+    if emit:
+        got, feat = S.conv3x3_tail_emit_stream(*args)
+        want, want_feat = S.conv3x3_tail_emit_plain(*args)
+        _close(feat, want_feat, BF16_TOL)
+    else:
+        got = S.conv3x3_tail_stream(*args)
+        want = S.conv3x3_tail_plain(*args)
+    assert got.dtype == out_dtype and got.shape == (*shape, co)
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("emit", [False, True])
+def test_conv_tail_kernel_at_720p_matches_plain(gen, emit):
+    """The serving shapes: the decoder's 7x7 without ReLU, the encoder's
+    5x5 with ReLU and the conv output emitted."""
+    kt = 5 if emit else 7
+    x, kc, bc, ktl, bt, flip = _conv_tail_case(gen, (1, 720, 1280), kt, 12)
+    tol = dict(BF16_TOL, atol=BF16_TOL["atol"] + flip)
+    if emit:
+        got, feat = S.conv3x3_tail_emit_stream(x, kc, bc, ktl, bt)
+        want, want_feat = S.conv3x3_tail_emit_plain(x, kc, bc, ktl, bt)
+        _close(feat, want_feat, BF16_TOL)
+    else:
+        got = S.conv3x3_tail_stream(x, kc, bc, ktl, bt)
+        want = S.conv3x3_tail_plain(x, kc, bc, ktl, bt)
+    _close(got, want, tol)
+
+
+def test_fused_encoder_and_decoder_adapters_match_plain(gen):
+    x, k2, b2, ka, ba, flip_a = _conv_tail_case(gen, (2, 20, 52), 5, 12)
+    kc = _rn(gen, 7, 7, 64, 12, std=(49 * 64) ** -0.5)
+    flip_b = flip_a / ka.abs().max().item() * kc.abs().max().item()
+    S.reset_launches()
+    feat, a = E.fused_encoder(x, k2, b2, ka, ba)
+    dec = E.fused_decoder(x, k2, b2, kc, ba)
+    assert S.LAUNCHES["conv3x3_tail_emit_stream"] == 1
+    assert S.LAUNCHES["conv3x3_tail_stream"] == 1
+    want_feat, want_a = E.fused_encoder_plain(x, k2, b2, ka, ba)
+    _close(feat, want_feat, BF16_TOL)
+    _close(a, want_a, dict(BF16_TOL, atol=BF16_TOL["atol"] + flip_a))
+    _close(dec, E.fused_decoder_plain(x, k2, b2, kc, ba),
+           dict(BF16_TOL, atol=BF16_TOL["atol"] + flip_b))
+
+
+def test_new_wrappers_reject_bad_input(gen):
+    x = _rn(gen, 1, 8, 16, 64).bfloat16()
+    kc, kt = _rn(gen, 3, 3, 64, 64), _rn(gen, 5, 5, 64, 12)
+    S.reset_launches()
+    with pytest.raises(TypeError):
+        S.conv3x3_tail_stream(x.float(), kc, None, kt)
+    with pytest.raises(ValueError):  # a 9x9 tail
+        S.conv3x3_tail_stream(x, kc, None, _rn(gen, 9, 9, 64, 12))
+    with pytest.raises(ValueError):  # co above 48
+        S.conv3x3_tail_emit_stream(x, kc, None, _rn(gen, 5, 5, 64, 64))
+    with pytest.raises(TypeError):
+        S.conv1_stream(_rn(gen, 1, 8, 16, 3), _rn(gen, 3, 3, 3, 64))
+    with pytest.raises(ValueError):
+        S.conv1_stream(_rn(gen, 1, 8, 16, 4).bfloat16(),
+                       _rn(gen, 3, 3, 4, 64))
+    assert sum(S.LAUNCHES.values()) == 0

@@ -129,7 +129,8 @@ def test_other_routes_and_geometries_raise():
         with pytest.raises(NotImplementedError, match=field):
             get_model("FastTransformer", device="cpu", **flags)
     for route in (dict(attn_impl="fused2"), dict(split_tail=True),
-                  dict(attn_impl="xla", split_tail=False, hi_lo_fin="wf")):
+                  dict(attn_impl="xla", split_tail=False, hi_lo_fin="wf"),
+                  dict(attn_impl="fused2", conv1_stream=True)):
         get_model("FastTransformer", device="cpu", compose_tails=True,
                   pallas_serve=True, **route, **SMALL)
     with pytest.raises(KeyError):
@@ -142,6 +143,59 @@ def test_other_routes_and_geometries_raise():
         engine.upscale(img, upscale_factor=6)
     with pytest.raises(NotImplementedError):
         engine.upscale(np.zeros((12, 32, 3), np.uint8), upscale_factor=2)
+
+
+def _jax_engine_keywords() -> list[str]:
+    """The keywords the JAX engine passes to ``get_model`` on every build
+    (transformerupscaler_tpu/infer_lib.py:51-57), read from its source."""
+    with open(os.path.join(ROOT, "transformerupscaler_tpu",
+                           "infer_lib.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign)
+                and ast.unparse(node.targets[0]) == "self._model_kwargs"):
+            return [k.arg for k in node.value.keywords]
+    raise AssertionError("no self._model_kwargs in the JAX engine")
+
+
+# The JAX defaults of FastTransformer's serving fields that the port serves
+# at no other value (fast_transformer.py:51, 102, 138, 163, 169).
+FIXED_DEFAULTS = dict(fix_ratio_bug=False, int8_weights=None,
+                      quality_parts="tails", f32_tail=False, fold_pre=True)
+
+
+def test_jax_engine_keyword_set_builds_every_model():
+    """The JAX engine's keyword set, at the values of the ``--fast`` flags
+    and the fields' defaults, builds all four models; so do the other
+    FastTransformer fields at their defaults, which the other models drop
+    as the JAX registry does."""
+    keys = _jax_engine_keywords()
+    assert {"f32_tail", "fold_pre", "split_tail", "hi_lo_fin"} <= set(keys)
+    values = {**FAST_FLAGS, **FIXED_DEFAULTS, "split_tail": None,
+              "hi_lo_fin": None}
+    config = {k: values[k] for k in keys if k != "dtype"}
+    assert set(config) == set(keys) - {"dtype"}
+    for name in ("FastTransformer", "WindowTransformer",
+                 "ResidualTransformer", "BicubicInterpolation"):
+        small = SMALL if name == "FastTransformer" else {}
+        get_model(name, device="cpu", dtype=torch.bfloat16, **config,
+                  **small)
+        m = get_model(name, device="cpu", **{**config, **FIXED_DEFAULTS},
+                      conv1_stream=None, **small)
+        assert getattr(m, "conv1_stream", None) is None
+
+
+@pytest.mark.parametrize("field,value", [
+    ("fix_ratio_bug", True), ("int8_weights", ()),
+    ("quality_parts", "conv1,tails"), ("f32_tail", True),
+    ("fold_pre", False)])
+def test_fixed_fields_raise_not_implemented_off_their_default(field, value):
+    with pytest.raises(NotImplementedError, match=field):
+        get_model("FastTransformer", device="cpu", **FAST_FLAGS,
+                  **{field: value}, **SMALL)
+    # The other models drop the field, as the JAX registry does.
+    get_model("WindowTransformer", device="cpu", **FAST_FLAGS,
+              **{field: value})
 
 
 def test_engine_upscale_contract():

@@ -2,7 +2,13 @@
 and launch counters. ``PLAIN_VERSIONS`` maps every wrapper to the plain
 version that computes the same function."""
 
-from transformerupscaler_torch.kernels import gmha, stream, trunk2, window_attn
+from transformerupscaler_torch.kernels import (
+    encoder,
+    gmha,
+    stream,
+    trunk2,
+    window_attn,
+)
 from transformerupscaler_torch.kernels._common import (
     LAUNCHES,
     MODE_LAUNCHES,
@@ -22,8 +28,11 @@ PLAIN_VERSIONS = {
     "global_mha": gmha.global_mha_plain,
     "conv3x3_int8_stream": stream.conv3x3_int8_plain,
     "tail_conv_int8_stream": stream.tail_conv_int8_plain,
+    "conv1_stream": stream.conv1_plain,
+    "conv3x3_tail_stream": stream.conv3x3_tail_plain,
+    "conv3x3_tail_emit_stream": stream.conv3x3_tail_emit_plain,
 }
 
 __all__ = ["LAUNCHES", "MODE_LAUNCHES", "OPTION_LAUNCHES", "PLAIN_VERSIONS",
-           "gmha", "launch_counts", "reset_launches", "stream", "trunk2",
-           "window_attn"]
+           "encoder", "gmha", "launch_counts", "reset_launches", "stream",
+           "trunk2", "window_attn"]

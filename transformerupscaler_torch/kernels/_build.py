@@ -30,6 +30,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Library -> {C function: argument types}. Every function returns the
 # cudaError_t of its launch as an int.
 SIGNATURES = {
+    "conv1": {
+        "tux_conv1": [_P] * 4 + [_I] * 5 + [_P],
+    },
     "conv_int8": {
         "tux_conv3x3_int8": [_P] * 5 + [_I] * 6 + [_P],
         "tux_tail_conv_int8": [_P] * 5 + [_I] * 9 + [_P],
@@ -37,6 +40,9 @@ SIGNATURES = {
     "conv_nhwc": {
         "tux_conv3x3": [_P] * 5 + [_I] * 5 + [_P],
         "tux_tail_conv": [_P] * 4 + [_I] * 9 + [_P],
+    },
+    "conv_tail": {
+        "tux_conv_tail": [_P] * 7 + [_I] * 9 + [_P],
     },
     "global_mha": {
         "tux_global_mha": [_P] * 4 + [_I] * 4 + [_L] * 2 + [_I, _P],

@@ -11,7 +11,8 @@ LAUNCHES = dict.fromkeys(
     ("conv3x3_stream", "tail_conv_stream", "embed_stream",
      "unembed_combine_stream", "fused_window_trunk", "tail_finish_stream",
      "window_attention_core", "global_mha", "conv3x3_int8_stream",
-     "tail_conv_int8_stream"), 0)
+     "tail_conv_int8_stream", "conv1_stream", "conv3x3_tail_stream",
+     "conv3x3_tail_emit_stream"), 0)
 
 
 # The fused trunk's kernel modes, in the order of the kernel's mode argument,

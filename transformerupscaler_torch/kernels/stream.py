@@ -18,6 +18,14 @@ wrapper                    CUDA source           TPU kernel it replaces
                                                  ``conv3x3_packed_int8_stream``
 ``tail_conv_int8_stream``  csrc/conv_int8.cu     ops/pallas/stream.py:893
                                                  ``tail_macro8_stream_int8``
+``conv1_stream``           csrc/conv1.cu         ops/pallas/stream.py:1269
+                                                 ``conv1_dots_stream`` (call
+                                                 :1308) and :1385
+                                                 ``conv1_flat_stream``
+``conv3x3_tail_stream``    csrc/conv_tail.cu     ops/pallas/stream.py:584
+                                                 ``conv3x3_tail_stream``
+``conv3x3_tail_emit_       csrc/conv_tail.cu     ops/pallas/stream.py:662
+stream``                                         ``conv3x3_tail_emit_stream``
 =========================  ====================  ================================
 
 All tensors are NHWC. Each of the first four kernels takes bf16 activations
@@ -32,7 +40,13 @@ dequantized in f32. The two int8 convs take int8 activations and int8
 weights quantized per output channel (``ops.quant.fold_conv_kernel``), sum
 the products exactly in int32 and compute ``float(acc) * ks + bias`` in f32
 without a fused multiply-add, so kernel and plain version agree bit for bit.
-The bounds at the 720x1280 serving shapes are stated in each CUDA source.
+``conv1_stream`` keeps the TPU kernel's epilogue instead: the f32 sum is
+rounded to bf16 first, then the bias is added in bf16 arithmetic. The two
+fused conv + tail kernels run a 3x3 conv and a composed tail in one kernel,
+with the conv's output rounded to bf16 and zero outside the image in
+between, exactly as ``conv3x3_stream`` followed by ``tail_conv_stream``
+would hand it over. The bounds at the 720x1280 serving shapes are stated in
+each CUDA source.
 
 A wrapper given CPU tensors computes its plain version: the CPU tests run
 that. Given CUDA tensors it checks them, launches the kernel on the current
@@ -197,6 +211,165 @@ def tail_conv_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
     _raise_on(err, "tail_conv_stream")
     LAUNCHES["tail_conv_stream"] += 1
     return out
+
+
+# ------------------------------------------------------------------ conv1
+def conv1_plain(x, kernel, bias=None, relu: bool = False):
+    """Plain version of ``conv1_stream``: per tap (dy, dx, c) in that order
+    one product added to an f32 sum with a single rounding, as a fused
+    multiply-add rounds (taken in float64, where the product of two f32 is
+    exact; the f64 sum of it and the f32 sum is then rounded to f32). That
+    is the order and rounding of the reference's f32 dot over its K=108
+    operand, whose extra taps are zeros (stream.py:1230-1245); for bf16
+    inputs every product is exact and any f32 sum in this order agrees.
+    Then JAX's epilogue order: round to x's dtype, add the bias rounded to
+    it in that dtype, ReLU."""
+    dt = x.dtype
+    b, h, w, cin = x.shape
+    k = kernel.to(dt).double()
+    xp = torch.nn.functional.pad(x.double(), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(b, h, w, kernel.shape[3], dtype=torch.float32,
+                      device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            for c in range(cin):
+                tap = xp[:, dy:dy + h, dx:dx + w, c:c + 1]
+                acc = (acc.double() + tap * k[dy, dx, c]).float()
+    y = acc.to(dt)
+    if bias is not None:
+        y = y + bias.to(dt)
+    return torch.relu(y) if relu else y
+
+
+def conv1_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
+                 relu: bool = False) -> torch.Tensor:
+    """conv1: 3x3 zero-padded conv, 3 -> 64 channels.
+
+    x: (B, H, W, 3); kernel: (3, 3, 3, 64) HWIO, rounded to x's dtype;
+    bias: (64,), rounded to x's dtype. Returns (B, H, W, 64) in x's dtype:
+    the f32 sum rounded to that dtype first, then the bias added in it, then
+    the ReLU (stream.py:1259-1263). The card takes bfloat16.
+    """
+    if not _on_card(x, kernel, bias):
+        return conv1_plain(x, kernel, bias, relu)
+    b, h, w, _ = x.shape
+    _check(x, "x", torch.bfloat16, (b, h, w, 3))
+    if tuple(kernel.shape) != (3, 3, 3, 64):
+        raise ValueError(f"kernel: expected (3, 3, 3, 64), got "
+                         f"{tuple(kernel.shape)}")
+    # [cout][(dy * 3 + dx) * 3 + c], K zero-padded from 27 to 32.
+    wt = torch.zeros(64, 32, dtype=torch.bfloat16, device=x.device)
+    wt[:, :27] = kernel.to(torch.bfloat16).reshape(27, 64).t()
+    bb = (torch.zeros(64, dtype=torch.float32, device=x.device)
+          if bias is None else bias.to(torch.bfloat16).float().contiguous())
+    _check(bb, "bias", torch.float32, (64,))
+    out = torch.empty(b, h, w, 64, dtype=torch.bfloat16, device=x.device)
+    err = _build.load("conv1").tux_conv1(
+        x.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w,
+        int(relu), x.device.index, _stream(x))
+    _raise_on(err, "conv1_stream")
+    LAUNCHES["conv1_stream"] += 1
+    return out
+
+
+# ---------------------------------------------------- fused conv + tail
+def conv3x3_tail_emit_plain(x, conv_kernel, conv_bias, tail_kernel,
+                            tail_bias=None, tail_relu: bool = True,
+                            out_dtype=None):
+    """Plain version of ``conv3x3_tail_emit_stream``: ``conv3x3_plain``
+    with its ReLU, whose output is rounded to x's dtype and zero-padded by
+    the tail, then ``tail_conv_plain``. Returns (tail output, conv
+    output)."""
+    feat = conv3x3_plain(x, conv_kernel, conv_bias, True)
+    return (tail_conv_plain(feat, tail_kernel, tail_bias, tail_relu,
+                            out_dtype or x.dtype), feat)
+
+
+def conv3x3_tail_plain(x, conv_kernel, conv_bias, tail_kernel,
+                       tail_bias=None, tail_relu: bool = False,
+                       out_dtype=None):
+    """Plain version of ``conv3x3_tail_stream``."""
+    return conv3x3_tail_emit_plain(x, conv_kernel, conv_bias, tail_kernel,
+                                   tail_bias, tail_relu, out_dtype)[0]
+
+
+def _conv_tail(x, conv_kernel, conv_bias, tail_kernel, tail_bias, tail_relu,
+               out_dtype, emit: bool, name: str):
+    """Launch the fused conv + tail kernel on CUDA tensors; returns (tail
+    output, conv output or None)."""
+    b, h, w, _ = x.shape
+    _check(x, "x", torch.bfloat16, (b, h, w, 64))
+    if tuple(conv_kernel.shape) != (3, 3, 64, 64):
+        raise ValueError(f"conv_kernel: expected (3, 3, 64, 64), got "
+                         f"{tuple(conv_kernel.shape)}")
+    k, _, cin, co = tail_kernel.shape
+    npad = next((n for n in TAIL_NPAD if co <= n), None)
+    if k not in (3, 5, 7) or tail_kernel.shape[1] != k or cin != 64 \
+            or npad is None:
+        raise ValueError(f"tail_kernel: expected (k, k, 64, co), k in "
+                         f"(3, 5, 7), co <= {TAIL_NPAD[-1]}; got "
+                         f"{tuple(tail_kernel.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype: bfloat16 or float32, got {out_dtype}")
+    wc = conv_kernel.to(torch.bfloat16).permute(0, 1, 3, 2).contiguous()
+    wt = torch.zeros(k, k, npad, 64, dtype=torch.bfloat16, device=x.device)
+    wt[:, :, :co] = tail_kernel.to(torch.bfloat16).permute(0, 1, 3, 2)
+    bc, bt = _bias32(conv_bias, 64, x), _bias32(tail_bias, co, x)
+    _check(bc, "conv_bias", torch.float32, (64,))
+    _check(bt, "tail_bias", torch.float32, (co,))
+    out = torch.empty(b, h, w, co, dtype=out_dtype, device=x.device)
+    feat = torch.empty_like(x) if emit else None
+    err = _build.load("conv_tail").tux_conv_tail(
+        x.data_ptr(), wc.data_ptr(), bc.data_ptr(), wt.data_ptr(),
+        bt.data_ptr(), out.data_ptr(), None if feat is None else
+        feat.data_ptr(), b, h, w, k, co, npad, int(tail_relu),
+        int(out_dtype == torch.float32), x.device.index, _stream(x))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out, feat
+
+
+def conv3x3_tail_stream(x: torch.Tensor, conv_kernel: torch.Tensor,
+                        conv_bias, tail_kernel: torch.Tensor, tail_bias=None,
+                        tail_relu: bool = False,
+                        out_dtype=None) -> torch.Tensor:
+    """A 3x3 64 -> 64 conv + ReLU fused with a k x k tail 64 -> co; the
+    conv's output stays in the kernel. FastTransformer's decoder conv and
+    folded branch-B tail (7x7 at x2). (The TPU kernels' ``conv_relu=False``,
+    which no caller passes, is not carried.)
+
+    x: (B, H, W, 64); conv_kernel: (3, 3, 64, 64) HWIO and tail_kernel:
+    (k, k, 64, co) with k in {3, 5, 7} and co <= 48, both rounded to x's
+    dtype; conv_bias (64,) and tail_bias (co,), kept f32. The conv's output
+    (f32 sum, bias, ReLU) is rounded once to x's dtype and is zero
+    outside the image, as the tail's zero pad (stream.py:516-521); the tail
+    sums in f32, adds its bias, applies the optional ReLU and rounds once to
+    ``out_dtype`` (default x's dtype; may be float32).
+    """
+    out_dtype = out_dtype or x.dtype
+    if not _on_card(x, conv_kernel, conv_bias, tail_kernel, tail_bias):
+        return conv3x3_tail_plain(x, conv_kernel, conv_bias, tail_kernel,
+                                  tail_bias, tail_relu, out_dtype)
+    return _conv_tail(x, conv_kernel, conv_bias, tail_kernel, tail_bias,
+                      tail_relu, out_dtype, False, "conv3x3_tail_stream")[0]
+
+
+def conv3x3_tail_emit_stream(x: torch.Tensor, conv_kernel: torch.Tensor,
+                             conv_bias, tail_kernel: torch.Tensor,
+                             tail_bias=None, tail_relu: bool = True,
+                             out_dtype=None):
+    """``conv3x3_tail_stream`` that also returns the conv's output: the
+    encoder's conv2 and branch-A tail (5x5 + ReLU at x2), whose conv output
+    feeds the embed and the unembed. Returns (tail output, conv output
+    (B, H, W, 64) in x's dtype); ``out_dtype`` applies to the tail output
+    only."""
+    out_dtype = out_dtype or x.dtype
+    if not _on_card(x, conv_kernel, conv_bias, tail_kernel, tail_bias):
+        return conv3x3_tail_emit_plain(x, conv_kernel, conv_bias,
+                                       tail_kernel, tail_bias, tail_relu,
+                                       out_dtype)
+    return _conv_tail(x, conv_kernel, conv_bias, tail_kernel, tail_bias,
+                      tail_relu, out_dtype, True, "conv3x3_tail_emit_stream")
 
 
 # ------------------------------------------------------------- int8 convs

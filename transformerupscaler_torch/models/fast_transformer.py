@@ -6,9 +6,13 @@ JAX counterpart: transformerupscaler_tpu models/fast_transformer.py:38-226
 ``compose_tails=True, pallas_serve=True``. At a supported geometry that
 forward runs:
 
-  conv1 3->64 + ReLU              ops.conv.conv2d (PyTorch conv)
+  conv1 3->64 + ReLU              ops.conv.conv2d (PyTorch conv); with
+                                    ``conv1_stream``: kernels.stream
+                                    .conv1_stream
   conv2 64->64 + ReLU             kernels.stream.conv3x3_stream
   branch A: composed tail + ReLU  kernels.stream.tail_conv_stream (5x5 at x2)
+                                  (conv2 and branch A under TUX_FUSE_STREAM=1:
+                                    kernels.stream.conv3x3_tail_emit_stream)
   patch embed 8x8/8               kernels.stream.embed_stream
   trunk: window blocks            attn_impl "fused2" / "fused":
                                     kernels.trunk2.fused_window_trunk,
@@ -24,12 +28,16 @@ forward runs:
                                     (5x5 mid + 3x3 finish at x2)
                                   folded: kernels.stream.tail_conv_stream
                                     (7x7 at x2)
+                                  (decoder conv and the folded tail under
+                                    TUX_FUSE_STREAM=1: kernels.stream
+                                    .conv3x3_tail_stream)
   branch add, squash or shuffle, clip
 
 The B tail is split when ``split_tail`` is True, or None (the default) and
 the compute dtype is bfloat16 (fast_transformer.py:829-851; the JAX
 ``serve_quality`` mode is not ported, so its exception does not arise): an
-f32 model keeps the fold unless asked. ``int8_trunk`` (fast_transformer.py:
+f32 model keeps the fold unless asked; under ``TUX_FUSE_STREAM=1`` (below)
+it is always folded. ``int8_trunk`` (fast_transformer.py:
 91-96, :699-701) runs the trunk's four GEMMs as int8 with per-token scales
 under ``attn_impl="fused2"`` and, as in JAX, is ignored by the other trunks.
 
@@ -62,9 +70,27 @@ JAX does at trace time. Every forward records the scales it used in
 JAX's int8 tail is the XLA ``conv2d_tail_packed_int8`` unless
 ``TUX_INT8_TAIL=pallas`` picks ``tail_macro8_stream_int8``; both compute one
 function, which the port serves with the one int8 tail kernel, so the
-switch is not carried. The JAX package's other ``TUX_*`` environment
-switches are not carried either, nor the offline GPTQ weights
-(``int8_weights``).
+switch is not carried.
+
+Two environment switches are read at forward time, as JAX reads them at
+trace time (fast_transformer.py:514-520, 581-595, 702-706, 780-789):
+
+- ``TUX_FUSE_STREAM``, on only when it is "1": conv2 and the branch-A tail
+  run as one kernel that also emits conv2's output (``fuse_enc``: not under
+  the "full" and "tails" scopes), and the decoder conv and the folded
+  branch-B tail as one kernel (``fuse_dec``: not under "full" and
+  "residual"; the split tail does not apply). So "residual" fuses the
+  encoder in bf16 and keeps its int8 decoder, and "tails" fuses the decoder
+  in bf16 on the unembed's output with the int8 skip and quantizes no
+  ``dec``. conv1 is then the plain ``ops.conv.conv2d``.
+- ``TUX_CONV1_STREAM``: unset, the ``conv1_stream`` field decides; set, any
+  value but "0" (the empty string too) runs conv1 on ``conv1_stream``. It
+  applies where JAX's deinterleaved conv1 runs: not under the "full" scope
+  and not under the fused encoder.
+
+The JAX package's other ``TUX_*`` switches are not carried, nor its
+serving fields other than those above at values other than their defaults
+(``registry.FIXED_ROUTE``).
 
 Other geometries (outside scale 2/3/4 with h % 8 == 0 and w % 16 == 0, where
 the JAX model takes its exact path, and x6, whose tails run other kernels)
@@ -73,13 +99,18 @@ raise ``NotImplementedError``: they are later slices of the port.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn as nn
 
 from transformerupscaler_torch.kernels.stream import (
     HI_LO_FIN,
+    conv1_stream,
     conv3x3_int8_stream,
     conv3x3_stream,
+    conv3x3_tail_emit_stream,
+    conv3x3_tail_stream,
     embed_stream,
     tail_conv_int8_stream,
     tail_conv_stream,
@@ -114,6 +145,11 @@ INT8_SCOPES = ("full", "residual", "tails")
 INT8_TENSORS = ("feat1", "feat", "combined", "dec", "tokens")
 
 
+def fuse_stream() -> bool:
+    """JAX's ``TUX_FUSE_STREAM`` switch: on only when it is "1"."""
+    return os.environ.get("TUX_FUSE_STREAM", "0") == "1"
+
+
 class FastTransformer(FusedTrunk, nn.Module):
     """Inference-only FastTransformer. Parameters are f32 in the JAX layout
     (see ``transformerupscaler_torch.weights``); compute runs in ``dtype``.
@@ -124,7 +160,8 @@ class FastTransformer(FusedTrunk, nn.Module):
     ``split_tail``: None (automatic), True or False; ``hi_lo_fin``: how the
     split tail's finish rounds, None (= "off"), "off", "wf" or "full";
     ``int8_serve``, ``int8_scope`` ("full", "residual" or "tails") and
-    ``int8_scales`` (None or five tuples): the int8 serving scopes."""
+    ``int8_scales`` (None or five tuples): the int8 serving scopes;
+    ``conv1_stream``: None (off), False or True, conv1 on its kernel."""
 
     def __init__(self, in_channels: int = 3, base_channels: int = 64,
                  transformer_dim: int = 192, num_window_blocks: int = 6,
@@ -134,7 +171,8 @@ class FastTransformer(FusedTrunk, nn.Module):
                  split_tail: bool | None = None,
                  hi_lo_fin: str | None = None, int8_trunk: bool = False,
                  int8_serve: bool = False, int8_scope: str = "full",
-                 int8_scales: tuple | None = None):
+                 int8_scales: tuple | None = None,
+                 conv1_stream: bool | None = None):
         super().__init__()
         bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
         if bc != 64 or ps != 8:
@@ -149,6 +187,9 @@ class FastTransformer(FusedTrunk, nn.Module):
         if int8_scope not in INT8_SCOPES:
             raise ValueError(f"int8_scope: one of {INT8_SCOPES}, got "
                              f"{int8_scope!r}")
+        if conv1_stream not in (None, False, True):
+            raise ValueError(f"conv1_stream: None, False or True, got "
+                             f"{conv1_stream!r}")
         if int8_scales is not None and len(int8_scales) != len(INT8_TENSORS):
             raise ValueError(f"int8_scales: one tuple for each of "
                              f"{INT8_TENSORS}")
@@ -164,6 +205,7 @@ class FastTransformer(FusedTrunk, nn.Module):
         self.int8_scales = (None if int8_scales is None else
                             tuple(tuple(map(float, s)) for s in int8_scales))
         self.int8_scales_used = {}
+        self.conv1_stream = conv1_stream
         self.conv1 = ConvLayer(ic, bc)
         self.conv2 = ConvLayer(bc, bc)
         self.up1 = Upsampler(bc)
@@ -192,8 +234,10 @@ class FastTransformer(FusedTrunk, nn.Module):
     @property
     def splits_tail(self) -> bool:
         """Whether branch B runs as the split tail (mid + finish); never
-        under ``int8_serve``, which folds it (fast_transformer.py:747-749)."""
-        if self.int8_serve:
+        under ``int8_serve``, which folds it (fast_transformer.py:747-749),
+        nor under ``TUX_FUSE_STREAM=1``, whose fused decoder takes the folded
+        tail (:780-789)."""
+        if self.int8_serve or fuse_stream():
             return False
         if self.split_tail is not None:
             return bool(self.split_tail)
@@ -204,14 +248,15 @@ class FastTransformer(FusedTrunk, nn.Module):
         with its commuted RGB tail. Branch B takes decoder_conv2, the
         final_upscale chain and its tail: folded into one (kernel, bias),
         or split as ((k_mid, b_mid), (k_fin, b_fin)). Composed once per
-        scale in f32 and cast to the compute dtype."""
-        key = (scale, self.conv1.kernel.device)
+        scale in f32 and cast to the compute dtype; kept per scale, device
+        and form of branch B."""
+        split = self.splits_tail
+        key = (scale, self.conv1.kernel.device, split)
         if key not in self._tails:
             dt = self.dtype
             ka = composed_tail_kernel(self.up1.stage_params(), scale,
                                       self.up1_conv_kernel, None, dt)
-            compose = (split_tail_kernels if self.splits_tail
-                       else composed_tail_kernel)
+            compose = split_tail_kernels if split else composed_tail_kernel
             kb = compose(
                 self.final_upscale.stage_params(), scale,
                 self.final_upscale_conv_kernel, self.final_upscale_conv_bias,
@@ -290,8 +335,17 @@ class FastTransformer(FusedTrunk, nn.Module):
 
         self.int8_scales_used = {}
         scope = self.int8_scope if self.int8_serve else None
+        fuse = fuse_stream()
+        fuse_enc = fuse and scope not in ("full", "tails")
+        fuse_dec = fuse and scope not in ("full", "residual")
         k2, b2 = self.conv2.kernel, self.conv2.bias
-        feat1 = conv2d(x, self.conv1.kernel, self.conv1.bias, relu=True)
+        c1_env = os.environ.get("TUX_CONV1_STREAM")
+        c1_stream = self.conv1_stream if c1_env is None else c1_env != "0"
+        if c1_stream and scope != "full" and not fuse_enc:
+            feat1 = conv1_stream(x, self.conv1.kernel, self.conv1.bias,
+                                 relu=True)
+        else:
+            feat1 = conv2d(x, self.conv1.kernel, self.conv1.bias, relu=True)
         skip_scale = None
         if scope == "full":
             f1q, s1 = self._act_q("feat1", feat1)
@@ -308,6 +362,8 @@ class FastTransformer(FusedTrunk, nn.Module):
             a = tail_conv_int8_stream(
                 feat, *self._fold("tail_a", ka, skip_scale, scale), ba,
                 relu=True, out_dtype=dt)
+        elif fuse_enc:
+            a, feat = conv3x3_tail_emit_stream(feat1, k2.to(dt), b2, ka, ba)
         else:
             feat = conv3x3_stream(feat1, k2.to(dt), b2, relu=True)
             a = tail_conv_stream(feat, ka, ba, relu=True)
@@ -320,7 +376,9 @@ class FastTransformer(FusedTrunk, nn.Module):
                                           self.patch_unembed_bias,
                                           feat_scale=skip_scale)
         kd, bd = self.decoder_conv1.kernel, self.decoder_conv1.bias
-        if scope is None:
+        if fuse_dec:
+            bt = conv3x3_tail_stream(combined, kd.to(dt), bd, *tail_b)
+        elif scope is None:
             dec = conv3x3_stream(combined, kd.to(dt), bd, relu=True)
             if self.splits_tail:
                 (km, bm), (kf, bf) = tail_b

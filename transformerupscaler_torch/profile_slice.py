@@ -21,14 +21,18 @@ FastTransformer's int8 serving scopes on the ``bench`` route: ``int8_tails``
 (bench.py's ``int8_tails``), ``int8_residual`` and ``int8_full``, each with
 static scales from ``UpscalerEngine.calibrate_int8`` on three seeded
 frames, and ``int8_tails_dyn`` (the tails scope with dynamic scales, as the
-command lines' ``--int8`` serves it); every other route at res_out
-1080x1920.
+command lines' ``--int8`` serves it); ``bench_conv1`` (``bench`` with conv1
+on its kernel, ``conv1_stream=True``) and ``bench_fuse`` (``bench`` with
+``TUX_FUSE_STREAM=1``: conv2 and tail A, and the decoder conv and the folded
+tail B, each as one kernel; the variable is set for the run); every other
+route at res_out 1080x1920.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 
 import numpy as np
@@ -48,6 +52,9 @@ ROUTES = {
     "bench": ("FastTransformer", _BENCH, RES_OUT),
     "bench_int8_trunk": ("FastTransformer", dict(_BENCH, int8_trunk=True),
                          RES_OUT),
+    "bench_conv1": ("FastTransformer", dict(_BENCH, conv1_stream=True),
+                    RES_OUT),
+    "bench_fuse": ("FastTransformer", _BENCH, RES_OUT),
     "xla_fold": ("FastTransformer", dict(compose_tails=True,
                                          pallas_serve=True, attn_impl="xla",
                                          split_tail=False), RES_OUT),
@@ -63,12 +70,15 @@ ROUTES = {
                                        ("residual", ""), ("full", ""))},
 }
 CALIBRATED = ("int8_tails", "int8_residual", "int8_full")
+# Environment switches a route sets.
+ENV = {"bench_fuse": {"TUX_FUSE_STREAM": "1"}}
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--route", choices=sorted(ROUTES), default="bench")
     route = parser.parse_args().route
+    os.environ.update(ENV.get(route, {}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -111,6 +121,7 @@ def main() -> None:
     busy_ms = sum(per_kernel.values()) / 1e3 / FRAMES
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:TOP]
     print(json.dumps({"device": smi, "route": route, "model": model,
+                      "env": ENV.get(route, {}),
                       "res_out": res_out, "forward_ms": fwd_ms,
                       "device_busy_ms": busy_ms,
                       "idle_share": 1.0 - busy_ms / fwd_ms,

@@ -10,7 +10,8 @@ The port serves the four models of the JAX package:
   around the window-attention kernel (``"pallas"``), and the branch-B tail
   split, folded or chosen by dtype (``split_tail`` True, False, None); with
   ``int8_serve`` in the scopes "full", "residual" and "tails"
-  (``int8_scope``), with dynamic or static (``int8_scales``) scales;
+  (``int8_scope``), with dynamic or static (``int8_scales``) scales; conv1
+  on its kernel (``conv1_stream``);
 - ``WindowTransformer``: the exact path, ``pallas_serve`` and
   ``attn_impl`` "xla", "pallas", "fused" or "fused2";
 - ``ResidualTransformer``: the exact path, ``packed_serve``, ``pallas_serve``
@@ -19,7 +20,9 @@ The port serves the four models of the JAX package:
 - ``BicubicInterpolation``, which has no fields.
 
 Asking for a route the port does not serve raises ``NotImplementedError``
-(``int8_mlp``, ``serve_quality``, ``pallas_serve=False``). Like the JAX
+(``int8_mlp``, ``serve_quality``, ``pallas_serve=False``, and any value but
+the JAX default of ``fix_ratio_bug``, ``int8_weights``, ``quality_parts``,
+``f32_tail`` and ``fold_pre``). Like the JAX
 ``get_model``, fields a model does not have are dropped, so that one set of
 serving flags can go to every model: the flags the JAX command lines pass
 with ``--fast`` (inference.py:83-98, speed_test.py:35-48) serve all four.
@@ -51,7 +54,12 @@ _MODELS = {"BicubicInterpolation": BicubicInterpolation,
 # named takes any).
 FIXED_ROUTE = {
     "FastTransformer": {"compose_tails": True, "pallas_serve": True,
-                        "int8_mlp": False, "serve_quality": False},
+                        "int8_mlp": False, "serve_quality": False,
+                        # JAX defaults, fast_transformer.py:51, 102, 138,
+                        # 163, 169
+                        "fix_ratio_bug": False, "int8_weights": None,
+                        "quality_parts": "tails", "f32_tail": False,
+                        "fold_pre": True},
     "WindowTransformer": {"int8_mlp": False},
 }
 ATTN_IMPLS = {"FastTransformer": TRUNK_IMPLS, "WindowTransformer": TRUNK_IMPLS}
@@ -60,7 +68,8 @@ ATTN_IMPLS = {"FastTransformer": TRUNK_IMPLS, "WindowTransformer": TRUNK_IMPLS}
 IGNORED = ("dropout", "compose_tails", "packed_serve", "pallas_serve",
            "int8_mlp", "int8_serve", "int8_scope", "int8_scales",
            "int8_trunk", "serve_quality", "attn_impl", "split_tail",
-           "hi_lo_fin")
+           "hi_lo_fin", "fix_ratio_bug", "int8_weights", "quality_parts",
+           "f32_tail", "fold_pre", "conv1_stream")
 
 
 def list_models() -> list[str]:
