@@ -39,12 +39,18 @@ the bf16 tolerance.
 import pytest
 import torch
 
+from transformerupscaler_torch.kernels import launch_counts
+from transformerupscaler_torch.kernels import conv3x3 as C3
 from transformerupscaler_torch.kernels import encoder as E
 from transformerupscaler_torch.kernels import gmha as G
+from transformerupscaler_torch.kernels import patch_kernels as P
 from transformerupscaler_torch.kernels import stream as S
 from transformerupscaler_torch.kernels import trunk2 as T
 from transformerupscaler_torch.kernels import window_attn as A
-from transformerupscaler_torch.models.common import WindowBlock
+from transformerupscaler_torch.models.common import (
+    WindowBlock,
+    trunk_int8_scales,
+)
 from transformerupscaler_torch.ops import quant as Q
 
 pytestmark = pytest.mark.gpu
@@ -131,7 +137,8 @@ def test_window_trunk_kernel_matches_plain(gen, n_win, layers):
     assert err.max() <= 0.125 and err.mean() <= 1e-2, (err.max(), err.mean())
 
 
-TRUNK_MODES = [(128, "v2"), (128, "v1"), (192, "v1"), (192, "int8_rowwise")]
+TRUNK_MODES = [(128, "v2"), (128, "v1"), (192, "v1"), (192, "int8_rowwise"),
+               (192, "int8_static")]
 
 
 @pytest.mark.parametrize("n_win", [1, 3, 61])
@@ -143,11 +150,14 @@ def test_window_trunk_modes_match_plain(gen, dim, mode, n_win):
     round to the neighbouring int8 value, which moves its row's product by
     one quantization step and, through attention, the window's other tokens
     (tests/test_torch_int8_trunk.py, against JAX): max abs <= 0.25, mean
-    abs <= 0.03."""
+    abs <= 0.03; the static mode, with scales calibrated on the same
+    windows, flips the same way."""
     blocks = _trunk_blocks(gen, dim, 2)
+    win = _rn(gen, n_win, 64, dim).bfloat16()
     params = T.stack_trunk_params(blocks, torch.bfloat16,
                                   mode == "int8_rowwise")
-    win = _rn(gen, n_win, 64, dim).bfloat16()
+    if mode == "int8_static":
+        params = T.add_static_int8(params, trunk_int8_scales(blocks, win))
     S.reset_launches()
     got = T.fused_window_trunk(win, params, mode)
     assert T.MODE_LAUNCHES[mode] == T.LAUNCHES["fused_window_trunk"] == 1
@@ -155,7 +165,7 @@ def test_window_trunk_modes_match_plain(gen, dim, mode, n_win):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
     assert torch.isfinite(got.float()).all()
-    bound = (0.25, 0.03) if mode == "int8_rowwise" else (0.125, 1e-2)
+    bound = (0.25, 0.03) if mode.startswith("int8") else (0.125, 1e-2)
     assert err.max() <= bound[0] and err.mean() <= bound[1], (err.max(),
                                                               err.mean())
 
@@ -422,3 +432,80 @@ def test_new_wrappers_reject_bad_input(gen):
         S.conv1_stream(_rn(gen, 1, 8, 16, 4).bfloat16(),
                        _rn(gen, 3, 3, 4, 64))
     assert sum(S.LAUNCHES.values()) == 0
+
+
+CONV3X3_CASES = [(64, 64, True, True), (64, 256, False, True),
+                 (256, 16, False, False), (8, 8, True, False),
+                 (16, 8, False, False), (3, 5, True, True),
+                 (40, 100, False, True)]
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 37), (3, 8, 16), (1, 6, 16)])
+@pytest.mark.parametrize("c,o,relu,bias", CONV3X3_CASES)
+def test_conv3x3_any_width_matches_plain(gen, shape, c, o, relu, bias):
+    """The general conv at the JAX tests' widths and at widths that are not
+    multiples of 8 or 16 (C = 3, 40; O = 5, 100), ragged tiles: one bf16
+    step. Counted under ``ARCHIVED_LAUNCHES`` only."""
+    x = _rn(gen, *shape, c).bfloat16()
+    k = _rn(gen, 3, 3, c, o, std=(9 * c) ** -0.5)
+    b = _rn(gen, o, std=0.3) if bias else None
+    S.reset_launches()
+    got = C3.conv3x3(x, k, b, relu, th=4)
+    assert got.dtype == torch.bfloat16 and got.shape == (*shape, o)
+    assert C3.ARCHIVED_LAUNCHES["conv3x3"] == 1
+    assert sum(S.LAUNCHES.values()) == 0
+    _close(got, C3.conv3x3_plain(x, k, b, relu), BF16_TOL)
+
+
+@pytest.mark.parametrize("b,ht,wt,d", [(2, 3, 5, 64), (1, 2, 4, 192)])
+def test_fused_patch_embed_kernel_matches_plain(gen, b, ht, wt, d):
+    f = _rn(gen, b, 8 * ht, 8 * wt, 64).bfloat16()
+    k, bias = _rn(gen, 8, 8, 64, d, std=0.02), _rn(gen, d)
+    S.reset_launches()
+    got = P.fused_patch_embed(f, k, bias)
+    assert P.ARCHIVED_LAUNCHES["fused_patch_embed"] == 1
+    assert S.LAUNCHES["embed_stream"] == 0
+    _close(got, P.fused_patch_embed_plain(f, k, bias), BF16_TOL)
+
+
+@pytest.mark.parametrize("d", [48, 192])
+def test_fused_patch_unembed_add_kernel_matches_plain(gen, d):
+    """Three roundings after the product: a product summed in another
+    order can round y one bf16 step apart, which the adds carry into the
+    output: one bf16 step of the output plus 2^-7 max |y|."""
+    tok = _rn(gen, 2, 3, 5, d).bfloat16()
+    f = _rn(gen, 2, 24, 40, 64).bfloat16()
+    k, bias = _rn(gen, d, 8, 8, 64, std=d ** -0.5), _rn(gen, 64)
+    S.reset_launches()
+    got = P.fused_patch_unembed_add(tok, f, k, bias)
+    assert P.ARCHIVED_LAUNCHES["fused_patch_unembed_add"] == 1
+    assert S.LAUNCHES["unembed_combine_stream"] == 0
+    y_max = (tok.float() @ k.bfloat16().float().reshape(d, -1)).abs().max()
+    _close(got, P.fused_patch_unembed_add_plain(tok, f, k, bias),
+           dict(rtol=2.0 ** -7, atol=2.0 ** -7 * y_max.item()))
+
+
+def test_archived_wrappers_reject_bad_input(gen):
+    x = _rn(gen, 1, 8, 16, 64).bfloat16()
+    S.reset_launches()
+    with pytest.raises(TypeError):  # the card takes bf16
+        C3.conv3x3(x.float(), _rn(gen, 3, 3, 64, 8))
+    with pytest.raises(ValueError):  # a 5x5 kernel
+        C3.conv3x3(x, _rn(gen, 5, 5, 64, 8))
+    with pytest.raises(ValueError):  # D % 64
+        P.fused_patch_embed(x, _rn(gen, 8, 8, 64, 96), None)
+    with pytest.raises(ValueError):  # D % 16
+        P.fused_patch_unembed_add(_rn(gen, 1, 1, 2, 40).bfloat16(), x,
+                                  _rn(gen, 40, 8, 8, 64), None)
+    p128 = T.add_static_int8(
+        T.stack_trunk_params(_trunk_blocks(gen, 128, 1), torch.bfloat16),
+        (torch.ones(1, 128),) * 3 + (torch.ones(1, 512),))
+    with pytest.raises(ValueError):  # the int8 modes are compiled at C=192
+        T.fused_window_trunk(_rn(gen, 1, 64, 128).bfloat16(), p128,
+                             "int8_static")
+    with pytest.raises(ValueError):  # static weights not stacked
+        T.fused_window_trunk(
+            _rn(gen, 1, 64, 192).bfloat16(),
+            T.stack_trunk_params(_trunk_blocks(gen, 192, 1), torch.bfloat16),
+            "int8_static")
+    assert sum(launch_counts().values()) == 0

@@ -139,15 +139,17 @@ def test_int8_product_is_exact(rng):
     xq, srow = quantize_rows(x)
     want = (xq.numpy().astype(np.int64) @ p["fc1w_q"][1].numpy()
             .astype(np.int64)).astype(np.float32)
-    got = T._product(x, p, "fc1w", 1, True)
+    got = T._product(x, p, "fc1w", 1, "int8_rowwise")
     np.testing.assert_array_equal(
         got.numpy(), (torch.from_numpy(want) * srow * p["fc1w_sw"][1]).numpy())
 
 
 def test_int8_acts_routing(rng):
     """``int8_acts="rowwise"`` reaches the int8 mode on "fused2" only, as in
-    JAX: "xla" and "fused" ignore it (bit-identical to without); the static
-    per-channel tuple is not ported; an unknown string is refused there."""
+    JAX: "xla" and "fused" ignore it (bit-identical to without); a static
+    per-channel tuple of the wrong shapes (fc2's input is 4C wide) and an
+    unknown string are refused there (the static mode itself:
+    tests/test_torch_int8_static_trunk.py)."""
     trunk, _, _ = _case()
     tokens = torch.from_numpy(
         rng.standard_normal((1, 8, 16, DIM)).astype(np.float32))
@@ -161,7 +163,7 @@ def test_int8_acts_routing(rng):
     bf = run_window_trunk(tokens, trunk.blocks, WS, "fused2")
     assert not torch.equal(i8, bf)
     torch.testing.assert_close(i8, bf, atol=0.25, rtol=0)
-    with pytest.raises(NotImplementedError, match="static"):
+    with pytest.raises(ValueError, match="int8_acts"):
         run_window_trunk(tokens, trunk.blocks, WS, "fused2",
                          int8_acts=(np.ones((2, DIM)),) * 4)
     with pytest.raises(ValueError, match="int8_acts"):

@@ -19,6 +19,13 @@
 //       f32(q) * s[c] in the f32 epilogue, in the order (g + bias) + skip.
 // With them the bounds become 64 MB moved, ~19 us (embed), and 182 MB,
 // ~54 us (unembed), still bytes-bound.
+// The archived functions of transformerupscaler_tpu/ops/pallas/
+// patch_kernels.py run on the same two kernels: fused_patch_embed (:50) on
+// the embed with its bias rounded to bf16 by the caller; fused_patch_unembed_
+// add (:106) on the unembed with the epilogue option round_steps, which
+// rounds where that kernel rounds (patch_kernels.py:99-103, 126): y =
+// bf16(acc), then bf16(y + bias) with the bias a bf16 value, then bf16(. +
+// skip): three roundings where the epilogue above has one.
 //
 // Design: 64-token x 64/128-column block tiles, 8 warps as 2 (M) x 4 (N), each
 // warp a 32 x 16 (embed) or 32 x 32 (unembed) tile of mma.sync m16n8k16.
@@ -175,8 +182,9 @@ constexpr int U_NT = 128;  // output columns per block: two pixels x 64
 // tokens (M, D) bf16; wt (4096, D) bf16 = W transposed, n = (dy*8+dx)*64+c;
 // bias (64) f32; skip (B,H,W,64) bf16, or int8 with scales feat_scale (64)
 // f32 when I8; out (B,H,W,64) bf16. Dynamic shared memory holds the token
-// tile and the weight tile, both with row stride D + 8.
-template <bool I8>
+// tile and the weight tile, both with row stride D + 8. R3: the epilogue
+// rounds three times (round_steps above), with no ReLU.
+template <bool I8, bool R3>
 __global__ void __launch_bounds__(THREADS)
 unembed_kernel(const __nv_bfloat16* __restrict__ tokens,
                const __nv_bfloat16* __restrict__ wt,
@@ -274,8 +282,18 @@ unembed_kernel(const __nv_bfloat16* __restrict__ tokens,
           s0 = __bfloat162float(s.x);
           s1 = __bfloat162float(s.y);
         }
-        float v0 = acc[f][j][2 * h] + bias[c] + s0;
-        float v1 = acc[f][j][2 * h + 1] + bias[c + 1] + s1;
+        float v0, v1;
+        if constexpr (R3) {
+          const float2 y = __bfloat1622float2(__floats2bfloat162_rn(
+              acc[f][j][2 * h], acc[f][j][2 * h + 1]));
+          const float2 yb = __bfloat1622float2(
+              __floats2bfloat162_rn(y.x + bias[c], y.y + bias[c + 1]));
+          v0 = yb.x + s0;
+          v1 = yb.y + s1;
+        } else {
+          v0 = acc[f][j][2 * h] + bias[c] + s0;
+          v1 = acc[f][j][2 * h + 1] + bias[c + 1] + s1;
+        }
         if (relu) {
           v0 = fmaxf(v0, 0.f);
           v1 = fmaxf(v1, 0.f);
@@ -288,18 +306,18 @@ unembed_kernel(const __nv_bfloat16* __restrict__ tokens,
     }
 }
 
-template <bool I8>
+template <bool I8, bool R3>
 int launch_unembed(const void* tokens, const void* wt, const void* bias,
                    const void* skip, const void* feat_scale, void* out, int B,
                    int Ht, int Wt, int D, int relu, void* stream) {
   const int M = B * Ht * Wt;
   const size_t smem = size_t(MT + U_NT) * (D + 8) * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      unembed_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      unembed_kernel<I8, R3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((M + MT - 1) / MT, PS * PS * C / U_NT);
-  unembed_kernel<I8>
+  unembed_kernel<I8, R3>
       <<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const __nv_bfloat16*>(tokens),
           static_cast<const __nv_bfloat16*>(wt),
@@ -314,7 +332,7 @@ int launch_unembed(const void* tokens, const void* wt, const void* bias,
 // Both entry points return the cudaError_t of the launch (0 on success).
 // D must be a multiple of 64 (embed) or of 16 (unembed). A null in_scale /
 // feat_scale means bf16 feat / skip; else they are int8 with these (64) f32
-// scales.
+// scales. round_steps (bf16 skip, no ReLU): the three-rounding epilogue.
 extern "C" int tux_embed(const void* feat, const void* wt, const void* bias,
                          const void* in_scale, void* tokens, int B, int Ht,
                          int Wt, int D, int device, void* stream) {
@@ -334,12 +352,18 @@ extern "C" int tux_unembed_combine(const void* tokens, const void* wt,
                                    const void* bias, const void* skip,
                                    const void* feat_scale, void* out, int B,
                                    int Ht, int Wt, int D, int relu,
-                                   int device, void* stream) {
+                                   int round_steps, int device,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
+  if (round_steps && (feat_scale != nullptr || relu))
+    return int(cudaErrorInvalidValue);
+  if (round_steps)
+    return launch_unembed<false, true>(tokens, wt, bias, skip, nullptr, out,
+                                       B, Ht, Wt, D, 0, stream);
   if (feat_scale != nullptr)
-    return launch_unembed<true>(tokens, wt, bias, skip, feat_scale, out, B,
-                                Ht, Wt, D, relu, stream);
-  return launch_unembed<false>(tokens, wt, bias, skip, nullptr, out, B, Ht,
-                               Wt, D, relu, stream);
+    return launch_unembed<true, false>(tokens, wt, bias, skip, feat_scale,
+                                       out, B, Ht, Wt, D, relu, stream);
+  return launch_unembed<false, false>(tokens, wt, bias, skip, nullptr, out, B,
+                                      Ht, Wt, D, relu, stream);
 }

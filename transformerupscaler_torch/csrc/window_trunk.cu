@@ -10,7 +10,7 @@
 // pairing, block-diagonal key matrices, a ones-matmul softmax denominator,
 // padding of the window count). None of that is carried over: this one kernel
 // computes per-head products directly and answers for all of them, at model
-// width C = 128 (8 heads) or 192 (12 heads), in three modes chosen at compile
+// width C = 128 (8 heads) or 192 (12 heads), in four modes chosen at compile
 // time.
 //
 // Per layer, on a window x (64 x C, bf16), with every rounding point of
@@ -41,6 +41,13 @@
 //         (1/srow)); weights arrive quantized per output channel with f32
 //         scales sw; the product is (float(acc) * srow) * sw, then rounded to
 //         bf16 and the bias added as above. Attention stays bf16 / f32.
+//   INT8_STATIC  INT8 with the static per-channel scales of the reference's
+//         int8_gemms=True (trunk2.py:182-185): each element of a GEMM input is
+//         quantized with its column's calibrated inverse scale ia (from
+//         iapack, read through L1 / L2), aq = clip(round_half_even(a * ia),
+//         -127, 127); no row maximum, no row scales. The scales are folded
+//         into the int8 weights, whose f32 scales sw arrive as in INT8; the
+//         product is float(acc) * sw.
 //
 // Design. Shared memory holds the residual stream x (64 x C), the LN
 // output / attention context (64 x C) and one 64 x 4C buffer used for qkv
@@ -57,7 +64,8 @@
 // registers. Row strides of (multiple of 64) + 8 elements keep the fragment
 // reads free of bank conflicts, for bf16 and for int8 fragments alike.
 //
-// INT8 at C = 192 uses 227,328 - 37 KB of shared memory for the bf16 tiles
+// INT8 (and INT8_STATIC) at C = 192 uses 227,328 - 37 KB of shared memory for
+// the bf16 tiles
 // and a ring of int8 slabs: there is no room for int8 copies of the
 // activations beside the bf16 ones. Each GEMM input is consumed by its GEMM
 // alone, so it is quantized in place: one warp per row reads the row's bf16
@@ -68,7 +76,9 @@
 // conversion for every output slab and warp column (36 times for qkv). The
 // LN output is quantized inside LayerNorm; the attention context and the
 // GELU output, whose row maxima need every head and every fc1 slab first, in
-// a pass of their own after the phase that writes them.
+// a pass of their own after the phase that writes them (INT8_STATIC keeps
+// that pass: its columns' scales need no maximum, but each row is read whole
+// before it is overwritten, as in INT8).
 //
 // Bound on the H100 at 240 windows x 6 layers, C = 192: 86.1 G operations,
 // 0.087 ms at 989 TF/s; x, out, weights and bias are ~13 MB, 0.004 ms. Every
@@ -89,7 +99,7 @@ constexpr int HD = 16;       // head width
 constexpr int SLAB_N = 64;   // outputs per weight slab
 constexpr int STAGES = 3;    // slabs in the shared-memory ring
 constexpr int THREADS = 256;
-enum Mode { V2 = 0, V1 = 1, INT8 = 2 };
+enum Mode { V2 = 0, V1 = 1, INT8 = 2, INT8_STATIC = 3 };
 
 using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
@@ -100,7 +110,8 @@ template <int C_, int MODE_>
 struct Cfg {
   static constexpr int C = C_;
   static constexpr int MODE = MODE_;
-  static constexpr bool I8 = MODE == INT8;
+  static constexpr bool I8 = MODE == INT8 || MODE == INT8_STATIC;
+  static constexpr bool ROWS = MODE == INT8;  // per-row activation scales
   static constexpr int HEADS = C / HD;
   static constexpr int XS = C + 8;       // row stride of the 64 x C tiles
   static constexpr int BS = 4 * C + 8;   // row stride of the 64 x 4C tile
@@ -109,18 +120,21 @@ struct Cfg {
   static constexpr int ROW_BYTES = I8 ? C : 2 * C;
   static constexpr int WSB = ROW_BYTES + 16;
   static constexpr int SLABS = 12 * C / SLAB_N;
-  // Offsets into a layer's packed vectors (bf16 elements) and, in INT8, into
-  // its packed weight scales (f32).
+  // Offsets into a layer's packed vectors (bf16 elements), in the int8 modes
+  // into its packed weight scales (f32) and, in INT8_STATIC, into its packed
+  // inverse activation scales (f32).
   static constexpr int V_LN1S = 0, V_LN1B = C, V_QKVB = 2 * C,
                        V_PROJB = 5 * C, V_LN2S = 6 * C, V_LN2B = 7 * C,
                        V_FC1B = 8 * C, V_FC2B = 12 * C, VEC = 13 * C;
   static constexpr int S_QKV = 0, S_PROJ = 3 * C, S_FC1 = 4 * C,
                        S_FC2 = 8 * C, SW = 9 * C;
+  static constexpr int I_QKV = 0, I_PROJ = C, I_FC1 = 2 * C, I_FC2 = 3 * C,
+                       IA = 7 * C;
   static constexpr size_t TILE_BYTES =
       size_t(2 * NT * XS + NT * BS) * sizeof(bf16);
   static constexpr size_t SMEM_BYTES =
       TILE_BYTES + size_t(STAGES) * SLAB_N * WSB +
-      (I8 ? NT * sizeof(float) : 0);
+      (ROWS ? NT * sizeof(float) : 0);
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -169,6 +183,19 @@ __device__ __forceinline__ void st_q2(int8_t* p, float a, float b, float inv) {
   *reinterpret_cast<char2*>(p) = make_char2(
       static_cast<signed char>(__float2int_rn(a * inv)),
       static_cast<signed char>(__float2int_rn(b * inv)));
+}
+// The pair a * ia.x, b * ia.y rounded half to even and clipped to +-127 into
+// two int8 at p (trunk2.py:182).
+__device__ __forceinline__ int8_t q_clip(float v) {
+  return static_cast<int8_t>(max(-127, min(127, __float2int_rn(v))));
+}
+__device__ __forceinline__ void st_q2s(int8_t* p, float a, float b,
+                                       float2 ia) {
+  *reinterpret_cast<char2*>(p) =
+      make_char2(q_clip(__fmul_rn(a, ia.x)), q_clip(__fmul_rn(b, ia.y)));
+}
+__device__ __forceinline__ float2 ld_ia(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
 }
 __device__ __forceinline__ float warp_max(float m) {
 #pragma unroll
@@ -291,8 +318,8 @@ __device__ __forceinline__ void zero(T (&acc)[2][2][4]) {
 // Calls fn(row, col, v0, v1) for each adjacent pair of this thread's
 // accumulators, as the f32 products; (row, col) are within the slab's
 // 64 x 64 output. An int32 accumulator becomes (float(acc) * srow[row]) *
-// sw[col].
-template <typename F>
+// sw[col] with row scales (ROWS), else float(acc) * sw[col].
+template <bool ROWS, typename F>
 __device__ __forceinline__ void for_each_pair(const float (&acc)[2][2][4],
                                               const float*, const float*,
                                               int wm, int wn, int g, int t,
@@ -306,7 +333,7 @@ __device__ __forceinline__ void for_each_pair(const float (&acc)[2][2][4],
         fn(32 * wm + 16 * f + g + 8 * hh, 16 * wn + 8 * j + 2 * t,
            acc[f][j][2 * hh], acc[f][j][2 * hh + 1]);
 }
-template <typename F>
+template <bool ROWS, typename F>
 __device__ __forceinline__ void for_each_pair(const int (&acc)[2][2][4],
                                               const float* srow,
                                               const float* sw, int wm, int wn,
@@ -319,10 +346,15 @@ __device__ __forceinline__ void for_each_pair(const int (&acc)[2][2][4],
       for (int hh = 0; hh < 2; ++hh) {
         const int r = 32 * wm + 16 * f + g + 8 * hh;
         const int c = 16 * wn + 8 * j + 2 * t;
-        const float s = srow[r];
         const float2 w = *reinterpret_cast<const float2*>(sw + c);
-        fn(r, c, __int2float_rn(acc[f][j][2 * hh]) * s * w.x,
-           __int2float_rn(acc[f][j][2 * hh + 1]) * s * w.y);
+        float v0 = __int2float_rn(acc[f][j][2 * hh]);
+        float v1 = __int2float_rn(acc[f][j][2 * hh + 1]);
+        if constexpr (ROWS) {
+          const float s = srow[r];
+          v0 *= s;
+          v1 *= s;
+        }
+        fn(r, c, v0 * w.x, v1 * w.y);
       }
 }
 
@@ -352,14 +384,15 @@ __device__ __forceinline__ float gelu_erf(float h) {
   return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
 }
 
-// ys = bf16(LN(xs)): one warp per row, C / 32 channels per lane. In INT8 the
-// row is quantized as well: ys receives its int8 values (row stride 2 XS
-// bytes) and srow its scale.
+// ys = bf16(LN(xs)): one warp per row, C / 32 channels per lane. In the int8
+// modes the row is quantized as well: ys receives its int8 values (row stride
+// 2 XS bytes) and, in INT8, srow its scale; INT8_STATIC quantizes with the
+// columns' inverse scales ia.
 template <class K>
 __device__ __forceinline__ void layernorm(const bf16* xs, bf16* ys,
                                           float* srow, const bf16* scale,
-                                          const bf16* shift, int warp,
-                                          int lane) {
+                                          const bf16* shift, const float* ia,
+                                          int warp, int lane) {
   constexpr int P = K::C / 64;  // pairs per lane
   for (int r = warp; r < NT; r += THREADS / 32) {
     const bf16* xr = xs + r * K::XS;
@@ -391,25 +424,34 @@ __device__ __forceinline__ void layernorm(const bf16* xs, bf16* ys,
       if constexpr (!K::I8) st2(ys + r * K::XS + col, v[j].x, v[j].y);
     }
     if constexpr (K::I8) {
-      const float sr = row_scale(warp_max(m));
-      const float inv = 1.0f / sr;
       int8_t* q = reinterpret_cast<int8_t*>(ys + r * K::XS);
+      if constexpr (K::ROWS) {
+        const float sr = row_scale(warp_max(m));
+        const float inv = 1.0f / sr;
 #pragma unroll
-      for (int j = 0; j < P; ++j)
-        st_q2(q + 2 * lane + 64 * j, v[j].x, v[j].y, inv);
-      if (lane == 0) srow[r] = sr;
+        for (int j = 0; j < P; ++j)
+          st_q2(q + 2 * lane + 64 * j, v[j].x, v[j].y, inv);
+        if (lane == 0) srow[r] = sr;
+      } else {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const int col = 2 * lane + 64 * j;
+          st_q2s(q + col, v[j].x, v[j].y, ld_ia(ia + col));
+        }
+      }
     }
   }
 }
 
 // In place, each of the 64 rows of ``buf`` (KW bf16 values, row stride
 // ``stride`` elements) becomes KW int8 values over the first half of its
-// bytes, and srow[row] its scale: one warp per row, which holds the whole
-// row in registers before any lane writes.
-template <int KW>
+// bytes, and srow[row] its scale (ROWS), or each column quantized with its
+// inverse scale ia[col]: one warp per row, which holds the whole row in
+// registers before any lane writes.
+template <int KW, bool ROWS>
 __device__ __forceinline__ void quantize_rows(bf16* buf, int stride,
-                                              float* srow, int warp,
-                                              int lane) {
+                                              float* srow, const float* ia,
+                                              int warp, int lane) {
   constexpr int P = KW / 64;
   for (int r = warp; r < NT; r += THREADS / 32) {
     bf16* row = buf + r * stride;
@@ -420,14 +462,23 @@ __device__ __forceinline__ void quantize_rows(bf16* buf, int stride,
       v[j] = ld2(row + 2 * lane + 64 * j);
       m = fmaxf(m, fmaxf(fabsf(v[j].x), fabsf(v[j].y)));
     }
-    const float sr = row_scale(warp_max(m));
-    const float inv = 1.0f / sr;
-    __syncwarp();
     int8_t* q = reinterpret_cast<int8_t*>(row);
+    if constexpr (ROWS) {
+      const float sr = row_scale(warp_max(m));
+      const float inv = 1.0f / sr;
+      __syncwarp();
 #pragma unroll
-    for (int j = 0; j < P; ++j)
-      st_q2(q + 2 * lane + 64 * j, v[j].x, v[j].y, inv);
-    if (lane == 0) srow[r] = sr;
+      for (int j = 0; j < P; ++j)
+        st_q2(q + 2 * lane + 64 * j, v[j].x, v[j].y, inv);
+      if (lane == 0) srow[r] = sr;
+    } else {
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int col = 2 * lane + 64 * j;
+        st_q2s(q + col, v[j].x, v[j].y, ld_ia(ia + col));
+      }
+    }
   }
 }
 
@@ -524,16 +575,19 @@ __device__ __forceinline__ void attention(const bf16* big, bf16* ys,
   }
 }
 
-// x, out (nW, 64, C) bf16; wpack (layers, 12C/64, 64, C) bf16, int8 in INT8;
-// vpack (layers, 13C) bf16; bias (layers, C/16, 64, 64) f32; swpack
-// (layers, 9C) f32 in INT8 (qkv, proj, fc1, fc2 side by side), else unused.
+// x, out (nW, 64, C) bf16; wpack (layers, 12C/64, 64, C) bf16, int8 in the
+// int8 modes; vpack (layers, 13C) bf16; bias (layers, C/16, 64, 64) f32;
+// swpack (layers, 9C) f32 in the int8 modes (qkv, proj, fc1, fc2 side by
+// side), else unused; iapack (layers, 7C) f32 in INT8_STATIC (the same
+// order), else unused.
 template <class K>
 __global__ void __launch_bounds__(THREADS, 1)
 window_trunk_kernel(const bf16* __restrict__ x,
                     const unsigned char* __restrict__ wpack,
                     const bf16* __restrict__ vpack,
                     const float* __restrict__ bias,
-                    const float* __restrict__ swpack, bf16* __restrict__ out,
+                    const float* __restrict__ swpack,
+                    const float* __restrict__ iapack, bf16* __restrict__ out,
                     int layers) {
   constexpr int C = K::C, XS = K::XS, BS = K::BS;
   // The GEMM inputs: bf16 tiles, or the int8 rows quantized over them.
@@ -572,12 +626,14 @@ window_trunk_kernel(const bf16* __restrict__ x,
   Acc acc[2][2][4];
   for (int l = 0; l < layers; ++l) {
     const bf16* vp = vpack + size_t(l) * K::VEC;
-    const float* sw = swpack + size_t(l) * K::SW;  // read in INT8 only
+    const float* sw = swpack + size_t(l) * K::SW;  // read in int8 modes only
+    const float* ia = iapack + size_t(l) * K::IA;  // read in INT8_STATIC only
 
     // Each phase that reads what a GEMM's epilogues wrote starts behind a
     // barrier; a GEMM's first acquire() is the barrier after the others.
     __syncthreads();
-    layernorm<K>(xs, ys, srow, vp + K::V_LN1S, vp + K::V_LN1B, warp, lane);
+    layernorm<K>(xs, ys, srow, vp + K::V_LN1S, vp + K::V_LN1B, ia + K::I_QKV,
+                 warp, lane);
 #pragma unroll 1
     for (int nc = 0; nc < 3 * C / SLAB_N; ++nc) {  // qkv -> big
       const unsigned char* w = ws.acquire();
@@ -585,18 +641,18 @@ window_trunk_kernel(const bf16* __restrict__ x,
       mma_slab<K>(acc, ya, ASX, w, wm, wn, g, t);
       const bf16* b = vp + K::V_QKVB + nc * SLAB_N;
       bf16* dst = big + nc * SLAB_N;
-      for_each_pair(acc, srow, sw + K::S_QKV + nc * SLAB_N, wm, wn, g, t,
-                    [&](int r, int c, float v0, float v1) {
-                      const float2 d = dense_out(v0, v1, ld2(b + c));
-                      st2(dst + r * BS + c, d.x, d.y);
-                    });
+      for_each_pair<K::ROWS>(acc, srow, sw + K::S_QKV + nc * SLAB_N, wm, wn,
+                             g, t, [&](int r, int c, float v0, float v1) {
+                               const float2 d = dense_out(v0, v1, ld2(b + c));
+                               st2(dst + r * BS + c, d.x, d.y);
+                             });
     }
 
     __syncthreads();
     attention<K>(big, ys, bias + size_t(l) * K::HEADS * NT * NT, warp, g, t);
     if constexpr (K::I8) {
       __syncthreads();
-      quantize_rows<C>(ys, XS, srow, warp, lane);
+      quantize_rows<C, K::ROWS>(ys, XS, srow, ia + K::I_PROJ, warp, lane);
     }
 
 #pragma unroll 1
@@ -606,15 +662,16 @@ window_trunk_kernel(const bf16* __restrict__ x,
       mma_slab<K>(acc, ya, ASX, w, wm, wn, g, t);
       const bf16* b = vp + K::V_PROJB + nc * SLAB_N;
       bf16* dst = xs + nc * SLAB_N;
-      for_each_pair(acc, srow, sw + K::S_PROJ + nc * SLAB_N, wm, wn, g, t,
-                    [&](int r, int c, float v0, float v1) {
-                      add_residual<K::MODE>(dst + r * XS + c, v0, v1,
-                                            ld2(b + c));
-                    });
+      for_each_pair<K::ROWS>(acc, srow, sw + K::S_PROJ + nc * SLAB_N, wm, wn,
+                             g, t, [&](int r, int c, float v0, float v1) {
+                               add_residual<K::MODE>(dst + r * XS + c, v0, v1,
+                                                     ld2(b + c));
+                             });
     }
 
     __syncthreads();
-    layernorm<K>(xs, ys, srow, vp + K::V_LN2S, vp + K::V_LN2B, warp, lane);
+    layernorm<K>(xs, ys, srow, vp + K::V_LN2S, vp + K::V_LN2B, ia + K::I_FC1,
+                 warp, lane);
 #pragma unroll 1
     for (int nc = 0; nc < 4 * C / SLAB_N; ++nc) {  // fc1, GELU -> big
       const unsigned char* w = ws.acquire();
@@ -622,15 +679,17 @@ window_trunk_kernel(const bf16* __restrict__ x,
       mma_slab<K>(acc, ya, ASX, w, wm, wn, g, t);
       const bf16* b = vp + K::V_FC1B + nc * SLAB_N;
       bf16* dst = big + nc * SLAB_N;
-      for_each_pair(acc, srow, sw + K::S_FC1 + nc * SLAB_N, wm, wn, g, t,
-                    [&](int r, int c, float v0, float v1) {
-                      const float2 d = dense_out(v0, v1, ld2(b + c));
-                      st2(dst + r * BS + c, gelu_erf(d.x), gelu_erf(d.y));
-                    });
+      for_each_pair<K::ROWS>(acc, srow, sw + K::S_FC1 + nc * SLAB_N, wm, wn,
+                             g, t, [&](int r, int c, float v0, float v1) {
+                               const float2 d = dense_out(v0, v1, ld2(b + c));
+                               st2(dst + r * BS + c, gelu_erf(d.x),
+                                   gelu_erf(d.y));
+                             });
     }
     if constexpr (K::I8) {
       __syncthreads();
-      quantize_rows<4 * C>(big, BS, srow, warp, lane);
+      quantize_rows<4 * C, K::ROWS>(big, BS, srow, ia + K::I_FC2, warp,
+                                    lane);
     }
 
 #pragma unroll 1
@@ -643,11 +702,11 @@ window_trunk_kernel(const bf16* __restrict__ x,
         if (kc == 3) {
           const bf16* b = vp + K::V_FC2B + nc * SLAB_N;
           bf16* dst = xs + nc * SLAB_N;
-          for_each_pair(acc, srow, sw + K::S_FC2 + nc * SLAB_N, wm, wn, g, t,
-                        [&](int r, int c, float v0, float v1) {
-                          add_residual<K::MODE>(dst + r * XS + c, v0, v1,
-                                                ld2(b + c));
-                        });
+          for_each_pair<K::ROWS>(
+              acc, srow, sw + K::S_FC2 + nc * SLAB_N, wm, wn, g, t,
+              [&](int r, int c, float v0, float v1) {
+                add_residual<K::MODE>(dst + r * XS + c, v0, v1, ld2(b + c));
+              });
         }
       }
     }
@@ -665,8 +724,8 @@ window_trunk_kernel(const bf16* __restrict__ x,
 
 template <int C, int MODE>
 int launch(const void* x, const void* wpack, const void* vpack,
-           const void* bias, const void* swpack, void* out, int n_windows,
-           int layers, cudaStream_t stream) {
+           const void* bias, const void* swpack, const void* iapack,
+           void* out, int n_windows, int layers, cudaStream_t stream) {
   using K = Cfg<C, MODE>;
   static_assert(K::SMEM_BYTES <= 232448, "shared memory of one block");
   cudaError_t err = cudaFuncSetAttribute(
@@ -677,19 +736,21 @@ int launch(const void* x, const void* wpack, const void* vpack,
   window_trunk_kernel<K><<<n_windows, THREADS, K::SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(x), static_cast<const unsigned char*>(wpack),
       static_cast<const bf16*>(vpack), static_cast<const float*>(bias),
-      static_cast<const float*>(swpack), static_cast<bf16*>(out), layers);
+      static_cast<const float*>(swpack), static_cast<const float*>(iapack),
+      static_cast<bf16*>(out), layers);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// dim 128 or 192; mode 0 (V2), 1 (V1) or, at dim 192, 2 (INT8); wpack holds
-// int8 slabs in INT8. Returns the cudaError_t of the launch (0 on success).
+// dim 128 or 192; mode 0 (V2), 1 (V1) or, at dim 192, 2 (INT8) or 3
+// (INT8_STATIC); wpack holds int8 slabs in the int8 modes. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int tux_window_trunk(const void* x, const void* wpack,
                                 const void* vpack, const void* bias,
-                                const void* swpack, void* out, int n_windows,
-                                int layers, int dim, int mode, int device,
-                                void* stream) {
+                                const void* swpack, const void* iapack,
+                                void* out, int n_windows, int layers, int dim,
+                                int mode, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   decltype(&launch<192, V2>) fn = nullptr;
@@ -699,8 +760,9 @@ extern "C" int tux_window_trunk(const void* x, const void* wpack,
     case 192 * 4 + V2: fn = launch<192, V2>; break;
     case 192 * 4 + V1: fn = launch<192, V1>; break;
     case 192 * 4 + INT8: fn = launch<192, INT8>; break;
+    case 192 * 4 + INT8_STATIC: fn = launch<192, INT8_STATIC>; break;
     default: return int(cudaErrorInvalidValue);
   }
-  return fn(x, wpack, vpack, bias, swpack, out, n_windows, layers,
+  return fn(x, wpack, vpack, bias, swpack, iapack, out, n_windows, layers,
             static_cast<cudaStream_t>(stream));
 }

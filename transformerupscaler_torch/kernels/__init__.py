@@ -1,15 +1,19 @@
 """Hand-written Hopper kernels of the port: wrappers, plain PyTorch versions
-and launch counters. ``PLAIN_VERSIONS`` maps every wrapper to the plain
-version that computes the same function."""
+and launch counters. ``PLAIN_VERSIONS`` maps every wrapper a model calls to
+the plain version that computes the same function, ``ARCHIVED_PLAIN_VERSIONS``
+likewise every wrapper of an archived TPU kernel, which no model calls."""
 
 from transformerupscaler_torch.kernels import (
+    conv3x3,
     encoder,
     gmha,
+    patch_kernels,
     stream,
     trunk2,
     window_attn,
 )
 from transformerupscaler_torch.kernels._common import (
+    ARCHIVED_LAUNCHES,
     LAUNCHES,
     MODE_LAUNCHES,
     OPTION_LAUNCHES,
@@ -32,7 +36,13 @@ PLAIN_VERSIONS = {
     "conv3x3_tail_stream": stream.conv3x3_tail_plain,
     "conv3x3_tail_emit_stream": stream.conv3x3_tail_emit_plain,
 }
+ARCHIVED_PLAIN_VERSIONS = {
+    "conv3x3": conv3x3.conv3x3_plain,
+    "fused_patch_embed": patch_kernels.fused_patch_embed_plain,
+    "fused_patch_unembed_add": patch_kernels.fused_patch_unembed_add_plain,
+}
 
-__all__ = ["LAUNCHES", "MODE_LAUNCHES", "OPTION_LAUNCHES", "PLAIN_VERSIONS",
-           "encoder", "gmha", "launch_counts", "reset_launches", "stream",
-           "trunk2", "window_attn"]
+__all__ = ["ARCHIVED_LAUNCHES", "ARCHIVED_PLAIN_VERSIONS", "LAUNCHES",
+           "MODE_LAUNCHES", "OPTION_LAUNCHES", "PLAIN_VERSIONS", "conv3x3",
+           "encoder", "gmha", "launch_counts", "patch_kernels",
+           "reset_launches", "stream", "trunk2", "window_attn"]

@@ -33,6 +33,9 @@ SIGNATURES = {
     "conv1": {
         "tux_conv1": [_P] * 4 + [_I] * 5 + [_P],
     },
+    "conv3x3": {
+        "tux_conv3x3_any": [_P] * 4 + [_I] * 9 + [_P],
+    },
     "conv_int8": {
         "tux_conv3x3_int8": [_P] * 5 + [_I] * 6 + [_P],
         "tux_tail_conv_int8": [_P] * 5 + [_I] * 9 + [_P],
@@ -49,7 +52,7 @@ SIGNATURES = {
     },
     "patch_gemm": {
         "tux_embed": [_P] * 5 + [_I] * 5 + [_P],
-        "tux_unembed_combine": [_P] * 6 + [_I] * 6 + [_P],
+        "tux_unembed_combine": [_P] * 6 + [_I] * 7 + [_P],
     },
     "tail_finish": {
         "tux_tail_finish": [_P] * 6 + [_I] * 10 + [_P],
@@ -58,7 +61,7 @@ SIGNATURES = {
         "tux_window_attn": [_P] * 3 + [_I] * 4 + [_P],
     },
     "window_trunk": {
-        "tux_window_trunk": [_P] * 6 + [_I] * 5 + [_P],
+        "tux_window_trunk": [_P] * 7 + [_I] * 5 + [_P],
     },
 }
 

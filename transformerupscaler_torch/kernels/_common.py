@@ -13,11 +13,16 @@ LAUNCHES = dict.fromkeys(
      "window_attention_core", "global_mha", "conv3x3_int8_stream",
      "tail_conv_int8_stream", "conv1_stream", "conv3x3_tail_stream",
      "conv3x3_tail_emit_stream"), 0)
+# The same for the wrappers of the JAX package's archived kernels, which no
+# model reaches (its tests and probes call them): the general NHWC 3x3 conv
+# and the patch embed / unembed + add with their own rounding points.
+ARCHIVED_LAUNCHES = dict.fromkeys(
+    ("conv3x3", "fused_patch_embed", "fused_patch_unembed_add"), 0)
 
 
 # The fused trunk's kernel modes, in the order of the kernel's mode argument,
 # and its launches by mode (each also counts under "fused_window_trunk").
-TRUNK_MODES = ("v2", "v1", "int8_rowwise")
+TRUNK_MODES = ("v2", "v1", "int8_rowwise", "int8_static")
 MODE_LAUNCHES = dict.fromkeys(TRUNK_MODES, 0)
 # Launches with an int8 option, by ``<wrapper>.<option>`` (each also counts
 # under its wrapper's name): the conv's int8 output (``out_scale``), the
@@ -29,16 +34,18 @@ OPTION_LAUNCHES = dict.fromkeys(
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, MODE_LAUNCHES, OPTION_LAUNCHES):
+    for counts in (LAUNCHES, ARCHIVED_LAUNCHES, MODE_LAUNCHES,
+                   OPTION_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Every counter in one flat dict: the wrappers', the trunk's by mode
-    as ``fused_window_trunk.<mode>``, and the int8 options'."""
-    return {**LAUNCHES, **{f"fused_window_trunk.{m}": n
-                           for m, n in MODE_LAUNCHES.items()},
+    """Every counter in one flat dict: the wrappers' (the archived ones
+    too), the trunk's by mode as ``fused_window_trunk.<mode>``, and the
+    int8 options'."""
+    return {**LAUNCHES, **ARCHIVED_LAUNCHES,
+            **{f"fused_window_trunk.{m}": n for m, n in MODE_LAUNCHES.items()},
             **OPTION_LAUNCHES}
 
 

@@ -48,6 +48,17 @@ between, exactly as ``conv3x3_stream`` followed by ``tail_conv_stream``
 would hand it over. The bounds at the 720x1280 serving shapes are stated in
 each CUDA source.
 
+The patch kernels also serve two archived TPU kernels that no model reaches,
+through ``embed_launch`` / ``unembed_launch``, which launch without counting:
+``kernels.patch_kernels.fused_patch_embed`` (the embed with its bias rounded
+to bf16) and ``fused_patch_unembed_add`` (the unembed's epilogue option
+``round_steps``: bf16(acc), + bias in bf16, + skip in bf16). The archived
+general 3x3 conv is ``kernels.conv3x3.conv3x3``, on its own kernel
+(``csrc/conv3x3.cu``); each counts under ``ARCHIVED_LAUNCHES``.
+``chip_smoke.py``'s ``archived`` line chains the three at 720p;
+``JAX_PLATFORMS=cpu python -m pytest tests/test_torch_archived_kernels.py
+-q`` holds them against the Pallas kernels.
+
 A wrapper given CPU tensors computes its plain version: the CPU tests run
 that. Given CUDA tensors it checks them, launches the kernel on the current
 stream, adds one to ``LAUNCHES[<wrapper name>]`` (and, with an int8 option,
@@ -592,6 +603,16 @@ def embed_stream(feat: torch.Tensor, kernel: torch.Tensor, bias=None,
     """
     if not _on_card(feat, kernel, bias):
         return embed_plain(feat, kernel, bias, in_scale, out_dtype)
+    out = embed_launch(feat, kernel, bias, in_scale, out_dtype)
+    LAUNCHES["embed_stream"] += 1
+    if in_scale is not None:
+        OPTION_LAUNCHES["embed_stream.int8_in"] += 1
+    return out
+
+
+def embed_launch(feat, kernel, bias, in_scale=None, out_dtype=None):
+    """Launch the embed kernel on CUDA tensors (``embed_stream``'s checks,
+    no count): the wrappers that share the kernel count their own."""
     b, h, w, _ = feat.shape
     ps, _, c, d = kernel.shape
     i8 = in_scale is not None
@@ -612,9 +633,6 @@ def embed_stream(feat: torch.Tensor, kernel: torch.Tensor, bias=None,
         None if sc is None else sc.data_ptr(), out.data_ptr(), b, h // 8,
         w // 8, d, feat.device.index, _stream(feat))
     _raise_on(err, "embed_stream")
-    LAUNCHES["embed_stream"] += 1
-    if i8:
-        OPTION_LAUNCHES["embed_stream.int8_in"] += 1
     return out
 
 
@@ -652,6 +670,20 @@ def unembed_combine_stream(tokens: torch.Tensor, skip: torch.Tensor,
     if not _on_card(tokens, skip, kernel, bias):
         return unembed_combine_plain(tokens, skip, kernel, bias, relu,
                                      feat_scale)
+    out = unembed_launch(tokens, skip, kernel, bias, relu, feat_scale)
+    LAUNCHES["unembed_combine_stream"] += 1
+    if feat_scale is not None:
+        OPTION_LAUNCHES["unembed_combine_stream.int8_skip"] += 1
+    return out
+
+
+def unembed_launch(tokens, skip, kernel, bias, relu: bool = False,
+                   feat_scale=None, round_steps: bool = False):
+    """Launch the unembed kernel on CUDA tensors (``unembed_combine_stream``'s
+    checks, no count). ``round_steps``: the epilogue of the archived
+    ``fused_patch_unembed_add`` instead of the one f32 epilogue: bf16(acc),
+    then + bias in bf16, then + skip in bf16 (the bias must then be bf16
+    values)."""
     b, ht, wt_, d = tokens.shape
     i8 = feat_scale is not None
     _check(tokens, "tokens", torch.bfloat16, (b, ht, wt_, d))
@@ -669,9 +701,6 @@ def unembed_combine_stream(tokens: torch.Tensor, skip: torch.Tensor,
     err = _build.load("patch_gemm").tux_unembed_combine(
         tokens.data_ptr(), wt.data_ptr(), bb.data_ptr(), skip.data_ptr(),
         None if sc is None else sc.data_ptr(), out.data_ptr(), b, ht, wt_,
-        d, int(relu), tokens.device.index, _stream(tokens))
+        d, int(relu), int(round_steps), tokens.device.index, _stream(tokens))
     _raise_on(err, "unembed_combine_stream")
-    LAUNCHES["unembed_combine_stream"] += 1
-    if i8:
-        OPTION_LAUNCHES["unembed_combine_stream.int8_skip"] += 1
     return out

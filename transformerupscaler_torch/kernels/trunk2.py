@@ -7,7 +7,9 @@ wrapper                CUDA source            TPU kernels it replaces
 ``fused_window_trunk`` csrc/window_trunk.cu   ops/pallas/trunk2.py:524
                                               ``fused_window_trunk_v2`` (mode
                                               "v2"; "int8_rowwise" is its
-                                              ``int8_acts="rowwise"``)
+                                              ``int8_acts="rowwise"``,
+                                              "int8_static" its
+                                              ``int8_acts=<four scales>``)
                                               ops/pallas/trunk.py:128
                                               ``fused_window_trunk`` ("v1")
 =====================  =====================  ===============================
@@ -33,7 +35,16 @@ and the plain versions have the same ones:
 - GELU in f32 as 0.5 x (1 + erf(x / sqrt 2)), one rounding to ``dt``;
 - "int8_rowwise" (trunk2.py:165-181): each GEMM input quantized per token
   row, the weights per output channel (``ops.quant``), the product
-  int8 x int8 summed exactly, then (float(sum) * srow) * sw in f32.
+  int8 x int8 summed exactly, then (float(sum) * srow) * sw in f32;
+- "int8_static" (trunk2.py:182-185, the static ``int8_gemms``): each GEMM
+  input quantized per input channel with a calibrated scale, xq =
+  clip(round(f32(x) * ia), -127, 127), the scale folded into the weights
+  before they are quantized per output channel
+  (``ops.quant.static_gemm_weights``), the product summed exactly, then
+  float(sum) * sw in f32. The scales come from
+  ``models.common.trunk_int8_scales``; ``chip_smoke.py``'s ``trunk_static``
+  line runs the mode at full width, and ``JAX_PLATFORMS=cpu python -m
+  pytest tests/test_torch_int8_static_trunk.py -q`` holds it against JAX.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel, adds one to ``LAUNCHES["fused_window_trunk"]`` and
@@ -54,7 +65,12 @@ from transformerupscaler_torch.kernels._common import (
     raise_on,
     stream_of,
 )
-from transformerupscaler_torch.ops.quant import quantize_rows, rowwise_weights
+from transformerupscaler_torch.ops.quant import (
+    quantize_rows,
+    quantize_static,
+    rowwise_weights,
+    static_gemm_weights,
+)
 from transformerupscaler_torch.ops.relpos import gather_relative_bias
 
 # What the CUDA kernel is compiled for: windows of 64 tokens, heads of 16,
@@ -66,8 +82,8 @@ GEMMS = ("qkvw", "projw", "fc1w", "fc2w")
 EPS = 1e-5
 
 
-def stack_trunk_params(blocks, dtype, int8_rowwise: bool = False
-                       ) -> dict[str, torch.Tensor]:
+def stack_trunk_params(blocks, dtype,
+                       int8_rowwise: bool = False) -> dict[str, torch.Tensor]:
     """Stack the ``WindowBlock`` modules' parameters over layers, cast to
     ``dtype`` (JAX: the ``stack`` closure and the bias gather of
     trunk2.py:573-599).
@@ -87,7 +103,9 @@ def stack_trunk_params(blocks, dtype, int8_rowwise: bool = False
     ``dtype`` values (``ops.quant.rowwise_weights``): ``<gemm>_q`` int8
     (in, out) and ``<gemm>_sw`` f32 (L, out) for each of the four GEMMs and,
     where the kernel takes the mode, ``wpack_i8`` (``wpack`` of the int8
-    weights) and ``swpack`` (L, 9C), the four scales side by side.
+    weights) and ``swpack`` (L, 9C), the four scales side by side. The
+    static mode's weights depend on its scales: ``add_static_int8`` adds
+    them to the stacked parameters.
     """
     def stack(get):
         return torch.stack([get(b).to(dtype) for b in blocks]).contiguous()
@@ -114,28 +132,75 @@ def stack_trunk_params(blocks, dtype, int8_rowwise: bool = False
     if int8_rowwise:
         for k in GEMMS:
             p[k + "_q"], p[k + "_sw"] = rowwise_weights(p[k])
-    layers, c, hidden = p["fc1w"].shape
+    _, c, hidden = p["fc1w"].shape
     if (ws * ws, c // HEAD_DIM, hidden) == (TOKENS, p["heads"], 4 * c) \
             and c in KERNEL_MODES:
-        def slabs(w):  # (L, in, out) -> (L, out/64 * in/C, 64, C)
-            k, n = w.shape[1:]
-            w = w.transpose(1, 2).reshape(layers, n // SLAB_N, SLAB_N,
-                                          k // c, c)
-            return w.permute(0, 1, 3, 2, 4).reshape(layers, -1, SLAB_N, c)
-
-        def pack(suffix):
-            return torch.cat([slabs(p[k + suffix]) for k in GEMMS],
-                             dim=1).contiguous()
-
-        p["wpack"] = pack("")
+        p["wpack"] = _pack(p, "")
         p["vpack"] = torch.cat([p[k] for k in (
             "ln1s", "ln1b", "qkvb", "projb", "ln2s", "ln2b", "fc1b",
             "fc2b")], dim=1).contiguous()
         if int8_rowwise and "int8_rowwise" in KERNEL_MODES[c]:
-            p["wpack_i8"] = pack("_q")
-            p["swpack"] = torch.cat([p[k + "_sw"] for k in GEMMS],
-                                    dim=1).contiguous()
+            p["wpack_i8"] = _pack(p, "_q")
+            p["swpack"] = _side_by_side(p, "_sw")
     return p
+
+
+def _pack(p, suffix):
+    """The four GEMMs' weights ``<gemm><suffix>`` (L, in, out) as the
+    kernel's slabs (L, 12C/64, 64, C)."""
+    layers, c = p["qkvw"].shape[:2]
+
+    def slabs(w):  # (L, in, out) -> (L, out/64 * in/C, 64, C)
+        k, n = w.shape[1:]
+        w = w.transpose(1, 2).reshape(layers, n // SLAB_N, SLAB_N, k // c, c)
+        return w.permute(0, 1, 3, 2, 4).reshape(layers, -1, SLAB_N, c)
+
+    return torch.cat([slabs(p[k + suffix]) for k in GEMMS],
+                     dim=1).contiguous()
+
+
+def _side_by_side(p, suffix):
+    return torch.cat([p[k + suffix] for k in GEMMS], dim=1).contiguous()
+
+
+def add_static_int8(p: dict, scales) -> dict:
+    """A copy of the stacked parameters ``p`` with the static mode's
+    weights for the four per-input-channel activation scale stacks
+    ``scales`` (s_qkv (L, C), s_proj (L, C), s_fc1 (L, C), s_fc2 (L, H);
+    ``check_static_scales``), folded into the stacked weights and quantized
+    (``ops.quant.static_gemm_weights``): ``<gemm>_sq`` int8 (in, out),
+    ``<gemm>_ssw`` f32 (L, out) and ``<gemm>_ia`` f32 (L, in) and, where
+    the kernel takes the mode, ``wpack_i8s`` (the slabs of the static int8
+    weights, in ``wpack``'s order), ``swpack_s`` (L, 9C) and ``iapack``
+    (L, 7C), the four inverse activation scales side by side; and
+    ``int8_acts``, the ``scales`` object itself, by which
+    ``models.common.run_window_trunk`` knows the pack was folded for it."""
+    layers, c, hidden = p["fc1w"].shape
+    p = dict(p, int8_acts=scales)
+    for k, s_in in zip(GEMMS, check_static_scales(scales, layers, c,
+                                                   hidden)):
+        p[k + "_sq"], p[k + "_ssw"], p[k + "_ia"] = static_gemm_weights(
+            p[k], s_in.to(p[k].device))
+    if "wpack" in p and "int8_static" in KERNEL_MODES[c]:
+        p["wpack_i8s"] = _pack(p, "_sq")
+        p["swpack_s"] = _side_by_side(p, "_ssw")
+        p["iapack"] = _side_by_side(p, "_ia")
+    return p
+
+
+def check_static_scales(scales, layers: int, dim: int, hidden: int):
+    """The static mode's four activation scale stacks as f32 tensors of
+    shapes (L, C), (L, C), (L, C), (L, H) (the JAX ``int8_acts`` tuple:
+    qkv, proj, fc1 and fc2 inputs); raises ValueError naming what differs."""
+    want = ((layers, dim), (layers, dim), (layers, dim), (layers, hidden))
+    if isinstance(scales, (str, bytes)) or len(scales) != 4:
+        raise ValueError(f"int8_acts: four per-channel scale stacks of "
+                         f"shapes {want}, got {len(scales)} entries")
+    out = tuple(torch.as_tensor(s, dtype=torch.float32) for s in scales)
+    got = tuple(tuple(s.shape) for s in out)
+    if got != want:
+        raise ValueError(f"int8_acts: scale shapes {got}, expected {want}")
+    return out
 
 
 def _layernorm(x, scale, shift):
@@ -146,15 +211,20 @@ def _layernorm(x, scale, shift):
     return (y * scale.float() + shift.float()).to(x.dtype)
 
 
-def _product(x, params, name, l, int8):
+def _product(x, params, name, l, mode):
     """x @ W rounded to x's dtype, before the bias: the f32-accumulated
-    product, or in the int8 mode (float(xq @ wq) * srow) * sw with the int8
+    product, or in the int8 modes (float(xq @ wq) * srow) * sw
+    ("int8_rowwise") or float(xq @ wq) * sw ("int8_static"), the int8
     product summed exactly in float64."""
-    if not int8:
-        return (x.float() @ params[name][l].float()).to(x.dtype)
-    xq, srow = quantize_rows(x)
-    acc = (xq.double() @ params[name + "_q"][l].double()).float()
-    return (acc * srow * params[name + "_sw"][l]).to(x.dtype)
+    if mode == "int8_rowwise":
+        xq, srow = quantize_rows(x)
+        acc = (xq.double() @ params[name + "_q"][l].double()).float()
+        return (acc * srow * params[name + "_sw"][l]).to(x.dtype)
+    if mode == "int8_static":
+        xq = quantize_static(x, params[name + "_ia"][l])
+        acc = (xq.double() @ params[name + "_sq"][l].double()).float()
+        return (acc * params[name + "_ssw"][l]).to(x.dtype)
+    return (x.float() @ params[name][l].float()).to(x.dtype)
 
 
 def fused_window_trunk_plain(win: torch.Tensor, params: dict,
@@ -166,7 +236,6 @@ def fused_window_trunk_plain(win: torch.Tensor, params: dict,
     dt = win.dtype
     heads = params["heads"]
     hd = c // heads
-    int8 = mode == "int8_rowwise"
 
     def residual(x, y, b):
         return (x + y) + b if mode == "v1" else x + (y + b)
@@ -174,7 +243,7 @@ def fused_window_trunk_plain(win: torch.Tensor, params: dict,
     x = win
     for l in range(params["qkvw"].shape[0]):
         y = _layernorm(x, params["ln1s"][l], params["ln1b"][l])
-        qkv = _product(y, params, "qkvw", l, int8) + params["qkvb"][l]
+        qkv = _product(y, params, "qkvw", l, mode) + params["qkvb"][l]
         q, k, v = (t.reshape(nw, n, heads, hd).transpose(1, 2)
                    for t in qkv.split(c, dim=-1))  # (nW, heads, n, hd)
         q = q * torch.tensor(hd ** -0.5, dtype=dt)
@@ -182,15 +251,22 @@ def fused_window_trunk_plain(win: torch.Tensor, params: dict,
         prob = torch.softmax(s, dim=-1).to(dt)
         ctx = (prob.float() @ v.float()).to(dt)
         ctx = ctx.transpose(1, 2).reshape(nw, n, c)
-        x = residual(x, _product(ctx, params, "projw", l, int8),
+        x = residual(x, _product(ctx, params, "projw", l, mode),
                      params["projb"][l])
         y = _layernorm(x, params["ln2s"][l], params["ln2b"][l])
-        hf = (_product(y, params, "fc1w", l, int8)
+        hf = (_product(y, params, "fc1w", l, mode)
               + params["fc1b"][l]).float()
         hid = (0.5 * hf * (1.0 + torch.erf(hf * 2.0 ** -0.5))).to(dt)
-        x = residual(x, _product(hid, params, "fc2w", l, int8),
+        x = residual(x, _product(hid, params, "fc2w", l, mode),
                      params["fc2b"][l])
     return x
+
+
+# Per kernel mode: its packed weights and, in the int8 modes, its packed
+# weight scales and inverse activation scales.
+PACKS = {"v2": ("wpack", None, None), "v1": ("wpack", None, None),
+         "int8_rowwise": ("wpack_i8", "swpack", None),
+         "int8_static": ("wpack_i8s", "swpack_s", "iapack")}
 
 
 def fused_window_trunk(win: torch.Tensor, params: dict,
@@ -198,10 +274,12 @@ def fused_window_trunk(win: torch.Tensor, params: dict,
     """All window blocks on window tokens.
 
     win: (nW, 64, C) windows of 8x8 tokens; params: what
-    ``stack_trunk_params(blocks, win.dtype, mode == "int8_rowwise")``
-    returns; mode: "v2", "v1" or "int8_rowwise" (module docstring). The
-    card takes C = 128 and 192 with heads of 16 and hidden 4C, the int8
-    mode at C = 192; any number of layers and windows. Returns the same
+    ``stack_trunk_params(blocks, win.dtype, ...)`` returns, with the int8
+    weights of the mode (``int8_rowwise=True``, or for "int8_static" passed
+    through ``add_static_int8``);
+    mode: "v2", "v1", "int8_rowwise" or "int8_static" (module docstring).
+    The card takes C = 128 and 192 with heads of 16 and hidden 4C, the int8
+    modes at C = 192; any number of layers and windows. Returns the same
     shape and dtype.
     """
     if mode not in TRUNK_MODES:
@@ -210,7 +288,7 @@ def fused_window_trunk(win: torch.Tensor, params: dict,
     if not on_card(win, *tensors):
         return fused_window_trunk_plain(win, params, mode)
     nw, _, c = win.shape
-    wkey = "wpack_i8" if mode == "int8_rowwise" else "wpack"
+    wkey, skey, ikey = PACKS[mode]
     if wkey not in params or mode not in KERNEL_MODES.get(c, ()):
         raise ValueError(
             f"fused_window_trunk: the kernel takes {TOKENS} tokens, heads of "
@@ -221,19 +299,22 @@ def fused_window_trunk(win: torch.Tensor, params: dict,
     layers = params["wpack"].shape[0]
     check(win, "win", torch.bfloat16, (nw, TOKENS, c))
     check(params[wkey], wkey,
-          torch.int8 if mode == "int8_rowwise" else torch.bfloat16,
+          torch.bfloat16 if skey is None else torch.int8,
           (layers, 12 * c // SLAB_N, SLAB_N, c))
     check(params["vpack"], "vpack", torch.bfloat16, (layers, 13 * c))
     check(params["bias"], "bias", torch.float32,
           (layers, c // HEAD_DIM, TOKENS, TOKENS))
-    sw = 0
-    if mode == "int8_rowwise":
-        check(params["swpack"], "swpack", torch.float32, (layers, 9 * c))
-        sw = params["swpack"].data_ptr()
+    sw = ia = 0
+    if skey is not None:
+        check(params[skey], skey, torch.float32, (layers, 9 * c))
+        sw = params[skey].data_ptr()
+    if ikey is not None:
+        check(params[ikey], ikey, torch.float32, (layers, 7 * c))
+        ia = params[ikey].data_ptr()
     out = torch.empty_like(win)
     err = _build.load("window_trunk").tux_window_trunk(
         win.data_ptr(), params[wkey].data_ptr(), params["vpack"].data_ptr(),
-        params["bias"].data_ptr(), sw, out.data_ptr(), nw, layers, c,
+        params["bias"].data_ptr(), sw, ia, out.data_ptr(), nw, layers, c,
         TRUNK_MODES.index(mode), win.device.index, stream_of(win))
     raise_on(err, "fused_window_trunk")
     LAUNCHES["fused_window_trunk"] += 1

@@ -1,11 +1,12 @@
 """Shared model pieces: geometry resolution, the conv layer, the window
-transformer block and the window trunk.
+transformer block, its int8 calibration and the window trunk.
 
 JAX counterpart: transformerupscaler_tpu models/common.py:26, :55-76 and
 :123-243 (the trunk block by block, ``attn_impl="xla"`` or ``"pallas"``, and
-the fused one, ``"fused"`` or ``"fused2"``). Parameters are kept in the JAX
-layout, HWIO conv kernels and (in, out) dense kernels, and in f32; compute
-runs in the activation dtype.
+the fused one, ``"fused"`` or ``"fused2"``, with ``int8_acts``; the blocks'
+``calib_trunk_int8`` as ``trunk_int8_scales``). Parameters are kept in the
+JAX layout, HWIO conv kernels and (in, out) dense kernels, and in f32;
+compute runs in the activation dtype.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from transformerupscaler_torch.kernels.trunk2 import (
+    add_static_int8,
+    check_static_scales,
     fused_window_trunk,
     stack_trunk_params,
 )
@@ -99,7 +102,15 @@ class WindowAttention(nn.Module):
         self.window_size = window_size
         self.num_heads = num_heads
 
-    def forward(self, x, impl: str = "xla"):
+    def forward(self, x, impl: str = "xla", calib: dict | None = None):
+        if calib is not None:
+            # proj's input is a per-head convex combination of v rows, so
+            # the per-channel max |v| bounds it (JAX common.py:104-111): v
+            # from the product rounded to x's dtype, the f32 bias added in
+            # f32, as JAX promotes it.
+            d = self.qkv_kernel.shape[0]
+            qkv = (x @ self.qkv_kernel.to(x.dtype)).float() + self.qkv_bias
+            calib["proj"] = _abs_max(qkv[..., 2 * d:3 * d])
         return window_attention(x, self.qkv_kernel, self.qkv_bias,
                                 self.proj_kernel, self.proj_bias,
                                 self.bias_table, self.num_heads,
@@ -112,6 +123,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     bf16 rounds where the JAX reference rounds."""
     sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype)
     return 0.5 * x * torch.special.erfc(-x * sqrt_half)
+
+
+def _abs_max(v: torch.Tensor) -> torch.Tensor:
+    """Per-channel max |v| over every axis but the last, in f32."""
+    return v.float().abs().reshape(-1, v.shape[-1]).amax(dim=0)
 
 
 class WindowBlock(nn.Module):
@@ -128,10 +144,41 @@ class WindowBlock(nn.Module):
         self.mlp_fc1 = Dense(dim, hidden)
         self.mlp_fc2 = Dense(hidden, dim)
 
-    def forward(self, x, impl: str = "xla"):
-        x = x + self.attn(self.norm1(x), impl)
-        h = gelu(self.mlp_fc1(self.norm2(x)))
+    def forward(self, x, impl: str = "xla", calib: dict | None = None):
+        """``calib``: a dict that receives the per-channel max |input| of
+        the four GEMMs, as JAX ``calib_trunk_int8`` sows them (common.py:
+        98-110, 136-186): "qkv" (LN1 output), "proj" (v), "fc1" (LN2
+        output), "fc2" (GELU output). The output is the same with or
+        without it."""
+        y = self.norm1(x)
+        if calib is not None:
+            calib["qkv"] = _abs_max(y)
+        x = x + self.attn(y, impl, calib)
+        z = self.norm2(x)
+        if calib is not None:
+            calib["fc1"] = _abs_max(z)
+        h = gelu(self.mlp_fc1(z))
+        if calib is not None:
+            calib["fc2"] = _abs_max(h)
         return x + self.mlp_fc2(h)
+
+
+CALIB_GEMMS = ("qkv", "proj", "fc1", "fc2")
+
+
+def trunk_int8_scales(blocks, win: torch.Tensor):
+    """The static int8 trunk's activation scales from calibration windows:
+    the blocks run one by one on ``win`` (nW, n, C) in PyTorch, each
+    recording the per-channel max |input| of its four GEMMs. Returns
+    (s_qkv (L, C), s_proj (L, C), s_fc1 (L, C), s_fc2 (L, H)) f32, the
+    ``int8_acts`` tuple of ``run_window_trunk``."""
+    per_block = []
+    for block in blocks:
+        calib = {}
+        win = block(win, "xla", calib)
+        per_block.append(calib)
+    return tuple(torch.stack([c[k] for c in per_block])
+                 for k in CALIB_GEMMS)
 
 
 TRUNK_IMPLS = ("xla", "pallas", "fused", "fused2")
@@ -151,42 +198,61 @@ def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int,
     ``window_attention_core`` kernel; "fused" and "fused2" hand all windows
     to ``fused_window_trunk`` once, in its mode "v1" or "v2", with
     ``stacked`` (default: ``stack_trunk_params(blocks, dtype, ...)``, which a
-    caller may compute once and keep). ``int8_acts="rowwise"`` turns
-    "fused2" into the mode "int8_rowwise" (``stacked`` must then hold the
-    int8 weights) and, as in JAX, is ignored by every other impl; the static
-    per-channel scales (a tuple) are not ported. The zero tokens of the
-    padding go through either as ordinary tokens, unmasked, as in JAX."""
+    caller may compute once and keep). ``int8_acts`` turns "fused2" into an
+    int8 mode and, as in JAX, is ignored by every other impl: "rowwise"
+    into "int8_rowwise" (``stacked`` must then hold the int8 weights), the
+    static per-channel scales (s_qkv (L, C), s_proj (L, C), s_fc1 (L, C),
+    s_fc2 (L, 4C), as ``trunk_int8_scales`` returns them) into
+    "int8_static", whose weights are folded and quantized from ``stacked``
+    for these scales (``add_static_int8``) unless ``stacked`` was so folded
+    for this very tuple, as a caller that keeps ``add_static_int8(stacked,
+    scales)`` and passes the same ``scales`` does (any other shapes raise
+    ValueError;
+    ``chip_smoke.py``'s ``trunk_static`` line runs it at full width,
+    ``tests/test_torch_int8_static_trunk.py`` against JAX on the CPU).
+    The zero tokens of the padding go through either as ordinary tokens,
+    unmasked, as in JAX."""
     if impl not in TRUNK_IMPLS:
         raise ValueError(f"impl: one of {TRUNK_IMPLS}, got {impl!r}")
     mode = FUSED_MODES.get(impl)
     if mode == "v2" and int8_acts is not None:
         if not isinstance(int8_acts, str):
-            raise NotImplementedError(
-                "int8_acts: the static per-channel scales (int8_gemms=True) "
-                "are not ported; the port serves int8_acts='rowwise'")
-        if int8_acts != "rowwise":
+            mode = "int8_static"
+            check_static_scales(int8_acts, len(blocks), tokens.shape[-1],
+                                blocks[0].mlp_fc1.kernel.shape[1])
+        elif int8_acts != "rowwise":
             raise ValueError(f"unknown int8_acts mode {int8_acts!r}")
-        mode = "int8_rowwise"
+        else:
+            mode = "int8_rowwise"
+    b, ht, wt, d = tokens.shape
+    win, (n_win, hp, wp) = trunk_windows(tokens, window_size)
+    if mode is not None:
+        if stacked is None:
+            stacked = stack_trunk_params(blocks, tokens.dtype,
+                                         mode == "int8_rowwise")
+        if mode == "int8_static" and stacked.get("int8_acts") is not int8_acts:
+            stacked = add_static_int8(stacked, int8_acts)
+        win = fused_window_trunk(win.contiguous(), stacked, mode)
+    else:
+        for block in blocks:
+            win = block(win, impl)
+    tokens = window_reverse(win.reshape(b, n_win, -1, d), window_size, hp, wp)
+    return tokens[:, :ht, :wt, :]
+
+
+def trunk_windows(tokens: torch.Tensor, window_size: int):
+    """tokens (B, Ht, Wt, D), the grid zero-padded to a window multiple, as
+    the trunk's windows (B * nW, ws * ws, D); also (nW, padded Ht, padded
+    Wt)."""
     b, ht, wt, d = tokens.shape
     ws = window_size
     pad_b = (ws - ht % ws) % ws
     pad_r = (ws - wt % ws) % ws
     if pad_b or pad_r:
         tokens = F.pad(tokens, (0, 0, 0, pad_r, 0, pad_b))
-    hp, wp = ht + pad_b, wt + pad_r
     win = window_partition(tokens, ws)
     n_win = win.shape[1]
-    win = win.reshape(b * n_win, ws * ws, d)
-    if mode is not None:
-        if stacked is None:
-            stacked = stack_trunk_params(blocks, tokens.dtype,
-                                         mode == "int8_rowwise")
-        win = fused_window_trunk(win.contiguous(), stacked, mode)
-    else:
-        for block in blocks:
-            win = block(win, impl)
-    tokens = window_reverse(win.reshape(b, n_win, ws * ws, d), ws, hp, wp)
-    return tokens[:, :ht, :wt, :]
+    return win.reshape(b * n_win, ws * ws, d), (n_win, ht + pad_b, wt + pad_r)
 
 
 class FusedTrunk:

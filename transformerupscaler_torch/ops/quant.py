@@ -1,5 +1,5 @@
-"""Int8 quantization: the fused trunk's rowwise mode and the int8 serving
-scopes' convs.
+"""Int8 quantization: the fused trunk's rowwise and static modes and the
+int8 serving scopes' convs.
 
 The port's own copy of what it needs from the JAX package:
 
@@ -7,6 +7,9 @@ The port's own copy of what it needs from the JAX package:
   (transformerupscaler_tpu/ops/pallas/trunk2.py:506) quantizes them, with
   the rowwise scale of trunk2.py:724-734, and the per-token activation
   quantize of trunk2.py:176-178;
+- the trunk's static mode: ``quantize_gemm_weights`` with calibrated
+  per-input-channel activation scales folded into the weights, and the
+  per-channel activation quantize of trunk2.py:182;
 - the int8 serving scopes (models/fast_transformer.py:379-398, 495-507):
   ``quantize_conv_kernel``, ``quantize_act`` and ``quantize_act_ch``
   (ops/quant.py:85-130), the dynamic per-channel activation scale of
@@ -40,6 +43,28 @@ def rowwise_weights(wstack: torch.Tensor):
     sw = torch.maximum(wf.abs().amax(dim=1) / _f32(127.0), _f32(1e-8))
     wq = torch.clamp(torch.round(wf / sw[:, None]), -127, 127)
     return wq.to(torch.int8), (sw / _f32(127.0)) * _f32(127.0)
+
+
+def static_gemm_weights(wstack: torch.Tensor, s_in: torch.Tensor):
+    """The static mode's weights from stacked (L, k, n) GEMM weights (as
+    ``dt`` values) and the (L, k) per-input-channel activation scales
+    ``s_in``: wf = w * s_in folded in f32, per output channel sw0 =
+    max(max_k |wf| / 127, 1e-8), wq = clip(round(wf / sw0), -127, 127).
+    Returns (wq int8 (L, k, n), sw = sw0 / 127 f32 (L, n), ia = 127 /
+    max(s_in, 1e-8) f32 (L, k)): the activations quantize as clip(round(x *
+    ia), -127, 127) and the product dequantizes as float(acc) * sw."""
+    s = torch.as_tensor(s_in, dtype=_F32, device=wstack.device)
+    wf = wstack.to(_F32) * s[:, :, None]
+    sw = torch.maximum(wf.abs().amax(dim=1) / _f32(127.0), _f32(1e-8))
+    wq = torch.clamp(torch.round(wf / sw[:, None]), -127, 127)
+    ia = _f32(127.0) / torch.maximum(s, _f32(1e-8))
+    return wq.to(torch.int8), sw / _f32(127.0), ia
+
+
+def quantize_static(x: torch.Tensor, ia: torch.Tensor) -> torch.Tensor:
+    """clip(round(f32(x) * ia), -127, 127) per channel (last axis), as float
+    values: the static mode's activation quantize (trunk2.py:182)."""
+    return torch.clamp(torch.round(x.to(_F32) * ia), -127, 127)
 
 
 def quantize_rows(x: torch.Tensor):

@@ -96,8 +96,8 @@ def main() -> None:
         def run():
             err = lib.tux_window_trunk(
                 win.data_ptr(), wpack.data_ptr(), vpack.data_ptr(),
-                bias.data_ptr(), None, out.data_ptr(), n_windows, LAYERS,
-                192, 0, 0, stream)
+                bias.data_ptr(), None, None, out.data_ptr(), n_windows,
+                LAYERS, 192, 0, 0, stream)
             if err:
                 raise RuntimeError(f"CUDA error {err} at launch")
         for _ in range(3):
