@@ -57,8 +57,10 @@ Any failure raises and exits non-zero; there is no CPU fallback.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -300,6 +302,66 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+@functools.cache
+def port_kernels() -> re.Pattern:
+    """Matches the name of any of the port's CUDA kernels: every
+    ``__global__`` function of transformerupscaler_torch/csrc/."""
+    from transformerupscaler_torch.kernels import _build
+
+    names = set()
+    for src in _build.CSRC.glob("*.cu"):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+            src.read_text()))
+    return re.compile(r"\b(?:%s)\b" % "|".join(sorted(names)))
+
+
+def device_ms(fn, port_only: bool = True, reps: int = REPS) -> float:
+    """Device milliseconds per call of ``fn``: the CUDA time torch.profiler
+    traces for the kernels it launches over ``reps`` calls, after a
+    warm-up. ``port_only``: only the port's own kernels, not the copies or
+    casts a wrapper launches around them. A trace whose launch count is not
+    a whole multiple of ``reps`` lost events (CUPTI sometimes delivers
+    none): it is taken again, at most three times in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, traced = 0.0, 0
+        for ev in prof.key_averages():
+            if (ev.device_type != DeviceType.CUDA
+                    or ev.self_device_time_total <= 0):
+                continue
+            if port_only and not port_kernels().search(ev.key):
+                continue
+            us += ev.self_device_time_total
+            traced += ev.count
+        if traced and traced % reps == 0:
+            return us / 1e3 / reps
+    raise AssertionError(f"torch.profiler traced {traced} launches over "
+                         f"{reps} calls, three times")
+
+
+def timing(run, plain, lib=None) -> dict:
+    """The times of a kernel record, all taken in this run: ``ms``, the
+    device time of the port's kernels that one call of the wrapper launches;
+    ``wrapper_ms``, the wrapper called back to back, by CUDA events (host
+    time included where it sets the pace); ``plain_ms``, the plain version
+    likewise; ``library_ms``, the device time of one PyTorch call that
+    computes the same function (None where there is none)."""
+    return dict(ms=device_ms(run), wrapper_ms=cuda_ms(run),
+                plain_ms=cuda_ms(plain, 3),
+                library_ms=None if lib is None else device_ms(lib, False))
+
+
 def bound_ms(n_bytes: float, flops: float,
              int8_ops: float = 0.0) -> tuple[float, str]:
     """The least time for the work: bytes at the memory rate or the
@@ -372,6 +434,22 @@ def phase_build() -> None:
         ptxas_spill_store_bytes=spill_bytes)
 
 
+PATCH_MATMUL = "torch.matmul on the materialized patch view"
+
+
+def unembed_yardsticks(run, plain, skip, tok2, w2) -> dict:
+    """The unembed's times. Its library call is torch.addmm of the skip,
+    materialized in patch order, with the tokens' product: the bytes the
+    kernel moves, without the bias and the scatter back to NHWC;
+    ``matmul_ms`` is the bare product, without the skip."""
+    b, h, w, c = skip.shape
+    skip_pm = (skip.reshape(b, h // 8, 8, w // 8, 8, c)
+               .permute(0, 1, 3, 2, 4, 5).reshape(-1, 64 * c).contiguous())
+    return dict(timing(run, plain, lambda: torch.addmm(skip_pm, tok2, w2)),
+                library_call="torch.addmm(skip in patch order, tokens, W)",
+                matmul_ms=device_ms(lambda: torch.matmul(tok2, w2), False))
+
+
 def phase_kernels() -> list[dict]:
     """Each kernel against its plain version at the main-path shapes."""
     import torch.nn.functional as F
@@ -416,9 +494,8 @@ def phase_kernels() -> list[dict]:
         records.append(dict(
             name=name, route="cuda",
             source="transformerupscaler_torch/csrc/conv_nhwc.cu",
-            replaces=replaces, max_abs_err=err, ms=cuda_ms(run),
-            plain_ms=cuda_ms(plain, 3), bound_ms=bnd, bound_by=by,
-            library_ms=cuda_ms(lib), on=on))
+            replaces=replaces, max_abs_err=err, bound_ms=bnd, bound_by=by,
+            **timing(run, plain, lib), on=on))
 
     conv_case("conv3x3_stream", 3, 64, True,
               "transformerupscaler_tpu/ops/pallas/stream.py:425")
@@ -432,40 +509,43 @@ def phase_kernels() -> list[dict]:
               "transformerupscaler_tpu/ops/pallas/stream.py:777",
               on="xla_fold")
 
-    ke, be = rn(8, 8, 64, d, std=4096 ** -0.5), rn(d, std=0.1)
-    out = S.embed_stream(x, ke, be)
-    err = close_enough(out, S.embed_plain(x, ke, be), **bf16)
+    # The weights bf16, as the model holds them: the wrappers then copy
+    # nothing.
+    ke = rn(8, 8, 64, d, std=4096 ** -0.5).bfloat16()
+    be = rn(d, std=0.1)
+    run = lambda: S.embed_stream(x, ke, be)  # noqa: E731
+    plain = lambda: S.embed_plain(x, ke, be)  # noqa: E731
+    out = run()
+    err = close_enough(out, plain(), **bf16)
     patches = (x.reshape(1, ht, 8, wt, 8, 64).permute(0, 1, 3, 2, 4, 5)
                .reshape(-1, 8 * 8 * 64).contiguous())
-    ke16 = ke.bfloat16().reshape(-1, d)
+    ke16 = ke.reshape(-1, d)
     bnd, by = bound_ms(nbytes(x, out, ke16) + d * 4, 2.0 * ht * wt * 4096 * d)
     records.append(dict(
         name="embed_stream", route="cuda",
         source="transformerupscaler_torch/csrc/patch_gemm.cu",
         replaces="transformerupscaler_tpu/ops/pallas/stream.py:325",
-        max_abs_err=err, ms=cuda_ms(lambda: S.embed_stream(x, ke, be)),
-        plain_ms=cuda_ms(lambda: S.embed_plain(x, ke, be), 3),
-        bound_ms=bnd, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.matmul(patches, ke16)), on="bench"))
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        **timing(run, plain, lambda: torch.matmul(patches, ke16)),
+        library_call=PATCH_MATMUL, on="bench"))
 
-    ku, bu = rn(d, 8, 8, 64, std=d ** -0.5), rn(64, std=0.1)
-    out = S.unembed_combine_stream(tok, x, ku, bu)
-    err = close_enough(out, S.unembed_combine_plain(tok, x, ku, bu), **bf16)
+    ku, bu = rn(d, 8, 8, 64, std=d ** -0.5).bfloat16(), rn(64, std=0.1)
+    run = lambda: S.unembed_combine_stream(tok, x, ku, bu)  # noqa: E731
+    plain = lambda: S.unembed_combine_plain(tok, x, ku, bu)  # noqa: E731
+    out = run()
+    err = close_enough(out, plain(), **bf16)
     err = max(err, close_enough(S.unembed_combine_stream(tok, x, ku, bu, True),
                                 S.unembed_combine_plain(tok, x, ku, bu, True),
                                 **bf16))
-    tok2, ku16 = tok.reshape(-1, d), ku.bfloat16().reshape(d, -1)
+    tok2, ku16 = tok.reshape(-1, d), ku.reshape(d, -1)
     bnd, by = bound_ms(nbytes(tok, x, out, ku16) + 64 * 4,
                        2.0 * ht * wt * d * 4096)
     records.append(dict(
         name="unembed_combine_stream", route="cuda",
         source="transformerupscaler_torch/csrc/patch_gemm.cu",
         replaces="transformerupscaler_tpu/ops/pallas/stream.py:239",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: S.unembed_combine_stream(tok, x, ku, bu)),
-        plain_ms=cuda_ms(lambda: S.unembed_combine_plain(tok, x, ku, bu), 3),
-        bound_ms=bnd, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.matmul(tok2, ku16)), on="bench"))
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        **unembed_yardsticks(run, plain, x, tok2, ku16), on="bench"))
     records.append(tail_finish_case(x, x_cl, rn, bf16))
     records.extend(trunk_case(rn, *case) for case in TRUNK_CASES)
     records.append(window_attention_case(rn, bf16))
@@ -529,10 +609,10 @@ def tail_finish_case(x, x_cl, rn, bf16) -> dict:
         name="tail_finish_stream", route="cuda",
         source="transformerupscaler_torch/csrc/tail_finish.cu",
         replaces="transformerupscaler_tpu/ops/pallas/stream.py:1078",
-        max_abs_err=err, tolerance=t,
-        ms=cuda_ms(lambda: S.tail_finish_stream(x, km, bm, kf, bf)),
-        plain_ms=cuda_ms(lambda: S.tail_finish_plain(x, km, bm, kf, bf), 3),
-        bound_ms=bnd, bound_by=by, library_ms=cuda_ms(lib), on="bench")
+        max_abs_err=err, tolerance=t, bound_ms=bnd, bound_by=by,
+        **timing(lambda: S.tail_finish_stream(x, km, bm, kf, bf),
+                 lambda: S.tail_finish_plain(x, km, bm, kf, bf), lib),
+        on="bench")
 
 
 def window_attention_case(rn, bf16) -> dict:
@@ -563,8 +643,8 @@ def window_attention_case(rn, bf16) -> dict:
         name="window_attention_core", route="cuda",
         source="transformerupscaler_torch/csrc/window_attn.cu",
         replaces="transformerupscaler_tpu/ops/pallas/window_attn.py:58",
-        max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain, 3),
-        bound_ms=bnd, bound_by=by, library_ms=cuda_ms(lib),
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        **timing(run, plain, lib),
         on="window_pallas")
 
 
@@ -653,8 +733,8 @@ def global_mha_case(rn, bf16) -> dict:
         name="global_mha", route="cuda",
         source="transformerupscaler_torch/csrc/global_mha.cu",
         replaces="transformerupscaler_tpu/ops/pallas/gmha.py:60",
-        max_abs_err=err, ms=cuda_ms(run), plain_ms=cuda_ms(plain, 3),
-        bound_ms=bnd, bound_by=by, library_ms=cuda_ms(lib),
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        **timing(run, plain, lib),
         on="resid_packed")
 
 
@@ -684,9 +764,8 @@ def int8_cases(x, tok, rn, bf16) -> list[dict]:
         records.append(dict(
             name=name, route="cuda", source=source,
             replaces="transformerupscaler_tpu/ops/pallas/" + replaces,
-            max_abs_err=err, tolerance=tol, ms=cuda_ms(run),
-            plain_ms=cuda_ms(plain, 3), bound_ms=bnd, bound_by=by,
-            library_ms=None, on=on))
+            max_abs_err=err, tolerance=tol, bound_ms=bnd, bound_by=by,
+            **timing(run, plain), on=on))
 
     for name, k, co, relu, replaces, on in (
             ("conv3x3_int8_stream", 3, 64, True, "stream.py:147",
@@ -726,7 +805,7 @@ def int8_cases(x, tok, rn, bf16) -> list[dict]:
            nbytes(x, out) + 9 * 64 * 64 * 2 + 3 * 64 * 4, "int8_tails",
            flops=2.0 * h * w * 9 * 64 * 64)
 
-    ke, be = rn(8, 8, 64, d, std=4096 ** -0.5), rn(d, std=0.1)
+    ke, be = rn(8, 8, 64, d, std=4096 ** -0.5).bfloat16(), rn(d, std=0.1)
     run = lambda: S.embed_stream(xq, ke, be, in_scale=s)  # noqa: E731
     plain = lambda: S.embed_plain(xq, ke, be, in_scale=s)  # noqa: E731
     out = run()
@@ -735,7 +814,7 @@ def int8_cases(x, tok, rn, bf16) -> list[dict]:
            plain, nbytes(xq, out) + 4096 * d * 2 + d * 4 + 64 * 4,
            "int8_tails", flops=2.0 * ht * wt * 4096 * d)
 
-    ku, bu = rn(d, 8, 8, 64, std=d ** -0.5), rn(64, std=0.1)
+    ku, bu = rn(d, 8, 8, 64, std=d ** -0.5).bfloat16(), rn(64, std=0.1)
     run = lambda: S.unembed_combine_stream(tok, xq, ku, bu, feat_scale=s)  # noqa: E731
     plain = lambda: S.unembed_combine_plain(tok, xq, ku, bu, feat_scale=s)  # noqa: E731
     out = run()
@@ -785,9 +864,9 @@ def conv1_and_fused_cases(x, x_cl, rn, bf16) -> list[dict]:
         name="conv1_stream", route="cuda",
         source="transformerupscaler_torch/csrc/conv1.cu",
         replaces="transformerupscaler_tpu/ops/pallas/stream.py:1269",
-        max_abs_err=err, tolerance=tol, ms=cuda_ms(run),
-        plain_ms=cuda_ms(plain, 3), bound_ms=bnd, bound_by=by,
-        library_ms=cuda_ms(lambda: F.conv2d(img_cl, w1, b1_16, padding=1)),
+        max_abs_err=err, tolerance=tol, bound_ms=bnd, bound_by=by,
+        **timing(run, plain,
+                 lambda: F.conv2d(img_cl, w1, b1_16, padding=1)),
         on="bench_conv1")]
 
     kc, bc = rn(3, 3, 64, 64, std=1 / 24), rn(64, std=0.1)
@@ -833,9 +912,8 @@ def conv1_and_fused_cases(x, x_cl, rn, bf16) -> list[dict]:
             name=name, route="cuda",
             source="transformerupscaler_torch/csrc/conv_tail.cu",
             replaces="transformerupscaler_tpu/ops/pallas/" + replaces,
-            max_abs_err=err, tolerance=tol, ms=cuda_ms(run),
-            plain_ms=cuda_ms(plain, 3), bound_ms=bnd, bound_by=by,
-            library_ms=cuda_ms(lib), on="bench_fuse"))
+            max_abs_err=err, tolerance=tol, bound_ms=bnd, bound_by=by,
+            **timing(run, plain, lib), on="bench_fuse"))
         adapters[name] = (ktl, bt, tol)
 
     # Rows 17 and 18: the adapters round the biases to bf16 first and call
@@ -867,8 +945,9 @@ def archived_cases(x, x_cl, tok, rn, bf16) -> list[dict]:
     product summed in another order can round one bf16 step apart, which
     the adds carry into the output: one step of the output plus 2^-7 max
     |product|. Library calls: F.conv2d (channels-last bf16, bf16 bias,
-    without the ReLU, as for row 1) and torch.matmul on the materialized
-    patch view / the tokens, as for rows 3 and 4. Bounds: the bytes each
+    without the ReLU, as for row 1), torch.matmul on the materialized patch
+    view and torch.addmm with the skip in patch order, as for rows 3 and 4.
+    Bounds: the bytes each
     input is read and each output written, as for rows 1, 3 and 4."""
     import torch.nn.functional as F
 
@@ -879,15 +958,13 @@ def archived_cases(x, x_cl, tok, rn, bf16) -> list[dict]:
     _, ht, wt, d = tok.shape
     records = []
 
-    def record(name, source, replaces, err, tol, run, plain, lib, n_bytes,
-               flops):
+    def record(name, source, replaces, err, tol, times, n_bytes, flops):
         bnd, by = bound_ms(n_bytes, flops)
         records.append(dict(
             name=name, route="cuda", source=source,
             replaces="transformerupscaler_tpu/ops/pallas/" + replaces,
-            max_abs_err=err, tolerance=tol, ms=cuda_ms(run),
-            plain_ms=cuda_ms(plain, 3), bound_ms=bnd, bound_by=by,
-            library_ms=cuda_ms(lib), on="archived"))
+            max_abs_err=err, tolerance=tol, bound_ms=bnd, bound_by=by,
+            **times, on="archived"))
 
     k3, b3 = rn(3, 3, 64, 64, std=576 ** -0.5), rn(64, std=0.1)
     run = lambda: C3.conv3x3(x, k3, b3, True)  # noqa: E731
@@ -905,34 +982,35 @@ def archived_cases(x, x_cl, tok, rn, bf16) -> list[dict]:
         memory_format=torch.channels_last)
     b3_16 = b3.bfloat16()
     record("conv3x3", "transformerupscaler_torch/csrc/conv3x3.cu",
-           "conv3x3.py:73", err, bf16, run, plain,
-           lambda: F.conv2d(x_cl, w3, b3_16, padding=1),
+           "conv3x3.py:73", err, bf16,
+           timing(run, plain, lambda: F.conv2d(x_cl, w3, b3_16, padding=1)),
            nbytes(x, out) + 9 * 64 * 64 * 2 + 64 * 4,
            2.0 * h * w * 9 * 64 * 64)
 
-    ke, be = rn(8, 8, 64, d, std=4096 ** -0.5), rn(d, std=0.1)
+    ke, be = rn(8, 8, 64, d, std=4096 ** -0.5).bfloat16(), rn(d, std=0.1)
     run = lambda: P.fused_patch_embed(x, ke, be)  # noqa: E731
     plain = lambda: P.fused_patch_embed_plain(x, ke, be)  # noqa: E731
     out = run()
     patches = (x.reshape(1, ht, 8, wt, 8, 64).permute(0, 1, 3, 2, 4, 5)
                .reshape(-1, 8 * 8 * 64).contiguous())
-    ke16 = ke.bfloat16().reshape(-1, d)
+    ke16 = ke.reshape(-1, d)
     record("fused_patch_embed", "transformerupscaler_torch/csrc/patch_gemm.cu",
            "patch_kernels.py:50", close_enough(out, plain(), **bf16), bf16,
-           run, plain, lambda: torch.matmul(patches, ke16),
+           dict(timing(run, plain, lambda: torch.matmul(patches, ke16)),
+                library_call=PATCH_MATMUL),
            nbytes(x, out, ke16) + d * 4, 2.0 * ht * wt * 4096 * d)
 
-    ku, bu = rn(d, 8, 8, 64, std=d ** -0.5), rn(64, std=0.1)
+    ku, bu = rn(d, 8, 8, 64, std=d ** -0.5).bfloat16(), rn(64, std=0.1)
     run = lambda: P.fused_patch_unembed_add(tok, x, ku, bu)  # noqa: E731
     plain = lambda: P.fused_patch_unembed_add_plain(tok, x, ku, bu)  # noqa: E731
     out = run()
-    tok2, ku16 = tok.reshape(-1, d), ku.bfloat16().reshape(d, -1)
+    tok2, ku16 = tok.reshape(-1, d), ku.reshape(d, -1)
     y_max = (tok2.float() @ ku16.float()).abs().max().item()
     tol = dict(rtol=bf16["rtol"], atol=bf16["atol"] + 2.0 ** -7 * y_max)
     record("fused_patch_unembed_add",
            "transformerupscaler_torch/csrc/patch_gemm.cu",
            "patch_kernels.py:106", close_enough(out, plain(), **tol), tol,
-           run, plain, lambda: torch.matmul(tok2, ku16),
+           unembed_yardsticks(run, plain, x, tok2, ku16),
            nbytes(tok, x, out, ku16) + 64 * 4, 2.0 * ht * wt * d * 4096)
     return records
 
@@ -1043,9 +1121,8 @@ def trunk_case(rn, name, model_name, route, mode, replaces, on) -> dict:
         name=name, route="cuda",
         source="transformerupscaler_torch/csrc/window_trunk.cu",
         replaces="transformerupscaler_tpu/ops/pallas/" + replaces,
-        max_abs_err=err.max().item(), tolerance=tolerance,
-        ms=cuda_ms(run), plain_ms=cuda_ms(plain, 3), bound_ms=bnd,
-        bound_by=by, library_ms=None, on=on)
+        max_abs_err=err.max().item(), tolerance=tolerance, bound_ms=bnd,
+        bound_by=by, **timing(run, plain), on=on)
 
 
 @contextlib.contextmanager

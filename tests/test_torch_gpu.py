@@ -292,6 +292,82 @@ def test_unembed_feat_scale_kernel_matches_plain(gen, relu):
                                         feat_scale=s), BF16_TOL)
 
 
+# The patch kernels cut every token row into runs of 32 tokens, one TMA box
+# each, four runs a block: widths short of, equal to and just past a box
+# multiple, one token row, two images.
+EDGE_WT = [1, 5, 64, 65, 160]
+EDGE_HT = [1, 3]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", [64, 128, 192])
+@pytest.mark.parametrize("ht", EDGE_HT)
+@pytest.mark.parametrize("wt", EDGE_WT)
+def test_embed_tiling_edges_match_plain(gen, wt, ht, d, int8):
+    x = _rn(gen, 2, 8 * ht, 8 * wt, 64)
+    k = _rn(gen, 8, 8, 64, d, std=4096 ** -0.5).bfloat16()
+    bias = _rn(gen, d, std=0.1)
+    if int8:
+        f, s = Q.quantize_act_ch(x)
+    else:
+        f, s = x.bfloat16(), None
+    got = S.embed_stream(f, k, bias, in_scale=s)
+    assert got.shape == (2, ht, wt, d)
+    _close(got, S.embed_plain(f, k, bias, in_scale=s), BF16_TOL)
+
+
+@pytest.mark.parametrize("option", ["bf16", "relu", "feat_scale",
+                                    "round_steps"])
+@pytest.mark.parametrize("d", [16, 48, 192])
+@pytest.mark.parametrize("ht", EDGE_HT)
+@pytest.mark.parametrize("wt", EDGE_WT)
+def test_unembed_tiling_edges_match_plain(gen, wt, ht, d, option):
+    """round_steps within one bf16 step plus 2^-7 max |product|, as
+    test_fused_patch_unembed_add_kernel_matches_plain bounds it."""
+    tok = _rn(gen, 2, ht, wt, d).bfloat16()
+    x = _rn(gen, 2, 8 * ht, 8 * wt, 64)
+    k = _rn(gen, d, 8, 8, 64, std=d ** -0.5).bfloat16()
+    bias = _rn(gen, 64)
+    tol = BF16_TOL
+    if option == "round_steps":
+        f = x.bfloat16()
+        got = P.fused_patch_unembed_add(tok, f, k, bias)
+        want = P.fused_patch_unembed_add_plain(tok, f, k, bias)
+        y_max = (tok.float() @ k.float().reshape(d, -1)).abs().max()
+        tol = dict(rtol=2.0 ** -7, atol=2.0 ** -7 * y_max.item())
+    elif option == "feat_scale":
+        f, s = Q.quantize_act_ch(x)
+        got = S.unembed_combine_stream(tok, f, k, bias, feat_scale=s)
+        want = S.unembed_combine_plain(tok, f, k, bias, feat_scale=s)
+    else:
+        relu, f = option == "relu", x.bfloat16()
+        got = S.unembed_combine_stream(tok, f, k, bias, relu)
+        want = S.unembed_combine_plain(tok, f, k, bias, relu)
+    assert got.shape == (2, 8 * ht, 8 * wt, 64)
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("kind,d", [("embed", 256), ("embed", 320),
+                                    ("unembed", 272), ("unembed", 512)])
+def test_patch_kernels_wide_d_match_plain(gen, kind, d):
+    """The embed past 192 columns (a second column group, partly past D) and
+    the unembed past 256 (one warpgroup, 64-token tiles)."""
+    x = _rn(gen, 2, 24, 8 * 65, 64).bfloat16()
+    if kind == "embed":
+        k = _rn(gen, 8, 8, 64, d, std=4096 ** -0.5).bfloat16()
+        bias = _rn(gen, d, std=0.1)
+        got, want = S.embed_stream(x, k, bias), S.embed_plain(x, k, bias)
+        assert got.shape == (2, 3, 65, d)
+    else:
+        tok = _rn(gen, 2, 3, 65, d).bfloat16()
+        k = _rn(gen, d, 8, 8, 64, std=d ** -0.5).bfloat16()
+        bias = _rn(gen, 64)
+        got = S.unembed_combine_stream(tok, x, k, bias, True)
+        want = S.unembed_combine_plain(tok, x, k, bias, True)
+        assert got.shape == x.shape
+    _close(got, want, BF16_TOL)
+
+
 def test_wrappers_count_launches_and_reject_bad_input(gen):
     x = _rn(gen, 1, 8, 16, 64).bfloat16()
     k = _rn(gen, 3, 3, 64, 64)
@@ -497,6 +573,9 @@ def test_archived_wrappers_reject_bad_input(gen):
     with pytest.raises(ValueError):  # D % 16
         P.fused_patch_unembed_add(_rn(gen, 1, 1, 2, 40).bfloat16(), x,
                                   _rn(gen, 40, 8, 8, 64), None)
+    with pytest.raises(ValueError):  # D > 512: no room for the token tile
+        P.fused_patch_unembed_add(_rn(gen, 1, 1, 2, 528).bfloat16(), x,
+                                  _rn(gen, 528, 8, 8, 64), None)
     p128 = T.add_static_int8(
         T.stack_trunk_params(_trunk_blocks(gen, 128, 1), torch.bfloat16),
         (torch.ones(1, 128),) * 3 + (torch.ones(1, 512),))

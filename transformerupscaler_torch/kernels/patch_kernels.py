@@ -20,8 +20,8 @@ dt(tokens @ W) from the f32 sum, then y + dt(bias) in dt, then + feat in
 dt. No model reaches them (the JAX package's tests and its TPU probe
 ``tools/serve_bench.py`` call them). Given CPU tensors each computes its
 plain version; given CUDA tensors (bf16, D % 64 == 0 for the embed, D % 16
-== 0 for the unembed) it launches the kernel and adds one to its own count
-in ``ARCHIVED_LAUNCHES``, not to the serving wrapper's.
+== 0 and D <= 512 for the unembed) it launches the kernel and adds one to
+its own count in ``ARCHIVED_LAUNCHES``, not to the serving wrapper's.
 """
 
 from __future__ import annotations

@@ -622,7 +622,7 @@ def embed_launch(feat, kernel, bias, in_scale=None, out_dtype=None):
     if (ps, c) != (8, 64) or kernel.shape[1] != 8 or d % 64 or h % 8 or w % 8:
         raise ValueError(f"embed: feat {tuple(feat.shape)} / kernel "
                          f"{tuple(kernel.shape)} not supported")
-    wt = kernel.to(torch.bfloat16).reshape(-1, d).t().contiguous()
+    wt = kernel.to(torch.bfloat16).contiguous()  # read as stored: (4096, D)
     bb = _bias32(bias, d, feat)
     _check(bb, "bias", torch.float32, (d,))
     sc = _scale32(in_scale, "in_scale", 64, feat) if i8 else None
@@ -659,7 +659,8 @@ def unembed_combine_stream(tokens: torch.Tensor, skip: torch.Tensor,
     """8x8 patch unembed plus the skip add: ``act(unembed(tokens) + skip)``.
 
     tokens: (B, Ht, Wt, D); skip: (B, 8 Ht, 8 Wt, 64); kernel: (D, 8, 8, 64)
-    rounded to tokens' dtype, D % 16 == 0 on the card; bias: (64,), kept f32.
+    rounded to tokens' dtype, D % 16 == 0 and D <= 512 on the card; bias:
+    (64,), kept f32.
     The skip is added in f32 before the one rounding, as (g + bias) + skip.
     Returns (B, 8 Ht, 8 Wt, 64) in tokens' dtype.
 
@@ -689,10 +690,10 @@ def unembed_launch(tokens, skip, kernel, bias, relu: bool = False,
     _check(tokens, "tokens", torch.bfloat16, (b, ht, wt_, d))
     _check(skip, "skip", torch.int8 if i8 else torch.bfloat16,
            (b, 8 * ht, 8 * wt_, 64))
-    if tuple(kernel.shape) != (d, 8, 8, 64) or d % 16:
+    if tuple(kernel.shape) != (d, 8, 8, 64) or d % 16 or d > 512:
         raise ValueError(f"unembed: kernel {tuple(kernel.shape)} not "
                          f"supported for D={d}")
-    wt = kernel.to(torch.bfloat16).reshape(d, -1).t().contiguous()
+    wt = kernel.to(torch.bfloat16).contiguous()  # read as stored: (D, 4096)
     bb = _bias32(bias, 64, tokens)
     _check(bb, "bias", torch.float32, (64,))
     sc = _scale32(feat_scale, "feat_scale", 64, tokens) if i8 else None
