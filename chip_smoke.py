@@ -5,7 +5,8 @@
 
 Run from the root of a checkout, with no arguments. Phases, one line each:
 
-1. the device: torch's name for it, and nvidia-smi's name and power limit;
+1. the device: torch's name for it, and nvidia-smi's name and power limit
+   and maximum SM clock;
 2. the kernel build (nvcc, sm_90a) from transformerupscaler_torch/csrc/;
 3. each hand-written kernel against its plain PyTorch version on the card,
    at the shapes the served 720x1280 frames give it, with its time, the
@@ -71,6 +72,10 @@ import torch
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+# exp2 and the other special functions: 16 a clock on each SM of compute
+# capability 9.0 (CUDA C Programming Guide, arithmetic instruction
+# throughput), at the card's maximum SM clock (``max_sm_clock_hz``).
+SFU_PER_SM_CLOCK = 16
 WARMUP, REPS = 3, 20
 FRAME_HW, RES_OUT, SCALE = (720, 1280), (1080, 1920), 2
 # Launch counters: one per wrapper, and the trunk's by kernel mode.
@@ -362,14 +367,29 @@ def timing(run, plain, lib=None) -> dict:
                 library_ms=None if lib is None else device_ms(lib, False))
 
 
-def bound_ms(n_bytes: float, flops: float,
-             int8_ops: float = 0.0) -> tuple[float, str]:
-    """The least time for the work: bytes at the memory rate or the
-    operations (bf16, plus any int8 ones at the int8 rate), the larger."""
-    t_bytes = n_bytes / PEAK_BYTES
-    t_ops = flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+@functools.cache
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def bound_ms(n_bytes: float, flops: float, int8_ops: float = 0.0,
+             exps: float = 0.0) -> tuple[float, str]:
+    """The least time for the work, the largest of: bytes at the memory
+    rate; the operations (bf16, plus any int8 ones at the int8 rate); the
+    exponentials (special-function operations) at SFU_PER_SM_CLOCK on every
+    SM at the maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {"bytes": n_bytes / PEAK_BYTES,
+             "operations": flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS,
+             "exponentials": exps / (sms * SFU_PER_SM_CLOCK
+                                     * max_sm_clock_hz())}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def nbytes(*tensors) -> int:
@@ -401,6 +421,7 @@ def phase_device() -> str:
     kind = torch.cuda.get_device_name(0)
     say("device", torch_name=kind, nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, count=torch.cuda.device_count(),
+        max_sm_clock_mhz=max_sm_clock_hz() / 1e6,
         imports={m: imports(m) for m in ("tensorstore", "zstandard")})
     return kind
 
@@ -650,10 +671,10 @@ def window_attention_case(rn, bf16) -> dict:
 
 def global_mha_case(rn, bf16) -> dict:
     """ResidualTransformer's attention core on one 720x1280 frame: 3600
-    tokens (56 key tiles of 64 and one of 16), 8 heads of 16, q, k, v as the
-    slices of the packed qkv the model hands over; then two batches of 1000
-    tokens. Tolerance: the kernel keeps the TPU body's rounding point (two
-    passes over the keys), but its probabilities come from a fast
+    tokens (28 key tiles of 128 and one of 16), 8 heads of 16, q, k, v as
+    the slices of the packed qkv the model hands over; then two batches of
+    1000 tokens. Tolerance: the kernel keeps the TPU body's rounding point
+    (two passes over the keys), but its probabilities come from a fast
     exponential and a running sum, so a probability can round to the
     neighbouring bf16 value (one step, at most 2^-7 p), which moves the f32
     context by up to 2^-7 p |v|: at p near 1 and |v| ~ 6, several output
@@ -662,7 +683,7 @@ def global_mha_case(rn, bf16) -> dict:
     at (1, 3600), 3 of 256000 at (2, 1000)), and every element is held to
     attention carried in f64 from the same bf16 q, k, v: the kernel's max
     and mean error against it at most 1.25 times the plain version's
-    (``held``).
+    (``held``). Bound: one exponential a score at the SFU's rate.
     """
     import torch.nn.functional as F
 
@@ -715,7 +736,9 @@ def global_mha_case(rn, bf16) -> dict:
     qh, kh, vh = (t.reshape(1, n, heads, 16).transpose(1, 2).contiguous()
                   for t in (q, k, v))
     lib = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
-    bnd, by = bound_ms(nbytes(q, k, v, out), 2.0 * 2 * n * n * c)
+    # One exponential a score: 103.7 M at (1, 3600) with 8 heads.
+    bnd, by = bound_ms(nbytes(q, k, v, out), 2.0 * 2 * n * n * c,
+                       exps=float(heads) * n * n)
     # One whole attention layer (qkv product, core, output product) through
     # the kernel and through the eager branch, which writes the
     # (8, 3600, 3600) f32 scores: the other value of ``attn_impl``.

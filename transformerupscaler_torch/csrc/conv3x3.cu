@@ -1,12 +1,10 @@
 // General NHWC 3x3 conv (stride 1, zero padding 1) with an optional bias and
-// ReLU, any input and output width, for Hopper (sm_90a).
+// ReLU, any input and output width, for Hopper (sm_90a): TMA halo tiles, an
+// implicit GEMM on wgmma, a TMA-stored epilogue.
 //
 // Replaces transformerupscaler_tpu/ops/pallas/conv3x3.py:73 conv3x3_pallas,
 // the JAX package's archived conv kernel, which its tests pin at (C, O) =
 // (64, 64), (64, 256), (256, 16), (8, 8), (16, 8), batch 3 and odd heights.
-// The serving kernel conv_nhwc.cu is compiled for 64 -> 64 with the whole
-// halo and all weights in shared memory; at C = 256 those alone would take
-// ~180 KB, so this one streams the input channels instead.
 //
 //   out[b, y, x, o] = bf16(act(sum_{dy,dx,c} x[b, y+dy-1, x+dx-1, c]
 //                                 * w[dy, dx, c, o] + bias[o]))
@@ -14,186 +12,374 @@
 // kernel rounds it to x's dtype first, conv3x3.py:103-104) and is added in
 // f32, then the ReLU, then one rounding to bf16 (conv3x3.py:64-69).
 //
-// Design: one block of 8 warps computes an 8 x 16 pixel tile for 64 output
-// channels (grid.y walks the output chunks; the weights are zero-padded to a
-// multiple of 8 outputs, and 8-column fragments past it are skipped). The
-// input channels are zero-padded to a multiple of 16 and consumed in chunks
-// of at most 64: each chunk loads the 10 x 18 pixel halo and the chunk's
-// nine tap slabs [64 outputs][chunk] into shared memory, then every tap is a
-// (128 pixels x chunk) . (chunk x 64) product on mma.sync m16n8k16. The 16
-// pixels of an A fragment are one row of the tile, so a tap's A rows are
-// halo rows read at an offset: no im2col copy. The warps tile the output as
-// 4 (pixels, 32 each) x 2 (outputs, 32 each).
+// Bound on the H100 at 720x1280, 64 -> 64 (989 TF/s bf16, 3.35 TB/s): 67.9
+// GFLOP, 0.069 ms; 236 MB moved, 0.070 ms. Both at once: the tensor cores
+// have to run nearly all the time while every byte is read once.
 //
-// Bound on the H100 at 720x1280, 64 -> 64 (989 TF/s bf16, 3.35 TB/s): 7.2
-// GFLOP, 7.3 us; 236 MB moved, 70 us: bytes-bound, as conv_nhwc.cu. Every
-// block reloads its chunk's weights (73.7 KB at 64 -> 64) from L2 and there
-// is no copy/compute overlap: a first version; see PERF.md for its time.
-#include "common.cuh"
+// Design. A persistent block of four consumer warpgroups and one producer
+// warp owns one 64-output slab of the weights (blockIdx.y) and walks tiles
+// of 4 image rows x 64 pixels. The producer loads, by TMA with the 128-byte
+// swizzle, the tile's halo as one box of 6 rows x 72 pixels x 64 channels
+// from the NHWC map (C rounded up to 8: TMA zero-fills the rows, columns and
+// channels outside the map, so the padding needs no copy) through a
+// two-stage ring, so the next tile's halo lands under this tile's products.
+// Warpgroup w computes output row w of the tile as an implicit GEMM: M = the
+// row's 64 pixels, N = 64 outputs, K = 9 taps x 64 channels, wgmma
+// m64n64k16. The A operand of tap (dy, dx) is the halo run of row w + dy
+// starting at pixel dx: a descriptor whose start address is shifted by dx
+// rows of 128 bytes (sm90.cuh desc()). B is the tap's (64 channels x 64
+// outputs) slab, MN-major. Where the input has at most 64 channels the nine
+// slabs (72 KB) stay in shared memory for the whole kernel, loaded once;
+// wider inputs stream a slab for each (channel chunk, tap) through a
+// four-stage ring. Epilogue: + bias in f32, ReLU, one rounding into a
+// swizzled staging tile, one TMA store of the row's 64 pixels x 64 outputs
+// (clipped at the map's edges).
+#include <cuda_bf16.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+namespace S = tux::sm90;
 
-constexpr int TH = 8;        // tile rows
-constexpr int TW = 16;       // tile columns: one A fragment
-constexpr int NT = 64;       // output channels per block
-constexpr int KC = 64;       // input channels per chunk, at most
-constexpr int S = KC + 8;    // shared-memory row stride (elements)
-constexpr int HW_ = TW + 2;  // halo width
-constexpr int HALO = (TH + 2) * HW_;
-constexpr int THREADS = 256;
-constexpr size_t SMEM = size_t(HALO + 9 * NT) * S * sizeof(bf16);
+constexpr int KC = 64;                    // channels of a chunk: 128 B
+constexpr int NT = 64;                    // outputs of a block
+constexpr int WG = 4;                     // consumer warpgroups: tile rows
+constexpr int TW = 64;                    // output pixels of a tile row
+constexpr int HX = 72;                    // halo pixels of a row (TW + 2, x8)
+constexpr int HROW = HX * 128;            // bytes of a halo row: 9 x 1024
+constexpr int HALO = (WG + 2) * HROW;     // a ring stage
+constexpr int SLAB = KC * NT * 2;         // one (tap, chunk) weight slab
+constexpr int OUT = TW * NT * 2;          // a warpgroup's staging tile
+constexpr int HSTAGES = 2;
+constexpr int WSTAGES = 4;                // streamed weights
+constexpr int THREADS = WG * 128 + 32;
+constexpr int MAX_SMEM = 232448;
 
-// x (B,H,W,C) bf16; wt (9, O8, C16) bf16 = w[dy][dx][c][o] as [tap][o][c],
-// zero-padded; bias (O8) f32; out (B,H,W,O) bf16.
-__global__ void __launch_bounds__(THREADS)
-conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-               const float* __restrict__ bias, bf16* __restrict__ out, int H,
-               int W, int C, int C16, int O, int O8, int relu) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // halo [pixel][channel]
-  bf16* ws = xs + HALO * S;                  // [tap][output][channel]
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles_h = (H + TH - 1) / TH;
-  const int tx = blockIdx.x % tiles_w;
-  const int ty = (blockIdx.x / tiles_w) % tiles_h;
-  const int b = blockIdx.x / (tiles_w * tiles_h);
-  const int y0 = ty * TH, x0 = tx * TW;
-  const int n0 = blockIdx.y * NT;
-  const int nn = min(NT, O8 - n0);  // weight rows of this output chunk
+// RES: all nine slabs resident (C <= 64); else a ring of WSTAGES slabs.
+template <bool RES>
+struct ConvSmem {
+  static constexpr int W_BYTES = (RES ? 9 : WSTAGES) * SLAB;
+  static constexpr int BARS = 2 * HSTAGES + (RES ? 1 : 2 * WSTAGES);
+  static constexpr int BYTES =
+      1024 + W_BYTES + HSTAGES * HALO + WG * OUT + BARS * 8;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ int sw128(int r, int j) {
+  return r * 128 + ((j ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) S::mbar_arrive(bar);
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int N>
+__device__ __forceinline__ void advance(int& stage, uint32_t& phase) {
+  if (++stage == N) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// The A operand (64 pixels x k16 step s, K-major) of a 128B-swizzled halo
+// row, starting `shift` pixels in.
+__device__ __forceinline__ uint64_t desc_shift(const unsigned char* row,
+                                               int shift, int s) {
+  return S::desc(row + 128 * shift + 32 * s, 16, 1024);
+}
+
+// Tile u: batch b, first row y0, first column x0.
+__device__ __forceinline__ void tile_of(int u, int tiles_x, int tiles_y,
+                                        int& b, int& y0, int& x0) {
+  x0 = (u % tiles_x) * TW;
+  y0 = ((u / tiles_x) % tiles_y) * WG;
+  b = u / (tiles_x * tiles_y);
+}
+
+// xmap: x (B, H, W, C8) as (C8, W, H, B), box (64, 72, 6, 1); wmap: the
+// weights (9 C16, O64) as taps x channels rows of outputs, box (64, 64);
+// omap: out (B, H, W, O8) as (O8, W, H, B), box (64, 64, 1, 1). All with the
+// 128B swizzle. bias (O64) f32.
+template <bool RES>
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap wmap,
+               const __grid_constant__ CUtensorMap omap,
+               const float* __restrict__ bias, int H, int C16, int relu,
+               int tiles_x, int tiles_y, int n_tiles) {
+  using L = ConvSmem<RES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ws = align1024(smem_raw);
+  unsigned char* halo = ws + L::W_BYTES;
+  unsigned char* out = halo + HSTAGES * HALO;
+  uint64_t* h_full = reinterpret_cast<uint64_t*>(out + WG * OUT);
+  uint64_t* h_empty = h_full + HSTAGES;
+  uint64_t* w_full = h_empty + HSTAGES;  // RES: one; else WSTAGES
+  uint64_t* w_empty = w_full + WSTAGES;  // streamed only
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int n0 = blockIdx.y * NT;
+  const int chunks = (C16 + KC - 1) / KC;
+  if (tid == 0) {
+    for (int s = 0; s < HSTAGES; ++s) {
+      S::mbar_init(&h_full[s], 1);
+      S::mbar_init(&h_empty[s], WG * 4);
+    }
+    if constexpr (RES) {
+      S::mbar_init(w_full, 1);
+    } else {
+      for (int s = 0; s < WSTAGES; ++s) {
+        S::mbar_init(&w_full[s], 1);
+        S::mbar_init(&w_empty[s], WG * 4);
+      }
+    }
+    S::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= WG * 128) {  // producer warp: one thread issues every copy
+    if (tid != WG * 128) return;
+    if constexpr (RES) {
+      S::mbar_expect_tx(w_full, 9 * SLAB);
+      for (int tap = 0; tap < 9; ++tap)
+        S::tma_load_2d(ws + tap * SLAB, &wmap, w_full, n0, tap * C16);
+    }
+    int hs = 0, wst = 0;
+    uint32_t h_phase = 0, w_phase = 0;
+    for (int u = blockIdx.x; u < n_tiles; u += gridDim.x) {
+      int b, y0, x0;
+      tile_of(u, tiles_x, tiles_y, b, y0, x0);
+      for (int ch = 0; ch < chunks; ++ch) {
+        S::mbar_wait(&h_empty[hs], h_phase ^ 1);
+        S::mbar_expect_tx(&h_full[hs], HALO);
+        S::tma_load_4d(halo + hs * HALO, &xmap, &h_full[hs], ch * KC, x0 - 1,
+                       y0 - 1, b);
+        advance<HSTAGES>(hs, h_phase);
+        if constexpr (!RES) {
+          for (int tap = 0; tap < 9; ++tap) {
+            S::mbar_wait(&w_empty[wst], w_phase ^ 1);
+            S::mbar_expect_tx(&w_full[wst], SLAB);
+            S::tma_load_2d(ws + wst * SLAB, &wmap, &w_full[wst], n0,
+                           tap * C16 + ch * KC);
+            advance<WSTAGES>(wst, w_phase);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;
+  const int wtid = tid & 127;
+  const int warp = wtid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int wm = warp >> 1;  // 0..3: tile rows 2 wm, 2 wm + 1
-  const int wn = warp & 1;   // 0..1: 32 output channels
-
-  float acc[2][4][4];
+  unsigned char* stg = out + wg * OUT;
+  // Bias of this thread's outputs n0 + 8 j + 2 t + e.
+  float bs[16];
 #pragma unroll
-  for (int f = 0; f < 2; ++f)
+  for (int i = 0; i < 16; ++i) bs[i] = bias[n0 + 8 * (i >> 1) + 2 * t + (i & 1)];
+  if constexpr (RES) S::mbar_wait(w_full, 0);
+  float acc[32];
+  int hs = 0, wst = 0;
+  uint32_t h_phase = 0, w_phase = 0;
+  for (int u = blockIdx.x; u < n_tiles; u += gridDim.x) {
+    int b, y0, x0;
+    tile_of(u, tiles_x, tiles_y, b, y0, x0);
+    for (int ch = 0; ch < chunks; ++ch) {
+      S::mbar_wait(&h_full[hs], h_phase);
+      const unsigned char* hrow = halo + hs * HALO + wg * HROW;
+      S::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3;
+        const unsigned char* slab = ws + tap * SLAB;
+        if constexpr (!RES) {
+          S::mbar_wait(&w_full[wst], w_phase);
+          slab = ws + wst * SLAB;
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0.f;
-
-  for (int c0 = 0; c0 < C16; c0 += KC) {
-    const int kc = min(KC, C16 - c0);
-    const int kv = kc / 8;  // 16-byte vectors a row
-    __syncthreads();        // the previous chunk's products are done
-    for (int i = tid; i < HALO * kv; i += THREADS) {
-      const int v = i % kv;
-      const int p = i / kv;
-      const int yy = y0 - 1 + p / HW_;
-      const int xx = x0 - 1 + p % HW_;
-      const int c = c0 + 8 * v;
-      uint4 val = tux::zero16();
-      if (yy >= 0 && yy < H && xx >= 0 && xx < W && c < C) {
-        const bf16* src = x + ((size_t(b) * H + yy) * W + xx) * C + c;
-        if ((C & 7) == 0) {
-          val = *reinterpret_cast<const uint4*>(src);
-        } else {
-          __align__(16) bf16 e[8];
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            e[k] = c + k < C ? src[k] : __float2bfloat16_rn(0.f);
-          val = *reinterpret_cast<const uint4*>(e);
+        for (int s = 0; s < 4; ++s)
+          S::wgmma_ss_n64(acc, desc_shift(hrow + dy * HROW, dx, s),
+                          S::desc_b(slab, s), ch | tap | s);
+        S::wgmma_commit();
+        if constexpr (!RES) {
+          S::wgmma_wait<0>();
+          release(&w_empty[wst], lane);
+          advance<WSTAGES>(wst, w_phase);
         }
       }
-      *reinterpret_cast<uint4*>(xs + p * S + 8 * v) = val;
+      S::wgmma_wait<0>();
+      release(&h_empty[hs], lane);
+      advance<HSTAGES>(hs, h_phase);
     }
-    for (int i = tid; i < 9 * nn * kv; i += THREADS) {
-      const int v = i % kv;
-      const int r = i / kv;  // tap * nn + output
-      const int tap = r / nn;
-      const int n = r % nn;
-      *reinterpret_cast<uint4*>(ws + (tap * NT + n) * S + 8 * v) =
-          *reinterpret_cast<const uint4*>(
-              wt + (size_t(tap) * O8 + n0 + n) * C16 + c0 + 8 * v);
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3;
-      const int dx = tap % 3;
-      for (int kk = 0; kk < kc / 16; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          const bf16* r0 =
-              xs + ((2 * wm + f + dy) * HW_ + g + dx) * S + kk * 16;
-          tux::load_a(a[f], r0, r0 + 8 * S, t);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int nl = wn * 32 + j * 8;  // warp-uniform
-          if (n0 + nl >= O8) continue;
-          uint32_t bfr[2];
-          tux::load_b(bfr, ws + (tap * NT + nl + g) * S + kk * 16, t);
-#pragma unroll
-          for (int f = 0; f < 2; ++f)
-            tux::mma_bf16(acc[f][j], a[f][0], a[f][1], a[f][2], a[f][3],
-                          bfr[0], bfr[1]);
-        }
-      }
-    }
-  }
+    S::fence_acc(acc);
 
-  const bool pairs = (O & 1) == 0;
+    // Epilogue: + bias, ReLU, one rounding into the staging tile (64 pixels
+    // x 64 outputs, swizzled), then one TMA store, clipped at the edges.
+    if (wtid == 0) S::store_wait_read<0>();
+    S::named_sync(1 + wg, 128);
 #pragma unroll
-  for (int f = 0; f < 2; ++f)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int yy = y0 + 2 * wm + f;
-      const int xx = x0 + g + 8 * h;
-      if (yy >= H || xx >= W) continue;
-      bf16* dst = out + ((size_t(b) * H + yy) * W + xx) * O;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn * 32 + j * 8 + 2 * t;
-        if (n >= O) continue;
-        float v0 = acc[f][j][2 * h] + bias[n];
-        float v1 = acc[f][j][2 * h + 1] + bias[n + 1];
+      for (int i = 0; i < 2; ++i) {
+        const int r = 16 * warp + g + 8 * i;
+        float v0 = acc[4 * j + 2 * i] + bs[2 * j];
+        float v1 = acc[4 * j + 2 * i + 1] + bs[2 * j + 1];
         if (relu) {
           v0 = fmaxf(v0, 0.f);
           v1 = fmaxf(v1, 0.f);
         }
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(dst + n) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          dst[n] = __float2bfloat16_rn(v0);
-          if (n + 1 < O) dst[n + 1] = __float2bfloat16_rn(v1);
-        }
+        *reinterpret_cast<uint32_t*>(stg + sw128(r, j) + 4 * t) =
+            pack(v0, v1);
       }
+    S::fence_async_smem();
+    S::named_sync(1 + wg, 128);
+    if (wtid == 0) {
+      if (y0 + wg < H) S::tma_store_4d(&omap, stg, n0, x0, y0 + wg, b);
+      S::store_commit();
     }
+  }
+  if (wtid == 0) S::store_wait_all();
+}
+
+// An NHWC map (B, H, W, Cm) as (Cm, W, H, B), box (64, box_w, box_h, 1).
+int map_nhwc(CUtensorMap* m, const void* p, int B, int H, int W, int Cm,
+             int box_w, int box_h) {
+  const uint64_t dims[4] = {uint64_t(Cm), uint64_t(W), uint64_t(H),
+                            uint64_t(B)};
+  const uint64_t strides[3] = {uint64_t(Cm) * 2, uint64_t(W) * Cm * 2,
+                               uint64_t(H) * W * Cm * 2};
+  const uint32_t box[4] = {64, uint32_t(box_w), uint32_t(box_h), 1};
+  return S::encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims,
+                       strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A (rows, cols) bf16 row-major matrix, box (64 columns, box_rows rows).
+int map_matrix(CUtensorMap* m, const void* p, int rows, int cols,
+               int box_rows) {
+  const uint64_t dims[2] = {uint64_t(cols), uint64_t(rows)};
+  const uint64_t strides[1] = {uint64_t(cols) * 2};
+  const uint32_t box[2] = {64, uint32_t(box_rows)};
+  return S::encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, dims,
+                       strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <bool RES>
+int launch(const CUtensorMap& x, const CUtensorMap& w, const CUtensorMap& o,
+           const void* bias, int B, int H, int W, int C16, int O64, int relu,
+           int device, void* stream) {
+  using L = ConvSmem<RES>;
+  static_assert(L::BYTES <= MAX_SMEM, "conv3x3 shared memory");
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_kernel<RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (err != cudaSuccess) return int(err);
+  const int tiles_x = (W + TW - 1) / TW;
+  const int tiles_y = (H + WG - 1) / WG;
+  const int n_tiles = B * tiles_y * tiles_x;
+  const int o_tiles = O64 / NT;
+  int per = S::sm_count(device) / o_tiles;
+  if (per < 1) per = 1;
+  const dim3 grid(n_tiles < per ? n_tiles : per, o_tiles);
+  conv3x3_kernel<RES>
+      <<<grid, THREADS, L::BYTES, static_cast<cudaStream_t>(stream)>>>(
+          x, w, o, static_cast<const float*>(bias), H, C16, relu, tiles_x,
+          tiles_y, n_tiles);
+  return int(cudaGetLastError());
+}
+
+// The descriptor-shift probe: one warpgroup computes D (64 x 64, f32) =
+// A[shift : shift + 64] . B with A (72 x 64) and B (64 x 64) bf16 loaded by
+// TMA with the 128B swizzle, A through desc_shift. D row-major.
+__global__ void __launch_bounds__(128)
+desc_probe_kernel(const __grid_constant__ CUtensorMap amap,
+                  const __grid_constant__ CUtensorMap bmap,
+                  float* __restrict__ d, int shift) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* a = align1024(smem_raw);
+  unsigned char* bt = a + HROW;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bt + SLAB);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    S::mbar_init(bar, 1);
+    S::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    S::mbar_expect_tx(bar, HROW + SLAB);
+    S::tma_load_2d(a, &amap, bar, 0, 0);
+    S::tma_load_2d(bt, &bmap, bar, 0, 0);
+  }
+  S::mbar_wait(bar, 0);
+  float acc[32];
+  S::wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    S::wgmma_ss_n64(acc, desc_shift(a, shift, s), S::desc_b(bt, s), s);
+  S::wgmma_commit();
+  S::wgmma_wait<0>();
+  S::fence_acc(acc);
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      d[(16 * warp + g + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)] =
+          acc[4 * j + e];
 }
 
 }  // namespace
 
-// x (B,H,W,C), out (B,H,W,O) bf16; wt (9, O8, C16) bf16 with O8 and C16 the
-// output and input widths rounded up to multiples of 8 and 16, zero-padded;
-// bias (O8) f32 (zeros for none). Returns the cudaError_t of the launch (0 on
-// success).
+// x (B,H,W,C8) bf16 with C8 = C rounded up to 8 (channels past C zero);
+// wt (9 C16, O64) bf16 = w[dy][dx][c][o] as rows (tap, c), zero-padded to
+// C16 = C rounded up to 16 and O64 = O rounded up to 64; bias (O64) f32
+// (zeros for none); out (B,H,W,O8) bf16, O8 = O rounded up to 8. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int tux_conv3x3_any(const void* x, const void* wt, const void* bias,
-                               void* out, int B, int H, int W, int C, int C16,
-                               int O, int O8, int relu, int device,
+                               void* out, int B, int H, int W, int C8,
+                               int C16, int O8, int O64, int relu, int device,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  if (C16 % 16 || O8 % 8 || C16 < C || O8 < O)
+  if (C8 % 8 || C16 % 16 || O8 % 8 || O64 % 64 || C16 < C8 || O64 < O8 ||
+      C16 > C8 + 8)
     return int(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(conv3x3_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(SMEM));
+  if (B == 0 || H == 0 || W == 0 || O8 == 0) return 0;
+  CUtensorMap xm, wm, om;
+  int e = map_nhwc(&xm, x, B, H, W, C8, HX, WG + 2);
+  if (e == 0) e = map_matrix(&wm, wt, 9 * C16, O64, KC);
+  if (e == 0) e = map_nhwc(&om, out, B, H, W, O8, TW, 1);
+  if (e != 0) return e;
+  return C16 <= KC ? launch<true>(xm, wm, om, bias, B, H, W, C16, O64, relu,
+                                  device, stream)
+                   : launch<false>(xm, wm, om, bias, B, H, W, C16, O64, relu,
+                                   device, stream);
+}
+
+// a (72, 64), b (64, 64) bf16; d (64, 64) f32. Returns a cudaError_t.
+extern "C" int tux_conv3x3_desc_probe(const void* a, const void* b, void* d,
+                                      int shift, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const int tiles = B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-  if (tiles == 0 || O == 0) return 0;
-  const dim3 grid(tiles, (O8 + NT - 1) / NT);
-  conv3x3_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wt),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), H, W, C, C16,
-      O, O8, relu);
+  if (shift < 0 || shift > HX - TW) return int(cudaErrorInvalidValue);
+  CUtensorMap am, bm;
+  int e = map_matrix(&am, a, HX, 64, HX);
+  if (e == 0) e = map_matrix(&bm, b, 64, 64, 64);
+  if (e != 0) return e;
+  const int smem = 1024 + HROW + SLAB + 8;
+  desc_probe_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      am, bm, static_cast<float*>(d), shift);
   return int(cudaGetLastError());
 }

@@ -17,6 +17,13 @@
 //       byte 2048 s. wgmma reads it with imm-trans-b = 1.
 // int8 tiles of 64-byte rows use CU_TENSOR_MAP_SWIZZLE_64B: the 16-byte chunk
 // index XORed with (row / 2) % 4 (address bits 7-8 into bits 4-5).
+// Tiles of 32-byte rows (16 bf16: one attention head) use
+// CU_TENSOR_MAP_SWIZZLE_32B: the chunk index XORed with (row / 4) % 2
+// (address bit 7 into bit 4), every tile 256-byte aligned; K-major (rows = M
+// or N, the 16 K values contiguous): 8-row groups 256 B apart (SBO = 256),
+// the whole K = 16 one step.
+// A K-major operand may start at any 128-byte row of a 128B-swizzled tile
+// written at a 1024-byte boundary (an implicit-GEMM shift): see desc().
 //
 // wgmma.m64nNk16 accumulator (f32), thread l of warp w of the warpgroup,
 // g = l / 4, t = l % 4: d[4j + 2i + e] = D[16w + g + 8i][8j + 2t + e]. A from
@@ -158,16 +165,22 @@ __device__ __forceinline__ void store_wait_all() {
 }
 
 // ---------------------------------------------------------------- wgmma
-constexpr uint64_t SWIZZLE_128B = 1;  // descriptor layout type, bits 62-63
+// Descriptor layout types, bits 62-63.
+constexpr uint64_t SWIZZLE_128B = 1;
+constexpr uint64_t SWIZZLE_32B = 3;
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), layout type. Base offset 0: tiles are 1024-byte
-// aligned.
+// offsets (16-byte units), layout type. Base offset 0: the swizzle pattern
+// is the one TMA wrote from a 1024-byte boundary, and the hardware applies
+// it by address, so a start anywhere inside such a tile needs no base offset
+// (the k16 steps at +32 B, and the row shifts of csrc/conv3x3.cu, checked on
+// the card by tests/test_torch_gpu.py::test_wgmma_descriptor_row_shift).
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
-                                         uint32_t sbo) {
+                                         uint32_t sbo,
+                                         uint64_t layout = SWIZZLE_128B) {
   return uint64_t((smem(p) & 0x3FFFF) >> 4) |
          (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
-         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (SWIZZLE_128B << 62);
+         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
 }
 
 // A (64 x 16, K-major) and B (16 x N, MN-major) at the k16 step `s` of the
@@ -177,6 +190,10 @@ __device__ __forceinline__ uint64_t desc_a(const void* tile, int s) {
 }
 __device__ __forceinline__ uint64_t desc_b(const void* tile, int s) {
   return desc(static_cast<const char*>(tile) + 2048 * s, 8192, 1024);
+}
+// A K-major tile of 32-byte rows (the whole k16 step).
+__device__ __forceinline__ uint64_t desc_k32(const void* tile) {
+  return desc(tile, 16, 256, SWIZZLE_32B);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -198,8 +215,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x N, f32) = A (64 x 16, bf16) . B (16 x N, bf16, MN-major) + D if
-// accumulate, else without D. _ss: A by descriptor; _rs: A from registers.
+// D (64 x N, f32) = A (64 x 16, bf16) . B (16 x N, bf16) + D if accumulate,
+// else without D. _ss: A by descriptor; _rs: A from registers. B is
+// MN-major, but for wgmma_ss_n128's, which is K-major (an attention tile's
+// keys).
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                                uint64_t b, int accumulate) {
   asm volatile(
@@ -218,6 +237,39 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

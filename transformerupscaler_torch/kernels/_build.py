@@ -35,6 +35,7 @@ SIGNATURES = {
     },
     "conv3x3": {
         "tux_conv3x3_any": [_P] * 4 + [_I] * 9 + [_P],
+        "tux_conv3x3_desc_probe": [_P] * 3 + [_I] * 2 + [_P],
     },
     "conv_int8": {
         "tux_conv3x3_int8": [_P] * 5 + [_I] * 6 + [_P],

@@ -23,6 +23,7 @@ given CUDA tensors it takes bf16 only, launches the kernel and adds one to
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from transformerupscaler_torch.kernels import _build
 from transformerupscaler_torch.kernels._common import (
@@ -68,19 +69,39 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias=None,
         raise ValueError(f"conv3x3: kernel {tuple(kernel.shape)} for {c} "
                          f"input channels")
     o = kernel.shape[3]
-    c16, o8 = _round_up(c, 16), _round_up(o, 8)
-    wt = torch.zeros(9, o8, c16, dtype=torch.bfloat16, device=x.device)
-    wt[:, :o, :c] = kernel.to(torch.bfloat16).reshape(9, c, o).transpose(1, 2)
-    bb = torch.zeros(o8, dtype=torch.float32, device=x.device)
+    c8, c16 = _round_up(c, 8), _round_up(c, 16)
+    o8, o64 = _round_up(o, 8), _round_up(o, 64)
+    # TMA reads rows of whole 16-byte units: a width that is no multiple of
+    # 8 is padded with zero channels (a copy, for such widths only).
+    xk = x if c == c8 else F.pad(x, (0, c8 - c))
+    wt = torch.zeros(9, c16, o64, dtype=torch.bfloat16, device=x.device)
+    wt[:, :c, :o] = kernel.to(torch.bfloat16).reshape(9, c, o)
+    bb = torch.zeros(o64, dtype=torch.float32, device=x.device)
     if bias is not None:
         if tuple(bias.shape) != (o,):
             raise ValueError(f"conv3x3: bias {tuple(bias.shape)} for {o} "
                              f"outputs")
         bb[:o] = bias.to(torch.bfloat16).float()
-    out = torch.empty(b, h, w, o, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(b, h, w, o8, dtype=torch.bfloat16, device=x.device)
     err = _build.load("conv3x3").tux_conv3x3_any(
-        x.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w,
-        c, c16, o, o8, int(relu), x.device.index, stream_of(x))
+        xk.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w,
+        c8, c16, o8, o64, int(relu), x.device.index, stream_of(x))
     raise_on(err, "conv3x3")
     ARCHIVED_LAUNCHES["conv3x3"] += 1
-    return out
+    return out if o == o8 else out[..., :o].contiguous()
+
+
+def desc_shift_probe(a: torch.Tensor, b: torch.Tensor,
+                     shift: int) -> torch.Tensor:
+    """The wgmma descriptor shift the kernel's A operand rests on, alone:
+    a (72, 64) and b (64, 64) bf16 on the card; returns a[shift : shift +
+    64] @ b in f32, computed by one wgmma warpgroup from a 128B-swizzled
+    tile read at a start address ``shift`` rows of 128 bytes in."""
+    check(a, "a", torch.bfloat16, (72, 64))
+    check(b, "b", torch.bfloat16, (64, 64))
+    d = torch.empty(64, 64, dtype=torch.float32, device=a.device)
+    err = _build.load("conv3x3").tux_conv3x3_desc_probe(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), shift, a.device.index,
+        stream_of(a))
+    raise_on(err, "conv3x3 descriptor probe")
+    return d
