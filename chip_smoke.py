@@ -213,7 +213,8 @@ ROUTES = {
 # pl.pallas_call, and where the port stands on it.
 TPU_KERNELS = [
     ("stream.py:425 conv3x3_deint_stream",
-     "ported and checked: conv3x3_stream (bf16, and its int8 out_scale)"),
+     "ported and checked: conv3x3_stream (csrc/conv3x3.cu; bf16, and its "
+     "int8 out_scale)"),
     ("stream.py:777 tail_macro8_stream",
      "ported and checked: tail_conv_stream"),
     ("stream.py:325 embed_stream",
@@ -512,9 +513,10 @@ def phase_kernels() -> list[dict]:
         flops = 2.0 * h * w * k * k * 64 * co
         bnd, by = bound_ms(nbytes(x, out) + k * k * 64 * co * 2 + co * 4,
                            flops)
+        src = "conv3x3" if k == 3 else "conv_nhwc"
         records.append(dict(
             name=name, route="cuda",
-            source="transformerupscaler_torch/csrc/conv_nhwc.cu",
+            source=f"transformerupscaler_torch/csrc/{src}.cu",
             replaces=replaces, max_abs_err=err, bound_ms=bnd, bound_by=by,
             **timing(run, plain, lib), on=on))
 
@@ -823,7 +825,7 @@ def int8_cases(x, tok, rn, bf16) -> list[dict]:
     if diff.max().item() > 1 or flipped >= 1e-3:
         raise AssertionError("conv3x3_stream out_scale disagrees with its "
                              "plain version")
-    record(INT8_OUT, "transformerupscaler_torch/csrc/conv_nhwc.cu",
+    record(INT8_OUT, "transformerupscaler_torch/csrc/conv3x3.cu",
            "stream.py:425", diff.max().item(), "1 step", run, plain,
            nbytes(x, out) + 9 * 64 * 64 * 2 + 3 * 64 * 4, "int8_tails",
            flops=2.0 * h * w * 9 * 64 * 64)
@@ -928,6 +930,10 @@ def conv1_and_fused_cases(x, x_cl, rn, bf16) -> list[dict]:
             return F.conv2d(F.conv2d(x_cl, wc, bc16, padding=1), wt, bt16,
                             padding=kt // 2)
 
+        def pair(ktl=ktl, bt=bt, relu=relu):
+            return S.tail_conv_stream(S.conv3x3_stream(x, kc, bc, True), ktl,
+                                      bt, relu)
+
         flops = 2.0 * h * w * (9 * 64 * 64 + kt * kt * 64 * 12)
         bnd, by = bound_ms(nbytes(x, *outs) + (9 * 64 * 64 + kt * kt * 64 * 12)
                            * 2 + (64 + 12) * 4, flops)
@@ -936,7 +942,9 @@ def conv1_and_fused_cases(x, x_cl, rn, bf16) -> list[dict]:
             source="transformerupscaler_torch/csrc/conv_tail.cu",
             replaces="transformerupscaler_tpu/ops/pallas/" + replaces,
             max_abs_err=err, tolerance=tol, bound_ms=bnd, bound_by=by,
-            **timing(run, plain, lib), on="bench_fuse"))
+            **timing(run, plain, lib), pair_ms=device_ms(pair),
+            pair="conv3x3_stream then tail_conv_stream (the port's unfused "
+                 "kernels)", on="bench_fuse"))
         adapters[name] = (ktl, bt, tol)
 
     # Rows 17 and 18: the adapters round the biases to bf16 first and call

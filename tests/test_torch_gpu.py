@@ -676,3 +676,123 @@ def test_archived_wrappers_reject_bad_input(gen):
             T.stack_trunk_params(_trunk_blocks(gen, 192, 1), torch.bfloat16),
             "int8_static")
     assert sum(launch_counts().values()) == 0
+
+
+# conv3x3_stream on csrc/conv3x3.cu (tiles of 4 rows x 64 pixels): heights
+# around the 4-row tile, widths around the 64-pixel tile, batch 3.
+STREAM_H = [1, 3, 4, 5, 13]
+STREAM_W = [1, 63, 64, 65, 130]
+
+
+def _stream_conv_case(gen, shape):
+    x = _rn(gen, *shape, 64).bfloat16()
+    k, b = _rn(gen, 3, 3, 64, 64, std=576 ** -0.5), _rn(gen, 64, std=0.3)
+    s = S.conv3x3_plain(x, k, b, True).float().abs().amax((0, 1, 2)) / 100
+    return x, k, b, s + 1e-3
+
+
+def _int8_close(got, want):
+    """At most one int8 step, on under 0.1% of elements (an f32 sum in
+    another order than the plain version's, near a half step); a tensor of
+    under 1000 elements may have one such element."""
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    d = (got.int() - want.int()).abs()
+    assert d.max() <= 1
+    assert (d != 0).sum().item() <= max(1, (d.numel() - 1) // 1000)
+
+
+@pytest.mark.parametrize("w", STREAM_W)
+@pytest.mark.parametrize("h", STREAM_H)
+@pytest.mark.parametrize("int8", [False, True])
+def test_conv3x3_stream_tile_edges_match_plain(gen, h, w, int8):
+    x, k, b, s = _stream_conv_case(gen, (3, h, w))
+    S.reset_launches()
+    if int8:
+        got = S.conv3x3_stream(x, k, b, True, out_scale=s)
+        assert S.OPTION_LAUNCHES["conv3x3_stream.int8_out"] == 1
+        _int8_close(got, S.conv3x3_plain(x, k, b, True, out_scale=s))
+    else:
+        got = S.conv3x3_stream(x, k, b, True)
+        _close(got, S.conv3x3_plain(x, k, b, True), BF16_TOL)
+    assert S.LAUNCHES["conv3x3_stream"] == 1
+
+
+@pytest.mark.parametrize("hw", [(720, 1280), (360, 640)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_conv3x3_stream_serving_shapes_match_plain(gen, hw, int8):
+    """The serving shapes: bench's 720x1280, resid_packed's 360x640; two
+    calls give the same bits."""
+    x, k, b, s = _stream_conv_case(gen, (1, *hw))
+    scale = s if int8 else None
+    got = S.conv3x3_stream(x, k, b, True, out_scale=scale)
+    again = S.conv3x3_stream(x, k, b, True, out_scale=scale)
+    want = S.conv3x3_plain(x, k, b, True, out_scale=scale)
+    if int8:
+        _int8_close(got, want)
+    else:
+        _close(got, want, BF16_TOL)
+    assert torch.equal(got, again)
+
+
+def _poison(*shape, dtype=torch.bfloat16):
+    """Leave a NaN-filled block of this size in the caching allocator, so
+    that a wrapper's next torch.empty of it likely holds NaN wherever its
+    kernel writes nothing."""
+    torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+
+
+def _fused_check(gen, shape, kt, co, relu, emit, out_dtype):
+    x, kc, bc, ktl, bt, flip = _conv_tail_case(gen, shape, kt, co)
+    tol = dict(F32_TOL if out_dtype == torch.float32 else BF16_TOL)
+    tol["atol"] += flip
+    args = (x, kc, bc, ktl, bt, relu, out_dtype)
+    _poison(*shape, 64)
+    _poison(*shape, co, dtype=out_dtype)
+    if emit:
+        got, feat = S.conv3x3_tail_emit_stream(*args)
+        want, want_feat = S.conv3x3_tail_emit_plain(*args)
+        assert feat.shape == (*shape, 64)
+        _close(feat, want_feat, BF16_TOL)  # every pixel, strip seams too
+    else:
+        got = S.conv3x3_tail_stream(*args)
+        want = S.conv3x3_tail_plain(*args)
+    assert got.dtype == out_dtype and got.shape == (*shape, co)
+    _close(got, want, tol)
+
+
+# Widths around one and two strips (58 outputs a strip at k = 7, 60 at 5,
+# 62 at 3) and a wide one.
+FUSED_W = list(range(57, 67)) + list(range(116, 123)) + [300]
+
+
+@pytest.mark.parametrize("w", FUSED_W)
+@pytest.mark.parametrize("kt,relu,emit", [(7, False, False), (5, True, True)])
+def test_conv_tail_strip_widths_match_plain(gen, w, kt, relu, emit):
+    _fused_check(gen, (2, 7, w), kt, 12, relu, emit, torch.bfloat16)
+
+
+@pytest.mark.parametrize("h", [1, 2, 7, 33, 130])
+@pytest.mark.parametrize("kt", [3, 5, 7])
+def test_conv_tail_heights_match_plain(gen, h, kt):
+    """Heights below and above the tail's reach; at 130 x 130 every block
+    takes a few rows, so ranges break into segments inside strips."""
+    _fused_check(gen, (1, h, 130), kt, 12, kt != 7, True, torch.bfloat16)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("emit", [False, True])
+@pytest.mark.parametrize("co", [12, 27, 48])
+@pytest.mark.parametrize("kt", [3, 5, 7])
+def test_conv_tail_output_groups_match_plain(gen, kt, co, emit, out_dtype):
+    """npad 16, 32, 48: one, two and three 16-output groups a block."""
+    _fused_check(gen, (2, 21, 70), kt, co, True, emit, out_dtype)
+
+
+@pytest.mark.parametrize("n", [48, 80, 112])
+def test_wgmma_k_major_b_probe(gen, n):
+    """``wgmma_ss_kb``: m64nNk16 with B K-major (128B swizzle), alone. f32
+    sums of 64 bf16 products."""
+    a = _rn(gen, 64, 64).bfloat16()
+    b = _rn(gen, n, 64).bfloat16()
+    _close(S.wgmma_kb_probe(a, b), a.float() @ b.float().t(), F32_TOL)

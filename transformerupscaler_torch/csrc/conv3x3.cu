@@ -1,20 +1,32 @@
-// General NHWC 3x3 conv (stride 1, zero padding 1) with an optional bias and
-// ReLU, any input and output width, for Hopper (sm_90a): TMA halo tiles, an
-// implicit GEMM on wgmma, a TMA-stored epilogue.
+// NHWC 3x3 conv (stride 1, zero padding 1) with an optional bias and ReLU,
+// any input and output width, for Hopper (sm_90a): TMA halo tiles, an
+// implicit GEMM on wgmma, a TMA-stored epilogue, bf16 or int8 out.
 //
-// Replaces transformerupscaler_tpu/ops/pallas/conv3x3.py:73 conv3x3_pallas,
-// the JAX package's archived conv kernel, which its tests pin at (C, O) =
-// (64, 64), (64, 256), (256, 16), (8, 8), (16, 8), batch 3 and odd heights.
+// Replaces three TPU kernels:
+//   transformerupscaler_tpu/ops/pallas/conv3x3.py:73 conv3x3_pallas, the
+//     JAX package's archived conv, which its tests pin at (C, O) = (64, 64),
+//     (64, 256), (256, 16), (8, 8), (16, 8), batch 3 and odd heights
+//     (kernels/conv3x3.py);
+//   ops/pallas/stream.py:425 conv3x3_deint_stream and :82
+//     conv3x3_packed_stream, the serving 3x3 64 -> 64 conv, bf16 out or,
+//     with out_scale (stream.py:417-422, 474-475), int8 out
+//     (kernels/stream.py conv3x3_stream). The TPU kernels' width-2 packing
+//     and deinterleave4 layout fed 128 MXU lanes; here the maps stay NHWC.
 //
-//   out[b, y, x, o] = bf16(act(sum_{dy,dx,c} x[b, y+dy-1, x+dx-1, c]
-//                                 * w[dy, dx, c, o] + bias[o]))
-// bf16 operands, f32 accumulation; the bias arrives as bf16 values (the TPU
-// kernel rounds it to x's dtype first, conv3x3.py:103-104) and is added in
-// f32, then the ReLU, then one rounding to bf16 (conv3x3.py:64-69).
+//   out[b, y, x, o] = act(sum_{dy,dx,c} x[b, y+dy-1, x+dx-1, c]
+//                         * w[dy, dx, c, o] + bias[o])
+// bf16 operands, f32 accumulation, the f32 bias added in f32, then the ReLU,
+// then one rounding: to bf16, or (qs given) to int8 as
+//   q = int8(clamp(rint(__fmul_rn(v, qs[o])), -127, 127))
+// from the f32 value v, never from a bf16-rounded one (qs = f32(1 / s)).
+// The bias arrives as the caller's f32 values: conv3x3_stream passes them
+// unrounded; the archived conv's wrapper rounds them to bf16 first, as its
+// TPU kernel does (conv3x3.py:103-104).
 //
 // Bound on the H100 at 720x1280, 64 -> 64 (989 TF/s bf16, 3.35 TB/s): 67.9
-// GFLOP, 0.069 ms; 236 MB moved, 0.070 ms. Both at once: the tensor cores
-// have to run nearly all the time while every byte is read once.
+// GFLOP, 0.069 ms; 236 MB moved, 0.070 ms (int8 out: 177 MB, 0.053 ms, so
+// the operations bound it). Both at once: the tensor cores have to run
+// nearly all the time while every byte is read once.
 //
 // Design. A persistent block of four consumer warpgroups and one producer
 // warp owns one 64-output slab of the weights (blockIdx.y) and walks tiles
@@ -32,8 +44,9 @@
 // slabs (72 KB) stay in shared memory for the whole kernel, loaded once;
 // wider inputs stream a slab for each (channel chunk, tap) through a
 // four-stage ring. Epilogue: + bias in f32, ReLU, one rounding into a
-// swizzled staging tile, one TMA store of the row's 64 pixels x 64 outputs
-// (clipped at the map's edges).
+// swizzled staging tile (bf16: 128-byte rows, the 128B swizzle; int8:
+// 64-byte rows, the 64B swizzle), one TMA store of the row's 64 pixels x 64
+// outputs (clipped at the map's edges).
 #include <cuda_bf16.h>
 
 #include "sm90.cuh"
@@ -79,6 +92,22 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   if (lane == 0) S::mbar_arrive(bar);
 }
 
+// Byte offset of bytes 8 j .. 8 j + 7 of row r in a 64B-swizzled tile of
+// 64-byte rows (int8 staging): 16-byte chunk j / 2 XORed with (r / 2) % 4.
+__device__ __forceinline__ int sw64(int r, int j) {
+  return r * 64 + (((j >> 1) ^ ((r >> 1) & 3)) << 4) + ((j & 1) << 3);
+}
+
+// int8(clamp(rint(v * qs), -127, 127)): the clamp from below, then one
+// convert that rounds half to even and saturates at 127.
+__device__ __forceinline__ int8_t quant(float v, float qs) {
+  int q;
+  asm("cvt.rni.sat.s8.f32 %0, %1;"
+      : "=r"(q)
+      : "f"(fmaxf(__fmul_rn(v, qs), -127.f)));
+  return int8_t(q);
+}
+
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -109,15 +138,17 @@ __device__ __forceinline__ void tile_of(int u, int tiles_x, int tiles_y,
 
 // xmap: x (B, H, W, C8) as (C8, W, H, B), box (64, 72, 6, 1); wmap: the
 // weights (9 C16, O64) as taps x channels rows of outputs, box (64, 64);
-// omap: out (B, H, W, O8) as (O8, W, H, B), box (64, 64, 1, 1). All with the
-// 128B swizzle. bias (O64) f32.
-template <bool RES>
+// omap: out (B, H, W, O8) as (O8, W, H, B), box (64, 64, 1, 1), with the
+// 128B swizzle (bf16) or, I8, int8 with the 64B swizzle. bias (O64) f32; qs
+// (O64) f32, read when I8.
+template <bool RES, bool I8>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
                const __grid_constant__ CUtensorMap wmap,
                const __grid_constant__ CUtensorMap omap,
-               const float* __restrict__ bias, int H, int C16, int relu,
-               int tiles_x, int tiles_y, int n_tiles) {
+               const float* __restrict__ bias, const float* __restrict__ qs,
+               int H, int C16, int relu, int tiles_x, int tiles_y,
+               int n_tiles) {
   using L = ConvSmem<RES>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ws = align1024(smem_raw);
@@ -241,8 +272,17 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
           v0 = fmaxf(v0, 0.f);
           v1 = fmaxf(v1, 0.f);
         }
-        *reinterpret_cast<uint32_t*>(stg + sw128(r, j) + 4 * t) =
-            pack(v0, v1);
+        if constexpr (I8) {
+          // The scales come through L1 in the epilogue: a 9-warp block
+          // leaves no registers to keep them.
+          const float2 q2 = __ldg(reinterpret_cast<const float2*>(
+              qs + n0 + 8 * j + 2 * t));
+          const char2 q = make_char2(quant(v0, q2.x), quant(v1, q2.y));
+          *reinterpret_cast<char2*>(stg + sw64(r, j) + 2 * t) = q;
+        } else {
+          *reinterpret_cast<uint32_t*>(stg + sw128(r, j) + 4 * t) =
+              pack(v0, v1);
+        }
       }
     S::fence_async_smem();
     S::named_sync(1 + wg, 128);
@@ -254,36 +294,14 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
   if (wtid == 0) S::store_wait_all();
 }
 
-// An NHWC map (B, H, W, Cm) as (Cm, W, H, B), box (64, box_w, box_h, 1).
-int map_nhwc(CUtensorMap* m, const void* p, int B, int H, int W, int Cm,
-             int box_w, int box_h) {
-  const uint64_t dims[4] = {uint64_t(Cm), uint64_t(W), uint64_t(H),
-                            uint64_t(B)};
-  const uint64_t strides[3] = {uint64_t(Cm) * 2, uint64_t(W) * Cm * 2,
-                               uint64_t(H) * W * Cm * 2};
-  const uint32_t box[4] = {64, uint32_t(box_w), uint32_t(box_h), 1};
-  return S::encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims,
-                       strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-// A (rows, cols) bf16 row-major matrix, box (64 columns, box_rows rows).
-int map_matrix(CUtensorMap* m, const void* p, int rows, int cols,
-               int box_rows) {
-  const uint64_t dims[2] = {uint64_t(cols), uint64_t(rows)};
-  const uint64_t strides[1] = {uint64_t(cols) * 2};
-  const uint32_t box[2] = {64, uint32_t(box_rows)};
-  return S::encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, dims,
-                       strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-template <bool RES>
+template <bool RES, bool I8>
 int launch(const CUtensorMap& x, const CUtensorMap& w, const CUtensorMap& o,
-           const void* bias, int B, int H, int W, int C16, int O64, int relu,
-           int device, void* stream) {
+           const void* bias, const void* qs, int B, int H, int W, int C16,
+           int O64, int relu, int device, void* stream) {
   using L = ConvSmem<RES>;
   static_assert(L::BYTES <= MAX_SMEM, "conv3x3 shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel<RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv3x3_kernel<RES, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::BYTES);
   if (err != cudaSuccess) return int(err);
   const int tiles_x = (W + TW - 1) / TW;
@@ -293,10 +311,11 @@ int launch(const CUtensorMap& x, const CUtensorMap& w, const CUtensorMap& o,
   int per = S::sm_count(device) / o_tiles;
   if (per < 1) per = 1;
   const dim3 grid(n_tiles < per ? n_tiles : per, o_tiles);
-  conv3x3_kernel<RES>
+  conv3x3_kernel<RES, I8>
       <<<grid, THREADS, L::BYTES, static_cast<cudaStream_t>(stream)>>>(
-          x, w, o, static_cast<const float*>(bias), H, C16, relu, tiles_x,
-          tiles_y, n_tiles);
+          x, w, o, static_cast<const float*>(bias),
+          static_cast<const float*>(qs), H, C16, relu, tiles_x, tiles_y,
+          n_tiles);
   return int(cudaGetLastError());
 }
 
@@ -345,27 +364,33 @@ desc_probe_kernel(const __grid_constant__ CUtensorMap amap,
 // x (B,H,W,C8) bf16 with C8 = C rounded up to 8 (channels past C zero);
 // wt (9 C16, O64) bf16 = w[dy][dx][c][o] as rows (tap, c), zero-padded to
 // C16 = C rounded up to 16 and O64 = O rounded up to 64; bias (O64) f32
-// (zeros for none); out (B,H,W,O8) bf16, O8 = O rounded up to 8. Returns the
-// cudaError_t of the launch (0 on success).
+// (zeros for none); qs null: out (B,H,W,O8) bf16, O8 = O rounded up to 8;
+// qs (O64) f32: out (B,H,W,O8) int8, quantized with qs, for C <= 64 and O8 a
+// multiple of 16. Returns the cudaError_t of the launch (0 on success).
 extern "C" int tux_conv3x3_any(const void* x, const void* wt, const void* bias,
-                               void* out, int B, int H, int W, int C8,
-                               int C16, int O8, int O64, int relu, int device,
-                               void* stream) {
+                               const void* qs, void* out, int B, int H, int W,
+                               int C8, int C16, int O8, int O64, int relu,
+                               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   if (C8 % 8 || C16 % 16 || O8 % 8 || O64 % 64 || C16 < C8 || O64 < O8 ||
-      C16 > C8 + 8)
+      C16 > C8 + 8 || (qs != nullptr && (C16 > KC || O8 % 16)))
     return int(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || W == 0 || O8 == 0) return 0;
   CUtensorMap xm, wm, om;
-  int e = map_nhwc(&xm, x, B, H, W, C8, HX, WG + 2);
-  if (e == 0) e = map_matrix(&wm, wt, 9 * C16, O64, KC);
-  if (e == 0) e = map_nhwc(&om, out, B, H, W, O8, TW, 1);
+  int e = S::map_nhwc(&xm, x, B, H, W, C8, HX, WG + 2);
+  if (e == 0) e = S::map_matrix(&wm, wt, 9 * C16, O64, KC);
+  if (e == 0)
+    e = qs != nullptr ? S::map_nhwc_i8(&om, out, B, H, W, O8, TW)
+                      : S::map_nhwc(&om, out, B, H, W, O8, TW, 1);
   if (e != 0) return e;
-  return C16 <= KC ? launch<true>(xm, wm, om, bias, B, H, W, C16, O64, relu,
-                                  device, stream)
-                   : launch<false>(xm, wm, om, bias, B, H, W, C16, O64, relu,
-                                   device, stream);
+  if (qs != nullptr)
+    return launch<true, true>(xm, wm, om, bias, qs, B, H, W, C16, O64, relu,
+                              device, stream);
+  return C16 <= KC ? launch<true, false>(xm, wm, om, bias, qs, B, H, W, C16,
+                                         O64, relu, device, stream)
+                   : launch<false, false>(xm, wm, om, bias, qs, B, H, W, C16,
+                                          O64, relu, device, stream);
 }
 
 // a (72, 64), b (64, 64) bf16; d (64, 64) f32. Returns a cudaError_t.
@@ -375,8 +400,8 @@ extern "C" int tux_conv3x3_desc_probe(const void* a, const void* b, void* d,
   if (err != cudaSuccess) return int(err);
   if (shift < 0 || shift > HX - TW) return int(cudaErrorInvalidValue);
   CUtensorMap am, bm;
-  int e = map_matrix(&am, a, HX, 64, HX);
-  if (e == 0) e = map_matrix(&bm, b, 64, 64, 64);
+  int e = S::map_matrix(&am, a, HX, 64, HX);
+  if (e == 0) e = S::map_matrix(&bm, b, 64, 64, 64);
   if (e != 0) return e;
   const int smem = 1024 + HROW + SLAB + 8;
   desc_probe_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -1,36 +1,29 @@
-// NHWC bf16 same-padding convolution, 64 input channels, for Hopper (sm_90a).
+// NHWC bf16 same-padding k x k convolution (k = 5, 7), 64 -> co channels,
+// for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of transformerupscaler_tpu/ops/pallas/stream.py:
-//   conv3x3_deint_stream (:425)  ->  tux_conv3x3     3x3, 64 -> 64
-//   tail_macro8_stream   (:777)  ->  tux_tail_conv   k x k (k = 5, 7), 64 -> co
-// Both compute out = act(conv(x, w) + bias) with zero padding, bf16 inputs,
-// f32 accumulation and an f32 epilogue (bias, optional ReLU), rounded once to
-// the output type. The TPU kernels needed the width-2 packing and the
-// deinterleave4 layout to fill 128 MXU lanes; here the tensors stay NHWC.
-// tux_conv3x3 also takes the TPU kernel's int8 output (out_scale,
-// stream.py:417-422, 437-441, 474-475): given qs = f32(1 / s) per channel,
-// it stores q = clamp(rint(act(acc + bias) * qs), -127, 127) as int8, from
-// the f32 sum, never from a bf16-rounded value: half the output bytes
-// (177 MB moved, a bound of ~53 us at 720x1280).
+// Replaces transformerupscaler_tpu/ops/pallas/stream.py:777
+// tail_macro8_stream (tux_tail_conv): out = act(conv(x, w) + bias) with zero
+// padding, bf16 inputs, f32 accumulation and an f32 epilogue (bias, optional
+// ReLU), rounded once to the output type (bf16 or f32). The TPU kernel needed
+// the width-2 packing and the macro-8 output layout to fill 128 MXU lanes;
+// here the tensors stay NHWC. (The serving 3x3 64 -> 64 conv is in
+// csrc/conv3x3.cu.)
 //
-// Design: implicit GEMM with M = pixels, N = output channels (padded to a
-// multiple of 8 with zero weights), K = taps x 64. One block owns an 8 x 32
-// pixel tile: it copies the zero-padded (8+k-1) x (32+k-1) x 64 input halo to
-// shared memory once, then streams the weights one kernel row (k taps) at a
-// time. Each of the 8 warps owns one tile row (two 16-pixel M fragments) and
-// all N, and runs mma.sync m16n8k16 bf16 with the A fragments read straight
-// from the halo at the tap's offset. The epilogue stages the tile in shared
-// memory so the NHWC rows leave as coalesced stores; pixels outside the image
-// are masked, so any H and W are covered.
+// Design: implicit GEMM with M = pixels, N = output channels (padded to
+// npad = 16, 32 or 48 with zero weights), K = taps x 64. One block owns an
+// 8 x 32 pixel tile: it copies the zero-padded (8+k-1) x (32+k-1) x 64 input
+// halo to shared memory once, then streams the weights one kernel row (k
+// taps) at a time. Each of the 8 warps owns one tile row (two 16-pixel M
+// fragments) and all N, and runs mma.sync m16n8k16 bf16 with the A fragments
+// read straight from the halo at the tap's offset. The epilogue stages the
+// tile in shared memory so the NHWC rows leave as coalesced stores; pixels
+// outside the image are masked, so any H and W are covered.
 //
-// Bound on the H100 at 720x1280 (989 TF/s bf16, 3.35 TB/s): the 3x3 conv moves
-// 236 MB and does 67.9 GFLOP, about 70 us either way; the 5x5 tail (64 -> 12)
-// is bytes-bound near 42 us, the 7x7 tail flop-bound near 70 us. This first
-// version uses mma.sync from shared memory with no copy/compute overlap, so it
-// sits well above those bounds (see PERF.md); wgmma + TMA is later work.
+// Bound on the H100 at 720x1280 (989 TF/s bf16, 3.35 TB/s): the 5x5 tail (64
+// -> 12) is bytes-bound near 42 us, the 7x7 tail flop-bound near 70 us. This
+// first version uses mma.sync from shared memory with no copy/compute
+// overlap, so it sits well above those bounds (see PERF.md).
 #include "common.cuh"
-
-#include <type_traits>
 
 namespace {
 
@@ -49,13 +42,12 @@ constexpr size_t conv_smem_bytes() {
 }
 
 // x (B,H,W,64) bf16; w (KS,KS,NPAD,64) bf16, [dy][dx][cout][cin];
-// bias (co) f32; out (B,H,W,co) OutT; qs (co) f32, read when OutT is int8.
+// bias (co) f32; out (B,H,W,co) OutT.
 template <int KS, int NPAD, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 conv_nhwc_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
-                 const float* __restrict__ bias,
-                 const float* __restrict__ qs, OutT* __restrict__ out,
+                 const float* __restrict__ bias, OutT* __restrict__ out,
                  int H, int W, int co, int relu) {
   constexpr int PAD = (KS - 1) / 2;
   constexpr int HW = TW + KS - 1;
@@ -143,12 +135,7 @@ conv_nhwc_kernel(const __nv_bfloat16* __restrict__ x,
         if (n < co) {
           float v = acc[f][j][e] + bias[n];
           if (relu) v = fmaxf(v, 0.f);
-          if constexpr (std::is_same_v<OutT, int8_t>) {
-            const float q = rintf(__fmul_rn(v, qs[n]));
-            stage[p * co + n] = int8_t(fminf(fmaxf(q, -127.f), 127.f));
-          } else {
-            stage[p * co + n] = tux::from_f32<OutT>(v);
-          }
+          stage[p * co + n] = tux::from_f32<OutT>(v);
         }
       }
     }
@@ -165,9 +152,9 @@ conv_nhwc_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 template <int KS, int NPAD, typename OutT>
-int launch_conv(const void* x, const void* w, const void* bias,
-                const void* qs, void* out, int B, int H, int W, int co,
-                int relu, int device, void* stream) {
+int launch_conv(const void* x, const void* w, const void* bias, void* out,
+                int B, int H, int W, int co, int relu, int device,
+                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   constexpr size_t smem = conv_smem_bytes<KS, NPAD, OutT>();
@@ -179,8 +166,7 @@ int launch_conv(const void* x, const void* w, const void* bias,
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(qs), static_cast<OutT*>(out), H, W, co,
-      relu);
+      static_cast<OutT*>(out), H, W, co, relu);
   return int(cudaGetLastError());
 }
 
@@ -190,14 +176,14 @@ int dispatch_tail(const void* x, const void* w, const void* bias, void* out,
                   void* stream) {
   switch (npad) {
     case 16:
-      return launch_conv<KS, 16, OutT>(x, w, bias, nullptr, out, B, H, W,
-                                       co, relu, device, stream);
+      return launch_conv<KS, 16, OutT>(x, w, bias, out, B, H, W, co, relu,
+                                       device, stream);
     case 32:
-      return launch_conv<KS, 32, OutT>(x, w, bias, nullptr, out, B, H, W,
-                                       co, relu, device, stream);
+      return launch_conv<KS, 32, OutT>(x, w, bias, out, B, H, W, co, relu,
+                                       device, stream);
     case 48:
-      return launch_conv<KS, 48, OutT>(x, w, bias, nullptr, out, B, H, W,
-                                       co, relu, device, stream);
+      return launch_conv<KS, 48, OutT>(x, w, bias, out, B, H, W, co, relu,
+                                       device, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -205,18 +191,7 @@ int dispatch_tail(const void* x, const void* w, const void* bias, void* out,
 
 }  // namespace
 
-// All entry points return the cudaError_t of the launch (0 on success).
-// qs null: bf16 out; else int8 out quantized with qs (64) f32.
-extern "C" int tux_conv3x3(const void* x, const void* w, const void* bias,
-                           const void* qs, void* out, int B, int H, int W,
-                           int relu, int device, void* stream) {
-  if (qs != nullptr)
-    return launch_conv<3, 64, int8_t>(x, w, bias, qs, out, B, H, W, 64, relu,
-                                      device, stream);
-  return launch_conv<3, 64, __nv_bfloat16>(x, w, bias, nullptr, out, B, H, W,
-                                           64, relu, device, stream);
-}
-
+// Returns the cudaError_t of the launch (0 on success).
 // w is (ks, ks, npad, 64) with npad in {16, 32, 48} and co <= npad.
 extern "C" int tux_tail_conv(const void* x, const void* w, const void* bias,
                              void* out, int B, int H, int W, int ks, int co,

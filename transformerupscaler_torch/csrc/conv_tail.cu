@@ -24,342 +24,509 @@
 // The TPU kernels' deinterleave4 layout, macro-8 outputs and row slabs are
 // not carried over.
 //
-// Design: one block owns a 16 x 16 output tile. With P = (k - 1) / 2 it
-//   1. copies the zero-padded (16 + 2P + 2)^2 x 64 input halo to shared
-//      memory;
-//   2. computes the (16 + 2P)^2 conv pixels of the tile and its P-ring as an
-//      implicit GEMM over those pixels in linear order (M fragments
-//      warp + 8 i, all 64 channels, the weights streamed one kernel row at a
-//      time, mma.sync m16n8k16);
-//   3. writes them, biased, masked and rounded, over the halo (dead by
-//      then), and stores the tile's 16 x 16 interior to feat if asked;
-//   4. runs the k x k tail on them, each warp two output rows, the tail
-//      weights streamed one kernel row at a time; the epilogue stages the
-//      tile in f32 so NHWC rows leave coalesced, masked at the image edge,
-//      so any H and W are covered (no rows left unwritten, unlike the TPU
-//      kernels' rows fallback at stream.py:609-610, 679-680).
-// Tile and recompute (the ring is computed by both neighbours):
-//   k = 7: halo 24 x 24 (82,944 B), conv 22 x 22 pixels, 1.89x the conv
-//          work of the unfused pair;
-//   k = 5: halo 22 x 22, conv 20 x 20, 1.56x;
-//   k = 3: halo 20 x 20, conv 18 x 18, 1.27x.
-// Shared memory: the halo plus one 3 x 64 x 64 row of conv weights (110,592
-// B at k = 7) in the first phase; in the second the conv tile in the halo's
-// place, one k x npad x 64 row of tail weights and the f32 staging tile. One
-// 256-thread block per SM: the conv phase keeps 4 x 8 accumulator fragments
-// (128 registers) a thread, 174-200 registers in all (ptxas, no spills).
-// co is padded with zero weights to npad = 16, 32 or 48 (x2, x3, x4).
+// Design. With P = (k - 1) / 2, a strip is a column of 64 conv pixels that
+// owns the OWN = 64 - 2P tail outputs in its middle (60 at k = 5, 58 at
+// k = 7): the horizontal overlap costs 64 / OWN of the conv work (1.07x,
+// 1.10x). The strip-rows of the image, in (batch, strip, row) order, are cut
+// into one contiguous range per persistent block (one block an SM), so every
+// SM gets the same number of rows; a range breaks into segments at strip
+// ends, and a segment of rows [y0, y1) computes the conv rows [y0 - P,
+// y1 + P) once each: the vertical ring is paid once a segment, not once a
+// tile. A block is one producer warp and two consumer warpgroups:
+//   producer  TMA: the nine conv weight slabs once (72 KB, resident), the
+//             tail weights (resident for the block's 16-output group), and
+//             the strip's input rows, 72 pixels x 64 channels (9 KB,
+//             128B-swizzled, zero-filled outside the map) through a ring of
+//             NS rows, each row loaded once;
+//   conv WG   conv row m as an implicit GEMM on wgmma m64n64k16, M = the 64
+//             pixels, K = 9 taps x 64: the A operand of tap (dy, dx) is input
+//             row m + dy - 1 shifted dx pixels (a descriptor shifted dx rows
+//             of 128 bytes), B the tap's weight slab. Epilogue: + bias, ReLU,
+//             zero outside the image, one rounding to bf16, into a ring of
+//             NM mid rows laid out as the input rows (72 pixels, 128B
+//             swizzle), so the tail reads them as the conv reads its input;
+//             the owned pixels of the owned rows also go to feat, straight
+//             from the registers;
+//   tail WG   for each mid row m one wgmma GEMM, M = 64 pixels, K = k dx
+//             shifts x 64 channels, N = k kernel rows (dy) x 16 outputs side
+//             by side (m64n{48,80,112}k16, B K-major): D[p][dy, o] is mid row
+//             m's contribution to output row m + P - dy. Output rows
+//             m - P .. m + P - 1 are kept in registers and shifted one row
+//             per mid row (the shift-add): output row m - P is complete after
+//             mid row m and goes to device memory; rows outside the image
+//             contribute zero and cost no products.
+// Each product of the tail runs once a mid row instead of once for each of
+// the k output rows it feeds, with both operands read from shared memory a
+// k16 step at a time (A 2 KB, B 0.5 KB x k): at k = 7 the m64n112k16 reads
+// 5.5 KB for 229 kFLOP, under the shared-memory port's 128 B a clock at the
+// tensor rate, where k x k m64n16k16 products would read 2.5 KB for 33 kFLOP.
+// co is padded with zero weights to npad = 16, 32 or 48 (x2, x3, x4); a
+// block runs its range once for each 16-output group, computing the conv
+// again for each (x3 and x4 run the conv 2x and 3x, which x2, the served
+// case, does not).
 //
 // Bound on the H100 at 720x1280, x2 (co = 12):
 //   decoder, 7x7, no emit: 67.9 + 69.4 GFLOP = 0.139 ms at 989 TF/s; 118 MB
 //     in and 22 MB out, 0.042 ms at 3.35 TB/s;
 //   encoder, 5x5, emitting: 67.9 + 35.4 GFLOP = 0.105 ms; 258 MB, 0.077 ms.
-// This first version has no copy/compute overlap and one block per SM; it
-// also does the recompute above and pads co to 16. See PERF.md.
-#include "common.cuh"
+// The kernel does 1.07-1.10x the conv work (strip overlap), pads co 12 to
+// 16 and computes the 2P ring rows once a segment (about 6% more rows).
+#include <cuda_bf16.h>
+
+#include "sm90.cuh"
 
 namespace {
 
+namespace S = tux::sm90;
 using bf16 = __nv_bfloat16;
 
-constexpr int CIN = 64;
-constexpr int CS = CIN + 8;  // row stride (elements) of a pixel in shared
-constexpr int T = 16;        // output tile side
-constexpr int THREADS = 256;
-constexpr int NWARP = THREADS / 32;
+constexpr int MW = 64;              // conv pixels of a strip row: wgmma's M
+constexpr int RX = 72;              // pixels of a ring row: M + 8
+constexpr int ROW = RX * 128;       // bytes of a ring row (9 x 1024)
+constexpr int CSLAB = 64 * 64 * 2;  // one tap of conv weights, 64 x 64
+constexpr int NG = 16;              // outputs of a tail group
+constexpr int NS = 4;               // input ring rows
+constexpr int THREADS = 2 * 128 + 32;
+constexpr int MAX_SMEM = 232448;
 
-template <int KT, int NPAD>
+template <int KT>
 struct Geo {
   static constexpr int P = (KT - 1) / 2;
-  static constexpr int MI = T + 2 * P;  // conv tile side
-  static constexpr int HI = MI + 2;     // input halo side
-  static constexpr int MPIX = MI * MI;
-  static constexpr int MFRAGS = (MPIX + 15) / 16;
-  static constexpr int FPW = (MFRAGS + NWARP - 1) / NWARP;
-  static constexpr size_t halo = size_t(HI) * HI * CS * 2;
-  static constexpr size_t mid = size_t(MPIX) * CS * 2;
-  static constexpr size_t crow = size_t(3) * CIN * CS * 2;
-  static constexpr size_t trow = size_t(KT) * NPAD * CS * 2;
-  static constexpr size_t stage = size_t(T) * T * NPAD * 4;
-  static constexpr size_t region0 = halo > mid ? halo : mid;
-  static constexpr size_t region1 =
-      crow > trow ? (crow > stage ? crow : stage)
-                  : (trow > stage ? trow : stage);
-  static constexpr size_t bytes = region0 + region1;
+  static constexpr int OWN = MW - 2 * P;  // tail outputs a strip owns
+  static constexpr int N = KT * NG;       // tail GEMM width: (dy, output)
+  static constexpr int TSLAB = N * 128;   // one dx: N K-major rows of 64
+  static constexpr int CW = 9 * CSLAB;
+  static constexpr int TWB = KT * TSLAB;
+  static constexpr int NM = 2;            // mid ring rows
+  static constexpr int BARS = 3 + 2 * NS + 2 * NM;
+  static constexpr int BYTES = 1024 + CW + TWB + (NS + NM) * ROW + BARS * 8;
 };
 
-// x (B,H,W,64) bf16; wc (3,3,64,64) bf16 [dy][dx][cout][cin]; bc (64) f32;
-// wt (KT,KT,NPAD,64) bf16 [dy][dx][cout][cin]; bt (co) f32; out (B,H,W,co)
-// bf16 or f32 (out_f32); feat (B,H,W,64) bf16 or null.
-template <int KT, int NPAD>
-__global__ void __launch_bounds__(THREADS, 1)
-conv_tail_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wc,
-                 const float* __restrict__ bc, const bf16* __restrict__ wt,
-                 const float* __restrict__ bt, void* __restrict__ out,
-                 bf16* __restrict__ feat, int H, int W, int co, int tail_relu,
-                 int out_f32) {
-  using G = Geo<KT, NPAD>;
-  constexpr int P = G::P, MI = G::MI, HI = G::HI, MPIX = G::MPIX;
-  constexpr int MFRAGS = G::MFRAGS, FPW = G::FPW;
-  constexpr int NFO = NPAD / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* halo = reinterpret_cast<bf16*>(smem);
-  bf16* mid = reinterpret_cast<bf16*>(smem);  // after the conv
-  bf16* wsm = reinterpret_cast<bf16*>(smem + G::region0);
-  float* stage = reinterpret_cast<float*>(smem + G::region0);  // at the end
-
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * T;
-  const int x0 = blockIdx.x * T;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  // 1. Input halo: conv pixel (0, 0) is image (y0 - P, x0 - P), and its taps
-  // reach one more.
-  const bf16* xb = x + size_t(b) * H * W * CIN;
-  for (int i = tid; i < HI * HI * 8; i += THREADS) {
-    const int chunk = i & 7;
-    const int p = i >> 3;
-    const int iy = y0 + p / HI - P - 1;
-    const int ix = x0 + p % HI - P - 1;
-    uint4 v = tux::zero16();
-    if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-      v = *reinterpret_cast<const uint4*>(xb + (size_t(iy) * W + ix) * CIN +
-                                          chunk * 8);
-    *reinterpret_cast<uint4*>(halo + p * CS + chunk * 8) = v;
-  }
-
-  // 2. The conv over MPIX pixels, fragment warp + NWARP i. Rows past the
-  // last pixel are clamped to it and never stored; a fragment wholly past
-  // it is skipped (uniform per warp).
-  int poff[FPW][2];
-#pragma unroll
-  for (int i = 0; i < FPW; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int p = min((warp + NWARP * i) * 16 + g + 8 * hh, MPIX - 1);
-      poff[i][hh] = ((p / MI) * HI + p % MI) * CS;
-    }
-  float acc[FPW][CIN / 8][4];
-#pragma unroll
-  for (int i = 0; i < FPW; ++i)
-#pragma unroll
-    for (int j = 0; j < CIN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int dy = 0; dy < 3; ++dy) {
-    __syncthreads();  // the previous kernel row is no longer being read
-    const bf16* wrow = wc + size_t(dy) * 3 * CIN * CIN;
-    for (int i = tid; i < 3 * CIN * 8; i += THREADS) {
-      const int chunk = i & 7;
-      const int r = i >> 3;  // dx * 64 + cout
-      *reinterpret_cast<uint4*>(wsm + r * CS + chunk * 8) =
-          *reinterpret_cast<const uint4*>(wrow + size_t(r) * CIN + chunk * 8);
-    }
-    __syncthreads();
-    for (int dx = 0; dx < 3; ++dx) {
-      const bf16* tap = halo + (dy * HI + dx) * CS;
-      const bf16* wtap = wsm + dx * CIN * CS;
-#pragma unroll
-      for (int kk = 0; kk < CIN / 16; ++kk) {
-        uint32_t a[FPW][4];
-#pragma unroll
-        for (int i = 0; i < FPW; ++i)
-          if (warp + NWARP * i < MFRAGS)
-            tux::load_a(a[i], tap + poff[i][0] + kk * 16,
-                        tap + poff[i][1] + kk * 16, t);
-#pragma unroll
-        for (int j = 0; j < CIN / 8; ++j) {
-          uint32_t bw[2];
-          tux::load_b(bw, wtap + (j * 8 + g) * CS + kk * 16, t);
-#pragma unroll
-          for (int i = 0; i < FPW; ++i)
-            if (warp + NWARP * i < MFRAGS)
-              tux::mma_bf16(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3],
-                            bw[0], bw[1]);
-        }
-      }
-    }
-  }
-
-  // 3. Bias, ReLU, zero outside the image, one rounding to bf16, into the
-  // halo's place.
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < FPW; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int p = (warp + NWARP * i) * 16 + g + 8 * hh;
-      if (p >= MPIX) continue;
-      const int gy = y0 - P + p / MI;
-      const int gx = x0 - P + p % MI;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-      for (int j = 0; j < CIN / 8; ++j) {
-        const int n = j * 8 + 2 * t;
-        float v0 = fmaxf(acc[i][j][2 * hh] + bc[n], 0.f);
-        float v1 = fmaxf(acc[i][j][2 * hh + 1] + bc[n + 1], 0.f);
-        if (!inside) v0 = v1 = 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(mid + p * CS + n) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  __syncthreads();
-  if (feat != nullptr) {
-    bf16* fb = feat + size_t(b) * H * W * CIN;
-    for (int i = tid; i < T * T * 8; i += THREADS) {
-      const int chunk = i & 7;
-      const int p = i >> 3;
-      const int y = y0 + p / T;
-      const int xx = x0 + p % T;
-      if (y < H && xx < W)
-        *reinterpret_cast<uint4*>(fb + (size_t(y) * W + xx) * CIN +
-                                  chunk * 8) =
-            *reinterpret_cast<const uint4*>(
-                mid + ((p / T + P) * MI + p % T + P) * CS + chunk * 8);
-    }
-  }
-
-  // 4. The tail: warp w computes output rows 2w and 2w + 1 (one M fragment
-  // of 16 pixels each); output (r, c) reads conv pixel (r + dy, c + dx).
-  float acc2[2][NFO][4];
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-#pragma unroll
-    for (int j = 0; j < NFO; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc2[f][j][e] = 0.f;
-  for (int dy = 0; dy < KT; ++dy) {
-    __syncthreads();  // the previous kernel row is no longer being read
-    const bf16* wrow = wt + size_t(dy) * KT * NPAD * CIN;
-    for (int i = tid; i < KT * NPAD * 8; i += THREADS) {
-      const int chunk = i & 7;
-      const int r = i >> 3;  // dx * NPAD + cout
-      *reinterpret_cast<uint4*>(wsm + r * CS + chunk * 8) =
-          *reinterpret_cast<const uint4*>(wrow + size_t(r) * CIN + chunk * 8);
-    }
-    __syncthreads();
-    for (int dx = 0; dx < KT; ++dx) {
-      const bf16* wtap = wsm + dx * NPAD * CS;
-#pragma unroll
-      for (int kk = 0; kk < CIN / 16; ++kk) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          const bf16* row =
-              mid + ((2 * warp + f + dy) * MI + dx + g) * CS + kk * 16;
-          tux::load_a(a[f], row, row + 8 * CS, t);
-        }
-#pragma unroll
-        for (int j = 0; j < NFO; ++j) {
-          uint32_t bw[2];
-          tux::load_b(bw, wtap + (j * 8 + g) * CS + kk * 16, t);
-#pragma unroll
-          for (int f = 0; f < 2; ++f)
-            tux::mma_bf16(acc2[f][j], a[f][0], a[f][1], a[f][2], a[f][3],
-                          bw[0], bw[1]);
-        }
-      }
-    }
-  }
-
-  __syncthreads();  // the tail weights are dead: stage the tile over them
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-#pragma unroll
-    for (int j = 0; j < NFO; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = j * 8 + 2 * t + (e & 1);
-        const int p = (2 * warp + f) * T + g + 8 * (e >> 1);
-        if (n < co) {
-          float v = acc2[f][j][e] + bt[n];
-          if (tail_relu) v = fmaxf(v, 0.f);
-          stage[p * co + n] = v;
-        }
-      }
-  __syncthreads();
-  const int nv = min(T, W - x0);
-  for (int r = 0; r < T; ++r) {
-    const int y = y0 + r;
-    if (y >= H) break;
-    const size_t o = ((size_t(b) * H + y) * W + x0) * co;
-    const float* src = stage + r * T * co;
-    if (out_f32) {
-      float* dst = static_cast<float*>(out) + o;
-      for (int e = tid; e < nv * co; e += THREADS) dst[e] = src[e];
-    } else {
-      bf16* dst = static_cast<bf16*>(out) + o;
-      for (int e = tid; e < nv * co; e += THREADS)
-        dst[e] = __float2bfloat16_rn(src[e]);
-    }
-  }
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-template <int KT, int NPAD>
-int launch(const void* x, const void* wc, const void* bc, const void* wt,
-           const void* bt, void* out, void* feat, int B, int H, int W, int co,
-           int tail_relu, int out_f32, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return int(err);
-  constexpr size_t smem = Geo<KT, NPAD>::bytes;
-  auto kern = conv_tail_kernel<KT, NPAD>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((W + T - 1) / T, (H + T - 1) / T, B);
-  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wc),
-      static_cast<const float*>(bc), static_cast<const bf16*>(wt),
-      static_cast<const float*>(bt), out, static_cast<bf16*>(feat), H, W, co,
-      tail_relu, out_f32);
-  return int(cudaGetLastError());
+__device__ __forceinline__ int sw128(int r, int j) {
+  return r * 128 + ((j ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) S::mbar_arrive(bar);
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Parity of the n-th use of a ring of `stages` slots.
+__device__ __forceinline__ uint32_t par(uint32_t n, uint32_t stages) {
+  return (n / stages) & 1;
+}
+
+// The A operand (64 pixels x k16 step s, K-major) of a 128B-swizzled ring
+// row, starting `shift` pixels in.
+__device__ __forceinline__ uint64_t desc_row(const unsigned char* row,
+                                             int shift, int s) {
+  return S::desc(row + 128 * shift + 32 * s, 16, 1024);
+}
+
+// A segment of a block's range: batch b, the strip's first output column x0,
+// output rows [y0, y1), conv rows [ma, mb) (the ring, clipped to the image).
+struct Seg {
+  int b, x0, y0, y1, ma, mb;
+};
+
+// The segment that starts at strip-row t of a range ending at t_end.
+template <int KT>
+__device__ __forceinline__ Seg segment(int t, int t_end, int H, int strips) {
+  constexpr int P = Geo<KT>::P;
+  Seg g;
+  const int bs = t / H;
+  g.y0 = t - bs * H;
+  g.b = bs / strips;
+  g.x0 = (bs - g.b * strips) * Geo<KT>::OWN;
+  g.y1 = min(H, g.y0 + (t_end - t));
+  g.ma = max(g.y0 - P, 0);
+  g.mb = min(g.y1 + P, H);
+  return g;
+}
+
+// xmap: x (B, H, W, 64) as (64, W, H, B), box (64, 72, 1, 1); wmap: the conv
+// weights (576, 64) = w[dy][dx][c][o] as rows (tap, c), box (64, 64); tmap:
+// the tail slabs (groups x k x N, 64) = wt[grp][dx][dy][o][c], box (64, N).
+// All 128B-swizzled. bc (64) and bt (co) f32; out (B, H, W, co) bf16 or f32;
+// feat (B, H, W, 64) bf16 or null. T = B x strips x H strip-rows.
+template <int KT>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_tail_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap,
+                 const __grid_constant__ CUtensorMap tmap,
+                 const float* __restrict__ bc, const float* __restrict__ bt,
+                 void* __restrict__ out, bf16* __restrict__ feat, int H,
+                 int W, int co, int groups, int strips, int T, int tail_relu,
+                 int out_f32) {
+  using G = Geo<KT>;
+  constexpr int P = G::P, NM = G::NM;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* cw = align1024(smem_raw);
+  unsigned char* tw = cw + G::CW;
+  unsigned char* in = tw + G::TWB;
+  unsigned char* mid = in + NS * ROW;
+  uint64_t* cw_full = reinterpret_cast<uint64_t*>(mid + NM * ROW);
+  uint64_t* tw_full = cw_full + 1;
+  uint64_t* tw_empty = cw_full + 2;
+  uint64_t* in_full = cw_full + 3;
+  uint64_t* in_empty = in_full + NS;
+  uint64_t* mid_full = in_empty + NS;
+  uint64_t* mid_empty = mid_full + NM;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (tid == 0) {
+    S::mbar_init(cw_full, 1);
+    S::mbar_init(tw_full, 1);
+    S::mbar_init(tw_empty, 4);
+    for (int s = 0; s < NS; ++s) {
+      S::mbar_init(&in_full[s], 1);
+      S::mbar_init(&in_empty[s], 4);
+    }
+    for (int s = 0; s < NM; ++s) {
+      S::mbar_init(&mid_full[s], 4);
+      S::mbar_init(&mid_empty[s], 4);
+    }
+    S::fence_barrier_init();
+  }
+  // Pixels MW.. of the mid rows feed only the last 2P rows of the tail's M,
+  // which no strip stores; zero them once so they hold numbers.
+  constexpr int PAD16 = (RX - MW) * 8;
+  for (int i = tid; i < NM * PAD16; i += THREADS)
+    *reinterpret_cast<uint4*>(mid + (i / PAD16) * ROW + MW * 128 +
+                              (i % PAD16) * 16) = make_uint4(0, 0, 0, 0);
+  S::fence_async_smem();
+  __syncthreads();
+  // This block's strip-rows [t0, t1).
+  const int t0 = int(static_cast<long long>(blockIdx.x) * T / gridDim.x);
+  const int t1 = int(static_cast<long long>(blockIdx.x + 1) * T / gridDim.x);
+
+  if (tid >= 256) {  // producer warp: one thread issues every copy
+    if (tid != 256) return;
+    S::mbar_expect_tx(cw_full, G::CW);
+    for (int tap = 0; tap < 9; ++tap)
+      S::tma_load_2d(cw + tap * CSLAB, &wmap, cw_full, 0, tap * 64);
+    uint32_t n = 0;  // input rows loaded
+    for (int grp = 0; grp < groups; ++grp) {
+      S::mbar_wait(tw_empty, (grp & 1) ^ 1);
+      S::mbar_expect_tx(tw_full, G::TWB);
+      for (int dx = 0; dx < KT; ++dx)
+        S::tma_load_2d(tw + dx * G::TSLAB, &tmap, tw_full, 0,
+                       (grp * KT + dx) * G::N);
+      for (int t = t0; t < t1;) {
+        const Seg sg = segment<KT>(t, t1, H, strips);
+        // Conv rows [ma, mb) read input rows ma - 1 .. mb.
+        for (int r = sg.ma - 1; r <= sg.mb; ++r, ++n) {
+          const int slot = n % NS;
+          S::mbar_wait(&in_empty[slot], par(n, NS) ^ 1);
+          S::mbar_expect_tx(&in_full[slot], ROW);
+          S::tma_load_4d(in + slot * ROW, &xmap, &in_full[slot], 0,
+                         sg.x0 - P - 1, r, sg.b);
+        }
+        t += sg.y1 - sg.y0;
+      }
+    }
+    return;
+  }
+
+  const int warp = (tid >> 5) & 3;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  if (tid < 128) {  // the conv warpgroup
+    // Bias of this thread's channels 8 j + 2 t4 + e at [2 j + e].
+    float bs[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) bs[i] = bc[8 * (i >> 1) + 2 * t4 + (i & 1)];
+    S::mbar_wait(cw_full, 0);
+    float acc[32];
+    uint32_t n = 0, mq = 0;  // input rows, mid rows used
+    for (int grp = 0; grp < groups; ++grp) {
+      for (int t = t0; t < t1;) {
+        const Seg sg = segment<KT>(t, t1, H, strips);
+        S::mbar_wait(&in_full[n % NS], par(n, NS));
+        S::mbar_wait(&in_full[(n + 1) % NS], par(n + 1, NS));
+        for (int m = sg.ma; m < sg.mb; ++m) {
+          const uint32_t q = n + (m - sg.ma);  // input row m - 1
+          S::mbar_wait(&in_full[(q + 2) % NS], par(q + 2, NS));
+          const unsigned char* rows[3] = {in + (q % NS) * ROW,
+                                          in + ((q + 1) % NS) * ROW,
+                                          in + ((q + 2) % NS) * ROW};
+          S::wgmma_fence();
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              S::wgmma_ss_n64(acc, desc_row(rows[tap / 3], tap % 3, s),
+                              S::desc_b(cw + tap * CSLAB, s), tap | s);
+          S::wgmma_commit();
+          S::wgmma_wait<0>();
+          release(&in_empty[q % NS], lane);
+          if (m == sg.mb - 1) {  // the segment's last two rows are done too
+            release(&in_empty[(q + 1) % NS], lane);
+            release(&in_empty[(q + 2) % NS], lane);
+          }
+          S::fence_acc(acc);
+
+          // Epilogue: + bias, ReLU, zero outside the image, one rounding,
+          // into mid row slot ms; the owned pixels of owned rows to feat.
+          const int ms = mq % NM;
+          S::mbar_wait(&mid_empty[ms], par(mq, NM) ^ 1);
+          unsigned char* mrow = mid + ms * ROW;
+          const bool emit =
+              feat != nullptr && grp == 0 && m >= sg.y0 && m < sg.y1;
+          bf16* frow =
+              emit ? feat + (size_t(sg.b) * H + m) * W * 64 : nullptr;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = 16 * warp + g + 8 * i;
+            const int x = sg.x0 - P + r;
+            const bool inside = x >= 0 && x < W;
+            const bool owned = emit && inside && r >= P && r < MW - P;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const uint32_t v =
+                  inside ? pack(fmaxf(acc[4 * j + 2 * i] + bs[2 * j], 0.f),
+                                fmaxf(acc[4 * j + 2 * i + 1] + bs[2 * j + 1],
+                                      0.f))
+                         : 0u;
+              *reinterpret_cast<uint32_t*>(mrow + sw128(r, j) + 4 * t4) = v;
+              if (owned)
+                *reinterpret_cast<uint32_t*>(frow + size_t(x) * 64 + 8 * j +
+                                             2 * t4) = v;
+            }
+          }
+          S::fence_async_smem();  // the tail's wgmma reads the row
+          release(&mid_full[ms], lane);
+          ++mq;
+        }
+        n += sg.mb - sg.ma + 2;
+        t += sg.y1 - sg.y0;
+      }
+    }
+    return;
+  }
+
+  // The tail warpgroup.
+  uint32_t mq = 0;  // mid rows used
+  for (int grp = 0; grp < groups; ++grp) {
+    // Bias of this thread's outputs 16 grp + 8 jj + 2 t4 + e at [2 jj + e].
+    float bq[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = NG * grp + 8 * (i >> 1) + 2 * t4 + (i & 1);
+      bq[i] = o < co ? bt[o] : 0.f;
+    }
+    S::mbar_wait(tw_full, grp & 1);
+    for (int t = t0; t < t1;) {
+      const Seg sg = segment<KT>(t, t1, H, strips);
+      // R[i]: the partial sums of output row m - P + i (8 accumulator
+      // registers: rows 16 warp + g + 8 (e / 2), outputs 8 (e / 4) + ...).
+      float R[2 * P][8];
+#pragma unroll
+      for (int i = 0; i < 2 * P; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) R[i][e] = 0.f;
+      for (int m = sg.y0 - P; m < sg.y1 + P; ++m) {
+        // D[8 dy + e]: mid row m's share of output row m + P - dy.
+        float D[8 * KT];
+        if (m >= sg.ma && m < sg.mb) {
+          const int ms = mq % NM;
+          S::mbar_wait(&mid_full[ms], par(mq, NM));
+          const unsigned char* mrow = mid + ms * ROW;
+          S::wgmma_fence();
+#pragma unroll
+          for (int dx = 0; dx < KT; ++dx)
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+              S::wgmma_ss_kb<G::N>(D, desc_row(mrow, dx, s),
+                                   S::desc(tw + dx * G::TSLAB + 32 * s, 16,
+                                           1024),
+                                   dx | s);
+          S::wgmma_commit();
+          S::wgmma_wait<0>();
+          release(&mid_empty[ms], lane);
+          S::fence_acc(D);
+          ++mq;
+        } else {  // outside the image: the feature map's zero pad
+#pragma unroll
+          for (int e = 0; e < 8 * KT; ++e) D[e] = 0.f;
+        }
+        if (m - P >= sg.y0) {  // output row m - P is complete
+          const size_t row = (size_t(sg.b) * H + (m - P)) * W;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int p = 16 * warp + g + 8 * i;
+            const int x = sg.x0 + p;
+            if (p < G::OWN && x < W) {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const int e = 4 * (c >> 1) + 2 * i + (c & 1);
+                const int o = NG * grp + 8 * (c >> 1) + 2 * t4 + (c & 1);
+                float v = R[0][e] + D[16 * P + e] + bq[c];
+                if (tail_relu) v = fmaxf(v, 0.f);
+                if (o < co) {
+                  if (out_f32)
+                    static_cast<float*>(out)[(row + x) * co + o] = v;
+                  else
+                    static_cast<bf16*>(out)[(row + x) * co + o] =
+                        __float2bfloat16_rn(v);
+                }
+              }
+            }
+          }
+        }
+        // The shift: R[i] becomes output row m + 1 - P + i.
+#pragma unroll
+        for (int i = 0; i + 1 < 2 * P; ++i)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            R[i][e] = R[i + 1][e] + D[8 * (2 * P - 1 - i) + e];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) R[2 * P - 1][e] = D[e];
+      }
+      t += sg.y1 - sg.y0;
+    }
+    release(tw_empty, lane);
+  }
 }
 
 template <int KT>
-int dispatch(const void* x, const void* wc, const void* bc, const void* wt,
-             const void* bt, void* out, void* feat, int B, int H, int W,
-             int co, int npad, int tail_relu, int out_f32, int device,
-             void* stream) {
-  switch (npad) {
-    case 16:
-      return launch<KT, 16>(x, wc, bc, wt, bt, out, feat, B, H, W, co,
-                            tail_relu, out_f32, device, stream);
-    case 32:
-      return launch<KT, 32>(x, wc, bc, wt, bt, out, feat, B, H, W, co,
-                            tail_relu, out_f32, device, stream);
-    case 48:
-      return launch<KT, 48>(x, wc, bc, wt, bt, out, feat, B, H, W, co,
-                            tail_relu, out_f32, device, stream);
-    default:
-      return int(cudaErrorInvalidValue);
+int launch(const void* x, const void* wc, const void* bc, const void* wt,
+           const void* bt, void* out, void* feat, int B, int H, int W, int co,
+           int groups, int tail_relu, int out_f32, int device, void* stream) {
+  using G = Geo<KT>;
+  static_assert(G::BYTES <= MAX_SMEM, "conv_tail shared memory");
+  CUtensorMap xm, wm, tm;
+  int e = S::map_nhwc(&xm, x, B, H, W, 64, RX, 1);
+  if (e == 0) e = S::map_matrix(&wm, wc, 9 * 64, 64, 64);
+  if (e == 0) e = S::map_matrix(&tm, wt, groups * KT * G::N, 64, G::N);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_tail_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::BYTES);
+  if (err != cudaSuccess) return int(err);
+  const int strips = (W + G::OWN - 1) / G::OWN;
+  const int T = B * strips * H;
+  const int sms = S::sm_count(device);
+  conv_tail_kernel<KT>
+      <<<T < sms ? T : sms, THREADS, G::BYTES,
+         static_cast<cudaStream_t>(stream)>>>(
+          xm, wm, tm, static_cast<const float*>(bc),
+          static_cast<const float*>(bt), out, static_cast<bf16*>(feat), H, W,
+          co, groups, strips, T, tail_relu, out_f32);
+  return int(cudaGetLastError());
+}
+
+// The K-major-B wgmma probe: one warpgroup computes D (64 x N, f32) =
+// A (64 x 64) . B^T with B (N x 64), both bf16 loaded by TMA with the 128B
+// swizzle, through wgmma_ss_kb<N>. D row-major.
+template <int N>
+__global__ void __launch_bounds__(128)
+kb_probe_kernel(const __grid_constant__ CUtensorMap amap,
+                const __grid_constant__ CUtensorMap bmap,
+                float* __restrict__ d) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* a = align1024(smem_raw);
+  unsigned char* bt = a + 64 * 128;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bt + N * 128);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    S::mbar_init(bar, 1);
+    S::fence_barrier_init();
   }
+  __syncthreads();
+  if (tid == 0) {
+    S::mbar_expect_tx(bar, (64 + N) * 128);
+    S::tma_load_2d(a, &amap, bar, 0, 0);
+    S::tma_load_2d(bt, &bmap, bar, 0, 0);
+  }
+  S::mbar_wait(bar, 0);
+  float acc[N / 2];
+  S::wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    S::wgmma_ss_kb<N>(acc, S::desc(a + 32 * s, 16, 1024),
+                      S::desc(bt + 32 * s, 16, 1024), s);
+  S::wgmma_commit();
+  S::wgmma_wait<0>();
+  S::fence_acc(acc);
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      d[(16 * warp + g + 8 * (e >> 1)) * N + 8 * j + 2 * t + (e & 1)] =
+          acc[4 * j + e];
+}
+
+template <int N>
+int launch_probe(const void* a, const void* b, void* d, void* stream) {
+  CUtensorMap am, bm;
+  int e = S::map_matrix(&am, a, 64, 64, 64);
+  if (e == 0) e = S::map_matrix(&bm, b, N, 64, N);
+  if (e != 0) return e;
+  kb_probe_kernel<N>
+      <<<1, 128, 1024 + (64 + N) * 128 + 8,
+         static_cast<cudaStream_t>(stream)>>>(am, bm, static_cast<float*>(d));
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// wt is (kt, kt, npad, 64) with kt in {3, 5, 7}, npad in {16, 32, 48} and
-// co <= npad; feat null: no emit. Returns the cudaError_t of the launch.
+// x (B,H,W,64) bf16; wc (576, 64) bf16 = the HWIO conv kernel as rows
+// (dy, dx, c); bc (64) f32; wt (npad / 16 x kt x kt x 16, 64) bf16 = the
+// tail kernel as rows (group, dx, dy, output) of 64 input channels, outputs
+// past co zero; bt (co) f32; out (B,H,W,co) bf16 or f32 (out_f32); feat
+// (B,H,W,64) bf16 or null (no emit). kt in {3, 5, 7}, npad in {16, 32, 48},
+// co <= npad. Returns the cudaError_t of the launch (0 on success).
 extern "C" int tux_conv_tail(const void* x, const void* wc, const void* bc,
                              const void* wt, const void* bt, void* out,
                              void* feat, int B, int H, int W, int kt, int co,
                              int npad, int tail_relu, int out_f32,
                              int device, void* stream) {
-  if (co > npad) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  if (co > npad || co < 1 || npad % NG || npad < NG || npad > 3 * NG)
+    return int(cudaErrorInvalidValue);
+  if (B == 0 || H == 0 || W == 0) return 0;
+  const int groups = npad / NG;
   switch (kt) {
     case 3:
-      return dispatch<3>(x, wc, bc, wt, bt, out, feat, B, H, W, co, npad,
-                         tail_relu, out_f32, device, stream);
+      return launch<3>(x, wc, bc, wt, bt, out, feat, B, H, W, co, groups,
+                       tail_relu, out_f32, device, stream);
     case 5:
-      return dispatch<5>(x, wc, bc, wt, bt, out, feat, B, H, W, co, npad,
-                         tail_relu, out_f32, device, stream);
+      return launch<5>(x, wc, bc, wt, bt, out, feat, B, H, W, co, groups,
+                       tail_relu, out_f32, device, stream);
     case 7:
-      return dispatch<7>(x, wc, bc, wt, bt, out, feat, B, H, W, co, npad,
-                         tail_relu, out_f32, device, stream);
+      return launch<7>(x, wc, bc, wt, bt, out, feat, B, H, W, co, groups,
+                       tail_relu, out_f32, device, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+// a (64, 64), b (n, 64) bf16; d (64, n) f32 = a . b^T, n in {48, 80, 112}.
+// Returns a cudaError_t.
+extern "C" int tux_wgmma_kb_probe(const void* a, const void* b, void* d,
+                                  int n, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  switch (n) {
+    case 48:
+      return launch_probe<48>(a, b, d, stream);
+    case 80:
+      return launch_probe<80>(a, b, d, stream);
+    case 112:
+      return launch_probe<112>(a, b, d, stream);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -364,6 +364,90 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D (64 x N, f32) = A (64 x 16, K-major, by descriptor) . B (16 x N) + D if
+// accumulate, with B K-major too: N rows of K contiguous values, the layout
+// of A (desc(tile + 32 s, 16, 1024) for 128-byte rows). The widths of the
+// fused conv + tail's tail GEMM (csrc/conv_tail.cu): N = k x 16 for the
+// k x k tail, every kernel row (dy) of one 16-output group side by side.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_kb(float (&d)[N / 2], uint64_t a,
+                                            uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_kb<48>(float (&d)[24], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23 "
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_kb<80>(float (&d)[40], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_kb<112>(float (&d)[56], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55 "
+      "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // --------------------------------------------------------------- host
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -407,6 +491,42 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+// An NHWC map (B, H, W, Cm) of bf16 as (Cm, W, H, B), box (64, box_w,
+// box_h, 1), 128B-swizzled.
+inline int map_nhwc(CUtensorMap* m, const void* p, int B, int H, int W,
+                    int Cm, int box_w, int box_h) {
+  const uint64_t dims[4] = {uint64_t(Cm), uint64_t(W), uint64_t(H),
+                            uint64_t(B)};
+  const uint64_t strides[3] = {uint64_t(Cm) * 2, uint64_t(W) * Cm * 2,
+                               uint64_t(H) * W * Cm * 2};
+  const uint32_t box[4] = {64, uint32_t(box_w), uint32_t(box_h), 1};
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The same for int8 (B, H, W, Cm): box (64 bytes, box_w, 1, 1), 64B swizzle.
+inline int map_nhwc_i8(CUtensorMap* m, const void* p, int B, int H, int W,
+                       int Cm, int box_w) {
+  const uint64_t dims[4] = {uint64_t(Cm), uint64_t(W), uint64_t(H),
+                            uint64_t(B)};
+  const uint64_t strides[3] = {uint64_t(Cm), uint64_t(W) * Cm,
+                               uint64_t(H) * W * Cm};
+  const uint32_t box[4] = {64, uint32_t(box_w), 1, 1};
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, p, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// A (rows, cols) bf16 row-major matrix, box (64 columns, box_rows rows),
+// 128B-swizzled.
+inline int map_matrix(CUtensorMap* m, const void* p, int rows, int cols,
+                      int box_rows) {
+  const uint64_t dims[2] = {uint64_t(cols), uint64_t(rows)};
+  const uint64_t strides[1] = {uint64_t(cols) * 2};
+  const uint32_t box[2] = {64, uint32_t(box_rows)};
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The streaming multiprocessors of `device` (persistent grids).

@@ -1,21 +1,27 @@
-"""Where the time of ``global_mha`` and the archived ``conv3x3`` goes, by
-ablation, on the GPU.
+"""Where the time of ``global_mha``, the 3x3 conv and the fused conv + tail
+goes, by ablation, on the GPU.
 
     python3 -m transformerupscaler_torch.kernel_ablation \
-        [--variants global_mha:full conv3x3:no_store ...]
+        [--variants global_mha:full conv3x3:no_store conv_tail7:full ...]
 
-Builds ``csrc/global_mha.cu`` and ``csrc/conv3x3.cu`` as they are and in
-variants with one part switched off by a textual edit of the source (so the
-variants compute wrong values: only their times mean anything), and times
-each kernel at its 720p serving shape by CUDA events over back-to-back
-launches: the attention core at (1, 3600, 128) with 8 heads on q, k, v
-sliced from one packed qkv, the conv at (1, 720, 1280, 64) -> 64 with bias
-and ReLU. A "no_*_refetch" variant loads that operand only into the ring's
-first stages and reuses them after. The variants named for what they do
-instead (``*_on_fma``, ``one_block_per_sm``) are alternatives that were
-measured and not kept. Prints one JSON line per variant; the difference
-from its kernel's ``full`` is what the part costs where it is not hidden
-behind another.
+Builds ``csrc/global_mha.cu``, ``csrc/conv3x3.cu`` and ``csrc/conv_tail.cu``
+as they are and in variants with one part switched off by a textual edit of
+the source (so the variants compute wrong values: only their times mean
+anything), and times each kernel at its 720p serving shape by CUDA events
+over back-to-back launches: the attention core at (1, 3600, 128) with 8
+heads on q, k, v sliced from one packed qkv; the 3x3 conv at (1, 720, 1280,
+64) -> 64 with bias and ReLU, bf16 out (``conv3x3``: ``conv3x3_stream`` and
+the archived conv) and int8 out (``conv3x3_int8``: ``conv3x3_stream``'s
+``out_scale``); the fused conv + tail at x2 (co 12, npad 16), the encoder's
+5x5 with ReLU emitting the conv output (``conv_tail5``) and the decoder's
+7x7 (``conv_tail7``). A "no_*_refetch" / "no_halo_refill" variant loads
+that operand only into the ring's first stages and reuses them after. The
+variants named for what they do instead (``*_on_fma``,
+``one_block_per_sm``, ``qs_in_smem``, ``emit_by_tail``, ``mid_ring_3``,
+``*_wait_backoff``) are alternatives that were measured and not kept;
+``--rounds`` times every variant again, in turns.
+Prints one JSON line per variant; the difference from its kernel's
+``full`` is what the part costs where it is not hidden behind another.
 """
 
 from __future__ import annotations
@@ -72,6 +78,52 @@ HALO = ("        S::mbar_expect_tx(&h_full[hs], HALO);\n"
         "        S::tma_load_4d(")
 WSLAB = ("            S::mbar_expect_tx(&w_full[wst], SLAB);\n"
          "            S::tma_load_2d(")
+
+
+CONV_MMA = "              S::wgmma_ss_n64(acc, desc_row("
+TAIL_MMA = "              S::wgmma_ss_kb<G::N>(D, desc_row("
+ROWS = ("          S::mbar_expect_tx(&in_full[slot], ROW);\n"
+        "          S::tma_load_4d(")
+TAIL_WAIT = ("          S::wgmma_wait<0>();\n"
+             "          release(&mid_empty[ms], lane);\n")
+EMIT_BY_TAIL = """          if (feat != nullptr && grp == 0 && m >= sg.y0 && m < sg.y1) {
+            bf16* frow = feat + (size_t(sg.b) * H + m) * W * 64;
+            for (int c = tid - 128; c < G::OWN * 8; c += 128) {
+              const int x = sg.x0 + (c >> 3);
+              if (x < W)
+                *reinterpret_cast<uint4*>(frow + size_t(x) * 64 +
+                                          8 * (c & 7)) =
+                    *reinterpret_cast<const uint4*>(
+                        mrow + sw128(P + (c >> 3), c & 7));
+            }
+          }
+"""
+MID_FULL = "          S::mbar_wait(&mid_full[ms], par(mq, NM));\n"
+MID_EMPTY = "          S::mbar_wait(&mid_empty[ms], par(mq, NM) ^ 1);\n"
+
+
+def _backoff(wait: str) -> str:
+    """An mbarrier wait that sleeps 100 ns after each failed poll."""
+    bar, parity = wait.split("(", 1)[1].rsplit(");", 1)[0].split(", ", 1)
+    return ("          for (uint32_t ok = 0; !ok;) {\n"
+            "            asm volatile(\"{\\n.reg .pred p;\\n\"\n"
+            "                \"mbarrier.try_wait.parity.shared::cta.b64 p, "
+            "[%1], %2;\\n\"\n"
+            "                \"selp.u32 %0, 1, 0, p;\\n}\\n\"\n"
+            f"                : \"=r\"(ok) : \"r\"(S::smem({bar})), "
+            f"\"r\"({parity}) : \"memory\");\n"
+            "            if (!ok) __nanosleep(100);\n"
+            "          }\n")
+
+
+QUANT = """  int q;
+  asm("cvt.rni.sat.s8.f32 %0, %1;"
+      : "=r"(q)
+      : "f"(fmaxf(__fmul_rn(v, qs), -127.f)));
+  return int8_t(q);
+"""
+QS_LDG = ("          const float2 q2 = __ldg(reinterpret_cast<const float2*>(\n"
+          "              qs + n0 + 8 * j + 2 * t));")
 
 
 def _no_ex2(text: str) -> str:
@@ -142,9 +194,58 @@ EDITS = {
                     "          if (H < 0) S::wgmma_ss_n64(acc, desc_shift(")],
         "no_store": [("      if (y0 + wg < H) S::tma_store_4d(",
                       "      if (y0 + wg < H && H < 0) S::tma_store_4d(")],
+        # The int8 epilogue's quantize replaced by a bit operation.
+        "no_quant": [(QUANT, "  return int8_t(__float_as_int(v) ^ "
+                             "__float_as_int(qs));\n")],
+        # Tried: the int8 scales staged in shared memory once, not read
+        # through L1 in every epilogue.
+        "qs_in_smem": [(QS_LDG, "          const float2 q2 = qsm[4 * j + t];"),
+                       ("  if (tid == 0) {\n    for (int s = 0; s < HSTAGES;",
+                        "  __shared__ float2 qsm[32];\n"
+                        "  if (I8 && tid < 32)\n"
+                        "    qsm[tid] = reinterpret_cast<const float2*>(qs + "
+                        "n0)[tid];\n"
+                        "  if (tid == 0) {\n    for (int s = 0; s < HSTAGES;")],
+    },
+    "conv_tail": {
+        "full": [],
+        "no_mma": [(CONV_MMA, "              if (H < 0) " + CONV_MMA.lstrip()),
+                   (TAIL_MMA, "              if (H < 0) " + TAIL_MMA.lstrip())],
+        "no_conv_mma": [(CONV_MMA,
+                         "              if (H < 0) " + CONV_MMA.lstrip())],
+        "no_tail_mma": [(TAIL_MMA,
+                         "              if (H < 0) " + TAIL_MMA.lstrip())],
+        # Input rows into the ring's first NS slots only.
+        "no_halo_refill": [(ROWS, "          S::mbar_expect_tx(&in_full[slot], "
+                                  "n < NS ? ROW : 0);\n"
+                                  "          if (n < NS) S::tma_load_4d(")],
+        "no_emit": [("              if (owned)\n",
+                     "              if (owned && H < 0)\n")],
+        "no_store": [("                if (o < co) {",
+                      "                if (o < co && H < 0) {")],
+        # Tried: the emit by the tail warpgroup, 16-byte copies of the owned
+        # pixels from the mid row, off the conv warpgroup's path.
+        "emit_by_tail": [("              if (owned)\n",
+                          "              if (owned && H < 0)\n"),
+                         (TAIL_WAIT, TAIL_WAIT + EMIT_BY_TAIL)],
+        # Tried: the mid-ring waits back off with __nanosleep between polls.
+        "tail_wait_backoff": [(MID_FULL, _backoff(MID_FULL))],
+        "conv_wait_backoff": [(MID_EMPTY, _backoff(MID_EMPTY))],
+        # Tried: three mid rows in flight where shared memory allows (k < 7).
+        "mid_ring_3": [("  static constexpr int NM = 2;",
+                        "  static constexpr int NM = KT < 7 ? 3 : 2;")],
     },
 }
-VARIANTS = [f"{k}:{v}" for k, vs in EDITS.items() for v in vs]
+# kernel -> its source; the int8-out conv and both tails share the edits of
+# their source.
+SOURCES = {"global_mha": "global_mha", "conv3x3": "conv3x3",
+           "conv3x3_int8": "conv3x3", "conv_tail5": "conv_tail",
+           "conv_tail7": "conv_tail"}
+SKIP = {"conv3x3": ("qs_in_smem", "no_quant"),
+        "conv3x3_int8": ("no_weight_refetch",),
+        "conv_tail7": ("no_emit", "emit_by_tail", "mid_ring_3")}
+VARIANTS = [f"{k}:{v}" for k, src in SOURCES.items() for v in EDITS[src]
+            if v not in SKIP.get(k, ())]
 
 
 def build(out_dir, names) -> dict[str, ctypes.CDLL]:
@@ -152,8 +253,9 @@ def build(out_dir, names) -> dict[str, ctypes.CDLL]:
     procs = {}
     for name in names:
         kernel, variant = name.split(":")
-        text = (_build.CSRC / f"{kernel}.cu").read_text()
-        for old, new in EDITS[kernel][variant]:
+        src = SOURCES[kernel]
+        text = (_build.CSRC / f"{src}.cu").read_text()
+        for old, new in EDITS[src][variant]:
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: {old!r} does not stand once in "
                                    f"the source")
@@ -170,7 +272,8 @@ def build(out_dir, names) -> dict[str, ctypes.CDLL]:
         if proc.returncode:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
         lib = ctypes.CDLL(str(out_dir / f"{name.replace(':', '-')}.so"))
-        for fn, argtypes in _build.SIGNATURES[name.split(":")[0]].items():
+        for fn, argtypes in _build.SIGNATURES[
+                SOURCES[name.split(":")[0]]].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -181,7 +284,10 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--variants", nargs="+", choices=VARIANTS,
                         default=VARIANTS)
-    names = parser.parse_args().variants
+    parser.add_argument("--rounds", type=int, default=1,
+                        help="time every variant this many times, in turns")
+    args = parser.parse_args()
+    names = args.variants
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -200,16 +306,35 @@ def main() -> None:
     x = rn(1, H, W, C)
     wt = rn(9, C, 64, std=576 ** -0.5)
     bias = torch.zeros(64, device="cuda")
+    qs = torch.full((64,), 20.0, device="cuda")
     out = torch.empty_like(x)
+    out8 = torch.empty(1, H, W, 64, dtype=torch.int8, device="cuda")
+    tails = {k: (rn(k * k * 16, 64, std=(k * k * 64) ** -0.5),
+                 torch.empty(1, H, W, 12, dtype=torch.bfloat16,
+                             device="cuda")) for k in (5, 7)}
+    bt = torch.zeros(12, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+
+    def tail(lib, k, emit):
+        slabs, y = tails[k]
+        return lib.tux_conv_tail(
+            x.data_ptr(), wt.data_ptr(), bias.data_ptr(), slabs.data_ptr(),
+            bt.data_ptr(), y.data_ptr(), out.data_ptr() if emit else None, 1,
+            H, W, k, 12, 16, int(emit), 0, 0, stream)
+
     calls = {
         "global_mha": lambda lib: lib.tux_global_mha(
             qkv.data_ptr(), qkv[..., c:].data_ptr(),
             qkv[..., 2 * c:].data_ptr(), ctx.data_ptr(), 1, N, c, HEADS,
             qkv.stride(0), qkv.stride(1), 0, stream),
         "conv3x3": lambda lib: lib.tux_conv3x3_any(
-            x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), 1,
-            H, W, C, C, 64, 64, 1, 0, stream),
+            x.data_ptr(), wt.data_ptr(), bias.data_ptr(), None,
+            out.data_ptr(), 1, H, W, C, C, 64, 64, 1, 0, stream),
+        "conv3x3_int8": lambda lib: lib.tux_conv3x3_any(
+            x.data_ptr(), wt.data_ptr(), bias.data_ptr(), qs.data_ptr(),
+            out8.data_ptr(), 1, H, W, C, C, 64, 64, 1, 0, stream),
+        "conv_tail5": lambda lib: tail(lib, 5, True),
+        "conv_tail7": lambda lib: tail(lib, 7, False),
     }
 
     def ms(call) -> float:
@@ -229,10 +354,13 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / REPS
 
-    for name, lib in libs.items():
-        kernel, variant = name.split(":")
-        print(json.dumps({"device": smi, "kernel": kernel, "variant": variant,
-                          "ms": ms(lambda: calls[kernel](lib))}), flush=True)
+    for rnd in range(args.rounds):
+        for name, lib in libs.items():
+            kernel, variant = name.split(":")
+            print(json.dumps({"device": smi, "kernel": kernel,
+                              "variant": variant, "round": rnd,
+                              "ms": ms(lambda: calls[kernel](lib))}),
+                  flush=True)
 
 
 if __name__ == "__main__":

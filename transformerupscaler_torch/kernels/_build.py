@@ -34,7 +34,7 @@ SIGNATURES = {
         "tux_conv1": [_P] * 4 + [_I] * 5 + [_P],
     },
     "conv3x3": {
-        "tux_conv3x3_any": [_P] * 4 + [_I] * 9 + [_P],
+        "tux_conv3x3_any": [_P] * 5 + [_I] * 9 + [_P],
         "tux_conv3x3_desc_probe": [_P] * 3 + [_I] * 2 + [_P],
     },
     "conv_int8": {
@@ -42,11 +42,11 @@ SIGNATURES = {
         "tux_tail_conv_int8": [_P] * 5 + [_I] * 9 + [_P],
     },
     "conv_nhwc": {
-        "tux_conv3x3": [_P] * 5 + [_I] * 5 + [_P],
         "tux_tail_conv": [_P] * 4 + [_I] * 9 + [_P],
     },
     "conv_tail": {
         "tux_conv_tail": [_P] * 7 + [_I] * 9 + [_P],
+        "tux_wgmma_kb_probe": [_P] * 3 + [_I] * 2 + [_P],
     },
     "global_mha": {
         "tux_global_mha": [_P] * 4 + [_I] * 4 + [_L] * 2 + [_I, _P],

@@ -13,7 +13,9 @@ kernel's, which differ from ``conv3x3_stream``'s: the kernel and the bias
 are rounded to x's dtype first (conv3x3.py:98, 103-104), the products
 accumulate in f32, the bias adds in f32, then the ReLU, then one rounding
 to x's dtype. No model reaches it (the JAX package kept it as a record; its
-tests call it).
+tests call it). The same kernel serves ``kernels.stream.conv3x3_stream``
+(the serving 64 -> 64 conv, with its own rounding points and an int8
+output), which counts its own launches.
 
 Given CPU tensors the wrapper computes the plain version (any float dtype);
 given CUDA tensors it takes bf16 only, launches the kernel and adds one to
@@ -84,8 +86,8 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor, bias=None,
         bb[:o] = bias.to(torch.bfloat16).float()
     out = torch.empty(b, h, w, o8, dtype=torch.bfloat16, device=x.device)
     err = _build.load("conv3x3").tux_conv3x3_any(
-        xk.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w,
-        c8, c16, o8, o64, int(relu), x.device.index, stream_of(x))
+        xk.data_ptr(), wt.data_ptr(), bb.data_ptr(), None, out.data_ptr(), b,
+        h, w, c8, c16, o8, o64, int(relu), x.device.index, stream_of(x))
     raise_on(err, "conv3x3")
     ARCHIVED_LAUNCHES["conv3x3"] += 1
     return out if o == o8 else out[..., :o].contiguous()

@@ -4,8 +4,9 @@ their plain PyTorch versions (the window trunk is in ``kernels/trunk2.py``).
 =========================  ====================  ================================
 wrapper                    CUDA source           TPU kernel it replaces
 =========================  ====================  ================================
-``conv3x3_stream``         csrc/conv_nhwc.cu     ops/pallas/stream.py:425
-                                                 ``conv3x3_deint_stream``
+``conv3x3_stream``         csrc/conv3x3.cu       ops/pallas/stream.py:425
+                                                 ``conv3x3_deint_stream`` and
+                                                 :82 ``conv3x3_packed_stream``
 ``tail_conv_stream``       csrc/conv_nhwc.cu     ops/pallas/stream.py:777
                                                  ``tail_macro8_stream``
 ``embed_stream``           csrc/patch_gemm.cu    ops/pallas/stream.py:325
@@ -47,6 +48,12 @@ with the conv's output rounded to bf16 and zero outside the image in
 between, exactly as ``conv3x3_stream`` followed by ``tail_conv_stream``
 would hand it over. The bounds at the 720x1280 serving shapes are stated in
 each CUDA source.
+
+``conv3x3_stream`` runs on the archived conv's kernel (``csrc/conv3x3.cu``)
+with the weights as HWIO rows (``conv3x3_weight_rows``) and its bias
+unrounded; the fused conv + tail reads its tail weights as K-major slabs
+(``tail_slabs``). ``tests/test_torch_conv_layouts.py`` holds both layouts
+against the plain versions on the CPU.
 
 The patch kernels also serve two archived TPU kernels that no model reaches,
 through ``embed_launch`` / ``unembed_launch``, which launch without counting:
@@ -142,6 +149,13 @@ def conv3x3_plain(x, kernel, bias=None, relu: bool = False,
     return _conv_plain(x, kernel, bias, relu, x.dtype, out_scale)
 
 
+def conv3x3_weight_rows(kernel: torch.Tensor) -> torch.Tensor:
+    """A (3, 3, C, O) HWIO kernel as the (9 C, O) bf16 rows (dy, dx, c) of
+    outputs that ``csrc/conv3x3.cu`` reads: HWIO as it is, no transpose."""
+    k = kernel.to(torch.bfloat16).contiguous()
+    return k.reshape(9 * k.shape[2], k.shape[3])
+
+
 def conv3x3_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
                    relu: bool = False, out_scale=None) -> torch.Tensor:
     """3x3 zero-padded conv, 64 -> 64 channels.
@@ -163,8 +177,8 @@ def conv3x3_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
     if tuple(kernel.shape) != (3, 3, 64, 64):
         raise ValueError(f"kernel: expected (3, 3, 64, 64), got "
                          f"{tuple(kernel.shape)}")
-    wt = kernel.to(torch.bfloat16).permute(0, 1, 3, 2).contiguous()
-    bb = _bias32(bias, 64, x)
+    wt = conv3x3_weight_rows(kernel)
+    bb = _bias32(bias, 64, x)  # f32, unrounded: the bias adds to the f32 sum
     _check(bb, "bias", torch.float32, (64,))
     qs = None
     if out_scale is not None:
@@ -172,10 +186,10 @@ def conv3x3_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
         out = torch.empty(b, h, w, 64, dtype=torch.int8, device=x.device)
     else:
         out = torch.empty_like(x)
-    err = _build.load("conv_nhwc").tux_conv3x3(
+    err = _build.load("conv3x3").tux_conv3x3_any(
         x.data_ptr(), wt.data_ptr(), bb.data_ptr(),
-        None if qs is None else qs.data_ptr(), out.data_ptr(), b, h, w,
-        int(relu), x.device.index, _stream(x))
+        None if qs is None else qs.data_ptr(), out.data_ptr(), b, h, w, 64,
+        64, 64, 64, int(relu), x.device.index, _stream(x))
     _raise_on(err, "conv3x3_stream")
     LAUNCHES["conv3x3_stream"] += 1
     if qs is not None:
@@ -304,6 +318,20 @@ def conv3x3_tail_plain(x, conv_kernel, conv_bias, tail_kernel,
                                    tail_bias, tail_relu, out_dtype)[0]
 
 
+def tail_slabs(kernel: torch.Tensor, npad: int) -> torch.Tensor:
+    """A (k, k, 64, co) HWIO tail kernel as the K-major slabs that
+    ``csrc/conv_tail.cu`` reads: (npad / 16 x k x k x 16, 64) bf16 rows
+    (group, dx, dy, output) of the 64 input channels, outputs co .. npad - 1
+    zero. For each 16-output group and column shift dx, the k kernel rows
+    (dy) stand side by side as one GEMM's N = 16 k columns."""
+    k, _, cin, co = kernel.shape
+    w = torch.zeros(k, k, cin, npad, dtype=torch.bfloat16,
+                    device=kernel.device)
+    w[..., :co] = kernel.to(torch.bfloat16)
+    return (w.reshape(k, k, cin, npad // 16, 16).permute(3, 1, 0, 4, 2)
+            .reshape(-1, cin).contiguous())
+
+
 def _conv_tail(x, conv_kernel, conv_bias, tail_kernel, tail_bias, tail_relu,
                out_dtype, emit: bool, name: str):
     """Launch the fused conv + tail kernel on CUDA tensors; returns (tail
@@ -322,9 +350,8 @@ def _conv_tail(x, conv_kernel, conv_bias, tail_kernel, tail_bias, tail_relu,
                          f"{tuple(tail_kernel.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype: bfloat16 or float32, got {out_dtype}")
-    wc = conv_kernel.to(torch.bfloat16).permute(0, 1, 3, 2).contiguous()
-    wt = torch.zeros(k, k, npad, 64, dtype=torch.bfloat16, device=x.device)
-    wt[:, :, :co] = tail_kernel.to(torch.bfloat16).permute(0, 1, 3, 2)
+    wc = conv3x3_weight_rows(conv_kernel)
+    wt = tail_slabs(tail_kernel, npad)
     bc, bt = _bias32(conv_bias, 64, x), _bias32(tail_bias, co, x)
     _check(bc, "conv_bias", torch.float32, (64,))
     _check(bt, "tail_bias", torch.float32, (co,))
@@ -381,6 +408,22 @@ def conv3x3_tail_emit_stream(x: torch.Tensor, conv_kernel: torch.Tensor,
                                        out_dtype)
     return _conv_tail(x, conv_kernel, conv_bias, tail_kernel, tail_bias,
                       tail_relu, out_dtype, True, "conv3x3_tail_emit_stream")
+
+
+def wgmma_kb_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The tail GEMM's ``wgmma`` shape alone (``sm90.cuh`` ``wgmma_ss_kb``):
+    a (64, 64) and b (n, 64) bf16 on the card, n in {48, 80, 112}; returns
+    a @ b.T in f32, computed by one warpgroup from 128B-swizzled K-major
+    tiles of both."""
+    n = b.shape[0]
+    _check(a, "a", torch.bfloat16, (64, 64))
+    _check(b, "b", torch.bfloat16, (n, 64))
+    d = torch.empty(64, n, dtype=torch.float32, device=a.device)
+    err = _build.load("conv_tail").tux_wgmma_kb_probe(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), n, a.device.index,
+        _stream(a))
+    _raise_on(err, "wgmma_kb_probe")
+    return d
 
 
 # ------------------------------------------------------------- int8 convs
