@@ -15,13 +15,18 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
    decoder adapters against theirs;
 4. each served route with a fixture at a small geometry against the
    committed JAX outputs (tests/fixtures/torch_port/*.npz), weights rebuilt
-   from the numpy seed; FastTransformer's routes then at x3 and x4 against
-   the same model on the plain versions;
+   from the numpy seed; FastTransformer's bf16 routes then at x3 and x4
+   against the same model on the plain versions; JAX's default engine
+   (``fast_exact``: f32, the exact path) on the whole frame at the f32
+   bounds, TF32 off;
 5. the full slices: UpscalerEngine at full model width with seeded weights,
    serving 720x1280 frames: FastTransformer on the route with the PyTorch
    trunk and the folded tail, then on the route bench.py runs (fused trunk,
    split tail), with its trunk's GEMMs in int8 (``int8_trunk``) and with the
-   v1 trunk (``attn_impl="fused"``); WindowTransformer with the stream conv
+   v1 trunk (``attn_impl="fused"``); FastTransformer as JAX's default
+   engine serves it (``fast_exact``: f32, ``attn_impl="xla"``, no serving
+   flags: the exact ``__call__``, no kernel) and the exact path in bf16 on
+   the fused trunk (``fast_exact_fused2``); WindowTransformer with the stream conv
    and the window-attention kernel, then with the fused trunk (the
    ``--fast`` route) and the v1 trunk; ResidualTransformer on its packed x2
    route and on its exact route at 1080x1920, both on the global attention
@@ -134,6 +139,7 @@ FIXTURES = "tests/fixtures/torch_port/"
 # The int8 routes' fixtures hold their static scales; bound of their
 # interior error against JAX (tests/test_torch_int8_serve.py).
 INT8_LIMIT = (1.5e-2, 2.5e-3)
+F32_TOL = dict(atol=5e-5, rtol=1e-4)
 INT8_TENSORS = ("feat1", "feat", "combined", "dec", "tokens")
 
 
@@ -168,6 +174,17 @@ ROUTES = {
     "fast_fused": dict(
         model="FastTransformer", route=dict(ROUTE_BENCH, attn_impl="fused"),
         res_out=RES_OUT, requests=5, launches=counts("v1", **BENCH_LAUNCHES)),
+    # JAX's default engine: f32, attn_impl="xla", no serving flags, the
+    # exact __call__ in plain PyTorch; its fixture is held on the whole
+    # frame at the f32 bounds of tests/test_parity.py, TF32 off.
+    "fast_exact": dict(
+        model="FastTransformer", route={}, dtype=torch.float32,
+        fixture=FIXTURES + "fast_exact_f32.npz", fixture_tol=F32_TOL,
+        res_out=RES_OUT, requests=3, launches=counts()),
+    # The exact path with the fused trunk in bf16: one trunk launch a frame.
+    "fast_exact_fused2": dict(
+        model="FastTransformer", route=dict(attn_impl="fused2"),
+        res_out=RES_OUT, requests=3, launches=counts("v2")),
     "window_pallas": dict(
         model="WindowTransformer",
         route=dict(pallas_serve=True, attn_impl="pallas"),
@@ -1102,7 +1119,8 @@ def trunk_case(rn, name, model_name, route, mode, replaces, on) -> dict:
     down = 8 if model_name == "FastTransformer" else 16
     ht, wt = FRAME_HW[0] // down, FRAME_HW[1] // down
     n_win = -(-ht // 8) * -(-wt // 8)
-    layers, _, tokens, dim = params["wpack"].shape
+    layers, dim = params["vpack"].shape[0], params["fc1w"].shape[1]
+    tokens = T.TOKENS
     wkey, skey, ikey = T.PACKS[mode]
     win = rn(n_win, tokens, dim).bfloat16()
     if mode == "int8_static":
@@ -1222,14 +1240,43 @@ def phase_fixture(name: str) -> None:
             config["int8_scales"] = tuple(tuple(f[f"scale_{n}"].tolist())
                                           for n in INT8_TENSORS)
     limit = INT8_LIMIT if "int8_scales" in config else LIMIT
-    model = get_model(spec["model"], dtype=torch.bfloat16, **spec["route"],
-                      **config)
+    model = get_model(spec["model"], dtype=spec.get("dtype", torch.bfloat16),
+                      **spec["route"], **config)
     params_from_jax(model, seeded_params(model, seed))
     with route_env(spec.get("env", {})):
         _fixture_checks(name, spec, model, x, want, res_out, limit)
 
 
+@contextlib.contextmanager
+def no_tf32():
+    """f32 convolutions and matrix products in full f32 (cuDNN's default is
+    TF32), as the f32 reference computes them."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def _fixture_checks(name, spec, model, x, want, res_out, limit) -> None:
+    tol = spec.get("fixture_tol")
+    if tol is not None:  # f32: the whole frame, border included
+        with no_tf32():
+            got = model(torch.from_numpy(x).cuda(), res_out=res_out).cpu()
+        err = np.abs(got.numpy() - want)
+        excess = float((err - tol["rtol"] * np.abs(want)).max())
+        say("fixture", route=name, shape=list(got.shape),
+            max_abs=float(err.max()), mean_abs=float(err.mean()),
+            tolerance=f"whole frame |got - want| <= {tol['atol']} + "
+                      f"{tol['rtol']} |want|, TF32 off")
+        if got.shape != want.shape or excess > tol["atol"]:
+            raise AssertionError(f"{name}: the port on the card disagrees "
+                                 f"with the JAX fixture")
+        return
     got = model(torch.from_numpy(x).cuda(), res_out=res_out).float().cpu()
     emax, emean = interior_err(got.numpy(), want, 4)
     say("fixture", route=name, shape=list(got.shape), max_abs=emax,
@@ -1265,8 +1312,9 @@ def _serve(name: str) -> dict:
 
     spec = ROUTES[name]
     res_out = spec["res_out"]
-    engine = UpscalerEngine(spec["model"], dtype=torch.bfloat16, seed=0,
-                            **spec["route"])
+    engine = UpscalerEngine(spec["model"], dtype=spec.get("dtype",
+                                                          torch.bfloat16),
+                            seed=0, **spec["route"])
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (*FRAME_HW, 3), np.uint8)
               for _ in range(spec["requests"])]
@@ -1311,7 +1359,8 @@ def _serve(name: str) -> dict:
         plain = engine.upscale(frames[0], res_out=res_out)
     emax, emean = interior_err(out, plain, 8)
     med = float(np.median(request_ms))
-    say("slice", route=name, model=spec["model"], flags=spec["route"],
+    say("slice", route=name, model=spec["model"], dtype=str(engine.dtype),
+        flags=spec["route"],
         env=spec.get("env", {}),
         res_out=list(res_out), frames=len(frames),
         request_ms_median=med, request_ms_min=min(request_ms),

@@ -94,22 +94,42 @@ def test_fused_trunk_plain_matches_pallas(rng, dtype):
 
 def test_stack_trunk_params_casts_and_packs(rng):
     """Every stacked parameter takes the compute dtype except the f32
-    relative bias; the slabs of ``wpack`` are the transposed GEMM weights in
-    the order the kernel consumes them."""
+    relative bias and its tables; the slabs of ``wpack`` are the transposed
+    GEMM weights in the order the kernel consumes them: per head group of
+    64 channels k, v, q chunks of 64 outputs (C/64 tiles [64 outputs][64
+    inputs]) and proj's rows of those channels [C outputs][64 inputs], then
+    per hidden chunk of 64 fc1's chunk and fc2's rows."""
     trunk, _ = _trunk(2, 3)
     p = T.stack_trunk_params(trunk.blocks, torch.bfloat16)
-    assert p["bias"].dtype == torch.float32
+    assert p["bias"].dtype == p["tables"].dtype == torch.float32
     assert p["bias"].shape == (2, HEADS, 64, 64)
     assert all(v.dtype == torch.bfloat16 for k, v in p.items()
-               if k not in ("bias", "heads"))
-    assert p["wpack"].shape == (2, 36, 64, 192) and p["vpack"].shape == (2, 2496)
+               if k not in ("bias", "tables", "heads"))
+    # The relative-position tables the bf16 kernel reads, from which the
+    # gathered bias comes: bias[h, 8 yi + xi, 8 yj + xj] =
+    # tables[h, (yi - yj + 7) * 15 + xi - xj + 7].
+    assert p["tables"].shape == (2, HEADS, 225)
+    torch.testing.assert_close(p["bias"][1, :, 8 * 3 + 5, 8 * 6 + 0],
+                               p["tables"][1, :, (3 - 6 + 7) * 15 + 5 + 7])
+    assert p["wpack"].shape == (2, 36, 192, 64) and p["vpack"].shape == (2, 2496)
     w = p["wpack"]
-    torch.testing.assert_close(w[1, 2], p["qkvw"][1, :, 128:192].T)
-    torch.testing.assert_close(w[0, 9 + 1], p["projw"][0, :, 64:128].T)
-    torch.testing.assert_close(w[1, 12 + 11], p["fc1w"][1, :, 704:768].T)
-    # fc2: output chunk 2 (columns 128..191), input chunk 3 (rows 576..767).
-    torch.testing.assert_close(w[0, 24 + 2 * 4 + 3],
-                               p["fc2w"][0, 576:768, 128:192].T)
+
+    def tiles(m, o0):  # outputs o0..o0+63 of m (192, out) as (3, 64, 64)
+        return m[:, o0:o0 + 64].reshape(3, 64, 64).transpose(1, 2)
+
+    # Head group 1: k (columns 256..319), v (448..511), q (64..127), proj.
+    torch.testing.assert_close(w[1, 4].reshape(3, 64, 64),
+                               tiles(p["qkvw"][1], 256))
+    torch.testing.assert_close(w[0, 5].reshape(3, 64, 64),
+                               tiles(p["qkvw"][0], 448))
+    torch.testing.assert_close(w[1, 6].reshape(3, 64, 64),
+                               tiles(p["qkvw"][1], 64))
+    torch.testing.assert_close(w[0, 7], p["projw"][0, 64:128, :].T)
+    # Hidden chunk 11: fc1 columns 704..767, fc2 rows 704..767.
+    torch.testing.assert_close(w[1, 12 + 2 * 11].reshape(3, 64, 64),
+                               tiles(p["fc1w"][1], 704))
+    torch.testing.assert_close(w[0, 12 + 2 * 11 + 1],
+                               p["fc2w"][0, 704:768, :].T)
     torch.testing.assert_close(p["vpack"][1, 384:960], p["qkvb"][1])
     torch.testing.assert_close(p["vpack"][0, 2304:], p["fc2b"][0])
     small = [WindowBlock(32, WS, 2)]

@@ -140,14 +140,19 @@ def test_window_trunk_kernel_matches_plain(gen, n_win, layers):
 
 TRUNK_MODES = [(128, "v2"), (128, "v1"), (192, "v1"), (192, "int8_rowwise"),
                (192, "int8_static")]
+# The bf16 modes also where the kernel's windows a block change (one a
+# block up to the SM count, then two) and where a block's second window is
+# past the end (121, 241), 192 / v2 among them.
+TRUNK_CASES = [(d, m, n) for d, m in TRUNK_MODES for n in (1, 3, 61)] + [
+    (d, m, n) for d, m in [(128, "v2"), (128, "v1"), (192, "v1"),
+                           (192, "v2")] for n in (121, 240, 241)]
 
 
-@pytest.mark.parametrize("n_win", [1, 3, 61])
-@pytest.mark.parametrize("dim,mode", TRUNK_MODES,
-                         ids=[f"{d}-{m}" for d, m in TRUNK_MODES])
+@pytest.mark.parametrize("dim,mode,n_win", TRUNK_CASES,
+                         ids=[f"{d}-{m}-{n}" for d, m, n in TRUNK_CASES])
 def test_window_trunk_modes_match_plain(gen, dim, mode, n_win):
-    """Every width and mode the kernel takes besides 192 / v2, two layers.
-    bf16 modes: the bound above. int8: a GEMM input one bf16 step apart can
+    """Every width and mode the kernel takes, two layers (192 / v2 at one
+    to 61 windows: the test above). bf16 modes: the bound above. int8: a GEMM input one bf16 step apart can
     round to the neighbouring int8 value, which moves its row's product by
     one quantization step and, through attention, the window's other tokens
     (tests/test_torch_int8_trunk.py, against JAX): max abs <= 0.25, mean

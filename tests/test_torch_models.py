@@ -1,9 +1,9 @@
 """WindowTransformer, ResidualTransformer and BicubicInterpolation of the port
 against the JAX models on the CPU: the exact paths and every served route at
 small geometries (f32: tests/test_parity.py's atol=5e-5, rtol=1e-4; bf16
-bounds stated at the tests), the reference's golden outputs
-(tests/golden/window_*.npz, residual_default.npz), and the committed trained
-checkpoints carried across with ``params_from_jax``.
+bounds stated at the tests), the reference's golden outputs of all three
+trained models (tests/golden/*.npz), and the committed trained checkpoints
+carried across with ``params_from_jax``.
 
 Where a JAX route reaches a Pallas kernel it runs in interpret mode, as the
 JAX package's own tests run it; the port's wrappers compute their plain
@@ -182,10 +182,16 @@ def _load_golden(name):
 @pytest.mark.parametrize("case,name", [
     ("window_resout", "WindowTransformer"),
     ("window_odd", "WindowTransformer"),
-    ("residual_default", "ResidualTransformer")])
+    ("residual_default", "ResidualTransformer"),
+    ("fast_resout_nosquash", "FastTransformer"),
+    ("fast_resout_squash", "FastTransformer"),
+    ("fast_upscale3", "FastTransformer"),
+    ("fast_upscale6", "FastTransformer")])
 def test_golden_parity(case, name):
     """The reference PyTorch models' own outputs: the state_dict goes through
-    the JAX package's converter and ``params_from_jax`` into the port."""
+    the JAX package's converter and ``params_from_jax`` into the port.
+    FastTransformer's goldens (base_channels 8) take its default fields, the
+    exact path, as tests/test_parity.py runs them in JAX."""
     sd, x_nchw, y_nchw, meta = _load_golden(case)
     model = get_model(name, device="cpu", **meta["config"])
     params_from_jax(model, convert_state_dict(sd, name))

@@ -106,7 +106,11 @@ def test_params_from_jax_round_trip():
 def test_other_routes_and_geometries_raise():
     """The fused trunks build for both window models and the ``--fast``
     flag set for all four, FastTransformer also with ``int8_serve``;
-    int8_mlp, other tails and other geometries raise."""
+    int8_mlp raises. FastTransformer routes as JAX does: without the serve
+    flags (``pallas_serve=False``, ``compose_tails=False``) it builds and
+    serves the exact path, at x6 and outside the gate (12x32) too; with
+    them x6 raises, as does ``packed_serve`` without ``pallas_serve`` (JAX's
+    all-XLA packed path), and 12x32 falls through to the exact path."""
     for name, flags in (("FastTransformer", dict(attn_impl="fused")),
                         ("FastTransformer", FAST_FLAGS),
                         ("FastTransformer", {**FAST_FLAGS,
@@ -123,11 +127,17 @@ def test_other_routes_and_geometries_raise():
             flags["attn_impl"]
         assert getattr(m, "int8_trunk", False) == flags.get("int8_trunk",
                                                             False)
-    for flags, field in ((dict(int8_mlp=True), "int8_mlp"),
-                         (dict(pallas_serve=False), "pallas_serve"),
-                         (dict(compose_tails=False), "compose_tails")):
-        with pytest.raises(NotImplementedError, match=field):
-            get_model("FastTransformer", device="cpu", **flags)
+    with pytest.raises(NotImplementedError, match="int8_mlp"):
+        get_model("FastTransformer", device="cpu", int8_mlp=True)
+    x = torch.rand(1, 16, 32, 3, generator=torch.Generator().manual_seed(0))
+    for flags in (dict(pallas_serve=False), dict(compose_tails=False)):
+        m = get_model("FastTransformer", device="cpu", **flags, **SMALL)
+        assert not m.pallas_serve and not m.compose_tails
+        assert m(x, upscale_factor=2).shape == (1, 32, 64, 3)
+    packed = get_model("FastTransformer", device="cpu", compose_tails=True,
+                       packed_serve=True, **SMALL)
+    with pytest.raises(NotImplementedError, match="pallas_serve"):
+        packed(x, upscale_factor=2)
     for route in (dict(attn_impl="fused2"), dict(split_tail=True),
                   dict(attn_impl="xla", split_tail=False, hi_lo_fin="wf"),
                   dict(attn_impl="fused2", conv1_stream=True)):
@@ -137,12 +147,16 @@ def test_other_routes_and_geometries_raise():
         get_model("SwinIR", device="cpu")
     with pytest.raises(NotImplementedError, match="int8_mlp"):
         get_model("WindowTransformer", device="cpu", int8_mlp=True)
-    engine = UpscalerEngine(device="cpu", **SMALL)
     img = np.zeros((16, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError):
-        engine.upscale(img, upscale_factor=6)
-    with pytest.raises(NotImplementedError):
-        engine.upscale(np.zeros((12, 32, 3), np.uint8), upscale_factor=2)
+    odd = np.zeros((12, 32, 3), np.uint8)
+    engine = UpscalerEngine(device="cpu", **SMALL)
+    assert engine.upscale(img, upscale_factor=6).shape == (96, 192, 3)
+    assert engine.upscale(odd, upscale_factor=2).shape == (24, 64, 3)
+    served = UpscalerEngine(device="cpu", compose_tails=True,
+                            pallas_serve=True, **SMALL)
+    with pytest.raises(NotImplementedError, match="x6"):
+        served.upscale(img, upscale_factor=6)
+    assert served.upscale(odd, upscale_factor=2).shape == (24, 64, 3)
 
 
 def _jax_engine_keywords() -> list[str]:
@@ -158,8 +172,9 @@ def _jax_engine_keywords() -> list[str]:
     raise AssertionError("no self._model_kwargs in the JAX engine")
 
 
-# The JAX defaults of FastTransformer's serving fields that the port serves
-# at no other value (fast_transformer.py:51, 102, 138, 163, 169).
+# The JAX defaults of FastTransformer's serving fields: fix_ratio_bug
+# (fast_transformer.py:51), served either way, and those the port serves at
+# no other value (:102, 138, 163, 169).
 FIXED_DEFAULTS = dict(fix_ratio_bug=False, int8_weights=None,
                       quality_parts="tails", f32_tail=False, fold_pre=True)
 
@@ -186,16 +201,16 @@ def test_jax_engine_keyword_set_builds_every_model():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fix_ratio_bug", True), ("int8_weights", ()),
+    ("serve_quality", True), ("int8_weights", ()),
     ("quality_parts", "conv1,tails"), ("f32_tail", True),
     ("fold_pre", False)])
 def test_fixed_fields_raise_not_implemented_off_their_default(field, value):
     with pytest.raises(NotImplementedError, match=field):
-        get_model("FastTransformer", device="cpu", **FAST_FLAGS,
-                  **{field: value}, **SMALL)
+        get_model("FastTransformer", device="cpu",
+                  **{**FAST_FLAGS, field: value}, **SMALL)
     # The other models drop the field, as the JAX registry does.
-    get_model("WindowTransformer", device="cpu", **FAST_FLAGS,
-              **{field: value})
+    get_model("WindowTransformer", device="cpu",
+              **{**FAST_FLAGS, field: value})
 
 
 def test_engine_upscale_contract():

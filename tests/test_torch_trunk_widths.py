@@ -121,21 +121,31 @@ def test_v1_and_v2_differ_only_in_rounding():
 
 
 def test_stack_trunk_params_packs_c128():
-    """At C=128 a layer is 24 slabs of [64 outputs][128 inputs]: qkv 6,
-    proj 2, fc1 8, fc2 as 2 output chunks x 4 input chunks; vpack 13 x 128.
-    No int8 packs at this width: the kernel's int8 mode is C=192's."""
+    """At C=128 a layer is 24 slabs of 128 rows x 64: per head group (two
+    of 4 heads) k, v, q chunks and proj's rows, per hidden chunk (8) fc1's
+    chunk and fc2's rows; vpack 13 x 128. No int8 packs at this width: the
+    kernel's int8 mode is C=192's."""
     trunk, _, _ = _case(128)
     p = T.stack_trunk_params(trunk.blocks, torch.bfloat16, int8_rowwise=True)
-    assert p["wpack"].shape == (2, 24, 64, 128)
+    assert p["wpack"].shape == (2, 24, 128, 64)
     assert p["vpack"].shape == (2, 13 * 128)
     assert p["bias"].shape == (2, 8, 64, 64)
     w = p["wpack"]
-    torch.testing.assert_close(w[1, 5], p["qkvw"][1, :, 320:384].T)
-    torch.testing.assert_close(w[0, 6 + 1], p["projw"][0, :, 64:128].T)
-    torch.testing.assert_close(w[1, 8 + 7], p["fc1w"][1, :, 448:512].T)
-    # fc2: output chunk 1 (columns 64..127), input chunk 2 (rows 256..383).
-    torch.testing.assert_close(w[0, 16 + 1 * 4 + 2],
-                               p["fc2w"][0, 256:384, 64:128].T)
+
+    def tiles(m, o0):  # outputs o0..o0+63 of m (128, out) as (2, 64, 64)
+        return m[:, o0:o0 + 64].reshape(2, 64, 64).transpose(1, 2)
+
+    # Head group 1: v (columns 320..383), q (64..127), proj's rows 64..127.
+    torch.testing.assert_close(w[1, 5].reshape(2, 64, 64),
+                               tiles(p["qkvw"][1], 320))
+    torch.testing.assert_close(w[0, 6].reshape(2, 64, 64),
+                               tiles(p["qkvw"][0], 64))
+    torch.testing.assert_close(w[0, 7], p["projw"][0, 64:128, :].T)
+    # Hidden chunk 7: fc1 columns 448..511, fc2 rows 448..511.
+    torch.testing.assert_close(w[1, 8 + 2 * 7].reshape(2, 64, 64),
+                               tiles(p["fc1w"][1], 448))
+    torch.testing.assert_close(w[0, 8 + 2 * 7 + 1],
+                               p["fc2w"][0, 448:512, :].T)
     torch.testing.assert_close(p["vpack"][1, 1536:], p["fc2b"][1])
     assert "wpack_i8" not in p and p["fc2w_q"].dtype == torch.int8
 

@@ -27,7 +27,8 @@ class UpscalerEngine:
 
     ``config`` takes the model's fields and the JAX route flags
     (``registry.get_model``); ``int8_serve`` implies ``compose_tails``, as
-    in JAX."""
+    in JAX. Built with no flags, the engine serves JAX's default route:
+    FastTransformer's exact path at f32 with ``attn_impl="xla"``."""
 
     def __init__(self, model_name: str = "FastTransformer", params=None,
                  dtype=torch.float32, device=None, seed: int = 0, **config):

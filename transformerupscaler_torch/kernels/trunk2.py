@@ -16,8 +16,11 @@ wrapper                CUDA source            TPU kernels it replaces
 
 The first TPU function has five kernel bodies (trunk2.py:51, :105, :255,
 :335, :432) that tile the same arithmetic in five ways for the MXU; one CUDA
-kernel answers for all of them, and for trunk.py's, at widths 128 (8 heads)
-and 192 (12 heads). The rounding points, with ``dt`` the activations' dtype
+source answers for all of them, and for trunk.py's, at widths 128 (8 heads)
+and 192 (12 heads): the bf16 modes ("v2", "v1") on TMA and ``wgmma``, two
+windows a block sharing every weight slab (``wpack``); the int8 modes on
+``mma.sync`` with a ``cp.async`` ring of int8 slabs (``wpack_i8``,
+``wpack_i8s``). The rounding points, with ``dt`` the activations' dtype
 (bf16 on the card), are those of ``_trunk2_pair_kernel`` (trunk2.py:187-252)
 and the plain versions have the same ones:
 
@@ -77,6 +80,7 @@ from transformerupscaler_torch.ops.relpos import gather_relative_bias
 # hidden 4 x dim; per width the modes it takes (by their index in
 # TRUNK_MODES, which is the kernel's mode argument).
 TOKENS, HEAD_DIM, SLAB_N = 64, 16, 64
+TABLE = 225  # relative offsets of an 8 x 8 window
 KERNEL_MODES = {128: ("v2", "v1"), 192: TRUNK_MODES}
 GEMMS = ("qkvw", "projw", "fc1w", "fc2w")
 EPS = 1e-5
@@ -93,17 +97,19 @@ def stack_trunk_params(blocks, dtype,
     (L, C, 3C), ``projw`` (L, C, C), ``fc1w`` (L, C, H), ``fc2w`` (L, H, C)
     as (in, out); ``bias`` (L, heads, n, n) f32; ``heads``. At the widths
     the CUDA kernel takes, also its two packed operands: ``wpack``
-    (L, 12C/64, 64, C), each layer's GEMM weights cut into the slabs
-    [64 outputs][C inputs] that the kernel streams, in the order it
-    consumes them (qkv 3C/64, proj C/64, fc1 4C/64, then fc2 as C/64 output
-    chunks x 4 input chunks), and ``vpack`` (L, 13C): ln1s, ln1b, qkvb,
-    projb, ln2s, ln2b, fc1b, fc2b side by side.
+    (L, 12C/64, C, 64), each layer's GEMM weights cut into the slabs of
+    C rows x 64 that the bf16 kernel streams by TMA, in the order it
+    consumes them (``_pack_slabs``), ``vpack`` (L, 13C): ln1s, ln1b,
+    qkvb, projb, ln2s, ln2b, fc1b, fc2b side by side, and ``tables``
+    (L, heads, 225) f32, each head's relative-position table, from which
+    the bf16 kernel reads ``bias`` (the int8 kernel reads ``bias``).
 
     ``int8_rowwise`` adds the rowwise mode's weights, quantized from the
     ``dtype`` values (``ops.quant.rowwise_weights``): ``<gemm>_q`` int8
     (in, out) and ``<gemm>_sw`` f32 (L, out) for each of the four GEMMs and,
-    where the kernel takes the mode, ``wpack_i8`` (``wpack`` of the int8
-    weights) and ``swpack`` (L, 9C), the four scales side by side. The
+    where the kernel takes the mode, ``wpack_i8`` (L, 12C/64, 64, C), the
+    int8 weights as the int8 kernel's slabs (``_pack``), and ``swpack``
+    (L, 9C), the four scales side by side. The
     static mode's weights depend on its scales: ``add_static_int8`` adds
     them to the stacked parameters.
     """
@@ -135,19 +141,49 @@ def stack_trunk_params(blocks, dtype,
     _, c, hidden = p["fc1w"].shape
     if (ws * ws, c // HEAD_DIM, hidden) == (TOKENS, p["heads"], 4 * c) \
             and c in KERNEL_MODES:
-        p["wpack"] = _pack(p, "")
+        p["wpack"] = _pack_slabs(p)
         p["vpack"] = torch.cat([p[k] for k in (
             "ln1s", "ln1b", "qkvb", "projb", "ln2s", "ln2b", "fc1b",
             "fc2b")], dim=1).contiguous()
+        p["tables"] = torch.stack([b.attn.bias_table.float().t()
+                                   for b in blocks]).contiguous()
         if int8_rowwise and "int8_rowwise" in KERNEL_MODES[c]:
             p["wpack_i8"] = _pack(p, "_q")
             p["swpack"] = _side_by_side(p, "_sw")
     return p
 
 
+def _pack_slabs(p):
+    """The four GEMMs' bf16 weights (L, in, out) as the bf16 kernel's
+    slabs (L, 12C/64, C, 64), rows of 64 inputs, in the order it consumes
+    them: per head group of 64 channels, the k, v and q output chunks of 64
+    (each C/64 tiles [64 outputs][64 inputs], the inputs in order), then
+    proj's rows of those 64 inputs as [C outputs][64 inputs]; per hidden
+    chunk of 64, fc1's output chunk, then fc2's rows of those inputs."""
+    layers, c = p["qkvw"].shape[:2]
+
+    def chunk(w, o0):  # outputs o0..o0+63 -> (L, C/64 x 64, 64)
+        t = w[:, :, o0:o0 + 64].reshape(layers, c // 64, 64, 64)
+        return t.transpose(2, 3).reshape(layers, c, 64)
+
+    def rows(w, i0):  # inputs i0..i0+63 -> (L, C, 64)
+        return w[:, i0:i0 + 64, :].transpose(1, 2)
+
+    qkv, proj, fc1, fc2 = (p[k] for k in GEMMS)
+    slabs = []
+    for i0 in range(0, c, 64):
+        slabs += [chunk(qkv, c + i0), chunk(qkv, 2 * c + i0),
+                  chunk(qkv, i0), rows(proj, i0)]
+    for i0 in range(0, 4 * c, 64):
+        slabs += [chunk(fc1, i0), rows(fc2, i0)]
+    return torch.stack(slabs, dim=1).contiguous()
+
+
 def _pack(p, suffix):
-    """The four GEMMs' weights ``<gemm><suffix>`` (L, in, out) as the
-    kernel's slabs (L, 12C/64, 64, C)."""
+    """The four GEMMs' int8 weights ``<gemm><suffix>`` (L, in, out) as the
+    int8 kernel's slabs (L, 12C/64, 64, C): [64 outputs][C inputs] in the
+    order it consumes them (qkv 3C/64, proj C/64, fc1 4C/64, then fc2 as
+    C/64 output chunks x 4 input chunks)."""
     layers, c = p["qkvw"].shape[:2]
 
     def slabs(w):  # (L, in, out) -> (L, out/64 * in/C, 64, C)
@@ -171,7 +207,7 @@ def add_static_int8(p: dict, scales) -> dict:
     (``ops.quant.static_gemm_weights``): ``<gemm>_sq`` int8 (in, out),
     ``<gemm>_ssw`` f32 (L, out) and ``<gemm>_ia`` f32 (L, in) and, where
     the kernel takes the mode, ``wpack_i8s`` (the slabs of the static int8
-    weights, in ``wpack``'s order), ``swpack_s`` (L, 9C) and ``iapack``
+    weights, in ``wpack_i8``'s order), ``swpack_s`` (L, 9C) and ``iapack``
     (L, 7C), the four inverse activation scales side by side; and
     ``int8_acts``, the ``scales`` object itself, by which
     ``models.common.run_window_trunk`` knows the pack was folded for it."""
@@ -298,12 +334,16 @@ def fused_window_trunk(win: torch.Tensor, params: dict,
             + ("" if wkey in params else f" without {wkey!r}"))
     layers = params["wpack"].shape[0]
     check(win, "win", torch.bfloat16, (nw, TOKENS, c))
-    check(params[wkey], wkey,
-          torch.bfloat16 if skey is None else torch.int8,
-          (layers, 12 * c // SLAB_N, SLAB_N, c))
+    slabs = (layers, 12 * c // SLAB_N)
+    check(params[wkey], wkey, torch.bfloat16 if skey is None else torch.int8,
+          slabs + ((c, SLAB_N) if skey is None else (SLAB_N, c)))
     check(params["vpack"], "vpack", torch.bfloat16, (layers, 13 * c))
-    check(params["bias"], "bias", torch.float32,
-          (layers, c // HEAD_DIM, TOKENS, TOKENS))
+    # The bf16 kernel reads each head's relative-position table, the int8
+    # kernel the gathered bias.
+    bkey = "tables" if skey is None else "bias"
+    check(params[bkey], bkey, torch.float32,
+          (layers, c // HEAD_DIM) + ((TABLE,) if skey is None
+                                     else (TOKENS, TOKENS)))
     sw = ia = 0
     if skey is not None:
         check(params[skey], skey, torch.float32, (layers, 9 * c))
@@ -314,7 +354,7 @@ def fused_window_trunk(win: torch.Tensor, params: dict,
     out = torch.empty_like(win)
     err = _build.load("window_trunk").tux_window_trunk(
         win.data_ptr(), params[wkey].data_ptr(), params["vpack"].data_ptr(),
-        params["bias"].data_ptr(), sw, ia, out.data_ptr(), nw, layers, c,
+        params[bkey].data_ptr(), sw, ia, out.data_ptr(), nw, layers, c,
         TRUNK_MODES.index(mode), win.device.index, stream_of(win))
     raise_on(err, "fused_window_trunk")
     LAUNCHES["fused_window_trunk"] += 1

@@ -2,9 +2,28 @@
 over full-resolution 8x8 patch tokens.
 
 JAX counterpart: transformerupscaler_tpu models/fast_transformer.py:38-226
-(parameters) and the serving forward ``_packed_forward`` (:333-961) with
-``compose_tails=True, pallas_serve=True``. At a supported geometry that
-forward runs:
+(parameters and fields, at the same defaults), ``__call__`` (:228-330) and
+the serving forward ``_packed_forward`` (:333-961). ``forward`` routes as
+``__call__`` does (:236-242): with ``compose_tails`` and one of
+``packed_serve``, ``int8_serve`` or ``pallas_serve``, at scale 2, 3, 4 or 6
+with h % 8 == 0 and w % 16 == 0, the serving forward; everything else, the
+default fields included, the exact path.
+
+The exact path (fast_transformer.py:244-330) runs in plain PyTorch but for
+the trunk: conv1 and conv2, the features reflect-padded to the patch size,
+branch A through ``up1`` (its RGB tail commuted through the last shuffle,
+composed into the last stage under ``compose_tails``), the patch embed, the
+window trunk by ``attn_impl`` (``models.common.run_window_trunk``: "fused2"
+and "fused" on ``kernels.trunk2.fused_window_trunk``, "fused2" with
+``int8_trunk`` in its mode "int8_rowwise"), the patch unembed cropped to the
+features, the skip add, the decoder convs (decoder_conv2 folded into
+``final_upscale``'s first stage under ``compose_tails``), the branch add and
+the squash or shuffle, clipped.
+
+The serving forward is ``_packed_forward`` with ``pallas_serve=True`` (JAX's
+all-XLA packed path, ``pallas_serve=False``, and x6, whose direct tails run
+other kernels, raise ``NotImplementedError``; its stream kernels take 64
+feature channels and 8x8 patches). At a supported geometry it runs:
 
   conv1 3->64 + ReLU              ops.conv.conv2d (PyTorch conv); with
                                     ``conv1_stream``: kernels.stream
@@ -72,8 +91,9 @@ JAX's int8 tail is the XLA ``conv2d_tail_packed_int8`` unless
 function, which the port serves with the one int8 tail kernel, so the
 switch is not carried.
 
-Two environment switches are read at forward time, as JAX reads them at
-trace time (fast_transformer.py:514-520, 581-595, 702-706, 780-789):
+Two environment switches are read at forward time on the serving forward,
+as JAX reads them at trace time (fast_transformer.py:514-520, 581-595,
+702-706, 780-789):
 
 - ``TUX_FUSE_STREAM``, on only when it is "1": conv2 and the branch-A tail
   run as one kernel that also emits conv2's output (``fuse_enc``: not under
@@ -88,13 +108,11 @@ trace time (fast_transformer.py:514-520, 581-595, 702-706, 780-789):
   applies where JAX's deinterleaved conv1 runs: not under the "full" scope
   and not under the fused encoder.
 
-The JAX package's other ``TUX_*`` switches are not carried, nor its
-serving fields other than those above at values other than their defaults
+``fix_ratio_bug`` (fast_transformer.py:51, 300, 434) compares ``res_out``
+with the output extent instead of the reference's (H, H) on both paths. The
+JAX package's other ``TUX_*`` switches are not carried, nor its serving
+fields other than those above at values other than their defaults
 (``registry.FIXED_ROUTE``).
-
-Other geometries (outside scale 2/3/4 with h % 8 == 0 and w % 16 == 0, where
-the JAX model takes its exact path, and x6, whose tails run other kernels)
-raise ``NotImplementedError``: they are later slices of the port.
 """
 
 from __future__ import annotations
@@ -128,9 +146,11 @@ from transformerupscaler_torch.models.common import (
 from transformerupscaler_torch.models.upsampler import (
     Upsampler,
     composed_tail_kernel,
+    last_shuffle_factor,
     split_tail_kernels,
 )
 from transformerupscaler_torch.ops.conv import conv2d
+from transformerupscaler_torch.ops.patch import patch_embed, patch_unembed
 from transformerupscaler_torch.ops.pixel_shuffle import pixel_shuffle
 from transformerupscaler_torch.ops.quant import (
     act_scale,
@@ -139,6 +159,9 @@ from transformerupscaler_torch.ops.quant import (
 )
 from transformerupscaler_torch.ops.resize import resize_shuffled
 
+# The serving forward's gate (fast_transformer.py:238-240) and the scales
+# the port serves there.
+GATE_SCALES = (2, 3, 4, 6)
 SERVE_SCALES = (2, 3, 4)
 INT8_SCOPES = ("full", "residual", "tails")
 # The int8 activations in the order of ``int8_scales``.
@@ -161,7 +184,10 @@ class FastTransformer(FusedTrunk, nn.Module):
     split tail's finish rounds, None (= "off"), "off", "wf" or "full";
     ``int8_serve``, ``int8_scope`` ("full", "residual" or "tails") and
     ``int8_scales`` (None or five tuples): the int8 serving scopes;
-    ``conv1_stream``: None (off), False or True, conv1 on its kernel."""
+    ``conv1_stream``: None (off), False or True, conv1 on its kernel;
+    ``compose_tails``, ``pallas_serve``, ``packed_serve``: the serving
+    forward's gate (module docstring); ``fix_ratio_bug``: the squash
+    compares res_out with the output extent. All at the JAX defaults."""
 
     def __init__(self, in_channels: int = 3, base_channels: int = 64,
                  transformer_dim: int = 192, num_window_blocks: int = 6,
@@ -172,12 +198,11 @@ class FastTransformer(FusedTrunk, nn.Module):
                  hi_lo_fin: str | None = None, int8_trunk: bool = False,
                  int8_serve: bool = False, int8_scope: str = "full",
                  int8_scales: tuple | None = None,
-                 conv1_stream: bool | None = None):
+                 conv1_stream: bool | None = None,
+                 compose_tails: bool = False, pallas_serve: bool = False,
+                 packed_serve: bool = False, fix_ratio_bug: bool = False):
         super().__init__()
         bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
-        if bc != 64 or ps != 8:
-            raise NotImplementedError("the serving kernels take 64 channels "
-                                      "and 8x8 patches")
         if attn_impl not in TRUNK_IMPLS:
             raise ValueError(f"attn_impl: one of {TRUNK_IMPLS}, got "
                              f"{attn_impl!r}")
@@ -193,9 +218,14 @@ class FastTransformer(FusedTrunk, nn.Module):
         if int8_scales is not None and len(int8_scales) != len(INT8_TENSORS):
             raise ValueError(f"int8_scales: one tuple for each of "
                              f"{INT8_TENSORS}")
+        self.base_channels = bc
         self.window_size = window_size
         self.patch_size = ps
         self.dtype = dtype
+        self.compose_tails = compose_tails
+        self.pallas_serve = pallas_serve
+        self.packed_serve = packed_serve
+        self.fix_ratio_bug = fix_ratio_bug
         self.attn_impl = attn_impl
         self.int8_trunk = int8_trunk
         self.split_tail = split_tail
@@ -312,28 +342,88 @@ class FastTransformer(FusedTrunk, nn.Module):
             self._int8[key] = fold_conv_kernel(kernel, s)
         return self._int8[key]
 
+    def _squash(self, out_hw, res_out, require_ratio: bool) -> bool:
+        """Whether the output is resized to ``res_out``. The reference
+        compares res_out with (H, H) (model.py:323), kept as the JAX model
+        keeps it unless ``fix_ratio_bug``; an exact multiple is an identity
+        resize and is skipped (fast_transformer.py:296-305, 434-439)."""
+        compare = out_hw if self.fix_ratio_bug else (out_hw[0], out_hw[0])
+        return (require_ratio and tuple(res_out) != compare
+                and tuple(res_out) != out_hw)
+
     @torch.inference_mode()
     def forward(self, x: torch.Tensor, res_out=(1080, 1920),
                 upscale_factor: int | None = None,
                 require_ratio: bool = True) -> torch.Tensor:
         res_out, scale = resolve_geometry(x.shape[1:3], res_out,
                                           upscale_factor)
-        dt = self.dtype
-        x = x.to(dt)
-        b, h, w, _ = x.shape
-        if scale not in SERVE_SCALES or h % self.patch_size or w % 16:
+        x = x.to(self.dtype)
+        h, w = x.shape[1:3]
+        self.int8_scales_used = {}
+        if not ((self.packed_serve or self.int8_serve or self.pallas_serve)
+                and self.compose_tails and scale in GATE_SCALES
+                and h % self.patch_size == 0 and w % 16 == 0):
+            return self._exact_forward(x, res_out, scale, require_ratio)
+        if scale not in SERVE_SCALES:
             raise NotImplementedError(
-                f"serving path covers scales {SERVE_SCALES} with h % 8 == 0 "
-                f"and w % 16 == 0; got {h}x{w} at scale {scale}")
-        out_hw = (h * scale, w * scale)
-        # The reference compares res_out with (H, H) (model.py:323), kept as
-        # the JAX model keeps it; an exact multiple is an identity resize and
-        # is skipped.
-        squash = (require_ratio and tuple(res_out) != (out_hw[0], out_hw[0])
-                  and tuple(res_out) != out_hw)
+                f"the serving forward covers scales {SERVE_SCALES}; x{scale} "
+                f"runs direct tails the port has no kernels for")
+        if not self.pallas_serve:
+            raise NotImplementedError(
+                "pallas_serve=False: JAX's all-XLA packed serving forward is "
+                "not ported; serve with pallas_serve=True or without "
+                "compose_tails")
+        if self.base_channels != 64 or self.patch_size != 8:
+            raise NotImplementedError("the serving kernels take 64 channels "
+                                      "and 8x8 patches")
+        return self._served_forward(x, res_out, scale, require_ratio)
+
+    def _exact_forward(self, x, res_out, scale, require_ratio):
+        """JAX ``__call__``'s own path (fast_transformer.py:244-330)."""
+        feat = conv2d(x, self.conv1.kernel, self.conv1.bias, relu=True)
+        feat = conv2d(feat, self.conv2.kernel, self.conv2.bias, relu=True)
+        h, w = feat.shape[1:3]
+        ps = self.patch_size
+        feat_pad = _reflect_pad(feat, (ps - h % ps) % ps, (ps - w % ps) % ps)
+        squash = self._squash((h * scale, w * scale), res_out, require_ratio)
+        upscaled_input = self.up1(feat, scale,
+                                  tail_kernel=self.up1_conv_kernel,
+                                  tail_relu=True,
+                                  compose_tail=self.compose_tails,
+                                  return_preshuffle=squash)
+        tokens = patch_embed(feat_pad, self.patch_embed_kernel,
+                             self.patch_embed_bias)
+        tokens = self.run_trunk(tokens)
+        feat_trans = patch_unembed(tokens, self.patch_unembed_kernel,
+                                   self.patch_unembed_bias)
+        combined = feat + feat_trans[:, :h, :w, :]
+        dec = conv2d(combined, self.decoder_conv1.kernel,
+                     self.decoder_conv1.bias, relu=True)
+        tail = dict(tail_kernel=self.final_upscale_conv_kernel,
+                    tail_bias=self.final_upscale_conv_bias,
+                    return_preshuffle=squash)
+        if self.compose_tails:
+            residual_up = self.final_upscale(
+                dec, scale, compose_tail=True,
+                pre_kernel=self.decoder_conv2.kernel,
+                pre_bias=self.decoder_conv2.bias, **tail)
+        else:
+            residual = conv2d(dec, self.decoder_conv2.kernel,
+                              self.decoder_conv2.bias)
+            residual_up = self.final_upscale(residual, scale, **tail)
+        out = upscaled_input + residual_up
+        if squash:
+            out = resize_shuffled(out, last_shuffle_factor(scale), res_out)
+        return out.clamp(0.0, 1.0)
+
+    def _served_forward(self, x, res_out, scale, require_ratio):
+        """JAX ``_packed_forward`` with ``pallas_serve=True`` (module
+        docstring)."""
+        dt = self.dtype
+        b, h, w, _ = x.shape
+        squash = self._squash((h * scale, w * scale), res_out, require_ratio)
         (ka, ba), tail_b = self.tail_kernels(scale)
 
-        self.int8_scales_used = {}
         scope = self.int8_scope if self.int8_serve else None
         fuse = fuse_stream()
         fuse_enc = fuse and scope not in ("full", "tails")
@@ -404,3 +494,15 @@ class FastTransformer(FusedTrunk, nn.Module):
         else:
             out = pixel_shuffle(out, scale)
         return out.clamp(0.0, 1.0)
+
+
+def _reflect_pad(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
+    """NHWC ``x`` reflect-padded at the bottom and the right, as
+    ``jnp.pad(mode="reflect")`` pads (the edge row is not repeated)."""
+    for dim, pad in ((1, pad_h), (2, pad_w)):
+        if pad:
+            n = x.shape[dim]
+            idx = torch.cat([torch.arange(n),
+                             2 * (n - 1) - torch.arange(n, n + pad)])
+            x = x.index_select(dim, idx.to(x.device))
+    return x

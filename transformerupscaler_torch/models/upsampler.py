@@ -1,12 +1,14 @@
-"""Multi-scale sub-pixel Upsampler weights and their composition into one
-base-resolution tail conv.
+"""Multi-scale sub-pixel Upsampler: its forward and the composition of its
+stages into one base-resolution tail conv.
 
 JAX counterpart: transformerupscaler_tpu models/upsampler.py:32-129 (the
-parameter bank for every scale), :132-203 (``split_tail_kernels``) and
-:206-279 (``composed_tail_kernel``). The serving path never runs the
-Upsampler's convs one by one: each branch tail is folded at base resolution
-into a single k x k conv, or for branch B into a mid conv and a small finish
-conv, whose outputs are ``pixel_shuffle(scale)``-ordered channels.
+parameter bank for every scale and ``Upsampler.__call__``), :132-203
+(``split_tail_kernels``) and :206-279 (``composed_tail_kernel``).
+FastTransformer's exact path runs ``Upsampler.forward``, stage by stage in
+plain PyTorch on ``ops.conv.conv2d``; the serving path never does: each
+branch tail is folded at base resolution into a single k x k conv, or for
+branch B into a mid conv and a small finish conv, whose outputs are
+``pixel_shuffle(scale)``-ordered channels.
 """
 
 from __future__ import annotations
@@ -15,8 +17,11 @@ import torch
 import torch.nn as nn
 
 from transformerupscaler_torch.models.common import param
-from transformerupscaler_torch.ops.conv import compose_conv3x3_kernels
-from transformerupscaler_torch.ops.pixel_shuffle import commute_conv_through_shuffle
+from transformerupscaler_torch.ops.conv import compose_conv3x3_kernels, conv2d
+from transformerupscaler_torch.ops.pixel_shuffle import (
+    commute_conv_through_shuffle,
+    pixel_shuffle,
+)
 from transformerupscaler_torch.resolutions import VALID_SCALES
 
 # scale -> list of (channel multiplier, shuffle factor) stages
@@ -38,6 +43,61 @@ class Upsampler(nn.Module):
 
     def stage_params(self) -> dict[str, torch.Tensor]:
         return dict(self.named_parameters())
+
+    def forward(self, x: torch.Tensor, scale: int, tail_kernel=None,
+                tail_bias=None, tail_relu: bool = False,
+                compose_tail: bool = False, return_preshuffle: bool = False,
+                pre_kernel=None, pre_bias=None) -> torch.Tensor:
+        """Upsample NHWC ``x`` by ``scale``: each stage a 3x3 conv, then its
+        pixel shuffle (JAX ``Upsampler.__call__``, upsampler.py:48-125).
+
+        ``tail_kernel`` / ``tail_bias``: the 3x3 conv that follows the
+        upsample, commuted through the last shuffle and run at base
+        resolution before it, with a ReLU if ``tail_relu``;
+        ``compose_tail`` folds it into the last stage's conv, composed in
+        f32 and cast to x's dtype once (a ring at the border then differs
+        from the sequential form). ``return_preshuffle`` returns the last
+        stage before its shuffle (factor ``last_shuffle_factor(scale)``).
+        ``pre_kernel`` / ``pre_bias``: a conv before the upsampler, folded
+        into the first stage's conv in f32.
+        """
+        if scale not in STAGES:
+            raise ValueError(f"Requested scale={scale} was not built.")
+        cf = torch.float32
+        stages = STAGES[scale]
+        for i, (_, shuffle) in enumerate(stages):
+            k = getattr(self, f"s{scale}_c{i}_kernel")
+            b = getattr(self, f"s{scale}_c{i}_bias")
+            last = i == len(stages) - 1
+            if pre_kernel is not None and i == 0:
+                k, b = compose_conv3x3_kernels(
+                    pre_kernel.to(cf),
+                    None if pre_bias is None else pre_bias.to(cf),
+                    k.to(cf), b.to(cf))
+            pad = (k.shape[0] - 1) // 2
+            if tail_kernel is not None and last:
+                tk = commute_conv_through_shuffle(tail_kernel.to(cf), shuffle)
+                tb = (None if tail_bias is None
+                      else tail_bias.repeat_interleave(shuffle * shuffle))
+                if compose_tail:
+                    kc, bc = compose_conv3x3_kernels(
+                        k.to(cf), b.to(cf), tk,
+                        None if tb is None else tb.to(cf))
+                    x = conv2d(x, kc.to(x.dtype),
+                               None if bc is None else bc.to(x.dtype),
+                               padding=(kc.shape[0] - 1) // 2,
+                               relu=tail_relu)
+                else:
+                    x = conv2d(x, k, b, padding=pad)
+                    x = conv2d(x, tk.to(x.dtype),
+                               None if tb is None else tb.to(x.dtype),
+                               padding=1, relu=tail_relu)
+            else:
+                x = conv2d(x, k, b, padding=pad)
+            if return_preshuffle and last:
+                return x
+            x = pixel_shuffle(x, shuffle)
+        return x
 
 
 def last_shuffle_factor(scale: int) -> int:

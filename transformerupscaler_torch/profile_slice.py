@@ -4,7 +4,8 @@
 
     python3 -m transformerupscaler_torch.profile_slice --route xla_fold
 
-Runs one model (bf16, seeded full-width weights) on 720x1280 frames, as
+Runs one model (bf16 but on ``fast_exact``, seeded full-width weights) on
+720x1280 frames, as
 ``chip_smoke.py`` serves them, and prints JSON lines: the forward's time by
 CUDA events, then a ``torch.profiler`` trace of five forwards summed by
 kernel name (device milliseconds per frame), the device's busy time per
@@ -24,8 +25,11 @@ frames, and ``int8_tails_dyn`` (the tails scope with dynamic scales, as the
 command lines' ``--int8`` serves it); ``bench_conv1`` (``bench`` with conv1
 on its kernel, ``conv1_stream=True``) and ``bench_fuse`` (``bench`` with
 ``TUX_FUSE_STREAM=1``: conv2 and tail A, and the decoder conv and the folded
-tail B, each as one kernel; the variable is set for the run); every other
-route at res_out 1080x1920.
+tail B, each as one kernel; the variable is set for the run);
+``fast_exact`` (FastTransformer as JAX's default engine serves it: f32,
+``attn_impl="xla"``, no serving flags, the exact path) and
+``fast_exact_fused2`` (the exact path in bf16 on the fused trunk); every
+other route at res_out 1080x1920.
 """
 
 from __future__ import annotations
@@ -62,6 +66,9 @@ ROUTES = {
                                                 attn_impl="pallas"), RES_OUT),
     "window_fused2": ("WindowTransformer", dict(pallas_serve=True,
                                                 attn_impl="fused2"), RES_OUT),
+    "fast_exact": ("FastTransformer", {}, RES_OUT),
+    "fast_exact_fused2": ("FastTransformer", dict(attn_impl="fused2"),
+                          RES_OUT),
     "resid_packed": ("ResidualTransformer", _RESID, (1440, 2560)),
     "resid_exact": ("ResidualTransformer", _RESID, RES_OUT),
     **{f"int8_{scope}{suffix}": (
@@ -70,8 +77,9 @@ ROUTES = {
                                        ("residual", ""), ("full", ""))},
 }
 CALIBRATED = ("int8_tails", "int8_residual", "int8_full")
-# Environment switches a route sets.
+# Environment switches a route sets; the routes served in f32.
 ENV = {"bench_fuse": {"TUX_FUSE_STREAM": "1"}}
+F32_ROUTES = ("fast_exact",)
 
 
 def main() -> None:
@@ -83,7 +91,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     model, flags, res_out = ROUTES[route]
-    engine = UpscalerEngine(model, dtype=torch.bfloat16, seed=0, **flags)
+    dtype = torch.float32 if route in F32_ROUTES else torch.bfloat16
+    engine = UpscalerEngine(model, dtype=dtype, seed=0, **flags)
     if route in CALIBRATED:
         engine.calibrate_int8(np.random.default_rng(1).integers(
             0, 256, (3, 720, 1280, 3), np.uint8), res_out=res_out)

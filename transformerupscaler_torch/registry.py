@@ -3,8 +3,11 @@ registry.py:38).
 
 The port serves the four models of the JAX package:
 
-- ``FastTransformer`` with composed tails on the stream kernels (JAX
-  ``compose_tails=True, pallas_serve=True``), the trunk fused
+- ``FastTransformer``: the exact path (JAX ``__call__``, the default
+  fields, ``compose_tails`` and ``fix_ratio_bug`` either way), and its
+  serving forward on the stream kernels (``compose_tails=True,
+  pallas_serve=True``; ``packed_serve`` alone, JAX's all-XLA packed path,
+  raises at the forward), the trunk fused
   (``attn_impl="fused2"``, with ``int8_trunk`` its GEMMs in int8, or
   ``"fused"``), block by block in PyTorch (``"xla"``) or block by block
   around the window-attention kernel (``"pallas"``), and the branch-B tail
@@ -20,11 +23,10 @@ The port serves the four models of the JAX package:
 - ``BicubicInterpolation``, which has no fields.
 
 Asking for a route the port does not serve raises ``NotImplementedError``
-(``int8_mlp``, ``serve_quality``, ``pallas_serve=False``, and any value but
-the JAX default of ``fix_ratio_bug``, ``int8_weights``, ``quality_parts``,
-``f32_tail`` and ``fold_pre``). Like the JAX
-``get_model``, fields a model does not have are dropped, so that one set of
-serving flags can go to every model: the flags the JAX command lines pass
+(``int8_mlp``, ``serve_quality``, and any value but the JAX default of
+``int8_weights``, ``quality_parts``, ``f32_tail`` and ``fold_pre``). Like
+the JAX ``get_model``, fields a model does not have are dropped, so that one
+set of serving flags can go to every model: the flags the JAX command lines pass
 with ``--fast`` (inference.py:83-98, speed_test.py:35-48) serve all four.
 """
 
@@ -53,13 +55,11 @@ _MODELS = {"BicubicInterpolation": BicubicInterpolation,
 # value the port serves; and the ``attn_impl`` values it serves (a model not
 # named takes any).
 FIXED_ROUTE = {
-    "FastTransformer": {"compose_tails": True, "pallas_serve": True,
-                        "int8_mlp": False, "serve_quality": False,
-                        # JAX defaults, fast_transformer.py:51, 102, 138,
-                        # 163, 169
-                        "fix_ratio_bug": False, "int8_weights": None,
-                        "quality_parts": "tails", "f32_tail": False,
-                        "fold_pre": True},
+    "FastTransformer": {"int8_mlp": False, "serve_quality": False,
+                        # JAX defaults, fast_transformer.py:102, 138, 163,
+                        # 169
+                        "int8_weights": None, "quality_parts": "tails",
+                        "f32_tail": False, "fold_pre": True},
     "WindowTransformer": {"int8_mlp": False},
 }
 ATTN_IMPLS = {"FastTransformer": TRUNK_IMPLS, "WindowTransformer": TRUNK_IMPLS}
