@@ -527,10 +527,18 @@ def phase_kernels() -> list[dict]:
         lib = lambda: F.conv2d(x_cl, w_oihw, b16, padding=k // 2)  # noqa: E731
         out = run()
         err = close_enough(out, plain(), **bf16)
+        if k != 3:  # the x3 and x4 widths and the f32 output, quarter frame
+            xq = x[:, :h // 2, :w // 2].contiguous()
+            for cw in (27, 48):
+                kw, bw = rn(k, k, 64, cw, std=(k * k * 64) ** -0.5), rn(cw)
+                for odt in (torch.bfloat16, torch.float32):
+                    err = max(err, close_enough(
+                        S.tail_conv_stream(xq, kw, bw, relu, odt),
+                        S.tail_conv_plain(xq, kw, bw, relu, odt), **bf16))
         flops = 2.0 * h * w * k * k * 64 * co
         bnd, by = bound_ms(nbytes(x, out) + k * k * 64 * co * 2 + co * 4,
                            flops)
-        src = "conv3x3" if k == 3 else "conv_nhwc"
+        src = "conv3x3" if k == 3 else "tail_strip"
         records.append(dict(
             name=name, route="cuda",
             source=f"transformerupscaler_torch/csrc/{src}.cu",
@@ -647,7 +655,7 @@ def tail_finish_case(x, x_cl, rn, bf16) -> dict:
                        + 24 * 4, flops)
     return dict(
         name="tail_finish_stream", route="cuda",
-        source="transformerupscaler_torch/csrc/tail_finish.cu",
+        source="transformerupscaler_torch/csrc/tail_strip.cu",
         replaces="transformerupscaler_tpu/ops/pallas/stream.py:1078",
         max_abs_err=err, tolerance=t, bound_ms=bnd, bound_by=by,
         **timing(lambda: S.tail_finish_stream(x, km, bm, kf, bf),

@@ -801,3 +801,110 @@ def test_wgmma_k_major_b_probe(gen, n):
     a = _rn(gen, 64, 64).bfloat16()
     b = _rn(gen, n, 64).bfloat16()
     _close(S.wgmma_kb_probe(a, b), a.float() @ b.float().t(), F32_TOL)
+
+
+# The composed tail and the split tail on csrc/tail_strip.cu: strips of 124
+# (k = 5) or 122 (k = 7) tail outputs and of 62 split-tail outputs.
+TAIL_W = [1, 37, 61, 62, 63, 64, 65, 121, 122, 123, 124, 125, 126, 185, 186,
+          187, 243, 244, 245, 249, 300]
+
+
+def _tail_case(gen, shape, kh, co, relu, out_dtype):
+    x = _rn(gen, *shape, 64).bfloat16()
+    k, b = _rn(gen, kh, kh, 64, co, std=(kh * kh * 64) ** -0.5), _rn(gen, co)
+    _poison(*shape, co, dtype=out_dtype)
+    S.reset_launches()
+    got = S.tail_conv_stream(x, k, b, relu, out_dtype)
+    assert S.LAUNCHES["tail_conv_stream"] == 1
+    assert got.dtype == out_dtype and got.shape == (*shape, co)
+    _close(got, S.tail_conv_plain(x, k, b, relu, out_dtype),
+           F32_TOL if out_dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("w", TAIL_W)
+@pytest.mark.parametrize("kh,relu", [(5, True), (7, False)])
+def test_tail_conv_strip_widths_match_plain(gen, w, kh, relu):
+    """Widths under one strip, around one, two and three strips of 124 or
+    122 outputs, where the second warpgroup's pixels fall off the image."""
+    _tail_case(gen, (2, 5, w), kh, 12, relu, torch.bfloat16)
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 7, 33, 130])
+@pytest.mark.parametrize("kh", [5, 7])
+def test_tail_conv_heights_match_plain(gen, h, kh):
+    """Heights below the tail's reach and up to 130 x 250, where every
+    persistent block takes a few strip-rows and ranges break into
+    segments inside strips."""
+    _tail_case(gen, (1, h, 250), kh, 12, True, torch.bfloat16)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("co", [12, 16, 27, 48])
+@pytest.mark.parametrize("kh", [5, 7])
+def test_tail_conv_output_groups_match_plain(gen, kh, co, relu, out_dtype):
+    """npad 16, 32, 48: one, two and three passes of 16 outputs."""
+    _tail_case(gen, (2, 19, 131), kh, co, relu, out_dtype)
+
+
+def _finish_case(gen, shape, kh, cm, co, hi_lo_fin, out_dtype):
+    """The split tail held to its plain version. A mid element that sums in
+    another order can land one bf16 step (2^-7 of it) away, and a finish
+    weight carries that into the output: atol adds one such flip."""
+    x = _rn(gen, *shape, 64).bfloat16()
+    km, bm = _rn(gen, kh, kh, 64, cm, std=(kh * kh * 64) ** -0.5), \
+        _rn(gen, cm, std=0.1)
+    kf, bf = _rn(gen, 3, 3, cm, co, std=(9 * cm) ** -0.5), \
+        _rn(gen, co, std=0.1)
+    mid = S.tail_conv_plain(x, km, bm, out_dtype=torch.float32)
+    flip = 2.0 ** -7 * mid.abs().max().item() * kf.abs().max().item()
+    tol = dict(F32_TOL if out_dtype == torch.float32 else BF16_TOL)
+    tol["atol"] += flip
+    _poison(*shape, co, dtype=out_dtype)
+    S.reset_launches()
+    got = S.tail_finish_stream(x, km, bm, kf, bf, out_dtype, hi_lo_fin)
+    assert S.LAUNCHES["tail_finish_stream"] == 1
+    assert got.dtype == out_dtype and got.shape == (*shape, co)
+    _close(got, S.tail_finish_plain(x, km, bm, kf, bf, out_dtype, hi_lo_fin),
+           tol)
+
+
+@pytest.mark.parametrize("w", TAIL_W)
+def test_tail_finish_strip_widths_match_plain(gen, w):
+    """Widths under one strip and around one to four strips of 62."""
+    _finish_case(gen, (2, 5, w), 5, 12, 12, "off", torch.bfloat16)
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 4, 33, 130])
+@pytest.mark.parametrize("kh", [3, 5])
+def test_tail_finish_heights_match_plain(gen, h, kh):
+    """Heights under one segment and up to 130 x 130, where ranges break
+    into segments inside strips; the 3x3 mid centred in the 5x5 frame."""
+    _finish_case(gen, (1, h, 130), kh, 12, 12, "off", torch.bfloat16)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hi_lo_fin", S.HI_LO_FIN)
+@pytest.mark.parametrize("cm,co", [(12, 12), (16, 16), (27, 27), (32, 32),
+                                   (12, 48), (16, 41)])
+def test_tail_finish_modes_and_widths_match_plain(gen, cm, co, hi_lo_fin,
+                                                 out_dtype):
+    """Every (cmp, cop) pair, mode and output type, batch 2 over two
+    strips."""
+    _finish_case(gen, (2, 11, 100), 5, cm, co, hi_lo_fin, out_dtype)
+
+
+@pytest.mark.parametrize("kind", ["tail5", "tail7", "finish"])
+def test_tails_at_720p_match_plain(gen, kind):
+    """The serving shapes at x2: bench's 5x5 with ReLU, xla_fold's 7x7, the
+    split tail in mode "off"; two calls give the same bits."""
+    if kind == "finish":
+        _finish_case(gen, (1, 720, 1280), 5, 12, 12, "off", torch.bfloat16)
+        return
+    kh = 5 if kind == "tail5" else 7
+    x = _rn(gen, 1, 720, 1280, 64).bfloat16()
+    k, b = _rn(gen, kh, kh, 64, 12, std=(kh * kh * 64) ** -0.5), _rn(gen, 12)
+    got = S.tail_conv_stream(x, k, b, kh == 5)
+    again = S.tail_conv_stream(x, k, b, kh == 5)
+    _close(got, S.tail_conv_plain(x, k, b, kh == 5), BF16_TOL)
+    assert torch.equal(got, again)

@@ -14,7 +14,7 @@
 // ReLU, one rounding to bf16 or f32. The int32 sums are exact in any order,
 // so kernel and plain version agree bit for bit.
 //
-// Design: conv_nhwc.cu's implicit GEMM with M = pixels, N = output channels
+// Design: an implicit GEMM with M = pixels, N = output channels
 // (padded to a multiple of 8 with zero weights), K = taps x 64, in int8. One
 // block owns an 8 x 32 pixel tile: it copies the zero-padded (8+k-1) x
 // (32+k-1) x 64 int8 input halo to shared memory once, then streams the

@@ -71,23 +71,18 @@
 //   encoder, 5x5, emitting: 67.9 + 35.4 GFLOP = 0.105 ms; 258 MB, 0.077 ms.
 // The kernel does 1.07-1.10x the conv work (strip overlap), pads co 12 to
 // 16 and computes the 2P ring rows once a segment (about 6% more rows).
-#include <cuda_bf16.h>
-
-#include "sm90.cuh"
+#include "strip.cuh"
 
 namespace {
 
 namespace S = tux::sm90;
-using bf16 = __nv_bfloat16;
+using namespace tux::strip;
 
-constexpr int MW = 64;              // conv pixels of a strip row: wgmma's M
 constexpr int RX = 72;              // pixels of a ring row: M + 8
 constexpr int ROW = RX * 128;       // bytes of a ring row (9 x 1024)
 constexpr int CSLAB = 64 * 64 * 2;  // one tap of conv weights, 64 x 64
-constexpr int NG = 16;              // outputs of a tail group
 constexpr int NS = 4;               // input ring rows
 constexpr int THREADS = 2 * 128 + 32;
-constexpr int MAX_SMEM = 232448;
 
 template <int KT>
 struct Geo {
@@ -101,58 +96,6 @@ struct Geo {
   static constexpr int BARS = 3 + 2 * NS + 2 * NM;
   static constexpr int BYTES = 1024 + CW + TWB + (NS + NM) * ROW + BARS * 8;
 };
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-__device__ __forceinline__ int sw128(int r, int j) {
-  return r * 128 + ((j ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) S::mbar_arrive(bar);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Parity of the n-th use of a ring of `stages` slots.
-__device__ __forceinline__ uint32_t par(uint32_t n, uint32_t stages) {
-  return (n / stages) & 1;
-}
-
-// The A operand (64 pixels x k16 step s, K-major) of a 128B-swizzled ring
-// row, starting `shift` pixels in.
-__device__ __forceinline__ uint64_t desc_row(const unsigned char* row,
-                                             int shift, int s) {
-  return S::desc(row + 128 * shift + 32 * s, 16, 1024);
-}
-
-// A segment of a block's range: batch b, the strip's first output column x0,
-// output rows [y0, y1), conv rows [ma, mb) (the ring, clipped to the image).
-struct Seg {
-  int b, x0, y0, y1, ma, mb;
-};
-
-// The segment that starts at strip-row t of a range ending at t_end.
-template <int KT>
-__device__ __forceinline__ Seg segment(int t, int t_end, int H, int strips) {
-  constexpr int P = Geo<KT>::P;
-  Seg g;
-  const int bs = t / H;
-  g.y0 = t - bs * H;
-  g.b = bs / strips;
-  g.x0 = (bs - g.b * strips) * Geo<KT>::OWN;
-  g.y1 = min(H, g.y0 + (t_end - t));
-  g.ma = max(g.y0 - P, 0);
-  g.mb = min(g.y1 + P, H);
-  return g;
-}
 
 // xmap: x (B, H, W, 64) as (64, W, H, B), box (64, 72, 1, 1); wmap: the conv
 // weights (576, 64) = w[dy][dx][c][o] as rows (tap, c), box (64, 64); tmap:
@@ -206,9 +149,8 @@ conv_tail_kernel(const __grid_constant__ CUtensorMap xmap,
                               (i % PAD16) * 16) = make_uint4(0, 0, 0, 0);
   S::fence_async_smem();
   __syncthreads();
-  // This block's strip-rows [t0, t1).
-  const int t0 = int(static_cast<long long>(blockIdx.x) * T / gridDim.x);
-  const int t1 = int(static_cast<long long>(blockIdx.x + 1) * T / gridDim.x);
+  int t0, t1;  // this block's strip-rows
+  block_rows(T, t0, t1);
 
   if (tid >= 256) {  // producer warp: one thread issues every copy
     if (tid != 256) return;
@@ -223,9 +165,11 @@ conv_tail_kernel(const __grid_constant__ CUtensorMap xmap,
         S::tma_load_2d(tw + dx * G::TSLAB, &tmap, tw_full, 0,
                        (grp * KT + dx) * G::N);
       for (int t = t0; t < t1;) {
-        const Seg sg = segment<KT>(t, t1, H, strips);
-        // Conv rows [ma, mb) read input rows ma - 1 .. mb.
-        for (int r = sg.ma - 1; r <= sg.mb; ++r, ++n) {
+        const Seg sg = segment(t, t1, H, strips, G::OWN);
+        // Conv rows [ma, mb), the tail's reach clipped to the image, read
+        // input rows ma - 1 .. mb.
+        const int ma = max(sg.y0 - P, 0), mb = min(sg.y1 + P, H);
+        for (int r = ma - 1; r <= mb; ++r, ++n) {
           const int slot = n % NS;
           S::mbar_wait(&in_empty[slot], par(n, NS) ^ 1);
           S::mbar_expect_tx(&in_full[slot], ROW);
@@ -251,11 +195,12 @@ conv_tail_kernel(const __grid_constant__ CUtensorMap xmap,
     uint32_t n = 0, mq = 0;  // input rows, mid rows used
     for (int grp = 0; grp < groups; ++grp) {
       for (int t = t0; t < t1;) {
-        const Seg sg = segment<KT>(t, t1, H, strips);
+        const Seg sg = segment(t, t1, H, strips, G::OWN);
+        const int ma = max(sg.y0 - P, 0), mb = min(sg.y1 + P, H);
         S::mbar_wait(&in_full[n % NS], par(n, NS));
         S::mbar_wait(&in_full[(n + 1) % NS], par(n + 1, NS));
-        for (int m = sg.ma; m < sg.mb; ++m) {
-          const uint32_t q = n + (m - sg.ma);  // input row m - 1
+        for (int m = ma; m < mb; ++m) {
+          const uint32_t q = n + (m - ma);  // input row m - 1
           S::mbar_wait(&in_full[(q + 2) % NS], par(q + 2, NS));
           const unsigned char* rows[3] = {in + (q % NS) * ROW,
                                           in + ((q + 1) % NS) * ROW,
@@ -270,7 +215,7 @@ conv_tail_kernel(const __grid_constant__ CUtensorMap xmap,
           S::wgmma_commit();
           S::wgmma_wait<0>();
           release(&in_empty[q % NS], lane);
-          if (m == sg.mb - 1) {  // the segment's last two rows are done too
+          if (m == mb - 1) {  // the segment's last two rows are done too
             release(&in_empty[(q + 1) % NS], lane);
             release(&in_empty[(q + 2) % NS], lane);
           }
@@ -308,91 +253,45 @@ conv_tail_kernel(const __grid_constant__ CUtensorMap xmap,
           release(&mid_full[ms], lane);
           ++mq;
         }
-        n += sg.mb - sg.ma + 2;
+        n += mb - ma + 2;
         t += sg.y1 - sg.y0;
       }
     }
     return;
   }
 
-  // The tail warpgroup.
+  // The tail warpgroup: the shift-add over the mid rows.
   uint32_t mq = 0;  // mid rows used
   for (int grp = 0; grp < groups; ++grp) {
-    // Bias of this thread's outputs 16 grp + 8 jj + 2 t4 + e at [2 jj + e].
-    float bq[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int o = NG * grp + 8 * (i >> 1) + 2 * t4 + (i & 1);
-      bq[i] = o < co ? bt[o] : 0.f;
-    }
+    float bq[1][4];
+    group_bias(bq, bt, co, grp);
     S::mbar_wait(tw_full, grp & 1);
     for (int t = t0; t < t1;) {
-      const Seg sg = segment<KT>(t, t1, H, strips);
-      // R[i]: the partial sums of output row m - P + i (8 accumulator
-      // registers: rows 16 warp + g + 8 (e / 2), outputs 8 (e / 4) + ...).
-      float R[2 * P][8];
+      const Seg sg = segment(t, t1, H, strips, G::OWN);
+      shift_add<KT, 1>(
+          sg.y0, sg.y1, max(sg.y0 - P, 0), min(sg.y1 + P, H),
+          [&](int m, int, float (&D)[8 * KT]) {
+            const int ms = mq % NM;
+            S::mbar_wait(&mid_full[ms], par(mq, NM));
+            const unsigned char* mrow = mid + ms * ROW;
+            S::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 2 * P; ++i)
+            for (int dx = 0; dx < KT; ++dx)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) R[i][e] = 0.f;
-      for (int m = sg.y0 - P; m < sg.y1 + P; ++m) {
-        // D[8 dy + e]: mid row m's share of output row m + P - dy.
-        float D[8 * KT];
-        if (m >= sg.ma && m < sg.mb) {
-          const int ms = mq % NM;
-          S::mbar_wait(&mid_full[ms], par(mq, NM));
-          const unsigned char* mrow = mid + ms * ROW;
-          S::wgmma_fence();
-#pragma unroll
-          for (int dx = 0; dx < KT; ++dx)
-#pragma unroll
-            for (int s = 0; s < 4; ++s)
-              S::wgmma_ss_kb<G::N>(D, desc_row(mrow, dx, s),
-                                   S::desc(tw + dx * G::TSLAB + 32 * s, 16,
-                                           1024),
-                                   dx | s);
-          S::wgmma_commit();
-          S::wgmma_wait<0>();
-          release(&mid_empty[ms], lane);
-          S::fence_acc(D);
-          ++mq;
-        } else {  // outside the image: the feature map's zero pad
-#pragma unroll
-          for (int e = 0; e < 8 * KT; ++e) D[e] = 0.f;
-        }
-        if (m - P >= sg.y0) {  // output row m - P is complete
-          const size_t row = (size_t(sg.b) * H + (m - P)) * W;
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int p = 16 * warp + g + 8 * i;
-            const int x = sg.x0 + p;
-            if (p < G::OWN && x < W) {
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                const int e = 4 * (c >> 1) + 2 * i + (c & 1);
-                const int o = NG * grp + 8 * (c >> 1) + 2 * t4 + (c & 1);
-                float v = R[0][e] + D[16 * P + e] + bq[c];
-                if (tail_relu) v = fmaxf(v, 0.f);
-                if (o < co) {
-                  if (out_f32)
-                    static_cast<float*>(out)[(row + x) * co + o] = v;
-                  else
-                    static_cast<bf16*>(out)[(row + x) * co + o] =
-                        __float2bfloat16_rn(v);
-                }
-              }
-            }
-          }
-        }
-        // The shift: R[i] becomes output row m + 1 - P + i.
-#pragma unroll
-        for (int i = 0; i + 1 < 2 * P; ++i)
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            R[i][e] = R[i + 1][e] + D[8 * (2 * P - 1 - i) + e];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) R[2 * P - 1][e] = D[e];
-      }
+              for (int s = 0; s < 4; ++s)
+                S::wgmma_ss_kb<G::N>(D, desc_row(mrow, dx, s),
+                                     desc_slab(tw + dx * G::TSLAB, s),
+                                     dx | s);
+            S::wgmma_commit();
+            S::wgmma_wait<0>();
+            release(&mid_empty[ms], lane);
+            S::fence_acc(D);
+            ++mq;
+          },
+          [&](int y, const float (&o)[1][8]) {
+            store_row<1>(out, (size_t(sg.b) * H + y) * W, sg.x0, G::OWN, W,
+                         co, grp, o, bq, tail_relu, out_f32);
+          });
       t += sg.y1 - sg.y0;
     }
     release(tw_empty, lane);

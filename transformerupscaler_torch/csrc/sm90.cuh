@@ -88,6 +88,12 @@ __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Arrive at barrier `id` without waiting: `count` threads in all sync or
+// arrive before the syncing ones go on.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ------------------------------------------------------------------ TMA
 // Loads complete on `bar` (transaction bytes: the whole box, out-of-bounds
 // elements zero-filled). Coordinates are elements, innermost first.

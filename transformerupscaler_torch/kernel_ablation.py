@@ -1,25 +1,33 @@
-"""Where the time of ``global_mha``, the 3x3 conv and the fused conv + tail
-goes, by ablation, on the GPU.
+"""Where the time of ``global_mha``, the 3x3 conv, the fused conv + tail
+and the two tails goes, by ablation, on the GPU.
 
     python3 -m transformerupscaler_torch.kernel_ablation \
-        [--variants global_mha:full conv3x3:no_store conv_tail7:full ...]
+        [--variants global_mha:full conv3x3:no_store conv_tail7:full ...] \
+        [--csrc DIR]
 
-Builds ``csrc/global_mha.cu``, ``csrc/conv3x3.cu`` and ``csrc/conv_tail.cu``
-as they are and in variants with one part switched off by a textual edit of
-the source (so the variants compute wrong values: only their times mean
-anything), and times each kernel at its 720p serving shape by CUDA events
-over back-to-back launches: the attention core at (1, 3600, 128) with 8
-heads on q, k, v sliced from one packed qkv; the 3x3 conv at (1, 720, 1280,
-64) -> 64 with bias and ReLU, bf16 out (``conv3x3``: ``conv3x3_stream`` and
-the archived conv) and int8 out (``conv3x3_int8``: ``conv3x3_stream``'s
+Builds ``csrc/global_mha.cu``, ``csrc/conv3x3.cu``, ``csrc/conv_tail.cu``
+and ``csrc/tail_strip.cu`` as they are and in variants with one part
+switched off by a textual edit of the source or of a header it includes
+(so the variants compute wrong values: only their times mean anything),
+and times each kernel at its 720p serving shape by CUDA events over
+back-to-back launches: the attention core at (1, 3600, 128) with 8 heads on
+q, k, v sliced from one packed qkv; the 3x3 conv at (1, 720, 1280, 64) ->
+64 with bias and ReLU, bf16 out (``conv3x3``: ``conv3x3_stream`` and the
+archived conv) and int8 out (``conv3x3_int8``: ``conv3x3_stream``'s
 ``out_scale``); the fused conv + tail at x2 (co 12, npad 16), the encoder's
 5x5 with ReLU emitting the conv output (``conv_tail5``) and the decoder's
-7x7 (``conv_tail7``). A "no_*_refetch" / "no_halo_refill" variant loads
-that operand only into the ring's first stages and reuses them after. The
-variants named for what they do instead (``*_on_fma``,
+7x7 (``conv_tail7``); the composed tail 64 -> 12 at x2, ``bench``'s 5x5
+with ReLU (``tail_conv5``) and ``xla_fold``'s 7x7 (``tail_conv7``), and the
+split tail, 5x5 64 -> 12 and 3x3 12 -> 12 in mode "off"
+(``tail_finish``). ``--csrc`` builds another tree's sources: a tree
+before the strip tails holds them as ``conv_nhwc.cu`` and
+``tail_finish.cu``, timed under the same kernel names with their own
+variants. A "no_*_refetch" / "no_halo_refill" / "no_ring_refill" variant
+loads that operand only into the ring's first stages and reuses them
+after. The variants named for what they do instead (``*_on_fma``,
 ``one_block_per_sm``, ``qs_in_smem``, ``emit_by_tail``, ``mid_ring_3``,
-``*_wait_backoff``) are alternatives that were measured and not kept;
-``--rounds`` times every variant again, in turns.
+``*_wait_backoff``, ``deep_ring``) are alternatives that were measured and
+not kept; ``--rounds`` times every variant again, in turns.
 Prints one JSON line per variant; the difference from its kernel's
 ``full`` is what the part costs where it is not hidden behind another.
 """
@@ -30,6 +38,7 @@ import argparse
 import ctypes
 import json
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -80,12 +89,15 @@ WSLAB = ("            S::mbar_expect_tx(&w_full[wst], SLAB);\n"
          "            S::tma_load_2d(")
 
 
+# The strip kernels' output store (csrc/strip.cuh store_row), skipped.
+NO_STORE = ("strip.cuh", "          if (oc < co) {",
+            "          if (oc < co && W < 0) {")
 CONV_MMA = "              S::wgmma_ss_n64(acc, desc_row("
-TAIL_MMA = "              S::wgmma_ss_kb<G::N>(D, desc_row("
+TAIL_MMA = "S::wgmma_ss_kb<G::N>(D, desc_row(mrow"
 ROWS = ("          S::mbar_expect_tx(&in_full[slot], ROW);\n"
         "          S::tma_load_4d(")
-TAIL_WAIT = ("          S::wgmma_wait<0>();\n"
-             "          release(&mid_empty[ms], lane);\n")
+TAIL_WAIT = ("            S::wgmma_wait<0>();\n"
+             "            release(&mid_empty[ms], lane);\n")
 EMIT_BY_TAIL = """          if (feat != nullptr && grp == 0 && m >= sg.y0 && m < sg.y1) {
             bf16* frow = feat + (size_t(sg.b) * H + m) * W * 64;
             for (int c = tid - 128; c < G::OWN * 8; c += 128) {
@@ -98,7 +110,7 @@ EMIT_BY_TAIL = """          if (feat != nullptr && grp == 0 && m >= sg.y0 && m <
             }
           }
 """
-MID_FULL = "          S::mbar_wait(&mid_full[ms], par(mq, NM));\n"
+MID_FULL = "            S::mbar_wait(&mid_full[ms], par(mq, NM));\n"
 MID_EMPTY = "          S::mbar_wait(&mid_empty[ms], par(mq, NM) ^ 1);\n"
 
 
@@ -210,19 +222,17 @@ EDITS = {
     "conv_tail": {
         "full": [],
         "no_mma": [(CONV_MMA, "              if (H < 0) " + CONV_MMA.lstrip()),
-                   (TAIL_MMA, "              if (H < 0) " + TAIL_MMA.lstrip())],
+                   (TAIL_MMA, "if (H < 0) " + TAIL_MMA)],
         "no_conv_mma": [(CONV_MMA,
                          "              if (H < 0) " + CONV_MMA.lstrip())],
-        "no_tail_mma": [(TAIL_MMA,
-                         "              if (H < 0) " + TAIL_MMA.lstrip())],
+        "no_tail_mma": [(TAIL_MMA, "if (H < 0) " + TAIL_MMA)],
         # Input rows into the ring's first NS slots only.
         "no_halo_refill": [(ROWS, "          S::mbar_expect_tx(&in_full[slot], "
                                   "n < NS ? ROW : 0);\n"
                                   "          if (n < NS) S::tma_load_4d(")],
         "no_emit": [("              if (owned)\n",
                      "              if (owned && H < 0)\n")],
-        "no_store": [("                if (o < co) {",
-                      "                if (o < co && H < 0) {")],
+        "no_store": [NO_STORE],
         # Tried: the emit by the tail warpgroup, 16-byte copies of the owned
         # pixels from the mid row, off the conv warpgroup's path.
         "emit_by_tail": [("              if (owned)\n",
@@ -236,44 +246,133 @@ EDITS = {
                         "  static constexpr int NM = KT < 7 ? 3 : 2;")],
     },
 }
-# kernel -> its source; the int8-out conv and both tails share the edits of
+# csrc/tail_strip.cu: the composed tail's products, the split tail's mid and
+# finish products (the finish's hi.hi: the only one of mode "off"), the
+# consumers' waits for input rows.
+STRIP_MMA = "S::wgmma_ss_kb<G::N>(D, desc_row(row"
+MID_MMA = "S::wgmma_ss_kb<MN>("
+FIN_HI = ("S::wgmma_ss_kb<FN>(D, desc_row(mrow, dx, s), desc_slab(wq, s),\n"
+          "                             dx | s);")
+EDITS["tail_strip"] = {
+    "full": [],
+    "no_mma": [(STRIP_MMA, "if (H < 0) " + STRIP_MMA),
+               (MID_MMA, "if (H < 0) " + MID_MMA),
+               (FIN_HI, "if (H < 0) " + FIN_HI)],
+    "no_mid_mma": [(MID_MMA, "if (H < 0) " + MID_MMA)],
+    "no_finish": [(FIN_HI, "if (H < 0) " + FIN_HI)],
+    # Input rows into the ring's first slots only: no consumer waits for
+    # memory after the ring's first fill.
+    "no_ring_refill": [
+        ("          S::mbar_expect_tx(&in_full[slot], TROW);\n"
+         "          S::tma_load_4d(",
+         "          S::mbar_expect_tx(&in_full[slot], n < TNS ? TROW : 0);\n"
+         "          if (n < TNS) S::tma_load_4d("),
+        ("        S::mbar_expect_tx(&in_full[slot], TROW);\n"
+         "        S::tma_load_4d(",
+         "        S::mbar_expect_tx(&in_full[slot], n < NS ? TROW : 0);\n"
+         "        if (n < NS) S::tma_load_4d(")],
+    "no_store": [NO_STORE],
+    # The two warpgroups issue their products as they come, not in turns.
+    "no_turns": [(f"\n{ind}S::named_{op}({arg}, 256);  // {what}", "")
+                 for ind in (" " * 12, " " * 10)
+                 for op, arg, what in (("sync", "1 + c", "this warpgroup's turn"),
+                                       ("arrive", "2 - c", "the other's turn"))],
+    # Tried: deeper input rings (7 rows of the tail, 8 of the split tail).
+    "deep_ring": [("constexpr int TNS = 4;", "constexpr int TNS = 7;"),
+                  ("(MAX_SMEM - fixed) / TROW < 6 ? (MAX_SMEM - fixed) / TROW : 6",
+                   "(MAX_SMEM - fixed) / TROW < 8 ? (MAX_SMEM - fixed) / TROW : 8")],
+}
+
+# The tiled mma.sync tails of csrc/conv_nhwc.cu and csrc/tail_finish.cu,
+# sources that trees before the strip tails hold (``--csrc``).
+HALO_LOAD = "    if (iy >= 0 && iy < H && ix >= 0 && ix < W)"
+TILE_STORE = ("    for (int e = tid; e < nv * co; e += THREADS) "
+              "dst[e] = src[e];")
+WROW = "      *reinterpret_cast<uint4*>(wsm + r * CS + chunk * 8) ="
+TILE_EDITS = {
+    "full": [],
+    # Zeros into the halo instead of the input's loads.
+    "no_halo": [(HALO_LOAD, "    if (H < 0)")],
+    "no_weight_copy": [(WROW, "      if (H < 0) " + WROW.lstrip())],
+    "no_store": [(TILE_STORE, "    if (H < 0) " + TILE_STORE.lstrip())],
+}
+FIN_MMA = ("          for (int f = 0; f < 2; ++f) {\n"
+           "            tux::mma_bf16(acc2[f][j], ah[f][0],")
+EDITS["conv_nhwc"] = dict(TILE_EDITS, no_mma=[(
+    "            tux::mma_bf16(acc[f][j], a[f][0]",
+    "            if (H < 0) tux::mma_bf16(acc[f][j], a[f][0]")])
+EDITS["tail_finish"] = dict(
+    TILE_EDITS,
+    no_mid_mma=[("            tux::mma_bf16(acc[i][j], a[i][0]",
+                 "            if (H < 0) tux::mma_bf16(acc[i][j], a[i][0]")],
+    no_finish_mma=[(FIN_MMA, FIN_MMA.replace("f < 2;", "f < 2 && H < 0;"))])
+
+# kernel -> the sources that may hold it, the first found in the source
+# directory taken; the int8-out conv and both fused tails share the edits of
 # their source.
-SOURCES = {"global_mha": "global_mha", "conv3x3": "conv3x3",
-           "conv3x3_int8": "conv3x3", "conv_tail5": "conv_tail",
-           "conv_tail7": "conv_tail"}
+SOURCES = {"global_mha": ("global_mha",), "conv3x3": ("conv3x3",),
+           "conv3x3_int8": ("conv3x3",), "conv_tail5": ("conv_tail",),
+           "conv_tail7": ("conv_tail",),
+           "tail_conv5": ("tail_strip", "conv_nhwc"),
+           "tail_conv7": ("tail_strip", "conv_nhwc"),
+           "tail_finish": ("tail_strip", "tail_finish")}
 SKIP = {"conv3x3": ("qs_in_smem", "no_quant"),
         "conv3x3_int8": ("no_weight_refetch",),
-        "conv_tail7": ("no_emit", "emit_by_tail", "mid_ring_3")}
-VARIANTS = [f"{k}:{v}" for k, src in SOURCES.items() for v in EDITS[src]
-            if v not in SKIP.get(k, ())]
+        "conv_tail7": ("no_emit", "emit_by_tail", "mid_ring_3"),
+        "tail_conv5": ("no_mid_mma", "no_finish"),
+        "tail_conv7": ("no_mid_mma", "no_finish")}
+# The C functions of the sources that _build no longer lists.
+SIGNATURES = {**_build.SIGNATURES,
+              "conv_nhwc": {"tux_tail_conv": [ctypes.c_void_p] * 4
+                            + [ctypes.c_int] * 9 + [ctypes.c_void_p]},
+              "tail_finish": {"tux_tail_finish": [ctypes.c_void_p] * 6
+                              + [ctypes.c_int] * 10 + [ctypes.c_void_p]}}
+VARIANTS = sorted({f"{k}:{v}" for k, srcs in SOURCES.items() for src in srcs
+                   for v in EDITS[src] if v not in SKIP.get(k, ())})
 
 
-def build(out_dir, names) -> dict[str, ctypes.CDLL]:
-    """One library per ``kernel:variant`` name, all nvcc runs at once."""
-    procs = {}
+def source_of(kernel: str, csrc) -> str:
+    """The first of the kernel's sources that ``csrc`` holds."""
+    for src in SOURCES[kernel]:
+        if (csrc / f"{src}.cu").exists():
+            return src
+    raise FileNotFoundError(f"{kernel}: none of {SOURCES[kernel]} in {csrc}")
+
+
+def build(out_dir, names, csrc=_build.CSRC) -> dict[str, ctypes.CDLL]:
+    """One library per ``kernel:variant`` name, all nvcc runs at once, from
+    the sources in ``csrc``."""
+    procs, srcs = {}, {}
     for name in names:
         kernel, variant = name.split(":")
-        src = SOURCES[kernel]
-        text = (_build.CSRC / f"{src}.cu").read_text()
-        for old, new in EDITS[src][variant]:
-            if text.count(old) != 1:
+        src = srcs[name] = source_of(kernel, csrc)
+        if variant not in EDITS[src]:
+            raise KeyError(f"{name}: {src}.cu has no variant {variant}")
+        vdir = out_dir / name.replace(":", "-")
+        vdir.mkdir(parents=True, exist_ok=True)
+        files = {f"{src}.cu": (csrc / f"{src}.cu").read_text()}
+        for edit in EDITS[src][variant]:
+            fname, old, new = edit if len(edit) == 3 else (f"{src}.cu",
+                                                           *edit)
+            if fname not in files:
+                files[fname] = (csrc / fname).read_text()
+            if files[fname].count(old) != 1:
                 raise RuntimeError(f"{name}: {old!r} does not stand once in "
-                                   f"the source")
-            text = text.replace(old, new)
-        stem = name.replace(":", "-")
-        (out_dir / f"{stem}.cu").write_text(text)
+                                   f"{fname}")
+            files[fname] = files[fname].replace(old, new)
+        for fname, text in files.items():  # an edited header shadows csrc's
+            (vdir / fname).write_text(text)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-             str(out_dir / f"{stem}.so"), str(out_dir / f"{stem}.cu")],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
+             str(vdir / "lib.so"), str(vdir / f"{src}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"{name.replace(':', '-')}.so"))
-        for fn, argtypes in _build.SIGNATURES[
-                SOURCES[name.split(":")[0]]].items():
+        lib = ctypes.CDLL(str(out_dir / name.replace(":", "-") / "lib.so"))
+        for fn, argtypes in SIGNATURES[srcs[name]].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -283,17 +382,24 @@ def build(out_dir, names) -> dict[str, ctypes.CDLL]:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--variants", nargs="+", choices=VARIANTS,
-                        default=VARIANTS)
+                        help="default: every variant of the sources found")
     parser.add_argument("--rounds", type=int, default=1,
                         help="time every variant this many times, in turns")
+    parser.add_argument("--csrc", type=Path, default=_build.CSRC,
+                        help="the CUDA sources to build (another tree's "
+                             "csrc/ to time its kernels)")
     args = parser.parse_args()
-    names = args.variants
+    csrc = args.csrc.resolve()
+    names = args.variants or [
+        v for v in VARIANTS if any((csrc / f"{src}.cu").exists()
+                                   for src in SOURCES[v.split(":")[0]])
+        and v.split(":")[1] in EDITS[source_of(v.split(":")[0], csrc)]]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     out_dir = _build.BUILD_DIR / "kernel_ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs = build(out_dir, names)
+    libs = build(out_dir, names, csrc)
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rn(*shape, std=1.0):
@@ -314,6 +420,11 @@ def main() -> None:
                              device="cuda")) for k in (5, 7)}
     bt = torch.zeros(12, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    # The tails' weights in either tree's layout (as many elements or more):
+    # the 5x5 mid (25 x 16 rows of 64), the finish's (18 x 16 rows of 64).
+    wmid = rn(25 * 16, 64, std=1600 ** -0.5)
+    wfin = rn(18 * 16, 64, std=0.1)
+    y12 = torch.empty(1, H, W, 12, dtype=torch.bfloat16, device="cuda")
 
     def tail(lib, k, emit):
         slabs, y = tails[k]
@@ -335,6 +446,18 @@ def main() -> None:
             out8.data_ptr(), 1, H, W, C, C, 64, 64, 1, 0, stream),
         "conv_tail5": lambda lib: tail(lib, 5, True),
         "conv_tail7": lambda lib: tail(lib, 7, False),
+        # The serving tails at x2 (co 12, npad 16): bench's branch-A 5x5
+        # with ReLU, xla_fold's 7x7, the split tail in mode "off".
+        "tail_conv5": lambda lib: lib.tux_tail_conv(
+            x.data_ptr(), tails[5][0].data_ptr(), bt.data_ptr(),
+            y12.data_ptr(), 1, H, W, 5, 12, 16, 1, 0, 0, stream),
+        "tail_conv7": lambda lib: lib.tux_tail_conv(
+            x.data_ptr(), tails[7][0].data_ptr(), bt.data_ptr(),
+            y12.data_ptr(), 1, H, W, 7, 12, 16, 0, 0, 0, stream),
+        "tail_finish": lambda lib: lib.tux_tail_finish(
+            x.data_ptr(), wmid.data_ptr(), bt.data_ptr(), wfin.data_ptr(),
+            bt.data_ptr(), y12.data_ptr(), 1, H, W, 12, 16, 12, 16, 0, 0, 0,
+            stream),
     }
 
     def ms(call) -> float:

@@ -41,9 +41,6 @@ SIGNATURES = {
         "tux_conv3x3_int8": [_P] * 5 + [_I] * 6 + [_P],
         "tux_tail_conv_int8": [_P] * 5 + [_I] * 9 + [_P],
     },
-    "conv_nhwc": {
-        "tux_tail_conv": [_P] * 4 + [_I] * 9 + [_P],
-    },
     "conv_tail": {
         "tux_conv_tail": [_P] * 7 + [_I] * 9 + [_P],
         "tux_wgmma_kb_probe": [_P] * 3 + [_I] * 2 + [_P],
@@ -55,7 +52,8 @@ SIGNATURES = {
         "tux_embed": [_P] * 5 + [_I] * 5 + [_P],
         "tux_unembed_combine": [_P] * 6 + [_I] * 7 + [_P],
     },
-    "tail_finish": {
+    "tail_strip": {
+        "tux_tail_conv": [_P] * 4 + [_I] * 9 + [_P],
         "tux_tail_finish": [_P] * 6 + [_I] * 10 + [_P],
     },
     "window_attn": {

@@ -7,13 +7,13 @@ wrapper                    CUDA source           TPU kernel it replaces
 ``conv3x3_stream``         csrc/conv3x3.cu       ops/pallas/stream.py:425
                                                  ``conv3x3_deint_stream`` and
                                                  :82 ``conv3x3_packed_stream``
-``tail_conv_stream``       csrc/conv_nhwc.cu     ops/pallas/stream.py:777
+``tail_conv_stream``       csrc/tail_strip.cu    ops/pallas/stream.py:777
                                                  ``tail_macro8_stream``
 ``embed_stream``           csrc/patch_gemm.cu    ops/pallas/stream.py:325
                                                  ``embed_stream``
 ``unembed_combine_stream`` csrc/patch_gemm.cu    ops/pallas/stream.py:239
                                                  ``unembed_combine_stream``
-``tail_finish_stream``     csrc/tail_finish.cu   ops/pallas/stream.py:1078
+``tail_finish_stream``     csrc/tail_strip.cu    ops/pallas/stream.py:1078
                                                  ``tail_finish_stream``
 ``conv3x3_int8_stream``    csrc/conv_int8.cu     ops/pallas/stream.py:147
                                                  ``conv3x3_packed_int8_stream``
@@ -51,9 +51,11 @@ each CUDA source.
 
 ``conv3x3_stream`` runs on the archived conv's kernel (``csrc/conv3x3.cu``)
 with the weights as HWIO rows (``conv3x3_weight_rows``) and its bias
-unrounded; the fused conv + tail reads its tail weights as K-major slabs
-(``tail_slabs``). ``tests/test_torch_conv_layouts.py`` holds both layouts
-against the plain versions on the CPU.
+unrounded; the fused conv + tail, the composed tail and the split tail's
+mid conv read their k x k weights as K-major slabs (``tail_slabs``), the
+split tail's finish as hi / lo slabs (``finish_slabs``).
+``tests/test_torch_conv_layouts.py`` holds these layouts against the plain
+versions on the CPU.
 
 The patch kernels also serve two archived TPU kernels that no model reaches,
 through ``embed_launch`` / ``unembed_launch``, which launch without counting:
@@ -224,12 +226,11 @@ def tail_conv_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
                          f"co <= {TAIL_NPAD[-1]}; got {tuple(kernel.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype: bfloat16 or float32, got {out_dtype}")
-    wt = torch.zeros(k, k, npad, 64, dtype=torch.bfloat16, device=x.device)
-    wt[:, :, :co] = kernel.to(torch.bfloat16).permute(0, 1, 3, 2)
+    wt = tail_slabs(kernel, npad)
     bb = _bias32(bias, co, x)
     _check(bb, "bias", torch.float32, (co,))
     out = torch.empty(b, h, w, co, dtype=out_dtype, device=x.device)
-    err = _build.load("conv_nhwc").tux_tail_conv(
+    err = _build.load("tail_strip").tux_tail_conv(
         x.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w,
         k, co, npad, int(relu), int(out_dtype == torch.float32),
         x.device.index, _stream(x))
@@ -318,18 +319,26 @@ def conv3x3_tail_plain(x, conv_kernel, conv_bias, tail_kernel,
                                    tail_bias, tail_relu, out_dtype)[0]
 
 
-def tail_slabs(kernel: torch.Tensor, npad: int) -> torch.Tensor:
+def tail_slabs(kernel: torch.Tensor, npad: int, frame: int = 0
+               ) -> torch.Tensor:
     """A (k, k, 64, co) HWIO tail kernel as the K-major slabs that
-    ``csrc/conv_tail.cu`` reads: (npad / 16 x k x k x 16, 64) bf16 rows
-    (group, dx, dy, output) of the 64 input channels, outputs co .. npad - 1
-    zero. For each 16-output group and column shift dx, the k kernel rows
-    (dy) stand side by side as one GEMM's N = 16 k columns."""
+    ``csrc/conv_tail.cu`` and ``csrc/tail_strip.cu`` read: (npad / 16 x f x
+    f x 16, 64) bf16 rows (group, dx, dy, output) of the 64 input channels,
+    outputs co .. npad - 1 zero. For each 16-output group and column shift
+    dx, the f kernel rows (dy) stand side by side as one GEMM's N = 16 f
+    columns. ``frame``: f, with the k x k kernel centred in a zero f x f
+    frame (the split tail's 5x5 mid takes a 3x3 so); default k. On the card,
+    a fill and one converting copy per 16-output group."""
     k, _, cin, co = kernel.shape
-    w = torch.zeros(k, k, cin, npad, dtype=torch.bfloat16,
-                    device=kernel.device)
-    w[..., :co] = kernel.to(torch.bfloat16)
-    return (w.reshape(k, k, cin, npad // 16, 16).permute(3, 1, 0, 4, 2)
-            .reshape(-1, cin).contiguous())
+    f = frame or k
+    p = (f - k) // 2
+    out = torch.zeros(npad // 16, f, f, 16, cin, dtype=torch.bfloat16,
+                      device=kernel.device)
+    for g in range(0, co, 16):
+        n = min(16, co - g)
+        out[g // 16, p:p + k, p:p + k, :n].copy_(
+            kernel[..., g:g + n].permute(1, 0, 3, 2))
+    return out.view(-1, cin)
 
 
 def _conv_tail(x, conv_kernel, conv_bias, tail_kernel, tail_bias, tail_relu,
@@ -542,6 +551,27 @@ def tail_finish_plain(x, k_mid, b_mid, k_fin, b_fin, out_dtype=None,
     return y.to(out_dtype or x.dtype)
 
 
+def finish_slabs(k_fin: torch.Tensor, cmp_: int, cop: int) -> torch.Tensor:
+    """A (3, 3, cm, co) f32 finish kernel as the K-major slabs that
+    ``csrc/tail_strip.cu`` reads: (cop / 16 x 3 x 3 x 16, 64) bf16 rows
+    (group, dx, dy, output) of 64 channels, the bf16 hi half of the weights
+    (``_hi_lo``) at channels 0 .. cm - 1 and the lo half at cmp_ .. cmp_ +
+    cm - 1; zero elsewhere, outputs co .. cop - 1 too. The kernel pairs the
+    mid's hi half (its channels 0 .. cmp_ - 1) with either, and the mid's lo
+    half (channels cmp_ .. 2 cmp_ - 1, "full") with the hi half."""
+    _, _, cm, co = k_fin.shape
+    k = k_fin.float()
+    out = torch.zeros(cop // 16, 3, 3, 16, 64, dtype=torch.bfloat16,
+                      device=k.device)
+    for g in range(0, co, 16):
+        n = min(16, co - g)
+        src = k[..., g:g + n].permute(1, 0, 3, 2)  # dx, dy, output, channel
+        hi = out[g // 16, :, :, :n, :cm]
+        hi.copy_(src)  # rounded to bf16
+        out[g // 16, :, :, :n, cmp_:cmp_ + cm].copy_(src - hi)
+    return out.view(-1, 64)
+
+
 def tail_finish_stream(x: torch.Tensor, k_mid: torch.Tensor, b_mid,
                        k_fin: torch.Tensor, b_fin, out_dtype=None,
                        hi_lo_fin: str = "off") -> torch.Tensor:
@@ -581,20 +611,13 @@ def tail_finish_stream(x: torch.Tensor, k_mid: torch.Tensor, b_mid,
         raise TypeError(f"out_dtype: bfloat16 or float32, got {out_dtype}")
     cmp_, cop = pads
     dev = x.device
-    # Mid weights as [dy][dx][cm][cin], a 3x3 centred in the 5x5 frame.
-    o = (5 - k) // 2
-    wm = torch.zeros(5, 5, cmp_, 64, dtype=torch.bfloat16, device=dev)
-    wm[o:o + k, o:o + k, :cm] = k_mid.to(torch.bfloat16).permute(0, 1, 3, 2)
-    # Finish weights as [hi, lo][dy][dx][co][cm].
-    wf = torch.zeros(2, 3, 3, cop, cmp_, dtype=torch.bfloat16, device=dev)
-    w_hi, w_lo = _hi_lo(k_fin.float())
-    wf[0, :, :, :co, :cm] = w_hi.permute(0, 1, 3, 2)
-    wf[1, :, :, :co, :cm] = w_lo.permute(0, 1, 3, 2)
+    wm = tail_slabs(k_mid, cmp_, frame=5)
+    wf = finish_slabs(k_fin, cmp_, cop)
     bm, bf = _bias32(b_mid, cm, x), _bias32(b_fin, co, x)
     _check(bm, "b_mid", torch.float32, (cm,))
     _check(bf, "b_fin", torch.float32, (co,))
     out = torch.empty(b, h, w, co, dtype=out_dtype, device=dev)
-    err = _build.load("tail_finish").tux_tail_finish(
+    err = _build.load("tail_strip").tux_tail_finish(
         x.data_ptr(), wm.data_ptr(), bm.data_ptr(), wf.data_ptr(),
         bf.data_ptr(), out.data_ptr(), b, h, w, cm, cmp_, co, cop,
         HI_LO_FIN.index(hi_lo_fin), int(out_dtype == torch.float32),
