@@ -241,8 +241,9 @@ TPU_KERNELS = [
      "feat_scale)"),
     ("trunk2.py:524 fused_window_trunk_v2",
      "ported and checked: fused_window_trunk (one kernel for the five TPU "
-     "bodies, C=192 and 128; bf16, int8_acts='rowwise' and the static "
-     "int8_gemms mode 'int8_static' at C=192)"),
+     "bodies, C=192 and 128, every mode on TMA + wgmma; bf16, and "
+     "int8_acts='rowwise' and the static int8_gemms mode 'int8_static' on "
+     "int8 wgmma at C=192)"),
     ("stream.py:1078 tail_finish_stream",
      "ported and checked: tail_finish_stream (hi_lo_fin off, wf, full)"),
     ("stream.py:82 conv3x3_packed_stream",
@@ -1129,7 +1130,7 @@ def trunk_case(rn, name, model_name, route, mode, replaces, on) -> dict:
     n_win = -(-ht // 8) * -(-wt // 8)
     layers, dim = params["vpack"].shape[0], params["fc1w"].shape[1]
     tokens = T.TOKENS
-    wkey, skey, ikey = T.PACKS[mode]
+    _, skey, ikey = T.PACKS[mode]
     win = rn(n_win, tokens, dim).bfloat16()
     if mode == "int8_static":
         params = T.add_static_int8(params, trunk_int8_scales(model.blocks,
@@ -1161,7 +1162,10 @@ def trunk_case(rn, name, model_name, route, mode, replaces, on) -> dict:
     count = layers * n_win * tokens
     gemm_ops = 2.0 * 12 * dim * dim * count  # qkv, proj, fc1, fc2
     attn_ops = 2.0 * 2 * tokens * dim * count
-    n_bytes = nbytes(win, out, params[wkey], params["vpack"], params["bias"],
+    # Each GEMM's weights once (the rowwise pack carries fc1's twice).
+    sfx = {"int8_rowwise": "_q", "int8_static": "_sq"}.get(mode, "")
+    n_bytes = nbytes(win, out, params["vpack"], params["tables"],
+                     *(params[k + sfx] for k in T.GEMMS),
                      *(params[k] for k in (skey, ikey) if k is not None))
     if skey is not None:
         bnd, by = bound_ms(n_bytes, attn_ops, int8_ops=gemm_ops)

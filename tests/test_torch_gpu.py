@@ -140,12 +140,13 @@ def test_window_trunk_kernel_matches_plain(gen, n_win, layers):
 
 TRUNK_MODES = [(128, "v2"), (128, "v1"), (192, "v1"), (192, "int8_rowwise"),
                (192, "int8_static")]
-# The bf16 modes also where the kernel's windows a block change (one a
-# block up to the SM count, then two) and where a block's second window is
-# past the end (121, 241), 192 / v2 among them.
+# Every mode also where the kernel's windows a block change (one a block up
+# to the SM count, then two) and where a block's second window is past the
+# end (121, 241), 192 / v2 among them.
 TRUNK_CASES = [(d, m, n) for d, m in TRUNK_MODES for n in (1, 3, 61)] + [
     (d, m, n) for d, m in [(128, "v2"), (128, "v1"), (192, "v1"),
-                           (192, "v2")] for n in (121, 240, 241)]
+                           (192, "v2"), (192, "int8_rowwise"),
+                           (192, "int8_static")] for n in (121, 240, 241)]
 
 
 @pytest.mark.parametrize("dim,mode,n_win", TRUNK_CASES,
@@ -792,6 +793,46 @@ def test_conv_tail_heights_match_plain(gen, h, kt):
 def test_conv_tail_output_groups_match_plain(gen, kt, co, emit, out_dtype):
     """npad 16, 32, 48: one, two and three 16-output groups a block."""
     _fused_check(gen, (2, 21, 70), kt, co, True, emit, out_dtype)
+
+
+def test_wgmma_i8_probe(gen):
+    """The trunk's int8 ``wgmma`` products alone, bit for bit against the
+    int64 products of the same int8 operands: m64n64k32 from 64B-swizzled
+    K-major tiles over K = 192 (the qkv and fc1 chunks), and m64n192k32
+    with A built from an f32 accumulator's values by ``to_frags_i8`` and B
+    a proj / fc2 slab in ``K_PERM`` order, which pins the fragment map and
+    the 64B-swizzle descriptor."""
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    a, b, a2, w2 = ri(64, 192), ri(64, 192), ri(64, 64), ri(64, 192)
+    got1, got2 = T.wgmma_i8_probe(a, b, a2, w2)
+    torch.cuda.synchronize()
+    a, b, a2, w2 = (v.cpu().long() for v in (a, b, a2, w2))
+    assert torch.equal(got1.cpu().long(), a @ b.t())
+    assert torch.equal(got2.cpu().long(), a2 @ w2)
+
+
+def _bf16_grid():
+    """Every finite bf16 value, ascending."""
+    d = (torch.arange(65536, dtype=torch.int32) << 16).view(torch.float32)
+    return d[torch.isfinite(d)].unique().bfloat16()
+
+
+def test_gelu_i8_sides_monotone(gen):
+    """The rowwise int8 mode's first pass takes a row's largest |GELU
+    output| from three pre-activations; that is exact when the card's
+    bf16(gelu_i8(h)), over every finite bf16 h, never falls on h >= 0 and
+    its magnitude never falls on h <= -0.75 nor rises on -0.75 < h < 0
+    (csrc/window_trunk.cu ``GELU_TURN``)."""
+    d = _bf16_grid()
+    h = T.gelu_i8_probe(d.cuda()).float().cpu()
+    d = d.float()
+    assert torch.isfinite(h).all()
+    assert (h[d >= 0].diff() >= 0).all()
+    assert (h[d <= -0.75].abs().diff() >= 0).all()
+    assert (h[(d > -0.75) & (d < 0)].abs().diff() <= 0).all()
 
 
 @pytest.mark.parametrize("n", [48, 80, 112])

@@ -112,7 +112,7 @@ def test_int8_plain_matches_pallas(jax_int8, dtype):
     trunk, _, win = _case()
     tdt = getattr(torch, dtype)
     params = T.stack_trunk_params(trunk.blocks, tdt, int8_rowwise=True)
-    assert params["wpack_i8"].shape == (LAYERS, 36, 64, DIM)
+    assert params["wpack_i8"].shape == (LAYERS, 48, DIM, 64)
     assert params["swpack"].shape == (LAYERS, 9 * DIM)
     with torch.inference_mode():
         got = T.fused_window_trunk(torch.from_numpy(win).to(tdt), params,
@@ -128,6 +128,83 @@ def test_int8_plain_matches_pallas(jax_int8, dtype):
     exact = jax_int8["float32"]
     ours, theirs = np.abs(got - exact).mean(), np.abs(want - exact).mean()
     assert ours <= 1.25 * theirs, (ours, theirs)
+
+
+def _unpack_slabs(pack, c, fc1_twice):
+    """The int8 kernel's slabs (L, n, C, 64) read back in the order the
+    kernel consumes them, independently of ``trunk2._pack_slabs``: per
+    head group the k, v, q output chunks (C/64 tiles of [64 outputs][64
+    inputs]) and proj's rows ([C outputs][64 K slots]); per hidden chunk
+    fc1's chunk and fc2's rows ("int8_rowwise": every group's chunks, then
+    proj's rows, then fc1's chunks once alone before the pairs). Returns
+    {gemm: (L, in, out) int64} with each rows slab's K slots undone: slot
+    4t + e of each 16 holds input 2t + e % 2 + 8 (e // 2), the order in
+    which the kernel fills an int8 A fragment."""
+    slot = [2 * (s // 4) + s % 2 + 8 * (s % 4 // 2) for s in range(16)]
+    order = torch.tensor([16 * (s // 16) + slot[s % 16] for s in range(64)])
+    slabs = iter(pack.long().unbind(1))
+    layers = pack.shape[0]
+    out = {k: torch.zeros(layers, c if k != "fc2w" else 4 * c,
+                          {"qkvw": 3 * c, "fc1w": 4 * c}.get(k, c),
+                          dtype=torch.long) for k in T.GEMMS}
+
+    def chunk(name, o0):  # [kt][64 outputs][64 inputs] -> (L, C, 64)
+        t = next(slabs).reshape(layers, c // 64, 64, 64).transpose(2, 3)
+        out[name][:, :, o0:o0 + 64] = t.reshape(layers, c, 64)
+
+    def rows(name, i0):  # [C outputs][64 slots] -> inputs i0 + order
+        out[name][:, i0 + order, :] = next(slabs).transpose(1, 2)
+
+    groups = range(0, c, 64)
+    for i0 in groups:
+        chunk("qkvw", c + i0)
+        chunk("qkvw", 2 * c + i0)
+        chunk("qkvw", i0)
+        if not fc1_twice:
+            rows("projw", i0)
+    if fc1_twice:
+        for i0 in groups:
+            rows("projw", i0)
+        for i0 in range(0, 4 * c, 64):
+            chunk("fc1w", i0)
+    for i0 in range(0, 4 * c, 64):
+        chunk("fc1w", i0)
+        rows("fc2w", i0)
+    assert next(slabs, None) is None
+    return out, order
+
+
+@pytest.mark.parametrize("mode", ["int8_rowwise", "int8_static"])
+def test_int8_slab_packs(rng, mode):
+    """Both int8 modes' weight packs, unpacked in the kernel's slab order
+    with the K order undone, equal the quantized weights ``<gemm>_q``
+    (rowwise; fc1 twice) or ``<gemm>_sq`` (static) block for block; and
+    fc2's product taken over the permuted K slots, as the kernel's
+    fragments feed it, equals xq @ wq exactly in int64."""
+    trunk, _, _ = _case()
+    p = T.stack_trunk_params(trunk.blocks[:LAYERS], torch.bfloat16,
+                             int8_rowwise=True)
+    if mode == "int8_static":
+        s = [torch.from_numpy(rng.uniform(0.5, 4.0, (LAYERS, n))
+                              .astype(np.float32))
+             for n in (DIM, DIM, DIM, 4 * DIM)]
+        p = T.add_static_int8(p, s)
+    key, suffix = T.PACKS[mode][0], "_q" if mode == "int8_rowwise" else "_sq"
+    slabs = (16 if mode == "int8_rowwise" else 12) * DIM // 64
+    assert p[key].shape == (LAYERS, slabs, DIM, 64)
+    assert p[key].dtype == torch.int8
+    got, order = _unpack_slabs(p[key], DIM, mode == "int8_rowwise")
+    assert sorted(order.tolist()) == list(range(64))
+    assert list(order[:16]) == list(T.K_PERM)
+    for k in T.GEMMS:
+        assert torch.equal(got[k], p[k + suffix].long()), k
+    # fc2's slabs straight from the pack: the K slots of the 12 hidden
+    # chunks side by side, (C outputs, 4C slots).
+    first = slabs - 24 + 1
+    b = p[key][1, first::2].long().permute(1, 0, 2).reshape(DIM, 4 * DIM)
+    xq = torch.from_numpy(rng.integers(-127, 128, (64, 4 * DIM)))
+    perm = torch.cat([i0 + order for i0 in range(0, 4 * DIM, 64)])
+    assert torch.equal(xq[:, perm] @ b.t(), xq @ p["fc2w" + suffix][1].long())
 
 
 def test_int8_product_is_exact(rng):

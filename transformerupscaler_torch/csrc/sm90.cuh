@@ -173,6 +173,7 @@ __device__ __forceinline__ void store_wait_all() {
 // ---------------------------------------------------------------- wgmma
 // Descriptor layout types, bits 62-63.
 constexpr uint64_t SWIZZLE_128B = 1;
+constexpr uint64_t SWIZZLE_64B = 2;
 constexpr uint64_t SWIZZLE_32B = 3;
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
@@ -200,6 +201,12 @@ __device__ __forceinline__ uint64_t desc_b(const void* tile, int s) {
 // A K-major tile of 32-byte rows (the whole k16 step).
 __device__ __forceinline__ uint64_t desc_k32(const void* tile) {
   return desc(tile, 16, 256, SWIZZLE_32B);
+}
+// A K-major int8 tile of 64-byte rows in the 64B swizzle (every tile
+// 512-byte aligned): 8-row groups 512 B apart (SBO = 512); the k32 step `s`
+// starts at byte 32 s. wgmma reads both int8 operands K-major.
+__device__ __forceinline__ uint64_t desc_k64(const void* tile, int s) {
+  return desc(static_cast<const char*>(tile) + 32 * s, 16, 512, SWIZZLE_64B);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -230,6 +237,11 @@ template <int R>
 __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // D (64 x N, f32) = A (64 x 16, bf16) . B (16 x N, bf16) + D if accumulate,
@@ -580,6 +592,152 @@ __device__ __forceinline__ void wgmma_rs_kb<192>(float (&d)[96],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D (64 x N, s32) = A (64 x 32, s8) . B (32 x N, s8) + D if accumulate,
+// else without D: int8 x int8 summed exactly in int32. 8-bit operands have
+// no transpose, so both are K-major: A by descriptor (desc_k64, _ss) or from
+// registers (_rs: warp w holds rows 16w..16w+15, thread (g, t) four int8
+// a register: a0 row g, k 4t..4t+3; a1 row g + 8; a2, a3 the same rows at
+// k 16 + 4t..), B as N rows of 32 contiguous K bytes (desc_k64). The
+// accumulator's layout is the f32 one above. The window trunk's int8 modes
+// (csrc/window_trunk.cu): N = 64, an output chunk of qkv or fc1 from the LN
+// tile; N = 192, proj and fc2 from registers.
+__device__ __forceinline__ void wgmma_i8_ss_n64(int (&d)[32], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_i8_rs_n192(int (&d)[96],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The same with D written, not accumulated: the old D is no input, so the
+// compiler need not keep the accumulator live before the first product of
+// an accumulation.
+__device__ __forceinline__ void wgmma_i8_ss_n64_init(int (&d)[32], uint64_t a,
+                                                     uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p;\n}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_i8_rs_n192_init(int (&d)[96],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p;\n}\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]),
+        "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]),
+        "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+        "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]),
+        "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31]),
+        "=r"(d[32]), "=r"(d[33]), "=r"(d[34]), "=r"(d[35]),
+        "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]),
+        "=r"(d[44]), "=r"(d[45]), "=r"(d[46]), "=r"(d[47]),
+        "=r"(d[48]), "=r"(d[49]), "=r"(d[50]), "=r"(d[51]),
+        "=r"(d[52]), "=r"(d[53]), "=r"(d[54]), "=r"(d[55]),
+        "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]),
+        "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63]),
+        "=r"(d[64]), "=r"(d[65]), "=r"(d[66]), "=r"(d[67]),
+        "=r"(d[68]), "=r"(d[69]), "=r"(d[70]), "=r"(d[71]),
+        "=r"(d[72]), "=r"(d[73]), "=r"(d[74]), "=r"(d[75]),
+        "=r"(d[76]), "=r"(d[77]), "=r"(d[78]), "=r"(d[79]),
+        "=r"(d[80]), "=r"(d[81]), "=r"(d[82]), "=r"(d[83]),
+        "=r"(d[84]), "=r"(d[85]), "=r"(d[86]), "=r"(d[87]),
+        "=r"(d[88]), "=r"(d[89]), "=r"(d[90]), "=r"(d[91]),
+        "=r"(d[92]), "=r"(d[93]), "=r"(d[94]), "=r"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
 // --------------------------------------------------------------- host
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -659,6 +817,16 @@ inline int map_matrix(CUtensorMap* m, const void* p, int rows, int cols,
   const uint32_t box[2] = {64, uint32_t(box_rows)};
   return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p, dims, strides,
                     box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The same for int8: box (64 bytes, box_rows rows), 64B swizzle.
+inline int map_matrix_i8(CUtensorMap* m, const void* p, int rows, int cols,
+                         int box_rows) {
+  const uint64_t dims[2] = {uint64_t(cols), uint64_t(rows)};
+  const uint64_t strides[1] = {uint64_t(cols)};
+  const uint32_t box[2] = {64, uint32_t(box_rows)};
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // The streaming multiprocessors of `device` (persistent grids).

@@ -29,8 +29,9 @@
 //   x   = x + (bf16(ctx Wproj) + b)                        adds in bf16
 //   h   = gelu(bf16(LN(x) Wfc1) + b)   0.5 h (1 + erf(h / sqrt 2)) in f32,
 //                                      one rounding; erf within 2 ulp
-//                                      (erff, or erf_branchless in the
-//                                      bf16 modes)
+//                                      (erf_branchless; the int8 modes'
+//                                      gelu_i8 forms 1 + erf from its
+//                                      fits without cancellation)
 //   x   = x + (bf16(h Wfc2) + b)
 // The modes:
 //   V2    as above (trunk2.py:237-240, 247-250).
@@ -45,34 +46,32 @@
 //         bf16 and the bias added as above. Attention stays bf16 / f32.
 //   INT8_STATIC  INT8 with the static per-channel scales of the reference's
 //         int8_gemms=True (trunk2.py:182-185): each element of a GEMM input is
-//         quantized with its column's calibrated inverse scale ia (from
-//         iapack, read through L1 / L2), aq = clip(round_half_even(a * ia),
-//         -127, 127); no row maximum, no row scales. The scales are folded
-//         into the int8 weights, whose f32 scales sw arrive as in INT8; the
-//         product is float(acc) * sw.
+//         quantized with its column's calibrated inverse scale ia (iapack),
+//         aq = clip(round_half_even(a * ia), -127, 127); no row maximum, no
+//         row scales. The scales are folded into the int8 weights, whose f32
+//         scales sw arrive as in INT8; the product is float(acc) * sw.
 //
-// Two designs, by mode:
-//
-// V2 and V1 (bf16; window_trunk_kernel): TMA + wgmma. A block holds two
-// windows, one a consumer warpgroup (rows 16 w .. 16 w + 15 of a window to
-// warp w), and a producer warpgroup: one thread of it issues the copies,
-// and setmaxnreg moves its registers to the consumers (24 and 240 a
+// One design for every mode (window_trunk_kernel): TMA + wgmma. A block
+// holds two windows, one a consumer warpgroup (rows 16 w .. 16 w + 15 of a
+// window to warp w), and a producer warpgroup: one thread of it issues the
+// copies, and setmaxnreg moves its registers to the consumers (24 and 240 a
 // thread). Both windows take every weight slab from one ring, so the
 // weights cross L2 once for two windows, and one window's LayerNorm,
 // softmax and epilogues overlap the other's products. The
-// weights arrive re-cut (kernels/trunk2.py ``_pack_slabs``) into 12C/64
-// slabs a layer of C rows x 64 bf16 (C x 128 B), each one TMA box written
-// with the 128B swizzle, in the order the products consume them:
+// weights arrive re-cut (kernels/trunk2.py ``_pack_slabs``) into slabs of
+// C rows x 64 elements (bf16: C x 128 B, the 128B swizzle; int8: C x 64 B,
+// the 64B swizzle), each one TMA box, in the order the products consume
+// them:
 //   per head group of 64 channels (4 heads): k, v and q, each an N = 64
 //     output chunk as C/64 K-major tiles [64 outputs][64 inputs]
-//     (wgmma m64n64k16, A = the LN output from shared memory), then proj's
+//     (wgmma m64n64, A = the LN output from shared memory), then proj's
 //     rows of those 64 input channels, a K-major [C outputs][64 inputs]
-//     (wgmma m64nCk16, A = the group's attention context from registers,
-//     accumulated in f32 over the groups: the one product's sum in another
+//     (wgmma m64nC, A = the group's attention context from registers,
+//     accumulated over the groups: the one product's sum in another
 //     order, rounded once);
 //   per hidden chunk of 64: fc1's N = 64 chunk, then fc2's [C][64] rows
-//     (A = bf16(GELU) of the fc1 chunk from registers, the fc2 sum in f32
-//     over all chunks, rounded once). The 64 x 4C hidden never exists.
+//     (A = GELU of the fc1 chunk from registers, the fc2 sum over all
+//     chunks, rounded once). The 64 x 4C hidden never exists.
 // The k and v chunks go to shared memory for the group's attention; q
 // stays in registers as the mma.sync A fragments of Q.K^T. Attention runs
 // per warp on its 16 query rows (mma.sync m16n8k16: 16 x 64 scores in
@@ -89,61 +88,68 @@
 // epilogue (issuing the next products first made ptxas wait for them at
 // every branch), so a window's time is its products' latency plus its
 // epilogues, and the tensor pipe is about a quarter busy (PERF.md).
+//
+// The int8 modes (C = 192) run the same schedule on wgmma m64nNk32 with
+// s8 operands and s32 accumulators, which 8-bit types allow only K-major:
+// the LN output is quantized inside LayerNorm into C/64 K-major int8 tiles
+// in the 64B swizzle (the SS products' A); each accumulator is dequantized
+// (dequant: the f32 products above) before v2's epilogues; the proj and
+// fc2 inputs are quantized in registers into s8 A fragments. A k32
+// fragment holds a thread's values of a row at K slots 4t..4t+3 and
+// 16+4t..16+4t+3; an f32 accumulator holds columns 8j + 2t, +1, and
+// attention's context fragments dims 2t, 2t+1, 8+2t, 9+2t of a head. They
+// go into the slots in that order (to_frags_i8, ctx_frags_i8), and the
+// host packs proj's and fc2's weight rows in the same K order (trunk2.py
+// K_PERM): the int32 sum is the same set of products, exact in any order.
+//   INT8_STATIC needs no row maximum: it quantizes each head group's
+//     context and each GELU chunk with the columns' ia and accumulates proj
+//     and fc2 across groups and chunks, exactly as v2 does.
+//   INT8 needs each GEMM input's whole row first. LayerNorm has it. The
+//     context of every head group stays in registers (48 of bf16 pairs)
+//     until the last group; then the row maximum (the thread's values and
+//     two quad shuffles), the quantize, and proj over K = C: proj's slabs
+//     follow all of qkv's. The GELU output (4C a row) needs fc1 twice: a
+//     first pass over the fc1 chunks finds each row's largest |h| and
+//     keeps nothing, the second recomputes each chunk (dequant's multiplies
+//     round each step, so the two agree bit for bit), quantizes it with the
+//     row's scale and feeds fc2. Its slab stream carries fc1 twice: 48
+//     slabs a layer, not 36. The first pass evaluates GELU at three
+//     pre-activations a row, not 768: the int8 modes' GELU (gelu_i8) is
+//     formed so that its bf16 values are monotone on each side of its
+//     minimum (the tests check every bf16 input), so the largest |h| is
+//     at the largest pre-activation, the largest <= GELU_TURN or the
+//     smallest above it.
+// The int8 weight scales sw (9C a layer) and static inverse activation
+// scales ia (7C) are read through L1.
 // Shared memory at C = 192 (C = 128), bytes:
-//   ring         3 x 24,576 = 73,728      (6 x 16,384 = 98,304)
-//   per window   LN output as the A operand, C/64 swizzled 8 KB tiles
-//                24,576 (16,384); residual x, row stride C + 8: 25,600
-//                (17,408); k and v of one head group, row stride 72:
-//                18,432 (18,432); 68,608 (52,224), two windows 137,216
-//                (104,448)
+//   ring         bf16: 3 x 24,576 = 73,728 (6 x 16,384 = 98,304); int8:
+//                6 x 12,288 = 73,728
+//   per window   LN output as the A operand, C/64 swizzled tiles of 64
+//                rows: bf16 24,576 (16,384), int8 12,288; residual x, row
+//                stride C + 8: 25,600 (17,408); k and v of one head group,
+//                row stride 72: 18,432 (18,432); bf16 68,608 (52,224), int8
+//                56,320; two windows 137,216 (104,448), int8 112,640
 //   vectors      a layer's LN scales, shifts and biases (13 C bf16), two
 //                layers a window: 19,968 (13,312)
-//   barriers     2 x STAGES x 8 = 48 (96); 1,024 to align the ring
-//   total        231,984 (217,184) of 232,448.
+//   barriers     2 x STAGES x 8 = 48 (96), int8 96; 1,024 to align the ring
+//   total        231,984 (217,184), int8 207,456 of 232,448.
 // Windows a block: one while the windows fit on the SMs one a block, else
 // two (240 windows: 120 blocks, one wave); a block whose second window is
 // past the end runs one consumer warpgroup.
 //
-// INT8 and INT8_STATIC (window_trunk_i8_kernel, on mma.sync and cp.async):
-// one block per window, 256 threads. Shared memory holds the residual
-// stream x (64 x C), the LN output / attention context (64 x C) and one
-// 64 x 4C buffer used for qkv (64 x 3C) and then for the MLP hidden: no
-// intermediate goes to device memory. The int8 weights arrive as slabs of
-// [64 outputs][C inputs] in the order the kernel consumes them (qkv 3C/64,
-// proj C/64, fc1 4C/64, fc2 C/64 output chunks x 4 input chunks), and a
-// three-slab ring is filled with cp.async two slabs ahead of the mma.sync
-// products, also across the LN and attention phases. The 8 warps tile a
-// slab's 64 x 64 output as 2 x 4 warp tiles of 32 x 16. Attention runs
-// flash-style per (head, 16 query rows). Row strides of (multiple of 64) +
-// 8 elements keep the fragment reads free of bank conflicts, for bf16 and
-// for int8 fragments alike.
-//
-// The int8 modes at C = 192 use 227,328 - 37 KB of shared memory for the
-// bf16 tiles and a ring of int8 slabs: there is no room for int8 copies of
-// the activations beside the bf16 ones. Each GEMM input is consumed by its
-// GEMM alone, so it is quantized in place: one warp per row reads the row's
-// bf16 values into registers, takes their maximum, and writes the int8 row
-// over the first half of the same bytes, and the row's scale to a 64-float
-// array. An A fragment is then a plain 4-byte load, as fast as the bf16
-// one, where quantizing fragments as they are loaded would redo each
-// element's conversion for every output slab and warp column (36 times for
-// qkv). The LN output is quantized inside LayerNorm; the attention context
-// and the GELU output, whose row maxima need every head and every fc1 slab
-// first, in a pass of their own after the phase that writes them
-// (INT8_STATIC keeps that pass: its columns' scales need no maximum, but
-// each row is read whole before it is overwritten, as in INT8).
-//
 // Bound on the H100 at 240 windows x 6 layers, C = 192: 86.1 G operations,
-// 0.087 ms at 989 TF/s; x, out, weights and bias are ~13 MB, 0.004 ms. The
-// bf16 design reads the weights from L2 once for two windows (0.64 GB a
-// frame at C = 192) and the relative-position bias as its 225-entry tables
-// through L1; the int8 design every block all weights (0.64 GB of int8)
-// and every window the gathered 64 x 64 bias (0.28 GB, f32).
+// 0.087 ms at 989 TF/s in bf16; with the GEMMs at the int8 rate 0.046 ms.
+// x, out, weights and tables are ~13 MB, 0.004 ms. The weights cross L2
+// once for two windows (0.64 GB a frame in bf16, 0.32 GB in int8; 0.43 GB
+// in INT8, which reads fc1 twice), the relative-position bias as its
+// 225-entry tables through L1.
 // WindowTransformer's 720p frame is 60 windows: one a block on 60 SMs.
 #include "common.cuh"
 #include "sm90.cuh"
 
 #include <math.h>
+
+#include <type_traits>
 
 
 namespace {
@@ -173,37 +179,9 @@ __device__ __forceinline__ float2 round_bf16(float a, float b) {
 __device__ __forceinline__ float2 ld2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
 }
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(a, b);
-}
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   bf162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) |
-         (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
-__device__ __forceinline__ float warp_max(float m) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  return m;
-}
-
-// bf16(acc) + bias in bf16 for a pair of outputs: the reference's two
-// roundings.
-__device__ __forceinline__ float2 dense_out(float v0, float v1, float2 bias) {
-  const float2 r = round_bf16(v0, v1);
-  return round_bf16(r.x + bias.x, r.y + bias.y);
-}
-
-// The residual x += product + bias at p, as x + (product + bias).
-__device__ __forceinline__ void add_residual(bf16* p, float v0, float v1,
-                                             float2 bias) {
-  const float2 xv = ld2(p);
-  const float2 d = dense_out(v0, v1, bias);
-  st2(p, xv.x + d.x, xv.y + d.y);
 }
 
 // The same roundings in bf16x2 arithmetic: a bf16 add of two bf16 values,
@@ -231,10 +209,6 @@ __device__ __forceinline__ uint32_t as_u32(bf162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float gelu_erf(float h) {
-  return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
-}
-
 // erf without a branch, so that a warp's 32 evaluations interleave (and a
 // product may stay in flight across them): |x| <= 1, x + x q(x^2); beyond,
 // 1 - 2^(r(t) - t^2 log2 e) at t = min(|x|, 4) (erf rounds to 1 from 3.92),
@@ -257,24 +231,59 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ float erf_branchless(float x) {
-  const float t = fabsf(x);
+// erf(x) for |x| <= 1.
+__device__ __forceinline__ float erf_near(float x) {
   const float s = x * x;
   float q = ERF_Q[6];
 #pragma unroll
   for (int k = 5; k >= 0; --k) q = fmaf(q, s, ERF_Q[k]);
-  const float near = fmaf(q, x, x);
-  const float u = fminf(t, 4.0f);
+  return fmaf(q, x, x);
+}
+// erfc(u) for 1 <= u <= 4.
+__device__ __forceinline__ float erfc_far(float u) {
   float r = ERF_R[8];
 #pragma unroll
   for (int k = 7; k >= 0; --k) r = fmaf(r, u, ERF_R[k]);
-  const float far = 1.0f - ex2_approx(fmaf(-(u * u), 1.4426950408889634f, r));
+  return ex2_approx(fmaf(-(u * u), 1.4426950408889634f, r));
+}
+
+__device__ __forceinline__ float erf_branchless(float x) {
+  const float t = fabsf(x);
+  const float near = erf_near(x);
+  const float far = 1.0f - erfc_far(fminf(t, 4.0f));
   return t <= 1.0f ? near : copysignf(far, x);
 }
 
 // The exact (erf) GELU, 0.5 h (1 + erf(h / sqrt 2)), in f32.
 __device__ __forceinline__ float gelu(float h) {
   return 0.5f * h * (1.0f + erf_branchless(h * 0.70710678118654752f));
+}
+
+// The int8 modes' GELU: the same fits, with 1 + erf formed without
+// cancellation (erfc_far itself below x = -1, 0 below x = -4, where erfc <
+// 2e-8) and 2 - erfc above 1. Its bf16 values never fall on h >= 0, and
+// their magnitude rises on h <= GELU_TURN and falls on GELU_TURN < h < 0
+// (GELU's minimum is at -0.7518), for every bf16 h (tests/
+// test_torch_trunk_erf.py, emulated; tests/test_torch_gpu.py on the card):
+// over a row, the largest |bf16(gelu_i8(h))| is at one of three h. No
+// a * b + c is left for the compiler to contract, so every call gives the
+// same bits. Its selects are selp instructions: as C++ conditionals the
+// compiler branched around erfc_far, and a warp's evaluations diverged.
+constexpr float GELU_TURN = -0.75f;
+__device__ __forceinline__ float select(bool p, float a, float b) {
+  float r;
+  asm("{\n.reg .pred q;\nsetp.ne.u32 q, %3, 0;\nselp.f32 %0, %1, %2, q;\n}"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"(uint32_t(p)));
+  return r;
+}
+__device__ __forceinline__ float gelu_i8(float h) {
+  const float x = h * 0.70710678118654752f;
+  const float t = fabsf(x);
+  const float e = select(t < 4.0f, erfc_far(fminf(t, 4.0f)), 0.0f);
+  const float one_plus_erf = select(t <= 1.0f, 1.0f + erf_near(x),
+                                    select(x > 0.0f, 2.0f - e, e));
+  return 0.5f * h * one_plus_erf;
 }
 
 // The LayerNorm of R rows of C values, two a lane at columns 2 lane + 64 j
@@ -328,7 +337,7 @@ __device__ __forceinline__ void ln_params(float2 (&sc)[C / 64],
   }
 }
 
-// ==================================================== bf16: TMA + wgmma
+// ============================================================ TMA + wgmma
 constexpr int WG = 2;                  // consumer warpgroups = windows
 // And a producer warpgroup, so that setmaxnreg can move registers: at 12
 // warps a block ptxas allots 168 a thread; the producer gives back all but
@@ -343,15 +352,20 @@ template <int C_, int MODE_>
 struct WCfg {
   static constexpr int C = C_;
   static constexpr int MODE = MODE_;
+  static constexpr bool I8 = MODE == INT8 || MODE == INT8_STATIC;
+  static constexpr bool ROWS = MODE == INT8;  // per-row activation scales
   static constexpr int HEADS = C / HD;
   static constexpr int GROUPS = C / 64;  // head groups of 64 channels
   static constexpr int CHUNKS = 4 * C / 64;
   static constexpr int KT = C / 64;      // 64-wide K tiles of an N = 64 slab
-  static constexpr int SLABS = 4 * GROUPS + 2 * CHUNKS;  // = 12 C / 64
-  static constexpr int STAGE = C * 128;  // one slab: C rows of 64 bf16
-  static constexpr int STAGES = C == 192 ? 3 : 6;
+  // 12 C / 64 slabs a layer; INT8 streams fc1's twice.
+  static constexpr int SLABS = 4 * GROUPS + 2 * CHUNKS + (ROWS ? CHUNKS : 0);
+  static constexpr int EL = I8 ? 1 : 2;  // bytes a weight / A element
+  static constexpr int TILE = 64 * 64 * EL;  // a K-major [64][64] tile
+  static constexpr int STAGE = C * 64 * EL;  // one slab: C rows of 64
+  static constexpr int STAGES = I8 ? 6 : C == 192 ? 3 : 6;
   static constexpr int XS = C + 8;       // residual row stride (elements)
-  static constexpr int A_BYTES = KT * 8192;
+  static constexpr int A_BYTES = KT * TILE;
   static constexpr int X_BYTES = NT * XS * 2;
   static constexpr int KV_BYTES = NT * KS * 2;
   static constexpr int WIN = A_BYTES + X_BYTES + 2 * KV_BYTES;
@@ -359,6 +373,18 @@ struct WCfg {
   static constexpr int BYTES = 1024 + STAGES * STAGE + WG * WIN +
                                WG * 2 * VEC_BYTES + 2 * STAGES * 8;
   static_assert(WIN % 1024 == 0, "window regions keep 1024-byte alignment");
+  static_assert(!I8 || C == 192, "the int8 modes run at C = 192");
+};
+
+// Offsets into a layer's int8 weight scales sw (f32; qkv, proj, fc1, fc2
+// side by side) and static inverse activation scales ia (f32; the inputs
+// of qkv, proj, fc1, fc2).
+template <int C>
+struct Scales {
+  static constexpr int S_QKV = 0, S_PROJ = 3 * C, S_FC1 = 4 * C,
+                       S_FC2 = 8 * C, SW = 9 * C;
+  static constexpr int I_QKV = 0, I_PROJ = C, I_FC1 = 2 * C, I_FC2 = 3 * C,
+                       IA = 7 * C;
 };
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -584,13 +610,17 @@ __device__ __forceinline__ void attend(uint32_t (&ctx_a)[4],
   ctx_a[3] = pack2(ctx[1][2], ctx[1][3]);
 }
 
+// An accumulator's value as f32: the value itself, or the f32 bits an
+// int8 mode's dequant left in the int32 register.
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(int v) { return __int_as_float(v); }
+
 // The k16-step A fragments of a wgmma m64n64 accumulator's four 16-column
 // blocks, fn(col, v0, v1) -> the pair as two bf16 (col within the chunk):
 // the accumulator's pair layout is mma.m16n8k16's A layout.
-template <typename F>
+template <typename T, typename F>
 __device__ __forceinline__ void to_frags(uint32_t (&frag)[4][4],
-                                         const float (&acc)[32], int t,
-                                         F fn) {
+                                         const T (&acc)[32], int t, F fn) {
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll
@@ -598,16 +628,16 @@ __device__ __forceinline__ void to_frags(uint32_t (&frag)[4][4],
       // k = 0: row g, cols 16 s + 2t; 1: row g + 8; 2, 3: cols + 8.
       const int jj = 2 * s + (k >> 1);
       const int i = k & 1;
-      frag[s][k] =
-          fn(8 * jj + 2 * t, acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+      frag[s][k] = fn(8 * jj + 2 * t, as_f32(acc[4 * jj + 2 * i]),
+                      as_f32(acc[4 * jj + 2 * i + 1]));
     }
 }
 
 // x[rows 16 warp + g (+8)] += the wgmma m64nC accumulator acc + bias, in
 // the mode's association, eight column pairs at a time: their x values and
 // biases are read before any of them is written.
-template <int C, int MODE>
-__device__ __forceinline__ void residual_rows(const float (&acc)[C / 2],
+template <int C, int MODE, typename T>
+__device__ __forceinline__ void residual_rows(const T (&acc)[C / 2],
                                               bf16* xs, const bf16* b,
                                               int warp, int g, int t) {
   bf162* x0 = reinterpret_cast<bf162*>(xs + (16 * warp + g) * (C + 8) +
@@ -626,110 +656,298 @@ __device__ __forceinline__ void residual_rows(const float (&acc)[C / 2],
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int j = j0 + k;
-      x0[4 * j] = residual2<MODE>(xa[k], acc[4 * j], acc[4 * j + 1], bb[k]);
-      x1[4 * j] = residual2<MODE>(xb[k], acc[4 * j + 2], acc[4 * j + 3],
-                                  bb[k]);
+      x0[4 * j] = residual2<MODE>(xa[k], as_f32(acc[4 * j]),
+                                  as_f32(acc[4 * j + 1]), bb[k]);
+      x1[4 * j] = residual2<MODE>(xb[k], as_f32(acc[4 * j + 2]),
+                                  as_f32(acc[4 * j + 3]), bb[k]);
     }
   }
 }
 
-// x, out (nW, 64, C) bf16; wmap: the slabs (layers x 12C/64 x C rows, 64)
-// bf16, box (64, C), 128B swizzle; vpack (layers, 13C) bf16; tables
-// (layers, C/16, 225) f32, each head's relative-position table. ``wpb``
-// windows a block (1 or 2).
-template <class K>
-__global__ void __launch_bounds__(W_THREADS, 1)
-window_trunk_kernel(const __grid_constant__ CUtensorMap wmap,
-                    const bf16* __restrict__ x,
-                    const bf16* __restrict__ vpack,
-                    const float* __restrict__ tables,
-                    bf16* __restrict__ out, int n_windows, int layers,
-                    int wpb) {
-  constexpr int C = K::C, XS = K::XS;
-  using V = Vec<C>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring_base = align1024(smem_raw);
-  unsigned char* win_base = ring_base + K::STAGES * K::STAGE;
-  bf16* vec_base = reinterpret_cast<bf16*>(win_base + WG * K::WIN);
-  uint64_t* full = reinterpret_cast<uint64_t*>(
-      win_base + WG * K::WIN + WG * 2 * K::VEC_BYTES);
-  uint64_t* empty = full + K::STAGES;
-  const int tid = threadIdx.x;
-  const int w0 = blockIdx.x * wpb;
-  const int active = min(wpb, n_windows - w0);  // consumer warpgroups
-  if (tid == 0) {
-    for (int s = 0; s < K::STAGES; ++s) {
-      S::mbar_init(&full[s], 1);
-      S::mbar_init(&empty[s], 4 * active);
-    }
-    S::fence_barrier_init();
-  }
-  __syncthreads();
+// ---------------------------------------------------- the int8 modes' parts
+// The row scale of the rowwise int8 mode (trunk2.py:176-178): 1/127 is the
+// f32 value of the double 1/127, as the reference's weakly typed constant.
+__device__ __forceinline__ float row_scale(float absmax) {
+  return fmaxf(absmax, 1e-6f) * float(1.0 / 127.0);
+}
+// a quantized with a row's inv = 1 / srow (a correctly rounded f32
+// division), rounded half to even: within +-127 since |a| <= the row's
+// maximum.
+__device__ __forceinline__ int q_row(float a, float inv) {
+  return __float2int_rn(__fmul_rn(a, inv));
+}
+// a quantized with its column's inverse scale ia, rounded half to even and
+// clipped to +-127 (trunk2.py:182): fmaxf(-127) and one convert that
+// rounds half to even and saturates at 127, bit-identical to rint and two
+// clamps.
+__device__ __forceinline__ int q_col(float a, float ia) {
+  const float v = fmaxf(__fmul_rn(a, ia), -127.f);
+  int q;
+  asm("cvt.rni.sat.s8.f32 %0, %1;" : "=r"(q) : "f"(v));
+  return q;
+}
+__device__ __forceinline__ float2 ld_f2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+// Four int8 in one register, a in the low byte.
+__device__ __forceinline__ uint32_t pack_i8(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+__device__ __forceinline__ float quad_max(float m) {
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+}
+__device__ __forceinline__ float quad_min(float m) {
+  m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  return fminf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+}
 
-  if (tid >= WG * 128) {  // producer warpgroup: one thread issues copies
-    S::setmaxnreg_dec<PRODUCER_REGS>();
-    if (tid != WG * 128) return;
-    const int total = layers * K::SLABS;
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int i = 0; i < total; ++i) {
-      S::mbar_wait(&empty[stage], phase ^ 1);
-      S::mbar_expect_tx(&full[stage], K::STAGE);
-      S::tma_load_2d(ring_base + stage * K::STAGE, &wmap, &full[stage], 0,
-                     i * C);
-      if (++stage == K::STAGES) {
-        stage = 0;
-        phase ^= 1;
+// Byte offset of (row r, column c) in the int8 LN output: C / 64 K-major
+// tiles of 64 rows x 64 B, 16-byte chunks XORed with (r / 2) % 4 (the 64B
+// swizzle, as TMA would have written it).
+__device__ __forceinline__ int a_offset_i8(int r, int c) {
+  return (c >> 6) * 4096 + r * 64 + ((((c & 63) >> 4) ^ ((r >> 1) & 3)) << 4) +
+         (c & 15);
+}
+
+// layernorm_to_a with the output quantized into the int8 A tile: with the
+// columns' inverse scales ia, or (ROWS) with each row's scale, which
+// srow[i] keeps for row 16 warp + g + 8 i (the rows of the thread's
+// accumulator values).
+template <class K>
+__device__ __forceinline__ void layernorm_to_a_i8(
+    const bf16* xs, unsigned char* a, const bf16* scale, const bf16* shift,
+    const float* ia, float (&srow)[2], int warp, int lane) {
+  constexpr int C = K::C, XS = C + 8, P = C / 64;
+  float2 sc[P], sh[P], iv[P];
+  ln_params<C>(sc, sh, scale, shift, lane);
+  if constexpr (!K::ROWS) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) iv[j] = ld_f2(ia + 2 * lane + 64 * j);
+  }
+  const int g = lane >> 2;
+#pragma unroll 1
+  for (int r0 = 16 * warp; r0 < 16 * warp + 16; r0 += 4) {
+    float2 v[4][P];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        v[r][j] = ld2(xs + (r0 + r) * XS + 2 * lane + 64 * j);
+    layernorm_rows<C, 4>(v, sc, sh);
+    float inv[4];
+    if constexpr (K::ROWS) {
+      float m[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        m[r] = 0.f;
+#pragma unroll
+        for (int j = 0; j < P; ++j)
+          m[r] = fmaxf(m[r], fmaxf(fabsf(v[r][j].x), fabsf(v[r][j].y)));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], o));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float sr = row_scale(m[r]);
+        inv[r] = 1.0f / sr;
+        const int rr = (r0 + r) & 15;
+        if (rr == g) srow[0] = sr;
+        if (rr == g + 8) srow[1] = sr;
       }
     }
-    return;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int c = 2 * lane + 64 * j;
+        const int q0 = K::ROWS ? q_row(v[r][j].x, inv[r])
+                               : q_col(v[r][j].x, iv[j].x);
+        const int q1 = K::ROWS ? q_row(v[r][j].y, inv[r])
+                               : q_col(v[r][j].y, iv[j].y);
+        *reinterpret_cast<char2*>(a + a_offset_i8(r0 + r, c)) =
+            make_char2(static_cast<signed char>(q0),
+                       static_cast<signed char>(q1));
+      }
   }
+}
 
-  S::setmaxnreg_inc<CONSUMER_REGS>();
-  const int wg = tid >> 7;
-  if (wg >= active) return;
-  const int warp = (tid >> 5) & 3;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  unsigned char* win = win_base + wg * K::WIN;
-  unsigned char* a_tile = win;  // LN output, the SS products' A
-  bf16* xs = reinterpret_cast<bf16*>(win + K::A_BYTES);
-  bf16* kb = reinterpret_cast<bf16*>(win + K::A_BYTES + K::X_BYTES);
-  bf16* vb = kb + NT * KS;
-  Ring<K::STAGES> ring{ring_base, full, empty, K::STAGE, 0};
-
-  // This warp's 16 rows of the window into x.
-  const size_t wofs = size_t(w0 + wg) * NT * C;
-  for (int i = lane; i < 16 * (C / 8); i += 32) {
-    const int r = 16 * warp + i / (C / 8);
-    const int c = (i % (C / 8)) * 8;
-    *reinterpret_cast<uint4*>(xs + r * XS + c) =
-        *reinterpret_cast<const uint4*>(x + wofs + r * C + c);
+// An int32 wgmma accumulator of R / 4 column pairs (acc[4j + 2i + e]: row
+// g + 8i, column 8j + 2t + e) replaced, in place as f32 bits (as_f32), by
+// its products: (float(acc) * srow[i]) * sw[col] with row scales (ROWS),
+// else float(acc) * sw[col]; sw points at the first column's scale. In
+// place, so that the accumulator, which the next product's asm reads, and
+// the products are not both live. Each multiply rounds on its own, so
+// every caller gets the same bits.
+template <bool ROWS, int R>
+__device__ __forceinline__ void dequant(int (&acc)[R], const float* sw,
+                                        const float (&srow)[2], int t) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    const float2 w = ld_f2(sw + 8 * j + 2 * t);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float v0 = __int2float_rn(acc[4 * j + 2 * i]);
+      float v1 = __int2float_rn(acc[4 * j + 2 * i + 1]);
+      if constexpr (ROWS) {
+        v0 = __fmul_rn(v0, srow[i]);
+        v1 = __fmul_rn(v1, srow[i]);
+      }
+      acc[4 * j + 2 * i] = __float_as_int(__fmul_rn(v0, w.x));
+      acc[4 * j + 2 * i + 1] = __float_as_int(__fmul_rn(v1, w.y));
+    }
   }
-  // Each layer's vectors (LN scales and shifts, biases) into this
-  // warpgroup's two buffers in turn: layer l + 1's once every warp has
-  // passed layer l - 1 (the barrier after layer l's first LayerNorm).
-  bf16* vecs = vec_base + wg * 2 * V::SIZE;
-  const int wtid = tid & 127;
-  auto load_vec = [&](int l) {
-    const uint4* src = reinterpret_cast<const uint4*>(vpack + l * V::SIZE);
-    uint4* dst = reinterpret_cast<uint4*>(vecs + (l & 1) * V::SIZE);
-    for (int i = wtid; i < V::SIZE / 8; i += 128) dst[i] = src[i];
-  };
-  load_vec(0);
-  S::named_sync(1 + wg, 128);
+}
 
+// The GELU output pair for the fc1 products v0, v1 and their bias: bf16(
+// gelu_i8(bf16(v) + b)), v2's fc1 epilogue with gelu_i8.
+__device__ __forceinline__ float2 hidden(float v0, float v1, bf162 bias) {
+  const float2 d = __bfloat1622float2(dense2(v0, v1, bias));
+  return round_bf16(gelu_i8(d.x), gelu_i8(d.y));
+}
+
+// The k32-step s8 A fragments (wgmma m64nNk32 from registers) of a wgmma
+// m64n64 accumulator's values: fn(col, i, v0, v1) -> the pair at columns
+// col, col + 1 of row g + 8 i quantized, as two int. Step kk, register r
+// takes the pairs of j = 4 kk + 2 (r / 2) and j + 1 (columns 8 j + 2t, +1)
+// in row g + 8 (r % 2): K slot 4t + e of each 16-slot half holds column
+// 2t + e % 2 + 8 (e / 2) of that half, and the weight rows arrive in that
+// K order (kernels/trunk2.py K_PERM).
+template <typename T, typename F>
+__device__ __forceinline__ void to_frags_i8(uint32_t (&frag)[2][4],
+                                            const T (&acc)[32], int t,
+                                            F fn) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = 4 * kk + 2 * (r >> 1), i = r & 1;
+      const int2 p = fn(8 * j + 2 * t, i, as_f32(acc[4 * j + 2 * i]),
+                        as_f32(acc[4 * j + 2 * i + 1]));
+      const int2 q = fn(8 * j + 8 + 2 * t, i, as_f32(acc[4 * j + 4 + 2 * i]),
+                        as_f32(acc[4 * j + 5 + 2 * i]));
+      frag[kk][r] = pack_i8(p.x, p.y, q.x, q.y);
+    }
+}
+
+// The same for a head group's context, four heads' attend() fragments
+// ([0] row g, dims 2t, 2t + 1; [1] row g + 8; [2], [3] dims 8 + 2t, +1):
+// step kk takes heads 2 kk and 2 kk + 1, in to_frags_i8's K order; col
+// is within the group.
+template <typename F>
+__device__ __forceinline__ void ctx_frags_i8(uint32_t (&frag)[2][4],
+                                             const uint32_t (&ctx)[4][4],
+                                             int t, F fn) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int hh = 2 * kk + (r >> 1), i = r & 1;
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const bf162*>(&ctx[hh][i]));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const bf162*>(&ctx[hh][2 + i]));
+      const int2 p = fn(16 * hh + 2 * t, i, a.x, a.y);
+      const int2 q = fn(16 * hh + 8 + 2 * t, i, b.x, b.y);
+      frag[kk][r] = pack_i8(p.x, p.y, q.x, q.y);
+    }
+}
+
+// chunk64 in int8: acc = A tile . the next slab, KT tiles of two k32 steps
+// (the slab's tiles are [64 outputs][64 inputs] of int8).
+template <class K, class R>
+__device__ __forceinline__ void chunk64_i8(int (&acc)[32], R& ring,
+                                           const unsigned char* a, int lane) {
+  const int n = ring.next++;
+  ring.wait_full(n);
+  const unsigned char* w = ring.slab(n);
+  S::wgmma_fence();
+  S::wgmma_i8_ss_n64_init(acc, S::desc_k64(a, 0), S::desc_k64(w, 0));
+#pragma unroll
+  for (int kt = 0; kt < K::KT; ++kt)
+#pragma unroll
+    for (int s = kt == 0; s < 2; ++s)
+      S::wgmma_i8_ss_n64(acc, S::desc_k64(a + kt * 4096, s),
+                         S::desc_k64(w + kt * 4096, s), 1);
+  S::wgmma_commit();
+  S::wgmma_wait<0>();
+  S::fence_acc(acc);
+  ring.release(n, lane);
+}
+
+// rows64 in int8: acc (+)= frag . the next slab's [C outputs][64 inputs],
+// two k32 steps. FIRST = 1: the first product of the accumulation, known
+// at compile time (acc is then no input); else ``first`` says it.
+template <class K, int FIRST = 0, class R>
+__device__ __forceinline__ void rows64_i8(int (&acc)[K::C / 2],
+                                          const uint32_t (&frag)[2][4],
+                                          R& ring, bool first, int lane) {
+  const int n = ring.next++;
+  ring.wait_full(n);
+  const unsigned char* w = ring.slab(n);
+  S::wgmma_fence();
+  if constexpr (FIRST) {
+    S::wgmma_i8_rs_n192_init(acc, frag[0], S::desc_k64(w, 0));
+  } else {
+    S::wgmma_i8_rs_n192(acc, frag[0], S::desc_k64(w, 0), first ? 0 : 1);
+  }
+  S::wgmma_i8_rs_n192(acc, frag[1], S::desc_k64(w, 1), 1);
+  S::wgmma_commit();
+  S::wgmma_wait<0>();
+  S::fence_acc(acc);
+  ring.release(n, lane);
+}
+
+// ------------------------------------------------------------ the kernel
+// One consumer warpgroup's window: its shared-memory regions and place.
+struct Window {
+  unsigned char* a_tile;  // LN output, the SS products' A
+  bf16* xs;               // residual x, row stride C + 8
+  bf16* kb;               // k and v of one head group, row stride KS
+  bf16* vb;
+  bf16* vecs;             // two layers' vectors, in turns
+  int wg, warp, lane, g, t;
+};
+
+// Layer l's vectors (LN scales and shifts, biases) into the window's buffer
+// l % 2, by the warpgroup's 128 threads.
+template <int C>
+__device__ __forceinline__ void load_vec(const Window& w,
+                                         const bf16* vpack, int l) {
+  using V = Vec<C>;
+  const uint4* src = reinterpret_cast<const uint4*>(vpack + l * V::SIZE);
+  uint4* dst = reinterpret_cast<uint4*>(w.vecs + (l & 1) * V::SIZE);
+  for (int i = w.lane + 32 * w.warp; i < V::SIZE / 8; i += 128)
+    dst[i] = src[i];
+}
+
+// The bf16 modes' layers.
+template <class K, class R>
+__device__ __forceinline__ void layers_bf16(const Window& w, R& ring,
+                                            const bf16* vpack,
+                                            const float* tables,
+                                            int layers) {
+  constexpr int C = K::C;
+  using V = Vec<C>;
+  unsigned char* a_tile = w.a_tile;
+  bf16* xs = w.xs;
+  bf16* kb = w.kb;
+  bf16* vb = w.vb;
+  const int wg = w.wg, warp = w.warp, lane = w.lane, g = w.g, t = w.t;
   float acc[32];
   float big[C / 2];  // proj, then fc2: all C outputs of the warpgroup's rows
   for (int l = 0; l < layers; ++l) {
-    const bf16* vp = vecs + (l & 1) * V::SIZE;
+    const bf16* vp = w.vecs + (l & 1) * V::SIZE;
     const float* tab_l = tables + size_t(l) * K::HEADS * TAB;
 
     layernorm_to_a<C>(xs, a_tile, vp + V::LN1S, vp + V::LN1B, warp, lane);
     S::fence_async_smem();
     S::named_sync(1 + wg, 128);
-    if (l + 1 < layers) load_vec(l + 1);
+    if (l + 1 < layers) load_vec<C>(w, vpack, l + 1);
 #pragma unroll 1
     for (int hg = 0; hg < K::GROUPS; ++hg) {
       // k and v of the group's 4 heads into shared memory, q into
@@ -784,19 +1002,323 @@ window_trunk_kernel(const __grid_constant__ CUtensorMap wmap,
     residual_rows<C, K::MODE>(big, xs, vp + V::FC2B, warp, g, t);
     __syncwarp();
   }
+}
+
+// INT8's first pass over the fc1 chunks: hmax[i] = the largest |GELU
+// output| of row g + 8 i (the quad's whole row), from the same products,
+// dequant and bias as the second pass, but GELU at three pre-activations a
+// row (gelu_i8): the largest, the largest <= GELU_TURN and the smallest
+// above it (0 if none is below 0, where GELU is 0). b, sw: fc1's biases
+// and weight scales.
+template <class K, class R>
+__device__ __forceinline__ void gelu_row_max(float (&hmax)[2], int (&acc)[32],
+                                             R& ring,
+                                             const unsigned char* a_tile,
+                                             const bf16* b, const float* sw,
+                                             const float (&srow)[2],
+                                             int lane) {
+  const int t = lane & 3;
+  float top[2] = {-INFINITY, -INFINITY}, lo[2] = {-1e30f, -1e30f},
+        hi[2] = {0.f, 0.f};
+#pragma unroll 1
+  for (int j = 0; j < K::CHUNKS; ++j) {
+    chunk64_i8<K>(acc, ring, a_tile, lane);
+    dequant<true>(acc, sw + 64 * j, srow, t);
+    const bf16* bj = b + 64 * j + 2 * t;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const bf162 bias = ld_b2(bj + 8 * jj);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 d = __bfloat1622float2(
+            dense2(as_f32(acc[4 * jj + 2 * i]),
+                   as_f32(acc[4 * jj + 2 * i + 1]), bias));
+        top[i] = fmaxf(top[i], fmaxf(d.x, d.y));
+        lo[i] = fmaxf(lo[i], fmaxf(d.x <= GELU_TURN ? d.x : -1e30f,
+                                   d.y <= GELU_TURN ? d.y : -1e30f));
+        hi[i] = fminf(hi[i], fminf(d.x > GELU_TURN ? d.x : 0.f,
+                                   d.y > GELU_TURN ? d.y : 0.f));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 a = round_bf16(gelu_i8(quad_max(top[i])),
+                                gelu_i8(quad_max(lo[i])));
+    const float c = round_bf16(gelu_i8(quad_min(hi[i])), 0.f).x;
+    hmax[i] = fmaxf(fabsf(a.x), fmaxf(fabsf(a.y), fabsf(c)));
+  }
+}
+
+// The int8 modes' layers: layers_bf16's schedule on int8 wgmma (header).
+// sw, ia: the (layers, 9C) weight scales and, in INT8_STATIC, the
+// (layers, 7C) inverse activation scales.
+template <class K, class R>
+__device__ __forceinline__ void layers_i8(const Window& w, R& ring,
+                                          const bf16* vpack,
+                                          const float* tables,
+                                          const float* sw_all,
+                                          const float* ia_all, int layers) {
+  constexpr int C = K::C, G = K::GROUPS;
+  constexpr bool ROWS = K::ROWS;
+  using V = Vec<C>;
+  using Q = Scales<C>;
+  unsigned char* a_tile = w.a_tile;
+  bf16* xs = w.xs;
+  bf16* kb = w.kb;
+  bf16* vb = w.vb;
+  const int wg = w.wg, warp = w.warp, lane = w.lane, g = w.g, t = w.t;
+  int acc[32];      // a qkv or fc1 chunk
+  int big[C / 2];   // proj, then fc2: all C outputs of the warpgroup's rows
+  float srow[2] = {1.f, 1.f};  // ROWS: the LN output's row scales
+  for (int l = 0; l < layers; ++l) {
+    const bf16* vp = w.vecs + (l & 1) * V::SIZE;
+    const float* tab_l = tables + size_t(l) * K::HEADS * TAB;
+    const float* sw = sw_all + size_t(l) * Q::SW;
+    const float* ia = ROWS ? nullptr : ia_all + size_t(l) * Q::IA;
+
+    layernorm_to_a_i8<K>(xs, a_tile, vp + V::LN1S, vp + V::LN1B,
+                         ROWS ? nullptr : ia + Q::I_QKV, srow, warp, lane);
+    S::fence_async_smem();
+    S::named_sync(1 + wg, 128);
+    if (l + 1 < layers) load_vec<C>(w, vpack, l + 1);
+    // INT8: every group's context, the newest last; its rows' maxima.
+    uint32_t held[G][4][4];
+    float cmax[2] = {0.f, 0.f};
+#pragma unroll 1
+    for (int hg = 0; hg < G; ++hg) {
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        chunk64_i8<K>(acc, ring, a_tile, lane);
+        dequant<ROWS>(acc, sw + Q::S_QKV + (kv + 1) * C + 64 * hg, srow,
+                      t);
+        const bf16* b = vp + V::QKVB + (kv + 1) * C + 64 * hg + 2 * t;
+        bf16* dst = (kv == 0 ? kb : vb) + (16 * warp + g) * KS + 2 * t;
+        bf162 bb[8];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) bb[jj] = ld_b2(b + 8 * jj);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            *reinterpret_cast<bf162*>(dst + 8 * i * KS + 8 * jj) =
+                dense2(as_f32(acc[4 * jj + 2 * i]),
+                       as_f32(acc[4 * jj + 2 * i + 1]), bb[jj]);
+      }
+      chunk64_i8<K>(acc, ring, a_tile, lane);
+      dequant<ROWS>(acc, sw + Q::S_QKV + 64 * hg, srow, t);
+      uint32_t q[4][4];
+      const bf16* bq = vp + V::QKVB + 64 * hg;
+      to_frags(q, acc, t, [&](int c, float v0, float v1) {
+        return as_u32(dense2(v0, v1, ld_b2(bq + c)));
+      });
+      S::named_sync(1 + wg, 128);  // k and v rows of every warp written
+      if constexpr (ROWS) {
+#pragma unroll
+        for (int k = 0; k + 1 < G; ++k)
+#pragma unroll
+          for (int hh = 0; hh < 4; ++hh)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) held[k][hh][e] = held[k + 1][hh][e];
+      }
+      uint32_t (&ctx_g)[4][4] = held[G - 1];
+#pragma unroll
+      for (int hh = 0; hh < 4; ++hh)
+        attend(ctx_g[hh], q[hh], kb, vb, hh,
+               tab_l + (4 * hg + hh) * TAB, warp, g, t);
+      S::named_sync(1 + wg, 128);  // every warp done with k and v
+      if constexpr (ROWS) {
+#pragma unroll
+        for (int hh = 0; hh < 4; ++hh)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 v = __bfloat1622float2(
+                *reinterpret_cast<const bf162*>(&ctx_g[hh][e]));
+            cmax[e & 1] = fmaxf(cmax[e & 1], fmaxf(fabsf(v.x), fabsf(v.y)));
+          }
+      } else {
+        const float* iap = ia + Q::I_PROJ + 64 * hg;
+        uint32_t f[2][4];
+        ctx_frags_i8(f, ctx_g, t, [&](int c, int, float v0, float v1) {
+          const float2 s = ld_f2(iap + c);
+          return make_int2(q_col(v0, s.x), q_col(v1, s.y));
+        });
+        rows64_i8<K>(big, f, ring, hg == 0, lane);
+      }
+    }
+    float sc[2] = {1.f, 1.f};  // ROWS: the context rows' scales
+    if constexpr (ROWS) {
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sc[i] = row_scale(quad_max(cmax[i]));
+        inv[i] = 1.0f / sc[i];
+      }
+#pragma unroll
+      for (int hg = 0; hg < G; ++hg) {
+        uint32_t f[2][4];
+        ctx_frags_i8(f, held[hg], t, [&](int, int i, float v0, float v1) {
+          return make_int2(q_row(v0, inv[i]), q_row(v1, inv[i]));
+        });
+        if (hg == 0)
+          rows64_i8<K, 1>(big, f, ring, true, lane);
+        else
+          rows64_i8<K>(big, f, ring, false, lane);
+      }
+    }
+    dequant<ROWS>(big, sw + Q::S_PROJ, sc, t);
+    residual_rows<C, K::MODE>(big, xs, vp + V::PROJB, warp, g, t);
+    __syncwarp();
+
+    layernorm_to_a_i8<K>(xs, a_tile, vp + V::LN2S, vp + V::LN2B,
+                         ROWS ? nullptr : ia + Q::I_FC1, srow, warp, lane);
+    S::fence_async_smem();
+    S::named_sync(1 + wg, 128);
+    // ROWS: the GELU rows' scales sh and their inverses. Over the fc2
+    // loop sh waits in the thread's own two floats of the k / v region,
+    // which the MLP leaves unused: two registers fewer there.
+    float sh[2] = {1.f, 1.f}, ih[2];
+    volatile float* sh_slot =
+        reinterpret_cast<float*>(kb) + 2 * (32 * warp + lane);
+    if constexpr (ROWS) {
+      float hmax[2];
+      gelu_row_max<K>(hmax, acc, ring, a_tile, vp + V::FC1B,
+                      sw + Q::S_FC1, srow, lane);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float s = row_scale(hmax[i]);
+        sh_slot[i] = s;
+        ih[i] = 1.0f / s;
+      }
+    }
+    // Hidden chunk j: fc1, GELU, quantize, fc2's rows. The first is peeled
+    // (FIRST = 1), so that big is no input before it.
+    auto mlp_chunk = [&](int j, auto first) {
+      chunk64_i8<K>(acc, ring, a_tile, lane);
+      dequant<ROWS>(acc, sw + Q::S_FC1 + 64 * j, srow, t);
+      uint32_t f[2][4];
+      const bf16* b = vp + V::FC1B + 64 * j;
+      const float* iah = ROWS ? nullptr : ia + Q::I_FC2 + 64 * j;
+      to_frags_i8(f, acc, t, [&](int c, int i, float v0, float v1) {
+        const float2 h = hidden(v0, v1, ld_b2(b + c));
+        if constexpr (ROWS) {
+          return make_int2(q_row(h.x, ih[i]), q_row(h.y, ih[i]));
+        } else {
+          const float2 s = ld_f2(iah + c);
+          return make_int2(q_col(h.x, s.x), q_col(h.y, s.y));
+        }
+      });
+      rows64_i8<K, decltype(first)::value>(big, f, ring, false, lane);
+    };
+    mlp_chunk(0, std::integral_constant<int, 1>{});
+#pragma unroll 1
+    for (int j = 1; j < K::CHUNKS; ++j)
+      mlp_chunk(j, std::integral_constant<int, 0>{});
+    if constexpr (ROWS) {
+      sh[0] = sh_slot[0];
+      sh[1] = sh_slot[1];
+    }
+    dequant<ROWS>(big, sw + Q::S_FC2, sh, t);
+    residual_rows<C, K::MODE>(big, xs, vp + V::FC2B, warp, g, t);
+    __syncwarp();
+  }
+}
+
+// x, out (nW, 64, C) bf16; wmap: the slabs (layers x SLABS x C rows, 64)
+// bf16 (box (64, C), 128B swizzle) or int8 (64B swizzle); vpack (layers,
+// 13C) bf16; tables (layers, C/16, 225) f32, each head's relative-position
+// table; sw, ia as for layers_i8 (unused in the bf16 modes). ``wpb``
+// windows a block (1 or 2).
+template <class K>
+__global__ void __launch_bounds__(W_THREADS, 1)
+window_trunk_kernel(const __grid_constant__ CUtensorMap wmap,
+                    const bf16* __restrict__ x,
+                    const bf16* __restrict__ vpack,
+                    const float* __restrict__ tables,
+                    const float* __restrict__ sw,
+                    const float* __restrict__ ia,
+                    bf16* __restrict__ out, int n_windows, int layers,
+                    int wpb) {
+  constexpr int C = K::C, XS = K::XS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_base = align1024(smem_raw);
+  unsigned char* win_base = ring_base + K::STAGES * K::STAGE;
+  bf16* vec_base = reinterpret_cast<bf16*>(win_base + WG * K::WIN);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      win_base + WG * K::WIN + WG * 2 * K::VEC_BYTES);
+  uint64_t* empty = full + K::STAGES;
+  const int tid = threadIdx.x;
+  const int w0 = blockIdx.x * wpb;
+  const int active = min(wpb, n_windows - w0);  // consumer warpgroups
+  if (tid == 0) {
+    for (int s = 0; s < K::STAGES; ++s) {
+      S::mbar_init(&full[s], 1);
+      S::mbar_init(&empty[s], 4 * active);
+    }
+    S::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= WG * 128) {  // producer warpgroup: one thread issues copies
+    S::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid != WG * 128) return;
+    const int total = layers * K::SLABS;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = 0; i < total; ++i) {
+      S::mbar_wait(&empty[stage], phase ^ 1);
+      S::mbar_expect_tx(&full[stage], K::STAGE);
+      S::tma_load_2d(ring_base + stage * K::STAGE, &wmap, &full[stage], 0,
+                     i * C);
+      if (++stage == K::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  S::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = tid >> 7;
+  if (wg >= active) return;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  unsigned char* win = win_base + wg * K::WIN;
+  bf16* kb = reinterpret_cast<bf16*>(win + K::A_BYTES + K::X_BYTES);
+  const Window w{win, reinterpret_cast<bf16*>(win + K::A_BYTES), kb,
+                 kb + NT * KS, vec_base + wg * 2 * Vec<C>::SIZE, wg, warp,
+                 lane, lane >> 2, lane & 3};
+  Ring<K::STAGES> ring{ring_base, full, empty, K::STAGE, 0};
+
+  // This warp's 16 rows of the window into x.
+  const size_t wofs = size_t(w0 + wg) * NT * C;
+  for (int i = lane; i < 16 * (C / 8); i += 32) {
+    const int r = 16 * warp + i / (C / 8);
+    const int c = (i % (C / 8)) * 8;
+    *reinterpret_cast<uint4*>(w.xs + r * XS + c) =
+        *reinterpret_cast<const uint4*>(x + wofs + r * C + c);
+  }
+  // Layer l + 1's vectors are loaded once every warp has passed layer l - 1
+  // (the barrier after layer l's first LayerNorm).
+  load_vec<C>(w, vpack, 0);
+  S::named_sync(1 + wg, 128);
+  if constexpr (K::I8)
+    layers_i8<K>(w, ring, vpack, tables, sw, ia, layers);
+  else
+    layers_bf16<K>(w, ring, vpack, tables, layers);
 
   for (int i = lane; i < 16 * (C / 8); i += 32) {
     const int r = 16 * warp + i / (C / 8);
     const int c = (i % (C / 8)) * 8;
     *reinterpret_cast<uint4*>(out + wofs + r * C + c) =
-        *reinterpret_cast<const uint4*>(xs + r * XS + c);
+        *reinterpret_cast<const uint4*>(w.xs + r * XS + c);
   }
 }
 
 template <int C, int MODE>
-int launch_bf16(const void* x, const void* wpack, const void* vpack,
-                const void* tables, void* out, int n_windows, int layers,
-                int device, cudaStream_t stream) {
+int launch(const void* x, const void* wpack, const void* vpack,
+           const void* tables, const void* sw, const void* ia, void* out,
+           int n_windows, int layers, int device, cudaStream_t stream) {
   using K = WCfg<C, MODE>;
   static_assert(K::BYTES <= 232448, "shared memory of one block");
   cudaError_t err = cudaFuncSetAttribute(
@@ -806,571 +1328,171 @@ int launch_bf16(const void* x, const void* wpack, const void* vpack,
   if (n_windows == 0) return 0;
   CUtensorMap wmap;
   const int rows = layers * K::SLABS * C;
-  const int e = S::map_matrix(&wmap, wpack, rows, 64, C);
+  const int e = K::I8 ? S::map_matrix_i8(&wmap, wpack, rows, 64, C)
+                      : S::map_matrix(&wmap, wpack, rows, 64, C);
   if (e) return e;
   const int wpb = n_windows <= S::sm_count(device) ? 1 : WG;
   const int grid = (n_windows + wpb - 1) / wpb;
   window_trunk_kernel<K><<<grid, W_THREADS, K::BYTES, stream>>>(
       wmap, static_cast<const bf16*>(x), static_cast<const bf16*>(vpack),
-      static_cast<const float*>(tables), static_cast<bf16*>(out), n_windows,
+      static_cast<const float*>(tables), static_cast<const float*>(sw),
+      static_cast<const float*>(ia), static_cast<bf16*>(out), n_windows,
       layers, wpb);
   return int(cudaGetLastError());
 }
 
-// ================================= int8: mma.sync, cp.async weight ring
-constexpr int SLAB_N = 64;   // outputs per weight slab
-constexpr int I8_STAGES = 3; // slabs in the shared-memory ring
-constexpr int THREADS = 256;
-
-using tux::ld32;
-using tux::mma_s8;
-
-template <int C_, int MODE_>
-struct Cfg {
-  static constexpr int C = C_;
-  static constexpr int MODE = MODE_;
-  static constexpr bool ROWS = MODE == INT8;  // per-row activation scales
-  static constexpr int HEADS = C / HD;
-  static constexpr int XS = C + 8;       // row stride of the 64 x C tiles
-  static constexpr int BS = 4 * C + 8;   // row stride of the 64 x 4C tile
-  // A slab row: C int8 weights; in shared memory its stride is 16 bytes
-  // longer.
-  static constexpr int ROW_BYTES = C;
-  static constexpr int WSB = ROW_BYTES + 16;
-  static constexpr int SLABS = 12 * C / SLAB_N;
-  // Offsets into a layer's packed weight scales (f32) and, in INT8_STATIC,
-  // into its packed inverse activation scales (f32).
-  static constexpr int S_QKV = 0, S_PROJ = 3 * C, S_FC1 = 4 * C,
-                       S_FC2 = 8 * C, SW = 9 * C;
-  static constexpr int I_QKV = 0, I_PROJ = C, I_FC1 = 2 * C, I_FC2 = 3 * C,
-                       IA = 7 * C;
-  static constexpr size_t TILE_BYTES =
-      size_t(2 * NT * XS + NT * BS) * sizeof(bf16);
-  static constexpr size_t SMEM_BYTES =
-      TILE_BYTES + size_t(I8_STAGES) * SLAB_N * WSB +
-      (ROWS ? NT * sizeof(float) : 0);
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N committed groups of this thread are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The row scale of the rowwise int8 mode and the pair a * inv, b * inv
-// rounded half to even into two int8 at p (trunk2.py:176-178). 1/127 is
-// the f32 value of the double 1/127, as the reference's weakly typed
-// constant; 1 / srow is a correctly rounded f32 division.
-__device__ __forceinline__ float row_scale(float absmax) {
-  return fmaxf(absmax, 1e-6f) * float(1.0 / 127.0);
-}
-__device__ __forceinline__ void st_q2(int8_t* p, float a, float b, float inv) {
-  *reinterpret_cast<char2*>(p) = make_char2(
-      static_cast<signed char>(__float2int_rn(a * inv)),
-      static_cast<signed char>(__float2int_rn(b * inv)));
-}
-// The pair a * ia.x, b * ia.y rounded half to even and clipped to +-127 into
-// two int8 at p (trunk2.py:182).
-__device__ __forceinline__ int8_t q_clip(float v) {
-  return static_cast<int8_t>(max(-127, min(127, __float2int_rn(v))));
-}
-__device__ __forceinline__ void st_q2s(int8_t* p, float a, float b,
-                                       float2 ia) {
-  *reinterpret_cast<char2*>(p) =
-      make_char2(q_clip(__fmul_rn(a, ia.x)), q_clip(__fmul_rn(b, ia.y)));
-}
-__device__ __forceinline__ float2 ld_ia(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-// The flat sequence of weight slabs, fetched I8_STAGES - 1 ahead into a
-// ring.
-template <class K>
-struct WeightStream {
-  const unsigned char* src;  // (total, 64, C) weights in device memory
-  unsigned char* ring;       // I8_STAGES slabs of 64 rows, stride K::WSB
-  int total, fetched, used, tid;
-
-  // Start the copy of the next slab; past the end, commit an empty group so
-  // that the group count stays one per call.
-  __device__ __forceinline__ void prefetch() {
-    constexpr int CHUNKS = K::ROW_BYTES / 16;
-    if (fetched < total) {
-      unsigned char* dst = ring + (fetched % I8_STAGES) * SLAB_N * K::WSB;
-      const unsigned char* s = src + size_t(fetched) * SLAB_N * K::ROW_BYTES;
-      for (int i = tid; i < SLAB_N * CHUNKS; i += THREADS) {
-        const int r = i / CHUNKS;
-        const int c = i % CHUNKS;
-        cp_async16(dst + r * K::WSB + c * 16, s + r * K::ROW_BYTES + c * 16);
-      }
-    }
-    cp_async_commit();
-    ++fetched;
-  }
-  // The slab to consume now. Waits for this thread's copies of it, then
-  // synchronizes the block: every thread's copies have landed, what the
-  // previous phase wrote to shared memory is published, and every warp is
-  // done with the slab before this one, whose place in the ring the next
-  // fetch takes.
-  __device__ __forceinline__ const unsigned char* acquire() {
-    cp_async_wait<I8_STAGES - 2>();
-    __syncthreads();
-    prefetch();
-    return ring + (used++ % I8_STAGES) * SLAB_N * K::WSB;
-  }
-};
-
-// acc += A[64 x C] . slab^T in int8 for this warp's 32 x 16 tile: ``a``
-// points at the first of the C quantized input columns, row stride ``sa``
-// bytes; ``slab`` at the slab, [64 outputs][C inputs], row stride K::WSB
-// bytes.
-template <class K>
-__device__ __forceinline__ void mma_slab(int (&acc)[2][2][4], const int8_t* a,
-                                         int sa, const unsigned char* slab,
-                                         int wm, int wn, int g, int t) {
-  const int8_t* w = reinterpret_cast<const int8_t*>(slab);
-  const int8_t* a0 = a + (32 * wm + g) * sa + 4 * t;
-  const int8_t* w0 = w + (16 * wn + g) * K::WSB + 4 * t;
-#pragma unroll
-  for (int kk = 0; kk < K::C / 32; ++kk) {
-    uint32_t af[2][4], bfr[2][2];
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      const int8_t* r0 = a0 + (16 * f) * sa + kk * 32;
-      const int8_t* r8 = r0 + 8 * sa;
-      af[f][0] = ld32(r0);
-      af[f][1] = ld32(r8);
-      af[f][2] = ld32(r0 + 16);
-      af[f][3] = ld32(r8 + 16);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int8_t* c0 = w0 + 8 * j * K::WSB + kk * 32;
-      bfr[j][0] = ld32(c0);
-      bfr[j][1] = ld32(c0 + 16);
-    }
-#pragma unroll
-    for (int f = 0; f < 2; ++f)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        mma_s8(acc[f][j], af[f][0], af[f][1], af[f][2], af[f][3], bfr[j][0],
-               bfr[j][1]);
-  }
-}
-
-__device__ __forceinline__ void zero(int (&acc)[2][2][4]) {
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[f][j][e] = 0;
-}
-
-// Calls fn(row, col, v0, v1) for each adjacent pair of this thread's
-// accumulators, as the f32 products; (row, col) are within the slab's
-// 64 x 64 output. An int32 accumulator becomes (float(acc) * srow[row]) *
-// sw[col] with row scales (ROWS), else float(acc) * sw[col].
-template <bool ROWS, typename F>
-__device__ __forceinline__ void for_each_pair(const int (&acc)[2][2][4],
-                                              const float* srow,
-                                              const float* sw, int wm, int wn,
-                                              int g, int t, F fn) {
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = 32 * wm + 16 * f + g + 8 * hh;
-        const int c = 16 * wn + 8 * j + 2 * t;
-        const float2 w = *reinterpret_cast<const float2*>(sw + c);
-        float v0 = __int2float_rn(acc[f][j][2 * hh]);
-        float v1 = __int2float_rn(acc[f][j][2 * hh + 1]);
-        if constexpr (ROWS) {
-          const float s = srow[r];
-          v0 *= s;
-          v1 *= s;
-        }
-        fn(r, c, v0 * w.x, v1 * w.y);
-      }
-}
-
-// ys = LN(xs) quantized: one warp per row, C / 32 channels per lane; ys
-// receives the int8 values (row stride 2 XS bytes) and, in INT8, srow the
-// row's scale; INT8_STATIC quantizes with the columns' inverse scales ia.
-template <class K>
-__device__ __forceinline__ void layernorm(const bf16* xs, bf16* ys,
-                                          float* srow, const bf16* scale,
-                                          const bf16* shift, const float* ia,
-                                          int warp, int lane) {
-  constexpr int P = K::C / 64;  // pairs per lane
-  float2 sc[P], sh[P];
-  ln_params<K::C>(sc, sh, scale, shift, lane);
-  for (int r = warp; r < NT; r += THREADS / 32) {
-    float2 rows[1][P];
-    float2 (&v)[P] = rows[0];
-#pragma unroll
-    for (int j = 0; j < P; ++j) v[j] = ld2(xs + r * K::XS + 2 * lane + 64 * j);
-    layernorm_rows<K::C, 1>(rows, sc, sh);
-    int8_t* q = reinterpret_cast<int8_t*>(ys + r * K::XS);
-    if constexpr (K::ROWS) {
-      float m = 0.f;
-#pragma unroll
-      for (int j = 0; j < P; ++j)
-        m = fmaxf(m, fmaxf(fabsf(v[j].x), fabsf(v[j].y)));
-      const float sr = row_scale(warp_max(m));
-      const float inv = 1.0f / sr;
-#pragma unroll
-      for (int j = 0; j < P; ++j)
-        st_q2(q + 2 * lane + 64 * j, v[j].x, v[j].y, inv);
-      if (lane == 0) srow[r] = sr;
-    } else {
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int col = 2 * lane + 64 * j;
-        st_q2s(q + col, v[j].x, v[j].y, ld_ia(ia + col));
-      }
-    }
-  }
-}
-
-// In place, each of the 64 rows of ``buf`` (KW bf16 values, row stride
-// ``stride`` elements) becomes KW int8 values over the first half of its
-// bytes, and srow[row] its scale (ROWS), or each column quantized with its
-// inverse scale ia[col]: one warp per row, which holds the whole row in
-// registers before any lane writes.
-template <int KW, bool ROWS>
-__device__ __forceinline__ void quantize_rows(bf16* buf, int stride,
-                                              float* srow, const float* ia,
-                                              int warp, int lane) {
-  constexpr int P = KW / 64;
-  for (int r = warp; r < NT; r += THREADS / 32) {
-    bf16* row = buf + r * stride;
-    float2 v[P];
-    float m = 0.f;
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      v[j] = ld2(row + 2 * lane + 64 * j);
-      m = fmaxf(m, fmaxf(fabsf(v[j].x), fabsf(v[j].y)));
-    }
-    int8_t* q = reinterpret_cast<int8_t*>(row);
-    if constexpr (ROWS) {
-      const float sr = row_scale(warp_max(m));
-      const float inv = 1.0f / sr;
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < P; ++j)
-        st_q2(q + 2 * lane + 64 * j, v[j].x, v[j].y, inv);
-      if (lane == 0) srow[r] = sr;
-    } else {
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int col = 2 * lane + 64 * j;
-        st_q2s(q + col, v[j].x, v[j].y, ld_ia(ia + col));
-      }
-    }
-  }
-}
-
-// ctx (into ys) = softmax(q k^T / 4 + bias) v per head, from qkv in ``big``
-// (q at columns 0.., k at C.., v at 2C..). One unit of work is one head and
-// 16 query rows; 4 HEADS units over 8 warps.
-template <class K>
-__device__ __forceinline__ void attention(const bf16* big, bf16* ys,
-                                          const float* bias_l, int warp, int g,
-                                          int t) {
-  constexpr int C = K::C, BS = K::BS, XS = K::XS;
-  for (int u = warp; u < K::HEADS * (NT / 16); u += THREADS / 32) {
-    const int h = u >> 2;
-    const int r0 = 16 * (u & 3);
-    uint32_t aq[4];
-    const bf16* q0 = big + (r0 + g) * BS + h * HD;
-    tux::load_a(aq, q0, q0 + 8 * BS, t);
-    float s[8][4];
-#pragma unroll
-    for (int nf = 0; nf < 8; ++nf) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nf][e] = 0.f;
-      uint32_t bk[2];
-      tux::load_b(bk, big + (8 * nf + g) * BS + C + h * HD, t);
-      tux::mma_bf16(s[nf], aq[0], aq[1], aq[2], aq[3], bk[0], bk[1]);
-    }
-    // Rows r0 + g (elements 0, 1) and r0 + g + 8 (elements 2, 3).
-    const float* b0 = bias_l + (size_t(h) * NT + r0 + g) * NT + 2 * t;
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int nf = 0; nf < 8; ++nf) {
-      const float2 ba = *reinterpret_cast<const float2*>(b0 + 8 * nf);
-      const float2 bb = *reinterpret_cast<const float2*>(b0 + 8 * NT + 8 * nf);
-      s[nf][0] = s[nf][0] * 0.25f + ba.x;
-      s[nf][1] = s[nf][1] * 0.25f + ba.y;
-      s[nf][2] = s[nf][2] * 0.25f + bb.x;
-      s[nf][3] = s[nf][3] * 0.25f + bb.y;
-      m0 = fmaxf(m0, fmaxf(s[nf][0], s[nf][1]));
-      m1 = fmaxf(m1, fmaxf(s[nf][2], s[nf][3]));
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-    }
-    float d0 = 0.f, d1 = 0.f;
-#pragma unroll
-    for (int nf = 0; nf < 8; ++nf) {
-      s[nf][0] = __expf(s[nf][0] - m0);
-      s[nf][1] = __expf(s[nf][1] - m0);
-      s[nf][2] = __expf(s[nf][2] - m1);
-      s[nf][3] = __expf(s[nf][3] - m1);
-      d0 += s[nf][0] + s[nf][1];
-      d1 += s[nf][2] + s[nf][3];
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      d0 += __shfl_xor_sync(0xffffffffu, d0, o);
-      d1 += __shfl_xor_sync(0xffffffffu, d1, o);
-    }
-    d0 = 1.0f / d0;
-    d1 = 1.0f / d1;
-    // P.V: two adjacent score fragments are one A fragment of 16 keys.
-    float ctx[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ctx[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t ap[4];
-      ap[0] = pack2(s[2 * kk][0] * d0, s[2 * kk][1] * d0);
-      ap[1] = pack2(s[2 * kk][2] * d1, s[2 * kk][3] * d1);
-      ap[2] = pack2(s[2 * kk + 1][0] * d0, s[2 * kk + 1][1] * d0);
-      ap[3] = pack2(s[2 * kk + 1][2] * d1, s[2 * kk + 1][3] * d1);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        // B[k][n] = v[key 16 kk + k][dim 8 j + n]: keys run down the rows of
-        // ``big``, so the pairs along k are gathered from two rows.
-        const bf16* v0 =
-            big + (16 * kk + 2 * t) * BS + 2 * C + h * HD + 8 * j + g;
-        uint32_t bv[2];
-        bv[0] = pack_raw(v0[0], v0[BS]);
-        bv[1] = pack_raw(v0[8 * BS], v0[9 * BS]);
-        tux::mma_bf16(ctx[j], ap[0], ap[1], ap[2], ap[3], bv[0], bv[1]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      bf16* c0 = ys + (r0 + g) * XS + h * HD + 8 * j + 2 * t;
-      st2(c0, ctx[j][0], ctx[j][1]);
-      st2(c0 + 8 * XS, ctx[j][2], ctx[j][3]);
-    }
-  }
-}
-
-// x, out (nW, 64, C) bf16; wpack (layers, 12C/64, 64, C) int8; vpack
-// (layers, 13C) bf16; bias (layers, C/16, 64, 64) f32; swpack (layers, 9C)
-// f32 (qkv, proj, fc1, fc2 side by side); iapack (layers, 7C) f32 in
-// INT8_STATIC (the same order), else unused.
-template <class K>
-__global__ void __launch_bounds__(THREADS, 1)
-window_trunk_i8_kernel(const bf16* __restrict__ x,
-                       const unsigned char* __restrict__ wpack,
-                       const bf16* __restrict__ vpack,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ swpack,
-                       const float* __restrict__ iapack,
-                       bf16* __restrict__ out, int layers) {
-  constexpr int C = K::C, XS = K::XS, BS = K::BS;
-  using V = Vec<C>;
-  // The GEMM inputs: the int8 rows quantized over the bf16 tiles.
-  constexpr int ASX = 2 * XS;  // row strides in bytes
-  constexpr int ASB = 2 * BS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // residual stream
-  bf16* ys = xs + NT * XS;                   // LN output, then context
-  bf16* big = ys + NT * XS;                  // qkv, then the MLP hidden
-  unsigned char* ring = smem + K::TILE_BYTES;
-  float* srow = reinterpret_cast<float*>(ring + I8_STAGES * SLAB_N * K::WSB);
-  const int8_t* ya = reinterpret_cast<const int8_t*>(ys);
-  const int8_t* ba = reinterpret_cast<const int8_t*>(big);
-
+// The int8 wgmma helpers and the fragment map, one product each, as the
+// trunk runs them (tests/test_torch_gpu.py holds them bit for bit): out1
+// (64 x 64, s32) = a (64 x 192, s8) . b (64 x 192, s8)^T by the SS product
+// on TMA-loaded 64B-swizzled tiles, as a qkv or fc1 chunk; out2 (64 x 192,
+// s32) = a2 (64 x 64, s8) . w2 (64 x 192) by the RS product, its A
+// fragments built from a2's values as an f32 wgmma accumulator by
+// to_frags_i8, and b2 = w2's rows as a proj or fc2 slab ([192 outputs][64
+// inputs], inputs in K_PERM order).
+__global__ void __launch_bounds__(128, 1)
+wgmma_i8_probe_kernel(const __grid_constant__ CUtensorMap amap,
+                      const __grid_constant__ CUtensorMap bmap,
+                      const __grid_constant__ CUtensorMap b2map,
+                      const int8_t* __restrict__ a2, int* __restrict__ out1,
+                      int* __restrict__ out2) {
+  constexpr int C = 192, KT = C / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* at = align1024(smem_raw);
+  unsigned char* bt = at + KT * 4096;
+  unsigned char* b2 = bt + KT * 4096;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(b2 + C * 64);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
-
-  WeightStream<K> ws{wpack, ring, layers * K::SLABS, 0, 0, tid};
-  for (int i = 0; i < I8_STAGES - 1; ++i) ws.prefetch();
-
-  const bf16* xw = x + size_t(blockIdx.x) * NT * C;
-  for (int i = tid; i < NT * (C / 8); i += THREADS) {
-    const int r = i / (C / 8);
-    const int c = i % (C / 8);
-    *reinterpret_cast<uint4*>(xs + r * XS + c * 8) =
-        *reinterpret_cast<const uint4*>(xw + r * C + c * 8);
+  if (tid == 0) {
+    S::mbar_init(bar, 1);
+    S::fence_barrier_init();
   }
-
-  int acc[2][2][4];
-  for (int l = 0; l < layers; ++l) {
-    const bf16* vp = vpack + size_t(l) * V::SIZE;
-    const float* sw = swpack + size_t(l) * K::SW;
-    const float* ia = iapack + size_t(l) * K::IA;  // read in INT8_STATIC only
-
-    // Each phase that reads what a GEMM's epilogues wrote starts behind a
-    // barrier; a GEMM's first acquire() is the barrier after the others.
-    __syncthreads();
-    layernorm<K>(xs, ys, srow, vp + V::LN1S, vp + V::LN1B, ia + K::I_QKV,
-                 warp, lane);
-#pragma unroll 1
-    for (int nc = 0; nc < 3 * C / SLAB_N; ++nc) {  // qkv -> big
-      const unsigned char* w = ws.acquire();
-      zero(acc);
-      mma_slab<K>(acc, ya, ASX, w, wm, wn, g, t);
-      const bf16* b = vp + V::QKVB + nc * SLAB_N;
-      bf16* dst = big + nc * SLAB_N;
-      for_each_pair<K::ROWS>(acc, srow, sw + K::S_QKV + nc * SLAB_N, wm, wn,
-                             g, t, [&](int r, int c, float v0, float v1) {
-                               const float2 d = dense_out(v0, v1, ld2(b + c));
-                               st2(dst + r * BS + c, d.x, d.y);
-                             });
-    }
-
-    __syncthreads();
-    attention<K>(big, ys, bias + size_t(l) * K::HEADS * NT * NT, warp, g, t);
-    __syncthreads();
-    quantize_rows<C, K::ROWS>(ys, XS, srow, ia + K::I_PROJ, warp, lane);
-
-#pragma unroll 1
-    for (int nc = 0; nc < C / SLAB_N; ++nc) {  // proj, residual -> xs
-      const unsigned char* w = ws.acquire();
-      zero(acc);
-      mma_slab<K>(acc, ya, ASX, w, wm, wn, g, t);
-      const bf16* b = vp + V::PROJB + nc * SLAB_N;
-      bf16* dst = xs + nc * SLAB_N;
-      for_each_pair<K::ROWS>(acc, srow, sw + K::S_PROJ + nc * SLAB_N, wm, wn,
-                             g, t, [&](int r, int c, float v0, float v1) {
-                               add_residual(dst + r * XS + c, v0, v1,
-                                            ld2(b + c));
-                             });
-    }
-
-    __syncthreads();
-    layernorm<K>(xs, ys, srow, vp + V::LN2S, vp + V::LN2B, ia + K::I_FC1,
-                 warp, lane);
-#pragma unroll 1
-    for (int nc = 0; nc < 4 * C / SLAB_N; ++nc) {  // fc1, GELU -> big
-      const unsigned char* w = ws.acquire();
-      zero(acc);
-      mma_slab<K>(acc, ya, ASX, w, wm, wn, g, t);
-      const bf16* b = vp + V::FC1B + nc * SLAB_N;
-      bf16* dst = big + nc * SLAB_N;
-      for_each_pair<K::ROWS>(acc, srow, sw + K::S_FC1 + nc * SLAB_N, wm, wn,
-                             g, t, [&](int r, int c, float v0, float v1) {
-                               const float2 d = dense_out(v0, v1, ld2(b + c));
-                               st2(dst + r * BS + c, gelu_erf(d.x),
-                                   gelu_erf(d.y));
-                             });
-    }
-    __syncthreads();
-    quantize_rows<4 * C, K::ROWS>(big, BS, srow, ia + K::I_FC2, warp, lane);
-
-#pragma unroll 1
-    for (int nc = 0; nc < C / SLAB_N; ++nc) {  // fc2, residual -> xs
-      zero(acc);
-#pragma unroll 1
-      for (int kc = 0; kc < 4; ++kc) {
-        const unsigned char* w = ws.acquire();
-        mma_slab<K>(acc, ba + kc * C, ASB, w, wm, wn, g, t);
-        if (kc == 3) {
-          const bf16* b = vp + V::FC2B + nc * SLAB_N;
-          bf16* dst = xs + nc * SLAB_N;
-          for_each_pair<K::ROWS>(
-              acc, srow, sw + K::S_FC2 + nc * SLAB_N, wm, wn, g, t,
-              [&](int r, int c, float v0, float v1) {
-                add_residual(dst + r * XS + c, v0, v1, ld2(b + c));
-              });
-        }
-      }
-    }
-  }
-
   __syncthreads();
-  bf16* ow = out + size_t(blockIdx.x) * NT * C;
-  for (int i = tid; i < NT * (C / 8); i += THREADS) {
-    const int r = i / (C / 8);
-    const int c = i % (C / 8);
-    *reinterpret_cast<uint4*>(ow + r * C + c * 8) =
-        *reinterpret_cast<const uint4*>(xs + r * XS + c * 8);
+  if (tid == 0) {
+    S::mbar_expect_tx(bar, 2 * KT * 4096 + C * 64);
+    for (int kt = 0; kt < KT; ++kt) {
+      S::tma_load_2d(at + kt * 4096, &amap, bar, 64 * kt, 0);
+      S::tma_load_2d(bt + kt * 4096, &bmap, bar, 64 * kt, 0);
+    }
+    S::tma_load_2d(b2, &b2map, bar, 0, 0);
   }
+  S::mbar_wait(bar, 0);
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  int acc[32];
+  S::wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      S::wgmma_i8_ss_n64(acc, S::desc_k64(at + kt * 4096, s),
+                         S::desc_k64(bt + kt * 4096, s), kt | s);
+  S::wgmma_commit();
+  S::wgmma_wait<0>();
+  S::fence_acc(acc);
+  float f[32];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * warp + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+      out1[r * 64 + c] = acc[4 * j + e];
+      f[4 * j + e] = float(a2[r * 64 + c]);
+    }
+  uint32_t frag[2][4];
+  to_frags_i8(frag, f, t, [](int, int, float v0, float v1) {
+    return make_int2(__float2int_rn(v0), __float2int_rn(v1));
+  });
+  int big[C / 2];
+  S::wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    S::wgmma_i8_rs_n192(big, frag[s], S::desc_k64(b2, s), s);
+  S::wgmma_commit();
+  S::wgmma_wait<0>();
+  S::fence_acc(big);
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out2[(16 * warp + g + 8 * (e >> 1)) * C + 8 * j + 2 * t + (e & 1)] =
+          big[4 * j + e];
 }
 
-template <int MODE>
-int launch_i8(const void* x, const void* wpack, const void* vpack,
-              const void* bias, const void* swpack, const void* iapack,
-              void* out, int n_windows, int layers, cudaStream_t stream) {
-  using K = Cfg<192, MODE>;
-  static_assert(K::SMEM_BYTES <= 232448, "shared memory of one block");
-  cudaError_t err = cudaFuncSetAttribute(
-      window_trunk_i8_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(K::SMEM_BYTES));
-  if (err != cudaSuccess) return int(err);
-  if (n_windows == 0) return 0;
-  window_trunk_i8_kernel<K><<<n_windows, THREADS, K::SMEM_BYTES, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const unsigned char*>(wpack),
-      static_cast<const bf16*>(vpack), static_cast<const float*>(bias),
-      static_cast<const float*>(swpack), static_cast<const float*>(iapack),
-      static_cast<bf16*>(out), layers);
-  return int(cudaGetLastError());
+// out[k] = bf16(gelu_i8(d[k])) as the int8 modes' epilogue computes it
+// (hidden() with a zero bias).
+__global__ void gelu_i8_probe_kernel(const bf16* __restrict__ d,
+                                     bf16* __restrict__ out, int n) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const float v = __bfloat162float(d[k]);
+  out[k] = __float2bfloat16(
+      hidden(v, v, __floats2bfloat162_rn(0.f, 0.f)).x);
 }
 
 }  // namespace
 
 // dim 128 or 192; mode 0 (V2), 1 (V1) or, at dim 192, 2 (INT8) or 3
-// (INT8_STATIC). In modes 0 and 1 wpack holds the bf16 slabs (layers x
-// 12C/64 x C rows, 64) and bias the relative-position tables (layers,
-// C/16, 225) f32; in the int8 modes the int8 slabs (layers, 12C/64, 64, C)
-// and the gathered bias (layers, C/16, 64, 64) f32. swpack and iapack are
-// read in the int8 modes only. Returns the cudaError_t of the launch (0 on
-// success).
+// (INT8_STATIC). wpack holds the slabs (layers x SLABS x C rows, 64): bf16
+// in modes 0 and 1, int8 in 2 and 3 (kernels/trunk2.py ``_pack_slabs``);
+// tables the relative-position tables (layers, C/16, 225) f32. swpack
+// (layers, 9C) and, in INT8_STATIC, iapack (layers, 7C) are read in the
+// int8 modes only. Returns the cudaError_t of the launch (0 on success).
 extern "C" int tux_window_trunk(const void* x, const void* wpack,
-                                const void* vpack, const void* bias,
+                                const void* vpack, const void* tables,
                                 const void* swpack, const void* iapack,
                                 void* out, int n_windows, int layers, int dim,
                                 int mode, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TUX_TRUNK(C, M)                                                     \
+  case C * 4 + M:                                                           \
+    return launch<C, M>(x, wpack, vpack, tables, swpack, iapack, out,       \
+                        n_windows, layers, device, st);
   switch (dim * 4 + mode) {
-    case 128 * 4 + V2:
-      return launch_bf16<128, V2>(x, wpack, vpack, bias, out, n_windows,
-                                  layers, device, st);
-    case 128 * 4 + V1:
-      return launch_bf16<128, V1>(x, wpack, vpack, bias, out, n_windows,
-                                  layers, device, st);
-    case 192 * 4 + V2:
-      return launch_bf16<192, V2>(x, wpack, vpack, bias, out, n_windows,
-                                  layers, device, st);
-    case 192 * 4 + V1:
-      return launch_bf16<192, V1>(x, wpack, vpack, bias, out, n_windows,
-                                  layers, device, st);
-    case 192 * 4 + INT8:
-      return launch_i8<INT8>(x, wpack, vpack, bias, swpack, iapack, out,
-                             n_windows, layers, st);
-    case 192 * 4 + INT8_STATIC:
-      return launch_i8<INT8_STATIC>(x, wpack, vpack, bias, swpack, iapack,
-                                    out, n_windows, layers, st);
+    TUX_TRUNK(128, V2)
+    TUX_TRUNK(128, V1)
+    TUX_TRUNK(192, V2)
+    TUX_TRUNK(192, V1)
+    TUX_TRUNK(192, INT8)
+    TUX_TRUNK(192, INT8_STATIC)
     default:
       return int(cudaErrorInvalidValue);
   }
+#undef TUX_TRUNK
+}
+
+// a, b (64, 192), a2 (64, 64), b2 (192, 64) int8; out1 (64, 64), out2
+// (64, 192) int32 (wgmma_i8_probe_kernel). Returns the cudaError_t.
+extern "C" int tux_wgmma_i8_probe(const void* a, const void* b,
+                                  const void* a2, const void* b2, void* out1,
+                                  void* out2, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  CUtensorMap amap, bmap, b2map;
+  int e = S::map_matrix_i8(&amap, a, 64, 192, 64);
+  if (!e) e = S::map_matrix_i8(&bmap, b, 64, 192, 64);
+  if (!e) e = S::map_matrix_i8(&b2map, b2, 192, 64, 192);
+  if (e) return e;
+  constexpr int BYTES = 1024 + 3 * 12288 + 8;
+  err = cudaFuncSetAttribute(wgmma_i8_probe_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BYTES);
+  if (err != cudaSuccess) return int(err);
+  wgmma_i8_probe_kernel<<<1, 128, BYTES, static_cast<cudaStream_t>(stream)>>>(
+      amap, bmap, b2map, static_cast<const int8_t*>(a2),
+      static_cast<int*>(out1), static_cast<int*>(out2));
+  return int(cudaGetLastError());
+}
+
+// d, out (n,) bf16: out = the int8 modes' bf16 GELU of d
+// (gelu_i8_probe_kernel). Returns the cudaError_t of the launch.
+extern "C" int tux_gelu_i8_probe(const void* d, void* out, int n, int device,
+                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  if (n == 0) return 0;
+  gelu_i8_probe_kernel<<<(n + 255) / 256, 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(d), static_cast<bf16*>(out), n);
+  return int(cudaGetLastError());
 }

@@ -61,6 +61,8 @@ SIGNATURES = {
     },
     "window_trunk": {
         "tux_window_trunk": [_P] * 7 + [_I] * 5 + [_P],
+        "tux_wgmma_i8_probe": [_P] * 6 + [_I, _P],
+        "tux_gelu_i8_probe": [_P] * 2 + [_I] * 2 + [_P],
     },
 }
 

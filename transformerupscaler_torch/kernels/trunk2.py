@@ -17,10 +17,12 @@ wrapper                CUDA source            TPU kernels it replaces
 The first TPU function has five kernel bodies (trunk2.py:51, :105, :255,
 :335, :432) that tile the same arithmetic in five ways for the MXU; one CUDA
 source answers for all of them, and for trunk.py's, at widths 128 (8 heads)
-and 192 (12 heads): the bf16 modes ("v2", "v1") on TMA and ``wgmma``, two
-windows a block sharing every weight slab (``wpack``); the int8 modes on
-``mma.sync`` with a ``cp.async`` ring of int8 slabs (``wpack_i8``,
-``wpack_i8s``). The rounding points, with ``dt`` the activations' dtype
+and 192 (12 heads), every mode on TMA and ``wgmma``, two windows a block
+sharing every weight slab: the bf16 modes ("v2", "v1") from ``wpack``, the
+int8 modes (C = 192) on int8 ``wgmma`` from ``wpack_i8`` / ``wpack_i8s``,
+whose proj and fc2 rows arrive in the kernel's K order (``K_PERM``);
+"int8_rowwise" computes fc1 twice, the first pass finding each row's
+largest GELU output. The rounding points, with ``dt`` the activations' dtype
 (bf16 on the card), are those of ``_trunk2_pair_kernel`` (trunk2.py:187-252)
 and the plain versions have the same ones:
 
@@ -81,6 +83,12 @@ from transformerupscaler_torch.ops.relpos import gather_relative_bias
 # TRUNK_MODES, which is the kernel's mode argument).
 TOKENS, HEAD_DIM, SLAB_N = 64, 16, 64
 TABLE = 225  # relative offsets of an 8 x 8 window
+# The K order of the int8 modes' proj and fc2 weight rows: in each 16
+# inputs, K slot 4t + e holds input 2t + e % 2 + 8 (e // 2), the order in
+# which a thread's accumulator pairs and attention's context fragments fill
+# an int8 wgmma A fragment (csrc/window_trunk.cu ``to_frags_i8``). An int8
+# sum is exact in any order.
+K_PERM = tuple(2 * (s // 4) + s % 2 + 8 * (s % 4 // 2) for s in range(16))
 KERNEL_MODES = {128: ("v2", "v1"), 192: TRUNK_MODES}
 GEMMS = ("qkvw", "projw", "fc1w", "fc2w")
 EPS = 1e-5
@@ -98,17 +106,17 @@ def stack_trunk_params(blocks, dtype,
     as (in, out); ``bias`` (L, heads, n, n) f32; ``heads``. At the widths
     the CUDA kernel takes, also its two packed operands: ``wpack``
     (L, 12C/64, C, 64), each layer's GEMM weights cut into the slabs of
-    C rows x 64 that the bf16 kernel streams by TMA, in the order it
+    C rows x 64 that the kernel streams by TMA, in the order it
     consumes them (``_pack_slabs``), ``vpack`` (L, 13C): ln1s, ln1b,
     qkvb, projb, ln2s, ln2b, fc1b, fc2b side by side, and ``tables``
-    (L, heads, 225) f32, each head's relative-position table, from which
-    the bf16 kernel reads ``bias`` (the int8 kernel reads ``bias``).
+    (L, heads, 225) f32, each head's relative-position table, which the
+    kernel reads in every mode (the plain versions read ``bias``).
 
     ``int8_rowwise`` adds the rowwise mode's weights, quantized from the
     ``dtype`` values (``ops.quant.rowwise_weights``): ``<gemm>_q`` int8
     (in, out) and ``<gemm>_sw`` f32 (L, out) for each of the four GEMMs and,
-    where the kernel takes the mode, ``wpack_i8`` (L, 12C/64, 64, C), the
-    int8 weights as the int8 kernel's slabs (``_pack``), and ``swpack``
+    where the kernel takes the mode, ``wpack_i8`` (L, 16C/64, C, 64), the
+    int8 weights as that mode's slabs (``_pack_slabs``), and ``swpack``
     (L, 9C), the four scales side by side. The
     static mode's weights depend on its scales: ``add_static_int8`` adds
     them to the stacked parameters.
@@ -148,51 +156,53 @@ def stack_trunk_params(blocks, dtype,
         p["tables"] = torch.stack([b.attn.bias_table.float().t()
                                    for b in blocks]).contiguous()
         if int8_rowwise and "int8_rowwise" in KERNEL_MODES[c]:
-            p["wpack_i8"] = _pack(p, "_q")
+            p["wpack_i8"] = _pack_slabs(p, "_q", fc1_twice=True)
             p["swpack"] = _side_by_side(p, "_sw")
     return p
 
 
-def _pack_slabs(p):
-    """The four GEMMs' bf16 weights (L, in, out) as the bf16 kernel's
-    slabs (L, 12C/64, C, 64), rows of 64 inputs, in the order it consumes
-    them: per head group of 64 channels, the k, v and q output chunks of 64
-    (each C/64 tiles [64 outputs][64 inputs], the inputs in order), then
-    proj's rows of those 64 inputs as [C outputs][64 inputs]; per hidden
-    chunk of 64, fc1's output chunk, then fc2's rows of those inputs."""
+def _pack_slabs(p, suffix="", fc1_twice=False):
+    """The four GEMMs' weights ``<gemm><suffix>`` (L, in, out) as the
+    kernel's slabs (L, n, C, 64), rows of 64 inputs, in the order it
+    consumes them: per head group of 64 channels, the k, v and q output
+    chunks of 64 (each C/64 tiles [64 outputs][64 inputs], the inputs in
+    order), then proj's rows of those 64 inputs as [C outputs][64 inputs];
+    per hidden chunk of 64, fc1's output chunk, then fc2's rows of those
+    inputs: n = 12C/64. The int8 weights (a ``suffix``) give proj's and
+    fc2's rows their inputs in ``K_PERM`` order within each 16. With
+    ``fc1_twice`` ("int8_rowwise"), proj's rows follow every group's k, v,
+    q chunks, and fc1's chunks stand once alone before the fc1 / fc2 pairs:
+    n = 16C/64."""
     layers, c = p["qkvw"].shape[:2]
+    order = _k_order(bool(suffix))
 
     def chunk(w, o0):  # outputs o0..o0+63 -> (L, C/64 x 64, 64)
         t = w[:, :, o0:o0 + 64].reshape(layers, c // 64, 64, 64)
         return t.transpose(2, 3).reshape(layers, c, 64)
 
-    def rows(w, i0):  # inputs i0..i0+63 -> (L, C, 64)
-        return w[:, i0:i0 + 64, :].transpose(1, 2)
+    def rows(w, i0):  # inputs i0 + order -> (L, C, 64)
+        return w[:, i0 + order.to(w.device), :].transpose(1, 2)
 
-    qkv, proj, fc1, fc2 = (p[k] for k in GEMMS)
-    slabs = []
-    for i0 in range(0, c, 64):
-        slabs += [chunk(qkv, c + i0), chunk(qkv, 2 * c + i0),
-                  chunk(qkv, i0), rows(proj, i0)]
+    qkv, proj, fc1, fc2 = (p[k + suffix] for k in GEMMS)
+    qkv_g = [[chunk(qkv, c + i0), chunk(qkv, 2 * c + i0), chunk(qkv, i0)]
+             for i0 in range(0, c, 64)]
+    proj_g = [rows(proj, i0) for i0 in range(0, c, 64)]
+    if fc1_twice:
+        slabs = sum(qkv_g, []) + proj_g
+        slabs += [chunk(fc1, i0) for i0 in range(0, 4 * c, 64)]
+    else:
+        slabs = sum((g + [r] for g, r in zip(qkv_g, proj_g)), [])
     for i0 in range(0, 4 * c, 64):
         slabs += [chunk(fc1, i0), rows(fc2, i0)]
     return torch.stack(slabs, dim=1).contiguous()
 
 
-def _pack(p, suffix):
-    """The four GEMMs' int8 weights ``<gemm><suffix>`` (L, in, out) as the
-    int8 kernel's slabs (L, 12C/64, 64, C): [64 outputs][C inputs] in the
-    order it consumes them (qkv 3C/64, proj C/64, fc1 4C/64, then fc2 as
-    C/64 output chunks x 4 input chunks)."""
-    layers, c = p["qkvw"].shape[:2]
-
-    def slabs(w):  # (L, in, out) -> (L, out/64 * in/C, 64, C)
-        k, n = w.shape[1:]
-        w = w.transpose(1, 2).reshape(layers, n // SLAB_N, SLAB_N, k // c, c)
-        return w.permute(0, 1, 3, 2, 4).reshape(layers, -1, SLAB_N, c)
-
-    return torch.cat([slabs(p[k + suffix]) for k in GEMMS],
-                     dim=1).contiguous()
+def _k_order(int8: bool) -> torch.Tensor:
+    """The inputs of a 64-input slab of proj or fc2 rows in K order: in
+    order, or for the int8 weights ``K_PERM`` within each 16."""
+    order = torch.arange(64)
+    return order // 16 * 16 + torch.tensor(K_PERM).repeat(4) if int8 \
+        else order
 
 
 def _side_by_side(p, suffix):
@@ -206,8 +216,9 @@ def add_static_int8(p: dict, scales) -> dict:
     ``check_static_scales``), folded into the stacked weights and quantized
     (``ops.quant.static_gemm_weights``): ``<gemm>_sq`` int8 (in, out),
     ``<gemm>_ssw`` f32 (L, out) and ``<gemm>_ia`` f32 (L, in) and, where
-    the kernel takes the mode, ``wpack_i8s`` (the slabs of the static int8
-    weights, in ``wpack_i8``'s order), ``swpack_s`` (L, 9C) and ``iapack``
+    the kernel takes the mode, ``wpack_i8s`` (L, 12C/64, C, 64), the
+    static int8 weights as that mode's slabs (``_pack_slabs``, in the bf16
+    modes' order), ``swpack_s`` (L, 9C) and ``iapack``
     (L, 7C), the four inverse activation scales side by side; and
     ``int8_acts``, the ``scales`` object itself, by which
     ``models.common.run_window_trunk`` knows the pack was folded for it."""
@@ -218,7 +229,7 @@ def add_static_int8(p: dict, scales) -> dict:
         p[k + "_sq"], p[k + "_ssw"], p[k + "_ia"] = static_gemm_weights(
             p[k], s_in.to(p[k].device))
     if "wpack" in p and "int8_static" in KERNEL_MODES[c]:
-        p["wpack_i8s"] = _pack(p, "_sq")
+        p["wpack_i8s"] = _pack_slabs(p, "_sq")
         p["swpack_s"] = _side_by_side(p, "_ssw")
         p["iapack"] = _side_by_side(p, "_ia")
     return p
@@ -334,16 +345,12 @@ def fused_window_trunk(win: torch.Tensor, params: dict,
             + ("" if wkey in params else f" without {wkey!r}"))
     layers = params["wpack"].shape[0]
     check(win, "win", torch.bfloat16, (nw, TOKENS, c))
-    slabs = (layers, 12 * c // SLAB_N)
+    slabs = (12 + 4 * (mode == "int8_rowwise")) * c // SLAB_N
     check(params[wkey], wkey, torch.bfloat16 if skey is None else torch.int8,
-          slabs + ((c, SLAB_N) if skey is None else (SLAB_N, c)))
+          (layers, slabs, c, SLAB_N))
     check(params["vpack"], "vpack", torch.bfloat16, (layers, 13 * c))
-    # The bf16 kernel reads each head's relative-position table, the int8
-    # kernel the gathered bias.
-    bkey = "tables" if skey is None else "bias"
-    check(params[bkey], bkey, torch.float32,
-          (layers, c // HEAD_DIM) + ((TABLE,) if skey is None
-                                     else (TOKENS, TOKENS)))
+    check(params["tables"], "tables", torch.float32,
+          (layers, c // HEAD_DIM, TABLE))
     sw = ia = 0
     if skey is not None:
         check(params[skey], skey, torch.float32, (layers, 9 * c))
@@ -354,9 +361,43 @@ def fused_window_trunk(win: torch.Tensor, params: dict,
     out = torch.empty_like(win)
     err = _build.load("window_trunk").tux_window_trunk(
         win.data_ptr(), params[wkey].data_ptr(), params["vpack"].data_ptr(),
-        params[bkey].data_ptr(), sw, ia, out.data_ptr(), nw, layers, c,
+        params["tables"].data_ptr(), sw, ia, out.data_ptr(), nw, layers, c,
         TRUNK_MODES.index(mode), win.device.index, stream_of(win))
     raise_on(err, "fused_window_trunk")
     LAUNCHES["fused_window_trunk"] += 1
     MODE_LAUNCHES[mode] += 1
+    return out
+
+
+def wgmma_i8_probe(a: torch.Tensor, b: torch.Tensor, a2: torch.Tensor,
+                   w2: torch.Tensor):
+    """The int8 modes' two ``wgmma`` products alone, as the kernel runs
+    them (csrc/window_trunk.cu ``wgmma_i8_probe_kernel``): a, b (64, 192),
+    a2 (64, 64) and w2 (64, 192) int8 on the card. Returns (a @ b.T,
+    a2 @ w2) in int32: the first from 64B-swizzled TMA tiles as a qkv or
+    fc1 chunk, the second with w2's rows packed as a proj or fc2 slab
+    (``_k_order``) and a2 fed through the accumulator-to-fragment map."""
+    for name, t, shape in (("a", a, (64, 192)), ("b", b, (64, 192)),
+                           ("a2", a2, (64, 64)), ("w2", w2, (64, 192))):
+        check(t, name, torch.int8, shape)
+    b2 = w2[_k_order(True).to(w2.device)].t().contiguous()
+    out1 = torch.empty(64, 64, dtype=torch.int32, device=a.device)
+    out2 = torch.empty(64, 192, dtype=torch.int32, device=a.device)
+    err = _build.load("window_trunk").tux_wgmma_i8_probe(
+        a.data_ptr(), b.data_ptr(), a2.data_ptr(), b2.data_ptr(),
+        out1.data_ptr(), out2.data_ptr(), a.device.index, stream_of(a))
+    raise_on(err, "wgmma_i8_probe")
+    return out1, out2
+
+
+def gelu_i8_probe(d: torch.Tensor) -> torch.Tensor:
+    """The int8 modes' GELU alone (csrc/window_trunk.cu ``gelu_i8``, as
+    their epilogues round it): d (n,) bf16 on the card; returns
+    bf16(gelu_i8(d))."""
+    n = d.shape[0]
+    check(d, "d", torch.bfloat16, (n,))
+    out = torch.empty_like(d)
+    err = _build.load("window_trunk").tux_gelu_i8_probe(
+        d.data_ptr(), out.data_ptr(), n, d.device.index, stream_of(d))
+    raise_on(err, "gelu_i8_probe")
     return out
