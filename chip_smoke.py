@@ -250,10 +250,12 @@ TPU_KERNELS = [
      "ported and checked: conv3x3_stream (the same conv without the "
      "width-2 packing; bf16)"),
     ("stream.py:147 conv3x3_packed_int8_stream",
-     "ported and checked: conv3x3_int8_stream (int8 x int8 -> int32)"),
+     "ported and checked: conv3x3_int8_stream (int8 x int8 -> int32; the "
+     "int8 form of csrc/conv3x3.cu's kernel)"),
     ("stream.py:893 tail_macro8_stream_int8",
      "ported and checked: tail_conv_int8_stream (5x5 and 7x7; also serves "
-     "the XLA conv2d_tail_packed_int8)"),
+     "the XLA conv2d_tail_packed_int8; the int8 form of "
+     "csrc/tail_strip.cu's tail)"),
     ("stream.py:584 conv3x3_tail_stream",
      "ported and checked: conv3x3_tail_stream (3x3, 5x5, 7x7 tails; bf16 "
      "and f32 out)"),
@@ -794,9 +796,13 @@ def int8_cases(x, tok, rn, bf16) -> list[dict]:
     the 720x1280 feature map quantized per channel (59 MB of int8), weights
     folded and quantized as the model folds them. The two int8 convs must
     equal their plain versions bit for bit (exact int32 sums, the same f32
-    epilogue); the conv's int8 output may differ by one step on under 0.1%
-    of elements (an f32 sum in another order near a half step); the int8
-    embed and unembed within one bf16 step. No single PyTorch call computes
+    epilogue), at 720p and, bf16 and f32 out, on a quarter frame, the tails
+    also at co 27 and 48 (x3, x4); each record carries the device time of
+    its bf16 counterpart (``conv3x3_stream`` / ``tail_conv_stream`` on the
+    dequantized map) as ``bf16_counterpart_ms``. The conv's int8 output
+    may differ by one step on under 0.1% of elements (an f32 sum in another
+    order near a half step); the int8 embed and unembed within one bf16
+    step. No single PyTorch call computes
     an int8 convolution, or a product with an int8 quantize or dequantize
     around it, on CUDA: library_ms is null."""
     from transformerupscaler_torch.kernels import stream as S
@@ -806,17 +812,21 @@ def int8_cases(x, tok, rn, bf16) -> list[dict]:
     _, ht, wt, d = tok.shape
     s = Q.act_scale(x)
     xq, _ = Q.quantize_act_ch(x, s)
-    conv_src = "transformerupscaler_torch/csrc/conv_int8.cu"
+    xd = (xq.float() * s).bfloat16()  # the map the bf16 counterparts take
     records = []
 
     def record(name, source, replaces, err, tol, run, plain, n_bytes, on,
-               flops=0.0, int8_ops=0.0):
+               flops=0.0, int8_ops=0.0, **extra):
         bnd, by = bound_ms(n_bytes, flops, int8_ops)
         records.append(dict(
             name=name, route="cuda", source=source,
             replaces="transformerupscaler_tpu/ops/pallas/" + replaces,
             max_abs_err=err, tolerance=tol, bound_ms=bnd, bound_by=by,
-            **timing(run, plain), on=on))
+            **timing(run, plain), on=on, **extra))
+
+    def exact(name, wrap, plain_fn, *args):
+        if not torch.equal(wrap(*args), plain_fn(*args)):
+            raise AssertionError(f"{name} differs from its plain version")
 
     for name, k, co, relu, replaces, on in (
             ("conv3x3_int8_stream", 3, 64, True, "stream.py:147",
@@ -825,19 +835,33 @@ def int8_cases(x, tok, rn, bf16) -> list[dict]:
              "int8_tails"),
             ("tail_conv_int8_stream/7x7", 7, 12, False, "stream.py:893",
              "int8_tails")):
-        kq, ks = Q.fold_conv_kernel(rn(k, k, 64, co, std=(k * k * 64) ** -0.5),
-                                    s)
+        kf = rn(k, k, 64, co, std=(k * k * 64) ** -0.5)
+        kq, ks = Q.fold_conv_kernel(kf, s)
         bias = rn(co, std=0.1)
         wrap = S.conv3x3_int8_stream if k == 3 else S.tail_conv_int8_stream
         plain_fn = S.conv3x3_int8_plain if k == 3 else S.tail_conv_int8_plain
         run = lambda: wrap(xq, kq, ks, bias, relu)  # noqa: E731
         plain = lambda: plain_fn(xq, kq, ks, bias, relu)  # noqa: E731
         out = run()
-        if not torch.equal(out, plain()):
-            raise AssertionError(f"{name} differs from its plain version")
-        record(name, conv_src, replaces, 0.0, "bit for bit", run, plain,
+        exact(name, wrap, plain_fn, xq, kq, ks, bias, relu)
+        # The f32 output and, for the tails, the x3 and x4 widths: quarter
+        # frame, bit for bit too.
+        xqq = xq[:, :h // 2, :w // 2].contiguous()
+        for cw in (co,) if k == 3 else (co, 27, 48):
+            kqw, ksw = Q.fold_conv_kernel(
+                rn(k, k, 64, cw, std=(k * k * 64) ** -0.5), s)
+            for odt in (torch.bfloat16, torch.float32):
+                exact(f"{name} co {cw} {odt}", wrap, plain_fn, xqq, kqw, ksw,
+                      rn(cw, std=0.1), relu, odt)
+        # The bf16 kernel of the same convolution on the dequantized map.
+        bf16_fn = S.conv3x3_stream if k == 3 else S.tail_conv_stream
+        bf16_ms = device_ms(lambda: bf16_fn(xd, kf, bias, relu))
+        src = "conv3x3" if k == 3 else "tail_strip"
+        record(name, f"transformerupscaler_torch/csrc/{src}.cu", replaces,
+               0.0, "bit for bit", run, plain,
                nbytes(xq, out, kq, ks) + co * 4, on,
-               int8_ops=2.0 * h * w * k * k * 64 * co)
+               int8_ops=2.0 * h * w * k * k * 64 * co,
+               bf16_counterpart=bf16_fn.__name__, bf16_counterpart_ms=bf16_ms)
 
     k3, b3 = rn(3, 3, 64, 64, std=576 ** -0.5), rn(64, std=0.1)
     so = Q.act_scale(S.conv3x3_plain(x, k3, b3, True)) * 1.1

@@ -288,31 +288,75 @@ def _int8_case(gen, shape, co, kh):
     return xq, kq, ks, _rn(gen, co, std=0.1)
 
 
+# Widths around the int8 3x3's 64-pixel tiles and the int8 tail's strips
+# (124 outputs at k = 5, 122 at k = 7, 64 a warpgroup), heights around the
+# 3x3's 4-row tiles and the tails' reach, up to 130 rows, where ranges break
+# into segments inside strips; batch 2.
+INT8_W = [1, 63, 64, 65, 122, 124, 125, 128, 250]
+INT8_H = [1, 2, 3, 4, 5, 7, 33, 130]
+INT8_SHAPES = ([(1, 24, 48), (2, 13, 37)] + [(2, 5, w) for w in INT8_W]
+               + [(2, h, 130) for h in INT8_H])
+
+
+def _int8_exact(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(1, 24, 48), (2, 13, 37)])
+@pytest.mark.parametrize("shape", INT8_SHAPES)
 @pytest.mark.parametrize("relu", [False, True])
 def test_conv3x3_int8_kernel_matches_plain_exactly(gen, shape, relu,
                                                    out_dtype):
     """The int32 sums are exact and the epilogue rounds as the plain
-    version does: bit for bit."""
+    version does: bit for bit, every pixel (the outputs NaN-poisoned)."""
     xq, kq, ks, b = _int8_case(gen, shape, 64, 3)
+    _poison(*shape, 64, dtype=out_dtype)
     S.reset_launches()
     got = S.conv3x3_int8_stream(xq, kq, ks, b, relu, out_dtype)
     assert S.LAUNCHES["conv3x3_int8_stream"] == 1 and got.dtype == out_dtype
-    _close(got, S.conv3x3_int8_plain(xq, kq, ks, b, relu, out_dtype),
-           dict(rtol=0, atol=0))
+    _int8_exact(got, S.conv3x3_int8_plain(xq, kq, ks, b, relu, out_dtype))
 
 
-@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("co", [12, 27, 48])
+# (shape, co, out dtype): every npad and output type at the first shape;
+# the widths and heights at every npad.
+TAIL_INT8_CASES = (
+    [((2, 13, 37), co, dt) for co in (12, 27, 48)
+     for dt in (torch.bfloat16, torch.float32)]
+    + [(shape, co, torch.bfloat16) for shape in INT8_SHAPES[2:]
+       for co in (12, 27, 48)])
+
+
+@pytest.mark.parametrize("shape,co,out_dtype", TAIL_INT8_CASES)
 @pytest.mark.parametrize("kh,relu", [(5, True), (7, False)])
-def test_tail_int8_kernel_matches_plain_exactly(gen, kh, relu, co,
+def test_tail_int8_kernel_matches_plain_exactly(gen, kh, relu, shape, co,
                                                 out_dtype):
-    xq, kq, ks, b = _int8_case(gen, (2, 13, 37), co, kh)
+    xq, kq, ks, b = _int8_case(gen, shape, co, kh)
+    _poison(*shape, co, dtype=out_dtype)
+    S.reset_launches()
     got = S.tail_conv_int8_stream(xq, kq, ks, b, relu, out_dtype)
-    assert got.shape == (2, 13, 37, co) and got.dtype == out_dtype
-    _close(got, S.tail_conv_int8_plain(xq, kq, ks, b, relu, out_dtype),
-           dict(rtol=0, atol=0))
+    assert S.LAUNCHES["tail_conv_int8_stream"] == 1
+    assert got.shape == (*shape, co) and got.dtype == out_dtype
+    _int8_exact(got, S.tail_conv_int8_plain(xq, kq, ks, b, relu, out_dtype))
+
+
+@pytest.mark.parametrize("kind", ["conv3x3", "tail5", "tail7"])
+def test_int8_convs_at_720p_match_plain_exactly(gen, kind):
+    """The serving shapes at x2 (the 3x3 with ReLU, the 5x5 tail with ReLU,
+    the 7x7 without), outputs NaN-poisoned: bit for bit, and two calls give
+    the same bits."""
+    kh, co = {"conv3x3": (3, 64), "tail5": (5, 12), "tail7": (7, 12)}[kind]
+    xq, kq, ks, b = _int8_case(gen, (1, 720, 1280), co, kh)
+    wrap, plain = ((S.conv3x3_int8_stream, S.conv3x3_int8_plain) if kh == 3
+                   else (S.tail_conv_int8_stream, S.tail_conv_int8_plain))
+    relu = kh != 7
+    _poison(1, 720, 1280, co)
+    got = wrap(xq, kq, ks, b, relu)
+    _poison(1, 720, 1280, co)
+    again = wrap(xq, kq, ks, b, relu)
+    _int8_exact(got, plain(xq, kq, ks, b, relu))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("shape", [(1, 24, 48), (2, 13, 37)])
@@ -625,6 +669,23 @@ def test_wgmma_descriptor_row_shift(gen, shift):
     b = _rn(gen, 64, 64).bfloat16()
     got = C3.desc_shift_probe(a, b, shift)
     _close(got, a[shift:shift + 64].float() @ b.float(), F32_TOL)
+
+
+@pytest.mark.parametrize("shift", range(9))
+def test_wgmma_i8_descriptor_row_shift(gen, shift):
+    """The int8 convs' A operand: an int8 wgmma descriptor whose start sits
+    ``shift`` 64-byte rows into a 64B-swizzled tile (odd shifts start inside
+    a 128-byte address line) reads rows shift .. shift + 63 of it; int32
+    sums of 64 int8 products, exact."""
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    a, b = ri(72, 64), ri(64, 64)
+    got = C3.desc_shift_probe_i8(a, b, shift)
+    torch.cuda.synchronize()
+    a, b = a.cpu().long(), b.cpu().long()
+    assert torch.equal(got.cpu().long(), a[shift:shift + 64] @ b.t())
 
 
 @pytest.mark.parametrize("b,ht,wt,d", [(2, 3, 5, 64), (1, 2, 4, 192)])

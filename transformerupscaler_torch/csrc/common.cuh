@@ -1,6 +1,6 @@
 // Shared pieces of the port's hand-written Hopper kernels: the bf16
-// tensor-core product (mma.sync m16n8k16, f32 accumulate), the int8 one
-// (mma.sync m16n8k32, s32 accumulate) and 16-byte copies.
+// tensor-core product (mma.sync m16n8k16, f32 accumulate) and 16-byte
+// copies.
 //
 // Fragment layout of mma.sync.m16n8k16.row.col (PTX ISA, "Matrix fragments
 // for mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -52,37 +52,6 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[2],
   b[1] = ld_pair(col_g + 2 * t + 8);
 }
 
-// acc += A (16 x 32 int8, row major) . B (32 x 8 int8, stored as Bt[n][k]).
-// Fragments (PTX ISA, "Matrix fragments for mma.m16n8k32", .s8), with
-// g = lane / 4 and t = lane % 4: a0 = A[g][4t..4t+3], a1 = A[g+8][4t..],
-// a2 = A[g][16+4t..], a3 = A[g+8][16+4t..]; b0 = Bt[g][4t..4t+3],
-// b1 = Bt[g][16+4t..]; the s32 accumulator as the f32 one of m16n8k16.
-// Four adjacent int8 are one 32-bit word; int8 tiles keep a row stride of
-// (multiple of 64) + 16 bytes, which spreads the rows g = 0..7 of a read
-// over eight distinct 4-bank groups as the bf16 strides do.
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint4 zero16() { return make_uint4(0, 0, 0, 0); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 }  // namespace tux

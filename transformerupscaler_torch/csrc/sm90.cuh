@@ -738,6 +738,71 @@ __device__ __forceinline__ void wgmma_i8_rs_n192_init(int (&d)[96],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
 }
 
+// D (64 x N, s32) += A (64 x 32, s8) . B (32 x N, s8), both K-major by
+// descriptor (desc_k64), not accumulated where `accumulate` is 0: the int8
+// k x k tail's shift-add product (csrc/tail_strip.cu), N = k x 16.
+template <int N>
+__device__ __forceinline__ void wgmma_i8_ss_kb(int (&d)[N / 2], uint64_t a,
+                                               uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_i8_ss_kb<80>(int (&d)[40], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, %40, %41, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_i8_ss_kb<112>(int (&d)[56], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55 "
+      "}, %56, %57, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // --------------------------------------------------------------- host
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -796,16 +861,30 @@ inline int map_nhwc(CUtensorMap* m, const void* p, int B, int H, int W,
                     box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// The same for int8 (B, H, W, Cm): box (64 bytes, box_w, 1, 1), 64B swizzle.
+// The same for int8 (B, H, W, Cm): box (64 bytes, box_w, box_h, 1), 64B
+// swizzle.
 inline int map_nhwc_i8(CUtensorMap* m, const void* p, int B, int H, int W,
-                       int Cm, int box_w) {
+                       int Cm, int box_w, int box_h = 1) {
   const uint64_t dims[4] = {uint64_t(Cm), uint64_t(W), uint64_t(H),
                             uint64_t(B)};
   const uint64_t strides[3] = {uint64_t(Cm), uint64_t(W) * Cm,
                                uint64_t(H) * W * Cm};
-  const uint32_t box[4] = {64, uint32_t(box_w), 1, 1};
+  const uint32_t box[4] = {64, uint32_t(box_w), uint32_t(box_h), 1};
   return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, p, dims, strides, box,
                     CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// The same for f32 (B, H, W, Cm): box (32 floats = 128 bytes, box_w, 1, 1),
+// 128B swizzle.
+inline int map_nhwc_f32(CUtensorMap* m, const void* p, int B, int H, int W,
+                        int Cm, int box_w) {
+  const uint64_t dims[4] = {uint64_t(Cm), uint64_t(W), uint64_t(H),
+                            uint64_t(B)};
+  const uint64_t strides[3] = {uint64_t(Cm) * 4, uint64_t(W) * Cm * 4,
+                               uint64_t(H) * W * Cm * 4};
+  const uint32_t box[4] = {32, uint32_t(box_w), 1, 1};
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A (rows, cols) bf16 row-major matrix, box (64 columns, box_rows rows),

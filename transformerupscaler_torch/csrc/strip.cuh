@@ -24,6 +24,8 @@
 
 #include <cuda_bf16.h>
 
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace tux {
@@ -101,18 +103,19 @@ __device__ __forceinline__ Seg segment(int t, int t_end, int H, int strips,
 }
 
 // The shift-add of a KT x KT conv of NGR output groups (each one product
-// chain of N = 16 KT), one source row a step. step() takes source row m:
-// products(q, D), only when the row is `inside` the image (else it is the
-// zero pad), leaves in D[8 dy + e] row m's share of group q's output row
-// m + P - dy in wgmma's accumulator layout (d[4 j + 2 i + e] = D[16 warp + g
-// + 8 i][8 j + 2 t + e], j = 2 dy + jj); the groups run one after the other,
-// so one group's accumulator is live at a time. Then, when `done`,
-// emit(y, o) gets the complete output row y = m - P, o[q][4 jj + 2 i + e]
-// for output 16 q + 8 jj + 2 t + e.
-template <int KT, int NGR>
+// chain of N = 16 KT), one source row a step, with partial sums of type Acc
+// (f32 for bf16 products, int32 for int8 ones: exact in any order). step()
+// takes source row m: products(q, D), only when the row is `inside` the
+// image (else it is the zero pad), leaves in D[8 dy + e] row m's share of
+// group q's output row m + P - dy in wgmma's accumulator layout (d[4 j + 2
+// i + e] = D[16 warp + g + 8 i][8 j + 2 t + e], j = 2 dy + jj); the groups
+// run one after the other, so one group's accumulator is live at a time.
+// Then, when `done`, emit(y, o) gets the complete output row y = m - P,
+// o[q][4 jj + 2 i + e] for output 16 q + 8 jj + 2 t + e.
+template <int KT, int NGR, typename Acc = float>
 struct ShiftAdd {
   static constexpr int P = (KT - 1) / 2;
-  float R[2 * P][NGR][8];  // R[i]: the partial sums of output row m - P + i
+  Acc R[2 * P][NGR][8];  // R[i]: the partial sums of output row m - P + i
 
   __device__ __forceinline__ void reset() {
 #pragma unroll
@@ -120,21 +123,21 @@ struct ShiftAdd {
 #pragma unroll
       for (int q = 0; q < NGR; ++q)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) R[i][q][e] = 0.f;
+        for (int e = 0; e < 8; ++e) R[i][q][e] = Acc(0);
   }
 
   template <class Products, class Emit>
   __device__ __forceinline__ void step(bool inside, bool done, int y,
                                        Products&& products, Emit&& emit) {
-    float o[NGR][8];
+    Acc o[NGR][8];
 #pragma unroll
     for (int q = 0; q < NGR; ++q) {
-      float D[8 * KT];
+      Acc D[8 * KT];
       if (inside) {
         products(q, D);
       } else {
 #pragma unroll
-        for (int e = 0; e < 8 * KT; ++e) D[e] = 0.f;
+        for (int e = 0; e < 8 * KT; ++e) D[e] = Acc(0);
       }
       // Output row m - P, then the shift: R[i] becomes output row
       // m + 1 - P + i.
@@ -155,15 +158,15 @@ struct ShiftAdd {
 // The shift-add over the source rows m in [y0 - P, y1 + P) that output rows
 // [y0, y1) need, rows [ma, mb) inside the image: products(m, q, D) as
 // ShiftAdd's products for row m.
-template <int KT, int NGR, class Products, class Emit>
+template <int KT, int NGR, typename Acc = float, class Products, class Emit>
 __device__ __forceinline__ void shift_add(int y0, int y1, int ma, int mb,
                                           Products&& products, Emit&& emit) {
   constexpr int P = (KT - 1) / 2;
-  ShiftAdd<KT, NGR> sa;
+  ShiftAdd<KT, NGR, Acc> sa;
   sa.reset();
   for (int m = y0 - P; m < y1 + P; ++m)
     sa.step(m >= ma && m < mb, m - P >= y0, m - P,
-            [&](int q, float (&D)[8 * KT]) { products(m, q, D); }, emit);
+            [&](int q, Acc (&D)[8 * KT]) { products(m, q, D); }, emit);
 }
 
 // The bias of this thread's outputs 16 (grp0 + q) + 8 jj + 2 t + e at
@@ -185,12 +188,16 @@ __device__ __forceinline__ void group_bias(float (&b)[NGR][4],
 // Stores a warpgroup's output row from shift_add's o: pixel p = 16 warp + g
 // + 8 i at column x0 + p of the row starting at element `row` x co (row =
 // (b H + y) W), for p < own and x0 + p < W, outputs 16 (grp0 + q) + ... < co;
-// + bias, optional ReLU, one rounding to bf16 or f32.
-template <int NGR>
+// + bias, optional ReLU, one rounding to bf16 or f32. int32 sums (Acc int)
+// are first scaled by their output's ks: float(o) x ks + bias, each step
+// rounded on its own, no fused multiply-add (ops.conv.conv2d_int8_q); ks is
+// not read for f32 sums.
+template <int NGR, typename Acc>
 __device__ __forceinline__ void store_row(void* __restrict__ out, size_t row,
                                           int x0, int own, int W, int co,
-                                          int grp0, const float (&o)[NGR][8],
-                                          const float (&b)[NGR][4], int relu,
+                                          int grp0, const Acc (&o)[NGR][8],
+                                          const float (&b)[NGR][4],
+                                          const float (&ks)[NGR][4], int relu,
                                           int out_f32) {
   const int lane = threadIdx.x & 31;
   const int warp = (threadIdx.x >> 5) & 3;
@@ -206,7 +213,12 @@ __device__ __forceinline__ void store_row(void* __restrict__ out, size_t row,
         for (int c = 0; c < 4; ++c) {
           const int e = 4 * (c >> 1) + 2 * i + (c & 1);
           const int oc = NG * (grp0 + q) + 8 * (c >> 1) + 2 * t + (c & 1);
-          float v = o[q][e] + b[q][c];
+          float v;
+          if constexpr (std::is_same_v<Acc, int>)
+            v = __fadd_rn(__fmul_rn(__int2float_rn(o[q][e]), ks[q][c]),
+                          b[q][c]);
+          else
+            v = o[q][e] + b[q][c];
           if (relu) v = fmaxf(v, 0.f);
           if (oc < co) {
             if (out_f32)
@@ -218,6 +230,16 @@ __device__ __forceinline__ void store_row(void* __restrict__ out, size_t row,
         }
     }
   }
+}
+
+template <int NGR>
+__device__ __forceinline__ void store_row(void* __restrict__ out, size_t row,
+                                          int x0, int own, int W, int co,
+                                          int grp0, const float (&o)[NGR][8],
+                                          const float (&b)[NGR][4], int relu,
+                                          int out_f32) {
+  store_row<NGR, float>(out, row, x0, own, W, co, grp0, o, b, b, relu,
+                        out_f32);
 }
 
 }  // namespace strip

@@ -1,9 +1,16 @@
 // The composed k x k tail and the split branch-B tail as column-strip
 // kernels on TMA + wgmma, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of transformerupscaler_tpu/ops/pallas/stream.py:
+// Replaces three TPU kernels of transformerupscaler_tpu/ops/pallas/stream.py:
 //   tail_macro8_stream (:777, body :740)   ->  tux_tail_conv
 //   tail_finish_stream (:1078, body :991)  ->  tux_tail_finish
+//   tail_macro8_stream_int8 (:893)         ->  tux_tail_conv_int8, which also
+//                                              serves the XLA
+//                                              conv2d_tail_packed_int8
+//                                              (ops/conv.py:419) of the JAX
+//                                              int8 tails: one function
+//                                              (stream.py:897-905,
+//                                              conv.py:424-430)
 // What they compute, NHWC bf16 in, f32 accumulation:
 //   tux_tail_conv    out = act(conv_kxk(x, w) + b), k = 5, 7, 64 -> co <= 48,
 //                    zero-padded x, f32 bias, optional ReLU, one rounding to
@@ -18,6 +25,13 @@
 //                    "full": also the mid's remainder as lo, hi.hi + hi.lo +
 //                    lo.hi (lo.lo dropped). (cm, co) padded with zero weights
 //                    to (16, 16), (32, 32) or (16, 48): x2, x3, x4.
+//   tux_tail_conv_int8  the tail conv on an int8 map quantized per input
+//                    channel, int8 weights with that scale folded in and
+//                    per-output f32 scales ks (ops.quant.fold_conv_kernel):
+//                    out = act(float(acc) * ks + b), acc the exact int32 sum,
+//                    the multiply and the add each rounded on its own (no
+//                    fused multiply-add), one rounding to bf16 or f32: bit
+//                    for bit with ops.conv.conv2d_int8_q.
 // The TPU kernels' macro-8 packing and row slabs are not carried over.
 //
 // Design: csrc/strip.cuh's column strips, persistent blocks and shift-add
@@ -50,6 +64,13 @@
 //                of the lo channels with the hi weights (the finish slab
 //                holds w_hi at channels 0..cmp-1 and w_lo at cmp..2 cmp-1).
 //                Each mid row is computed once a segment.
+//   int8 tail    the tail conv's kernel with int8 operands: ring rows of
+//                136 pixels x 64 bytes in the 64B swizzle (eight in the
+//                ring), each dx two m64n{80,112}k32 s8 products whose A
+//                starts MW c + dx 64-byte pixels in, the tail_slabs weights
+//                in int8 (64-byte K-major rows), the shift-add's partial
+//                rows in int32 (exact in any order, so bit for bit), and the
+//                ks multiply in store_row.
 // Input rows are read from device memory once a segment: 1.10x at 720p
 // (strip overlap), plus the ring rows of each segment.
 //
@@ -59,7 +80,9 @@
 // ms. Padding co 12 to 16 and the strip overlap add 1.4-1.5x to the
 // products, and each m64nNk16 product with N = 80 or 112 reads its A (2 KB)
 // and B (N x 32 B) from shared memory: with the rows' TMA writes, about
-// 100-120 B a clock at the tensor rate, near the port's 128 B a clock.
+// 100-120 B a clock at the tensor rate, near the port's 128 B a clock. The
+// int8 tail reads 59 MB and writes 22 MB: 0.024 ms; its 7x7 does 69 G int8
+// operations, 0.035 ms at 1,979 TOP/s.
 #include "strip.cuh"
 
 namespace {
@@ -76,33 +99,39 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 // ------------------------------------------------------ the composed tail
 constexpr int TX = 2 * MW + 8;  // pixels of an input ring row: 2 M + 8
-constexpr int TROW = TX * 128;  // bytes of an input ring row
-constexpr int TNS = 4;          // input ring rows of the tail
+constexpr int TROW = TX * 128;  // bytes of a bf16 input ring row
 
-template <int KT>
+// I8: int8 operands, a pixel's 64 channels in a 64-byte row (64B swizzle),
+// k32 steps, int32 partial sums; twice the ring rows in the same bytes.
+template <int KT, bool I8 = false>
 struct TailGeo {
   static constexpr int P = (KT - 1) / 2;
   static constexpr int OWN = 2 * MW - 2 * P;  // outputs a strip owns
   static constexpr int N = KT * NG;           // GEMM width: (dy, output)
-  static constexpr int TSLAB = N * 128;       // one dx: N K-major rows
+  static constexpr int PIX = I8 ? 64 : 128;   // bytes of a pixel's channels
+  static constexpr int ROW = TX * PIX;        // bytes of an input ring row
+  static constexpr int TNS = I8 ? 8 : 4;      // input ring rows
+  static constexpr int TSLAB = N * PIX;       // one dx: N K-major rows
   static constexpr int TWB = KT * TSLAB;
   static constexpr int BARS = 2 + 2 * TNS;
-  static constexpr int BYTES = 1024 + TWB + TNS * TROW + BARS * 8;
+  static constexpr int BYTES = 1024 + TWB + TNS * ROW + BARS * 8;
 };
 
 // xmap: x (B, H, W, 64) as (64, W, H, B), box (64, 136, 1, 1); tmap: the
 // slabs (groups x k x N, 64) = w[grp][dx][dy][o][c], box (64, N); both
-// 128B-swizzled. bt (co) f32; out (B, H, W, co) bf16 or f32.
+// 128B-swizzled bf16, or I8 int8 with the 64B swizzle. bt (co) f32, and for
+// I8 the weight scales ks (co) f32; out (B, H, W, co) bf16 or f32.
 // T = B x strips x H strip-rows.
-template <int KT>
+template <int KT, bool I8>
 __global__ void __launch_bounds__(THREADS, 1)
 tail_conv_kernel(const __grid_constant__ CUtensorMap xmap,
                  const __grid_constant__ CUtensorMap tmap,
-                 const float* __restrict__ bt, void* __restrict__ out, int H,
-                 int W, int co, int groups, int strips, int T, int relu,
-                 int out_f32) {
-  using G = TailGeo<KT>;
-  constexpr int P = G::P;
+                 const float* __restrict__ bt, const float* __restrict__ ks,
+                 void* __restrict__ out, int H, int W, int co, int groups,
+                 int strips, int T, int relu, int out_f32) {
+  using G = TailGeo<KT, I8>;
+  using Acc = std::conditional_t<I8, int, float>;
+  constexpr int P = G::P, TNS = G::TNS, TROW = G::ROW;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* tw = align1024(smem_raw);
   unsigned char* in = tw + G::TWB;
@@ -159,26 +188,38 @@ tail_conv_kernel(const __grid_constant__ CUtensorMap xmap,
   if (c == 1) S::named_arrive(1, 256);
   uint32_t n = 0;  // input rows used
   for (int grp = 0; grp < groups; ++grp) {
-    float bq[1][4];
+    float bq[1][4], kq[1][4];
     group_bias(bq, bt, co, grp);
+    if constexpr (I8) group_bias(kq, ks, co, grp);
     S::mbar_wait(tw_full, grp & 1);
     for (int t = t0; t < t1;) {
       const Seg sg = segment(t, t1, H, strips, G::OWN);
-      shift_add<KT, 1>(
+      shift_add<KT, 1, Acc>(
           sg.y0, sg.y1, max(sg.y0 - P, 0), min(sg.y1 + P, H),
-          [&](int, int, float (&D)[8 * KT]) {
+          [&](int, int, Acc (&D)[8 * KT]) {
             const int slot = n % TNS;
             S::mbar_wait(&in_full[slot], par(n, TNS));
             const unsigned char* row = in + slot * TROW;
             S::named_sync(1 + c, 256);  // this warpgroup's turn
             S::wgmma_fence();
+            if constexpr (I8) {
+              // A: the ring row started MW c + dx 64-byte pixels in.
 #pragma unroll
-            for (int dx = 0; dx < KT; ++dx)
+              for (int dx = 0; dx < KT; ++dx)
 #pragma unroll
-              for (int s = 0; s < 4; ++s)
-                S::wgmma_ss_kb<G::N>(D, desc_row(row, MW * c + dx, s),
-                                     desc_slab(tw + dx * G::TSLAB, s),
-                                     dx | s);
+                for (int s = 0; s < 2; ++s)
+                  S::wgmma_i8_ss_kb<G::N>(
+                      D, S::desc_k64(row + 64 * (MW * c + dx), s),
+                      S::desc_k64(tw + dx * G::TSLAB, s), dx | s);
+            } else {
+#pragma unroll
+              for (int dx = 0; dx < KT; ++dx)
+#pragma unroll
+                for (int s = 0; s < 4; ++s)
+                  S::wgmma_ss_kb<G::N>(D, desc_row(row, MW * c + dx, s),
+                                       desc_slab(tw + dx * G::TSLAB, s),
+                                       dx | s);
+            }
             S::wgmma_commit();
             S::named_arrive(2 - c, 256);  // the other's turn
             S::wgmma_wait<0>();
@@ -186,9 +227,10 @@ tail_conv_kernel(const __grid_constant__ CUtensorMap xmap,
             S::fence_acc(D);
             ++n;
           },
-          [&](int y, const float (&o)[1][8]) {
+          [&](int y, const Acc (&o)[1][8]) {
             store_row<1>(out, (size_t(sg.b) * H + y) * W, sg.x0 + MW * c,
-                         G::OWN - MW * c, W, co, grp, o, bq, relu, out_f32);
+                         G::OWN - MW * c, W, co, grp, o, bq, kq, relu,
+                         out_f32);  // kq is read for int32 sums only
           });
       t += sg.y1 - sg.y0;
     }
@@ -197,27 +239,30 @@ tail_conv_kernel(const __grid_constant__ CUtensorMap xmap,
   if (c == 0) S::named_sync(1, 256);  // warpgroup 1's last turn
 }
 
-template <int KT>
-int launch_tail(const void* x, const void* w, const void* bias, void* out,
-                int B, int H, int W, int co, int groups, int relu,
-                int out_f32, int device, void* stream) {
-  using G = TailGeo<KT>;
+template <int KT, bool I8 = false>
+int launch_tail(const void* x, const void* w, const void* bias,
+                const void* ks, void* out, int B, int H, int W, int co,
+                int groups, int relu, int out_f32, int device, void* stream) {
+  using G = TailGeo<KT, I8>;
   static_assert(G::BYTES <= MAX_SMEM, "tail_conv shared memory");
   CUtensorMap xm, tm;
-  int e = S::map_nhwc(&xm, x, B, H, W, 64, TX, 1);
-  if (e == 0) e = S::map_matrix(&tm, w, groups * KT * G::N, 64, G::N);
+  int e = I8 ? S::map_nhwc_i8(&xm, x, B, H, W, 64, TX)
+             : S::map_nhwc(&xm, x, B, H, W, 64, TX, 1);
+  if (e == 0)
+    e = I8 ? S::map_matrix_i8(&tm, w, groups * KT * G::N, 64, G::N)
+           : S::map_matrix(&tm, w, groups * KT * G::N, 64, G::N);
   if (e != 0) return e;
+  auto kern = tail_conv_kernel<KT, I8>;
   cudaError_t err = cudaFuncSetAttribute(
-      tail_conv_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   if (err != cudaSuccess) return int(err);
   const int strips = (W + G::OWN - 1) / G::OWN;
   const int T = B * strips * H;
   const int sms = S::sm_count(device);
-  tail_conv_kernel<KT><<<T < sms ? T : sms, THREADS, G::BYTES,
-                         static_cast<cudaStream_t>(stream)>>>(
-      xm, tm, static_cast<const float*>(bias), out, H, W, co, groups, strips,
-      T, relu, out_f32);
+  kern<<<T < sms ? T : sms, THREADS, G::BYTES,
+         static_cast<cudaStream_t>(stream)>>>(
+      xm, tm, static_cast<const float*>(bias), static_cast<const float*>(ks),
+      out, H, W, co, groups, strips, T, relu, out_f32);
   return int(cudaGetLastError());
 }
 
@@ -496,11 +541,40 @@ extern "C" int tux_tail_conv(const void* x, const void* w, const void* bias,
   const int groups = npad / NG;
   switch (ks) {
     case 5:
-      return launch_tail<5>(x, w, bias, out, B, H, W, co, groups, relu,
-                            out_f32, device, stream);
+      return launch_tail<5>(x, w, bias, nullptr, out, B, H, W, co, groups,
+                            relu, out_f32, device, stream);
     case 7:
-      return launch_tail<7>(x, w, bias, out, B, H, W, co, groups, relu,
-                            out_f32, device, stream);
+      return launch_tail<7>(x, w, bias, nullptr, out, B, H, W, co, groups,
+                            relu, out_f32, device, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+// The int8 tail conv: x (B,H,W,64) int8; w (npad / 16 x ksz x ksz x 16, 64)
+// int8 = the folded kernel as tux_tail_conv's rows (kernels/stream.py
+// tail_slabs with dtype int8); ks, bias (co) f32; out (B,H,W,co) bf16 or
+// f32. out = act(float(acc) x ks + bias), acc the exact int32 sum. ksz in
+// {5, 7}, npad in {16, 32, 48}, co <= npad. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int tux_tail_conv_int8(const void* x, const void* w,
+                                  const void* ks, const void* bias, void* out,
+                                  int B, int H, int W, int ksz, int co,
+                                  int npad, int relu, int out_f32, int device,
+                                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  if (co > npad || co < 1 || npad % NG || npad < NG || npad > 3 * NG)
+    return int(cudaErrorInvalidValue);
+  if (B == 0 || H == 0 || W == 0) return 0;
+  const int groups = npad / NG;
+  switch (ksz) {
+    case 5:
+      return launch_tail<5, true>(x, w, bias, ks, out, B, H, W, co, groups,
+                                  relu, out_f32, device, stream);
+    case 7:
+      return launch_tail<7, true>(x, w, bias, ks, out, B, H, W, co, groups,
+                                  relu, out_f32, device, stream);
     default:
       return int(cudaErrorInvalidValue);
   }

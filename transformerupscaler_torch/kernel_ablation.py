@@ -1,27 +1,31 @@
-"""Where the time of ``global_mha``, the 3x3 conv, the fused conv + tail
-and the two tails goes, by ablation, on the GPU.
+"""Where the time of ``global_mha``, the 3x3 conv, the fused conv + tail,
+the two tails and the two int8 convs goes, by ablation, on the GPU.
 
     python3 -m transformerupscaler_torch.kernel_ablation \
         [--variants global_mha:full conv3x3:no_store conv_tail7:full ...] \
         [--csrc DIR]
 
 Builds ``csrc/global_mha.cu``, ``csrc/conv3x3.cu``, ``csrc/conv_tail.cu``
-and ``csrc/tail_strip.cu`` as they are and in variants with one part
+and ``csrc/tail_strip.cu`` (the int8 convs are forms of the kernels of
+the second and the last) as they are and in variants with one part
 switched off by a textual edit of the source or of a header it includes
 (so the variants compute wrong values: only their times mean anything),
 and times each kernel at its 720p serving shape by CUDA events over
 back-to-back launches: the attention core at (1, 3600, 128) with 8 heads on
 q, k, v sliced from one packed qkv; the 3x3 conv at (1, 720, 1280, 64) ->
 64 with bias and ReLU, bf16 out (``conv3x3``: ``conv3x3_stream`` and the
-archived conv) and int8 out (``conv3x3_int8``: ``conv3x3_stream``'s
-``out_scale``); the fused conv + tail at x2 (co 12, npad 16), the encoder's
-5x5 with ReLU emitting the conv output (``conv_tail5``) and the decoder's
-7x7 (``conv_tail7``); the composed tail 64 -> 12 at x2, ``bench``'s 5x5
-with ReLU (``tail_conv5``) and ``xla_fold``'s 7x7 (``tail_conv7``), and the
-split tail, 5x5 64 -> 12 and 3x3 12 -> 12 in mode "off"
-(``tail_finish``). ``--csrc`` builds another tree's sources: a tree
-before the strip tails holds them as ``conv_nhwc.cu`` and
-``tail_finish.cu``, timed under the same kernel names with their own
+archived conv) and int8 out (``conv3x3_int8_out``: ``conv3x3_stream``'s
+``out_scale``); the int8 convs on a 720p int8 map, bf16 out: the 3x3 64
+-> 64 with ReLU (``conv3x3_int8``) and the tails 64 -> 12, the 5x5 with
+ReLU (``tail_int8_5``) and the 7x7 (``tail_int8_7``); the fused conv +
+tail at x2 (co 12, npad 16), the encoder's 5x5 with ReLU emitting the
+conv output (``conv_tail5``) and the decoder's 7x7 (``conv_tail7``); the
+composed tail 64 -> 12 at x2, ``bench``'s 5x5 with ReLU (``tail_conv5``)
+and ``xla_fold``'s 7x7 (``tail_conv7``), and the split tail, 5x5 64 -> 12
+and 3x3 12 -> 12 in mode "off" (``tail_finish``). ``--csrc`` builds
+another tree's sources: a tree before the strip tails holds them as
+``conv_nhwc.cu`` and ``tail_finish.cu``, one before the TMA int8 convs as
+``conv_int8.cu``, timed under the same kernel names with their own
 variants. A "no_*_refetch" / "no_halo_refill" / "no_ring_refill" variant
 loads that operand only into the ring's first stages and reuses them
 after. The variants named for what they do instead (``*_on_fma``,
@@ -203,7 +207,9 @@ EDITS = {
                                       "[wst], fill ? SLAB : 0);\n"
                                       "            if (fill) S::tma_load_2d(")],
         "no_mma": [("          S::wgmma_ss_n64(acc, desc_shift(",
-                    "          if (H < 0) S::wgmma_ss_n64(acc, desc_shift(")],
+                    "          if (H < 0) S::wgmma_ss_n64(acc, desc_shift("),
+                   ("            S::wgmma_i8_ss_n64(\n",
+                    "            if (H < 0) S::wgmma_i8_ss_n64(\n")],
         "no_store": [("      if (y0 + wg < H) S::tma_store_4d(",
                       "      if (y0 + wg < H && H < 0) S::tma_store_4d(")],
         # The int8 epilogue's quantize replaced by a bit operation.
@@ -253,9 +259,11 @@ STRIP_MMA = "S::wgmma_ss_kb<G::N>(D, desc_row(row"
 MID_MMA = "S::wgmma_ss_kb<MN>("
 FIN_HI = ("S::wgmma_ss_kb<FN>(D, desc_row(mrow, dx, s), desc_slab(wq, s),\n"
           "                             dx | s);")
+I8_MMA = "S::wgmma_i8_ss_kb<G::N>("
 EDITS["tail_strip"] = {
     "full": [],
     "no_mma": [(STRIP_MMA, "if (H < 0) " + STRIP_MMA),
+               (I8_MMA, "if (H < 0) " + I8_MMA),
                (MID_MMA, "if (H < 0) " + MID_MMA),
                (FIN_HI, "if (H < 0) " + FIN_HI)],
     "no_mid_mma": [(MID_MMA, "if (H < 0) " + MID_MMA)],
@@ -278,7 +286,8 @@ EDITS["tail_strip"] = {
                  for op, arg, what in (("sync", "1 + c", "this warpgroup's turn"),
                                        ("arrive", "2 - c", "the other's turn"))],
     # Tried: deeper input rings (7 rows of the tail, 8 of the split tail).
-    "deep_ring": [("constexpr int TNS = 4;", "constexpr int TNS = 7;"),
+    "deep_ring": [("static constexpr int TNS = I8 ? 8 : 4;",
+                   "static constexpr int TNS = I8 ? 12 : 7;"),
                   ("(MAX_SMEM - fixed) / TROW < 6 ? (MAX_SMEM - fixed) / TROW : 6",
                    "(MAX_SMEM - fixed) / TROW < 8 ? (MAX_SMEM - fixed) / TROW : 8")],
 }
@@ -301,6 +310,15 @@ FIN_MMA = ("          for (int f = 0; f < 2; ++f) {\n"
 EDITS["conv_nhwc"] = dict(TILE_EDITS, no_mma=[(
     "            tux::mma_bf16(acc[f][j], a[f][0]",
     "            if (H < 0) tux::mma_bf16(acc[f][j], a[f][0]")])
+# The tiled mma.sync int8 convs of csrc/conv_int8.cu (``--csrc``).
+EDITS["conv_int8"] = dict(
+    TILE_EDITS,
+    no_weight_copy=[("      *reinterpret_cast<uint4*>(wsm + r * CSB + "
+                     "chunk * 16) =",
+                     "      if (H < 0) *reinterpret_cast<uint4*>(wsm + r * "
+                     "CSB + chunk * 16) =")],
+    no_mma=[("            tux::mma_s8(acc[f][j],",
+             "            if (H < 0) tux::mma_s8(acc[f][j],")])
 EDITS["tail_finish"] = dict(
     TILE_EDITS,
     no_mid_mma=[("            tux::mma_bf16(acc[i][j], a[i][0]",
@@ -311,18 +329,30 @@ EDITS["tail_finish"] = dict(
 # directory taken; the int8-out conv and both fused tails share the edits of
 # their source.
 SOURCES = {"global_mha": ("global_mha",), "conv3x3": ("conv3x3",),
-           "conv3x3_int8": ("conv3x3",), "conv_tail5": ("conv_tail",),
+           "conv3x3_int8_out": ("conv3x3",),
+           "conv3x3_int8": ("conv_int8", "conv3x3"),
+           "tail_int8_5": ("conv_int8", "tail_strip"),
+           "tail_int8_7": ("conv_int8", "tail_strip"),
+           "conv_tail5": ("conv_tail",),
            "conv_tail7": ("conv_tail",),
            "tail_conv5": ("tail_strip", "conv_nhwc"),
            "tail_conv7": ("tail_strip", "conv_nhwc"),
            "tail_finish": ("tail_strip", "tail_finish")}
 SKIP = {"conv3x3": ("qs_in_smem", "no_quant"),
-        "conv3x3_int8": ("no_weight_refetch",),
+        "conv3x3_int8_out": ("no_weight_refetch",),
+        "conv3x3_int8": ("no_weight_refetch", "qs_in_smem", "no_quant"),
+        "tail_int8_5": ("no_mid_mma", "no_finish"),
+        "tail_int8_7": ("no_mid_mma", "no_finish"),
         "conv_tail7": ("no_emit", "emit_by_tail", "mid_ring_3"),
         "tail_conv5": ("no_mid_mma", "no_finish"),
         "tail_conv7": ("no_mid_mma", "no_finish")}
 # The C functions of the sources that _build no longer lists.
 SIGNATURES = {**_build.SIGNATURES,
+              "conv_int8": {
+                  "tux_conv3x3_int8": [ctypes.c_void_p] * 5
+                  + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+                  "tux_tail_conv_int8": [ctypes.c_void_p] * 5
+                  + [ctypes.c_int] * 9 + [ctypes.c_void_p]},
               "conv_nhwc": {"tux_tail_conv": [ctypes.c_void_p] * 4
                             + [ctypes.c_int] * 9 + [ctypes.c_void_p]},
               "tail_finish": {"tux_tail_finish": [ctypes.c_void_p] * 6
@@ -425,6 +455,19 @@ def main() -> None:
     wmid = rn(25 * 16, 64, std=1600 ** -0.5)
     wfin = rn(18 * 16, 64, std=0.1)
     y12 = torch.empty(1, H, W, 12, dtype=torch.bfloat16, device="cuda")
+    # The int8 convs: an int8 map, int8 weights in either tree's layout (the
+    # same sizes), scales near those of a folded kernel.
+    xq = torch.randint(-127, 128, (1, H, W, C), generator=g, device="cuda",
+                       dtype=torch.int8)
+    wq = {k: torch.randint(-127, 128, (k * k * (64 if k == 3 else 16), 64),
+                           generator=g, device="cuda", dtype=torch.int8)
+          for k in (3, 5, 7)}
+    ksq = torch.full((64,), 1e-4, device="cuda")
+
+    def tail_i8(lib, k):
+        return lib.tux_tail_conv_int8(
+            xq.data_ptr(), wq[k].data_ptr(), ksq.data_ptr(), bt.data_ptr(),
+            y12.data_ptr(), 1, H, W, k, 12, 16, int(k == 5), 0, 0, stream)
 
     def tail(lib, k, emit):
         slabs, y = tails[k]
@@ -441,9 +484,14 @@ def main() -> None:
         "conv3x3": lambda lib: lib.tux_conv3x3_any(
             x.data_ptr(), wt.data_ptr(), bias.data_ptr(), None,
             out.data_ptr(), 1, H, W, C, C, 64, 64, 1, 0, stream),
-        "conv3x3_int8": lambda lib: lib.tux_conv3x3_any(
+        "conv3x3_int8_out": lambda lib: lib.tux_conv3x3_any(
             x.data_ptr(), wt.data_ptr(), bias.data_ptr(), qs.data_ptr(),
             out8.data_ptr(), 1, H, W, C, C, 64, 64, 1, 0, stream),
+        "conv3x3_int8": lambda lib: lib.tux_conv3x3_int8(
+            xq.data_ptr(), wq[3].data_ptr(), ksq.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), 1, H, W, 1, 0, 0, stream),
+        "tail_int8_5": lambda lib: tail_i8(lib, 5),
+        "tail_int8_7": lambda lib: tail_i8(lib, 7),
         "conv_tail5": lambda lib: tail(lib, 5, True),
         "conv_tail7": lambda lib: tail(lib, 7, False),
         # The serving tails at x2 (co 12, npad 16): bench's branch-A 5x5

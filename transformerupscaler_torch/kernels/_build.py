@@ -36,10 +36,8 @@ SIGNATURES = {
     "conv3x3": {
         "tux_conv3x3_any": [_P] * 5 + [_I] * 9 + [_P],
         "tux_conv3x3_desc_probe": [_P] * 3 + [_I] * 2 + [_P],
-    },
-    "conv_int8": {
+        "tux_conv3x3_i8_desc_probe": [_P] * 3 + [_I] * 2 + [_P],
         "tux_conv3x3_int8": [_P] * 5 + [_I] * 6 + [_P],
-        "tux_tail_conv_int8": [_P] * 5 + [_I] * 9 + [_P],
     },
     "conv_tail": {
         "tux_conv_tail": [_P] * 7 + [_I] * 9 + [_P],
@@ -55,6 +53,7 @@ SIGNATURES = {
     "tail_strip": {
         "tux_tail_conv": [_P] * 4 + [_I] * 9 + [_P],
         "tux_tail_finish": [_P] * 6 + [_I] * 10 + [_P],
+        "tux_tail_conv_int8": [_P] * 5 + [_I] * 9 + [_P],
     },
     "window_attn": {
         "tux_window_attn": [_P] * 3 + [_I] * 4 + [_P],

@@ -107,3 +107,19 @@ def desc_shift_probe(a: torch.Tensor, b: torch.Tensor,
         stream_of(a))
     raise_on(err, "conv3x3 descriptor probe")
     return d
+
+
+def desc_shift_probe_i8(a: torch.Tensor, b: torch.Tensor,
+                        shift: int) -> torch.Tensor:
+    """The int8 kernels' A operand shift, alone: a (72, 64) and b (64, 64)
+    int8 on the card (b as 64 rows of K); returns a[shift : shift + 64] @
+    b.T in int32, computed by one int8 wgmma warpgroup from a 64B-swizzled
+    tile read at a start address ``shift`` rows of 64 bytes in."""
+    check(a, "a", torch.int8, (72, 64))
+    check(b, "b", torch.int8, (64, 64))
+    d = torch.empty(64, 64, dtype=torch.int32, device=a.device)
+    err = _build.load("conv3x3").tux_conv3x3_i8_desc_probe(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), shift, a.device.index,
+        stream_of(a))
+    raise_on(err, "conv3x3 int8 descriptor probe")
+    return d

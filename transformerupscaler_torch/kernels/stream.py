@@ -15,9 +15,9 @@ wrapper                    CUDA source           TPU kernel it replaces
                                                  ``unembed_combine_stream``
 ``tail_finish_stream``     csrc/tail_strip.cu    ops/pallas/stream.py:1078
                                                  ``tail_finish_stream``
-``conv3x3_int8_stream``    csrc/conv_int8.cu     ops/pallas/stream.py:147
+``conv3x3_int8_stream``    csrc/conv3x3.cu       ops/pallas/stream.py:147
                                                  ``conv3x3_packed_int8_stream``
-``tail_conv_int8_stream``  csrc/conv_int8.cu     ops/pallas/stream.py:893
+``tail_conv_int8_stream``  csrc/tail_strip.cu    ops/pallas/stream.py:893
                                                  ``tail_macro8_stream_int8``
 ``conv1_stream``           csrc/conv1.cu         ops/pallas/stream.py:1269
                                                  ``conv1_dots_stream`` (call
@@ -53,7 +53,11 @@ each CUDA source.
 with the weights as HWIO rows (``conv3x3_weight_rows``) and its bias
 unrounded; the fused conv + tail, the composed tail and the split tail's
 mid conv read their k x k weights as K-major slabs (``tail_slabs``), the
-split tail's finish as hi / lo slabs (``finish_slabs``).
+split tail's finish as hi / lo slabs (``finish_slabs``). The int8 convs are
+the int8 forms of the same kernels: ``conv3x3_int8_stream`` of
+``csrc/conv3x3.cu``'s with K-major slabs (``conv3x3_int8_slabs``),
+``tail_conv_int8_stream`` of the composed tail's with ``tail_slabs`` in
+int8.
 ``tests/test_torch_conv_layouts.py`` holds these layouts against the plain
 versions on the CPU.
 
@@ -319,20 +323,21 @@ def conv3x3_tail_plain(x, conv_kernel, conv_bias, tail_kernel,
                                    tail_bias, tail_relu, out_dtype)[0]
 
 
-def tail_slabs(kernel: torch.Tensor, npad: int, frame: int = 0
-               ) -> torch.Tensor:
+def tail_slabs(kernel: torch.Tensor, npad: int, frame: int = 0,
+               dtype=torch.bfloat16) -> torch.Tensor:
     """A (k, k, 64, co) HWIO tail kernel as the K-major slabs that
     ``csrc/conv_tail.cu`` and ``csrc/tail_strip.cu`` read: (npad / 16 x f x
-    f x 16, 64) bf16 rows (group, dx, dy, output) of the 64 input channels,
-    outputs co .. npad - 1 zero. For each 16-output group and column shift
-    dx, the f kernel rows (dy) stand side by side as one GEMM's N = 16 f
-    columns. ``frame``: f, with the k x k kernel centred in a zero f x f
-    frame (the split tail's 5x5 mid takes a 3x3 so); default k. On the card,
-    a fill and one converting copy per 16-output group."""
+    f x 16, 64) rows (group, dx, dy, output) of the 64 input channels in
+    ``dtype`` (bf16; int8 for the int8 tail's folded kernel), outputs co ..
+    npad - 1 zero. For each 16-output group and column shift dx, the f
+    kernel rows (dy) stand side by side as one GEMM's N = 16 f columns.
+    ``frame``: f, with the k x k kernel centred in a zero f x f frame (the
+    split tail's 5x5 mid takes a 3x3 so); default k. On the card, a fill and
+    one converting copy per 16-output group."""
     k, _, cin, co = kernel.shape
     f = frame or k
     p = (f - k) // 2
-    out = torch.zeros(npad // 16, f, f, 16, cin, dtype=torch.bfloat16,
+    out = torch.zeros(npad // 16, f, f, 16, cin, dtype=dtype,
                       device=kernel.device)
     for g in range(0, co, 16):
         n = min(16, co - g)
@@ -436,15 +441,13 @@ def wgmma_kb_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- int8 convs
-def _int8_weights(kq: torch.Tensor, ks: torch.Tensor, co: int, npad: int,
-                  like: torch.Tensor):
-    """HWIO int8 weights as the kernel reads them, [dy][dx][cout][cin] with
-    cout zero-padded to npad, and the weight scales as f32 (co,)."""
-    k = kq.shape[0]
-    _check(kq.contiguous(), "kq", torch.int8, (k, k, 64, co))
-    wt = torch.zeros(k, k, npad, 64, dtype=torch.int8, device=like.device)
-    wt[:, :, :co] = kq.permute(0, 1, 3, 2)
-    return wt, _scale32(ks, "ks", co, like)
+def conv3x3_int8_slabs(kq: torch.Tensor) -> torch.Tensor:
+    """A (3, 3, 64, 64) HWIO int8 kernel as the K-major slabs that
+    ``csrc/conv3x3.cu``'s int8 form reads (int8 ``wgmma`` takes B K-major
+    only): (9 x 64, 64) rows (dy, dx, output) of the 64 input channels. One
+    copy."""
+    return kq.permute(0, 1, 3, 2).contiguous().view(9 * kq.shape[3],
+                                                    kq.shape[2])
 
 
 def conv3x3_int8_plain(xq, kq, ks, bias=None, relu: bool = False,
@@ -470,13 +473,13 @@ def conv3x3_int8_stream(xq: torch.Tensor, kq: torch.Tensor, ks, bias=None,
     _check(xq, "xq", torch.int8, (b, h, w, 64))
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype: bfloat16 or float32, got {out_dtype}")
-    if kq.shape[0] != 3:
-        raise ValueError(f"kq: expected (3, 3, 64, 64), got {tuple(kq.shape)}")
-    wt, sc = _int8_weights(kq, ks, 64, 64, xq)
+    _check(kq.contiguous(), "kq", torch.int8, (3, 3, 64, 64))
+    wt = conv3x3_int8_slabs(kq)
+    sc = _scale32(ks, "ks", 64, xq)
     bb = _bias32(bias, 64, xq)
     _check(bb, "bias", torch.float32, (64,))
     out = torch.empty(b, h, w, 64, dtype=out_dtype, device=xq.device)
-    err = _build.load("conv_int8").tux_conv3x3_int8(
+    err = _build.load("conv3x3").tux_conv3x3_int8(
         xq.data_ptr(), wt.data_ptr(), sc.data_ptr(), bb.data_ptr(),
         out.data_ptr(), b, h, w, int(relu), int(out_dtype == torch.float32),
         xq.device.index, _stream(xq))
@@ -513,11 +516,13 @@ def tail_conv_int8_stream(xq: torch.Tensor, kq: torch.Tensor, ks, bias=None,
                          f"co <= {TAIL_NPAD[-1]}; got {tuple(kq.shape)}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype: bfloat16 or float32, got {out_dtype}")
-    wt, sc = _int8_weights(kq, ks, co, npad, xq)
+    _check(kq.contiguous(), "kq", torch.int8, (k, k, 64, co))
+    wt = tail_slabs(kq, npad, dtype=torch.int8)
+    sc = _scale32(ks, "ks", co, xq)
     bb = _bias32(bias, co, xq)
     _check(bb, "bias", torch.float32, (co,))
     out = torch.empty(b, h, w, co, dtype=out_dtype, device=xq.device)
-    err = _build.load("conv_int8").tux_tail_conv_int8(
+    err = _build.load("tail_strip").tux_tail_conv_int8(
         xq.data_ptr(), wt.data_ptr(), sc.data_ptr(), bb.data_ptr(),
         out.data_ptr(), b, h, w, k, co, npad, int(relu),
         int(out_dtype == torch.float32), xq.device.index, _stream(xq))
