@@ -263,7 +263,8 @@ TPU_KERNELS = [
      "ported and checked: conv3x3_tail_emit_stream (the same kernel, "
      "emitting the conv output)"),
     ("stream.py:1269 conv1_dots_stream",
-     "ported and checked: conv1_stream (operand built in shared memory)"),
+     "ported and checked: conv1_stream (persistent blocks: a TMA or "
+     "cp.async halo ring, fragments gathered from the halo, TMA store)"),
     ("stream.py:1385 conv1_flat_stream",
      "ported and checked: conv1_stream (row 12's kernel: the same "
      "function, the operand built in the kernel as this one asked)"),
@@ -272,7 +273,8 @@ TPU_KERNELS = [
      "ported and checked: fused_window_trunk mode 'v1' (the same kernel, "
      "its residual association, C=128 and 192)"),
     ("window_attn.py:58 fused_window_attention",
-     "ported and checked: window_attention_core (bf16)"),
+     "ported and checked: window_attention_core (bf16; TMA in, bias loads "
+     "at block start, ldmatrix, TMA store)"),
     ("encoder.py:239 fused_encoder",
      "ported and checked: kernels.encoder.fused_encoder over "
      "conv3x3_tail_emit_stream (biases rounded to the compute dtype)"),
@@ -673,7 +675,11 @@ def window_attention_case(rn, bf16) -> dict:
     Tolerance: the kernel's fast exponential can round a probability to the
     next bf16 value than the plain version's; a share of about 2^-20 / 2^-8
     of them does, each moving the f32 context by at most 2^-8 p |v|, far
-    below atol; the context then rounds once: one bf16 step."""
+    below atol; the context then rounds once: one bf16 step.
+
+    ``empty_kernel_ms``: the device time of an empty kernel on the core's
+    grid, taken the same way: the floor under ``ms`` that a launch of 240
+    blocks costs, against a bound far below it."""
     import torch.nn.functional as F
 
     from transformerupscaler_torch.kernels import window_attn as A
@@ -696,6 +702,8 @@ def window_attention_case(rn, bf16) -> dict:
         replaces="transformerupscaler_tpu/ops/pallas/window_attn.py:58",
         max_abs_err=err, bound_ms=bnd, bound_by=by,
         **timing(run, plain, lib),
+        empty_kernel_ms=device_ms(
+            lambda: A.window_attention_empty(nw, heads, qkv.device)),
         on="window_pallas")
 
 

@@ -177,15 +177,53 @@ def test_window_trunk_modes_match_plain(gen, dim, mode, n_win):
                                                               err.mean())
 
 
-@pytest.mark.parametrize("nw,heads", [(1, 1), (7, 8), (3, 5), (2, 16)])
+@pytest.mark.parametrize("nw,heads", [(1, 1), (7, 8), (3, 5), (2, 16),
+                                      (0, 8), (61, 8), (133, 8), (960, 8)])
 def test_window_attention_kernel_matches_plain(gen, nw, heads):
     """One head, WindowTransformer's eight, an odd count (the last block of
-    two heads is half empty) and the widest C = 256."""
+    two heads is half empty), the widest C = 256; no windows (no launch),
+    one and two waves of the card and 16 720p frames' windows."""
     qkv = _rn(gen, nw, 64, 3 * 16 * heads).bfloat16()
     bias = _rn(gen, heads, 64, 64, std=0.5)
+    _poison(nw, 64, 16 * heads)
+    S.reset_launches()
     got = A.window_attention_core(qkv, bias, heads)
+    assert S.LAUNCHES["window_attention_core"] == int(nw > 0)
     assert got.shape == (nw, 64, 16 * heads) and got.dtype == torch.bfloat16
     _close(got, A.window_attention_plain(qkv, bias, heads), BF16_TOL)
+
+
+def test_window_attention_reads_qkv_written_just_before(gen):
+    """The core launched right after the product that writes its qkv, on
+    the same stream, into a buffer that held NaNs: a core that started
+    before the product ended would read them. At 960 windows a probability
+    that rounds to the neighbouring bf16 value (the fast exponential) can
+    move an output by more than one step: held to ``_held_to_f64``'s rule,
+    with the bias."""
+    nw, heads, c = 960, 8, 128
+    x = _rn(gen, nw * 64, c).bfloat16()
+    w = _rn(gen, c, 3 * c, std=c ** -0.5).bfloat16()
+    bias = _rn(gen, heads, 64, 64, std=0.5)
+    qkv = torch.full((nw * 64, 3 * c), float("nan"), dtype=torch.bfloat16,
+                     device="cuda")
+    torch.cuda.synchronize()
+    torch.matmul(x, w, out=qkv)
+    qkv = qkv.view(nw, 64, 3 * c)
+    got = A.window_attention_core(qkv, bias, heads)
+    # 7.9 M outputs: held as global_mha's wide cases are (_held_to_f64).
+    g = got.float()
+    want = A.window_attention_plain(qkv, bias, heads).float()
+    torch.cuda.synchronize()
+    beyond = (g - want).abs() > BF16_TOL["atol"] + BF16_TOL["rtol"] * want.abs()
+    assert beyond.float().mean().item() <= 1e-4
+    qh, kh, vh = (t.reshape(nw, 64, heads, 16).transpose(1, 2).double()
+                  for t in qkv.split(c, dim=-1))
+    p = torch.softmax((qh * 0.25) @ kh.transpose(-1, -2) + bias.double(), -1)
+    ref = (p @ vh).transpose(1, 2).reshape(nw, 64, c)
+    e_kernel, e_plain = (g.double() - ref).abs(), (want.double() - ref).abs()
+    assert torch.isfinite(g).all()
+    assert e_kernel.max() <= 1.25 * e_plain.max()
+    assert e_kernel.mean() <= 1.25 * e_plain.mean()
 
 
 @pytest.mark.parametrize("b,n,heads", [(1, 64, 1), (2, 200, 8), (1, 1, 4),
@@ -523,17 +561,42 @@ def test_wrappers_count_launches_and_reject_bad_input(gen):
     assert S.LAUNCHES["conv3x3_stream"] == 1
 
 
-@pytest.mark.parametrize("shape", [(1, 720, 1280), (2, 20, 52), (1, 13, 37)])
-@pytest.mark.parametrize("relu", [False, True])
-def test_conv1_kernel_matches_plain(gen, shape, relu):
+# conv1's halo comes by TMA where W % 8 == 0, else by cp.async (W odd: rows
+# shifted by one element); tiles of 8 x 32 pixels, two persistent blocks an
+# SM. The serving frame (3600 tiles); cp.async at even and odd W; batch 3 on
+# either path; ragged last tile rows and columns on the persistent loop
+# (330 tiles by cp.async, 736 by TMA, both above 2 x 132 blocks).
+CONV1_SHAPES = [(1, 720, 1280), (2, 20, 52), (1, 13, 37), (3, 30, 64),
+                (3, 21, 45), (1, 260, 300), (1, 364, 488)]
+
+
+def _conv1_check(gen, shape, relu, bias=True, dtype=torch.float32):
     x = torch.rand(*shape, 3, generator=gen, device="cuda").bfloat16()
-    k, b = _rn(gen, 3, 3, 3, 64, std=0.3), _rn(gen, 64, std=0.1)
+    k = _rn(gen, 3, 3, 3, 64, std=0.3).to(dtype)
+    b = _rn(gen, 64, std=0.1).to(dtype) if bias else None
+    _poison(*shape, 64)
     S.reset_launches()
     got = S.conv1_stream(x, k, b, relu)
     assert S.LAUNCHES["conv1_stream"] == 1
     sums = S.conv1_plain(x, k).float().abs().max().item()
     _close(got, S.conv1_plain(x, k, b, relu),
            dict(rtol=2.0 ** -7, atol=2.0 ** -7 * sums))
+
+
+@pytest.mark.parametrize("shape", CONV1_SHAPES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv1_kernel_matches_plain(gen, shape, relu):
+    _conv1_check(gen, shape, relu)
+
+
+@pytest.mark.parametrize("shape", [(2, 20, 52), (1, 13, 37), (1, 364, 488)])
+def test_conv1_kernel_without_bias_matches_plain(gen, shape):
+    _conv1_check(gen, shape, True, bias=False)
+
+
+@pytest.mark.parametrize("shape", [(1, 13, 37), (3, 30, 64)])
+def test_conv1_kernel_takes_bf16_weights(gen, shape):
+    _conv1_check(gen, shape, True, dtype=torch.bfloat16)
 
 
 def _conv_tail_case(gen, shape, kt, co):

@@ -1,6 +1,6 @@
 // Shared pieces of the port's hand-written Hopper kernels: the bf16
-// tensor-core product (mma.sync m16n8k16, f32 accumulate) and 16-byte
-// copies.
+// tensor-core product (mma.sync m16n8k16, f32 accumulate) and its B
+// fragment from shared memory.
 //
 // Fragment layout of mma.sync.m16n8k16.row.col (PTX ISA, "Matrix fragments
 // for mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -35,23 +35,10 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// A fragment of a 16-row by 16-column bf16 tile whose row i starts at
-// rows[i] (rows may be any shared-memory addresses 4-byte aligned).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* row_g,
-                                       const __nv_bfloat16* row_g8, int t) {
-  a[0] = ld_pair(row_g + 2 * t);
-  a[1] = ld_pair(row_g8 + 2 * t);
-  a[2] = ld_pair(row_g + 2 * t + 8);
-  a[3] = ld_pair(row_g8 + 2 * t + 8);
-}
-
 __device__ __forceinline__ void load_b(uint32_t (&b)[2],
                                        const __nv_bfloat16* col_g, int t) {
   b[0] = ld_pair(col_g + 2 * t);
   b[1] = ld_pair(col_g + 2 * t + 8);
 }
-
-__device__ __forceinline__ uint4 zero16() { return make_uint4(0, 0, 0, 0); }
 
 }  // namespace tux

@@ -1,5 +1,6 @@
 """Where the time of ``global_mha``, the 3x3 conv, the fused conv + tail,
-the two tails and the two int8 convs goes, by ablation, on the GPU.
+the two tails, the two int8 convs, conv1 and the window-attention core
+goes, by ablation, on the GPU.
 
     python3 -m transformerupscaler_torch.kernel_ablation \
         [--variants global_mha:full conv3x3:no_store conv_tail7:full ...] \
@@ -22,11 +23,16 @@ tail at x2 (co 12, npad 16), the encoder's 5x5 with ReLU emitting the
 conv output (``conv_tail5``) and the decoder's 7x7 (``conv_tail7``); the
 composed tail 64 -> 12 at x2, ``bench``'s 5x5 with ReLU (``tail_conv5``)
 and ``xla_fold``'s 7x7 (``tail_conv7``), and the split tail, 5x5 64 -> 12
-and 3x3 12 -> 12 in mode "off" (``tail_finish``). ``--csrc`` builds
-another tree's sources: a tree before the strip tails holds them as
-``conv_nhwc.cu`` and ``tail_finish.cu``, one before the TMA int8 convs as
-``conv_int8.cu``, timed under the same kernel names with their own
-variants. A "no_*_refetch" / "no_halo_refill" / "no_ring_refill" variant
+and 3x3 12 -> 12 in mode "off" (``tail_finish``); conv1 at (1, 720,
+1280, 3) -> 64 with bias and ReLU (``conv1``); the window-attention core
+at 60 windows, C = 128, 8 heads (``window_attn``), timed over a CUDA graph
+of back-to-back launches, since one launch of it is shorter than the
+host's launch rate. ``--csrc`` builds another tree's sources: a tree
+before the strip tails holds them as ``conv_nhwc.cu`` and
+``tail_finish.cu``, one before the TMA int8 convs as ``conv_int8.cu``,
+timed under the same kernel names with their own variants; an older tree
+holds the earlier designs of conv1 and the core under the same file names
+(``EARLIER`` tells them apart by their text). A "no_*_refetch" / "no_halo_refill" / "no_ring_refill" variant
 loads that operand only into the ring's first stages and reuses them
 after. The variants named for what they do instead (``*_on_fma``,
 ``one_block_per_sm``, ``qs_in_smem``, ``emit_by_tail``, ``mid_ring_3``,
@@ -47,8 +53,10 @@ from pathlib import Path
 import torch
 
 from transformerupscaler_torch.kernels import _build
+from transformerupscaler_torch.kernels import stream as S
 
 N, HEADS, H, W, C, REPS = 3600, 8, 720, 1280, 64, 50
+NW = 60  # windows of 64 tokens in WindowTransformer's 720p frame
 
 # The pass-1 sums and the pass-2 probabilities of global_mha.cu.
 P1 = ("        l0 += ex2(fmaf(s[4 * jj], C_LOG2, -b0)) +\n"
@@ -325,6 +333,79 @@ EDITS["tail_finish"] = dict(
                  "            if (H < 0) tux::mma_bf16(acc[i][j], a[i][0]")],
     no_finish_mma=[(FIN_MMA, FIN_MMA.replace("f < 2;", "f < 2 && H < 0;"))])
 
+# conv1's earlier design: a tile of 8 x 32 pixels a block, the halo copied
+# by scalar loads, an im2col operand in shared memory.
+EDITS["conv1@im2col"] = {
+    "full": [],
+    # Zeros into the halo instead of the input's loads.
+    "no_halo": [("    halo[i] = (iy >= 0 && iy < H && ix >= 0 && ix < W)",
+                 "    halo[i] = (H < 0 && iy >= 0 && iy < H && ix >= 0 && "
+                 "ix < W)")],
+    "no_im2col": [("    a_sm[p * AS + k] = v;",
+                   "    if (H < 0) a_sm[p * AS + k] = v;")],
+    "no_products": [("        tux::mma_bf16(acc[f][j], a[f][0]",
+                     "        if (H < 0) tux::mma_bf16(acc[f][j], a[f][0]")],
+    "no_store": [("    if (y < H && xx < W)\n",
+                  "    if (y < H && xx < W && H < 0)\n")],
+}
+# The window-attention core's earlier design: q, k, v copied through
+# registers, the bias read from global memory after Q.K^T.
+EDITS["window_attn@sync"] = {
+    "full": [],
+    "no_bias_load": [(
+        "      const float2 ba = *reinterpret_cast<const float2*>(b0 + 8 * nf);\n"
+        "      const float2 bb = *reinterpret_cast<const float2*>(b0 + 8 * NT "
+        "+ 8 * nf);\n",
+        "      const float2 ba = make_float2(0.f, 0.f), bb = ba;\n")],
+    "no_products": [("      tux::mma_bf16(s[nf], aq[0]",
+                     "      if (C < 0) tux::mma_bf16(s[nf], aq[0]"),
+                    ("        tux::mma_bf16(ctx[j], ap[0]",
+                     "        if (C < 0) tux::mma_bf16(ctx[j], ap[0]")],
+    "no_store": [("    if (h0 + chunk / (HD / 8) < heads)\n",
+                  "    if (h0 + chunk / (HD / 8) < heads && C < 0)\n")],
+}
+# csrc/conv1.cu: persistent blocks, a TMA halo ring, A
+# fragments gathered from the halo, TMA-stored output.
+EDITS["conv1"] = {
+    "full": [],
+    # The ring's mbarrier completes with no bytes: the halo stays as the
+    # first loads left it.
+    "no_halo": [("      S::mbar_expect_tx(&full[st], HALO_BYTES);\n"
+                 "      S::tma_load_3d(",
+                 "      S::mbar_expect_tx(&full[st], 0);\n"
+                 "      if (H < 0) S::tma_load_3d(")],
+    # The A fragments' shared-memory loads: the address bits instead.
+    "no_gather": [("  return *reinterpret_cast<const uint16_t*>(p);",
+                   "  return uint32_t(reinterpret_cast<uintptr_t>(p)) & "
+                   "0xffffu;")],
+    "no_products": [("          tux::mma_bf16(acc[f][j], a[f][kk][0]",
+                     "          if (H < 0) tux::mma_bf16(acc[f][j], "
+                     "a[f][kk][0]")],
+    "no_store": [("      S::tma_store_4d(&omap,",
+                  "      if (H < 0) S::tma_store_4d(&omap,")],
+}
+# csrc/window_attn.cu: every load issued at block start, TMA in, ldmatrix
+# fragments, TMA store out.
+EDITS["window_attn"] = {
+    "full": [],
+    # The bias copies skipped: the warp's barrier completes with no bytes.
+    "no_bias_load": [
+        ("  if (lane == 0) S::mbar_expect_tx(&bbar[warp], 16 * NT * 4);",
+         "  if (lane == 0) S::mbar_expect_tx(&bbar[warp], 0);"),
+        ("    bulk_load(wb + lane * BP,",
+         "    if (C < 0) bulk_load(wb + lane * BP,")],
+    "no_products": [("      tux::mma_bf16(s[2 * p + e],",
+                     "      if (C < 0) tux::mma_bf16(s[2 * p + e],"),
+                    ("      tux::mma_bf16(cx[j],",
+                     "      if (C < 0) tux::mma_bf16(cx[j],")],
+    "no_store": [("    S::tma_store_3d(&out_map,",
+                  "    if (C < 0) S::tma_store_3d(&out_map,")],
+}
+# Sources whose earlier design has the same file name: source -> (text that
+# only the earlier design holds, the key of its EDITS and SIGNATURES).
+EARLIER = {"conv1": ("a_sm[p * AS + k] = v;", "conv1@im2col"),
+           "window_attn": ("pack_raw(v0[0], v0[TS])", "window_attn@sync")}
+
 # kernel -> the sources that may hold it, the first found in the source
 # directory taken; the int8-out conv and both fused tails share the edits of
 # their source.
@@ -337,7 +418,8 @@ SOURCES = {"global_mha": ("global_mha",), "conv3x3": ("conv3x3",),
            "conv_tail7": ("conv_tail",),
            "tail_conv5": ("tail_strip", "conv_nhwc"),
            "tail_conv7": ("tail_strip", "conv_nhwc"),
-           "tail_finish": ("tail_strip", "tail_finish")}
+           "tail_finish": ("tail_strip", "tail_finish"),
+           "conv1": ("conv1",), "window_attn": ("window_attn",)}
 SKIP = {"conv3x3": ("qs_in_smem", "no_quant"),
         "conv3x3_int8_out": ("no_weight_refetch",),
         "conv3x3_int8": ("no_weight_refetch", "qs_in_smem", "no_quant"),
@@ -356,9 +438,16 @@ SIGNATURES = {**_build.SIGNATURES,
               "conv_nhwc": {"tux_tail_conv": [ctypes.c_void_p] * 4
                             + [ctypes.c_int] * 9 + [ctypes.c_void_p]},
               "tail_finish": {"tux_tail_finish": [ctypes.c_void_p] * 6
-                              + [ctypes.c_int] * 10 + [ctypes.c_void_p]}}
+                              + [ctypes.c_int] * 10 + [ctypes.c_void_p]},
+              "conv1@im2col": {"tux_conv1": [ctypes.c_void_p] * 4
+                            + [ctypes.c_int] * 5 + [ctypes.c_void_p]},
+              "window_attn@sync": {"tux_window_attn": [ctypes.c_void_p] * 3
+                                  + [ctypes.c_int] * 4 + [ctypes.c_void_p]}}
 VARIANTS = sorted({f"{k}:{v}" for k, srcs in SOURCES.items() for src in srcs
-                   for v in EDITS[src] if v not in SKIP.get(k, ())})
+                   for key in (src, EARLIER.get(src, (0, src))[1])
+                   for v in EDITS[key] if v not in SKIP.get(k, ())})
+# Kernels timed over a CUDA graph of REPS launches.
+GRAPHED = ("window_attn",)
 
 
 def source_of(kernel: str, csrc) -> str:
@@ -369,19 +458,31 @@ def source_of(kernel: str, csrc) -> str:
     raise FileNotFoundError(f"{kernel}: none of {SOURCES[kernel]} in {csrc}")
 
 
-def build(out_dir, names, csrc=_build.CSRC) -> dict[str, ctypes.CDLL]:
+def design_of(kernel: str, csrc) -> str:
+    """The key of EDITS and SIGNATURES for the kernel's source in ``csrc``:
+    its file stem, or the key of its earlier design (``EARLIER``)."""
+    src = source_of(kernel, csrc)
+    marker, key = EARLIER.get(src, (None, src))
+    if marker is not None and marker in (csrc / f"{src}.cu").read_text():
+        return key
+    return src
+
+
+def build(out_dir, names, csrc=_build.CSRC) -> dict[str, tuple]:
     """One library per ``kernel:variant`` name, all nvcc runs at once, from
-    the sources in ``csrc``."""
-    procs, srcs = {}, {}
+    the sources in ``csrc``: name -> (library, its design's key)."""
+    procs, srcs, keys = {}, {}, {}
     for name in names:
         kernel, variant = name.split(":")
         src = srcs[name] = source_of(kernel, csrc)
-        if variant not in EDITS[src]:
-            raise KeyError(f"{name}: {src}.cu has no variant {variant}")
+        key = keys[name] = design_of(kernel, csrc)
+        if variant not in EDITS[key]:
+            raise KeyError(f"{name}: {src}.cu ({key}) has no variant "
+                           f"{variant}")
         vdir = out_dir / name.replace(":", "-")
         vdir.mkdir(parents=True, exist_ok=True)
         files = {f"{src}.cu": (csrc / f"{src}.cu").read_text()}
-        for edit in EDITS[src][variant]:
+        for edit in EDITS[key][variant]:
             fname, old, new = edit if len(edit) == 3 else (f"{src}.cu",
                                                            *edit)
             if fname not in files:
@@ -402,10 +503,10 @@ def build(out_dir, names, csrc=_build.CSRC) -> dict[str, ctypes.CDLL]:
         if proc.returncode:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
         lib = ctypes.CDLL(str(out_dir / name.replace(":", "-") / "lib.so"))
-        for fn, argtypes in SIGNATURES[srcs[name]].items():
+        for fn, argtypes in SIGNATURES[keys[name]].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+        libs[name] = (lib, keys[name])
     return libs
 
 
@@ -423,7 +524,7 @@ def main() -> None:
     names = args.variants or [
         v for v in VARIANTS if any((csrc / f"{src}.cu").exists()
                                    for src in SOURCES[v.split(":")[0]])
-        and v.split(":")[1] in EDITS[source_of(v.split(":")[0], csrc)]]
+        and v.split(":")[1] in EDITS[design_of(v.split(":")[0], csrc)]]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -464,6 +565,31 @@ def main() -> None:
           for k in (3, 5, 7)}
     ksq = torch.full((64,), 1e-4, device="cuda")
 
+    # conv1: an RGB frame in [0, 1), HWIO weights, an f32 bias. The earlier
+    # design takes the weights as a (64, 32) slab and the bias in f32
+    # holding bf16 values; the current one the HWIO weights, the bias and
+    # the host's tap table as they are.
+    img = torch.rand(1, H, W, 3, generator=g, device="cuda").bfloat16()
+    k1 = rn(3, 3, 3, 64, std=27 ** -0.5)
+    b1 = rn(64, std=0.1).float()
+    slab = torch.zeros(64, 32, dtype=torch.bfloat16, device="cuda")
+    slab[:, :27] = k1.reshape(27, 64).t()
+    taps = (ctypes.c_int * 32)(*S.conv1_taps())
+
+    def conv1(lib, key):
+        if key == "conv1@im2col":
+            return lib.tux_conv1(img.data_ptr(), slab.data_ptr(),
+                                 b1.data_ptr(), out.data_ptr(), 1, H, W, 1,
+                                 0, stream)
+        return lib.tux_conv1(img.data_ptr(), k1.data_ptr(), b1.data_ptr(),
+                             out.data_ptr(), ctypes.addressof(taps), 1, H, W,
+                             1, 0, 1, 0, stream)
+
+    # The window-attention core on WindowTransformer's 720p frame.
+    wqkv = rn(NW, 64, 3 * c)
+    wbias = torch.randn(HEADS, 64, 64, generator=g, device="cuda") * 0.5
+    wctx = torch.empty(NW, 64, c, dtype=torch.bfloat16, device="cuda")
+
     def tail_i8(lib, k):
         return lib.tux_tail_conv_int8(
             xq.data_ptr(), wq[k].data_ptr(), ksq.data_ptr(), bt.data_ptr(),
@@ -477,38 +603,44 @@ def main() -> None:
             H, W, k, 12, 16, int(emit), 0, 0, stream)
 
     calls = {
-        "global_mha": lambda lib: lib.tux_global_mha(
+        "global_mha": lambda lib, key: lib.tux_global_mha(
             qkv.data_ptr(), qkv[..., c:].data_ptr(),
             qkv[..., 2 * c:].data_ptr(), ctx.data_ptr(), 1, N, c, HEADS,
             qkv.stride(0), qkv.stride(1), 0, stream),
-        "conv3x3": lambda lib: lib.tux_conv3x3_any(
+        "conv3x3": lambda lib, key: lib.tux_conv3x3_any(
             x.data_ptr(), wt.data_ptr(), bias.data_ptr(), None,
             out.data_ptr(), 1, H, W, C, C, 64, 64, 1, 0, stream),
-        "conv3x3_int8_out": lambda lib: lib.tux_conv3x3_any(
+        "conv3x3_int8_out": lambda lib, key: lib.tux_conv3x3_any(
             x.data_ptr(), wt.data_ptr(), bias.data_ptr(), qs.data_ptr(),
             out8.data_ptr(), 1, H, W, C, C, 64, 64, 1, 0, stream),
-        "conv3x3_int8": lambda lib: lib.tux_conv3x3_int8(
+        "conv3x3_int8": lambda lib, key: lib.tux_conv3x3_int8(
             xq.data_ptr(), wq[3].data_ptr(), ksq.data_ptr(), bias.data_ptr(),
             out.data_ptr(), 1, H, W, 1, 0, 0, stream),
-        "tail_int8_5": lambda lib: tail_i8(lib, 5),
-        "tail_int8_7": lambda lib: tail_i8(lib, 7),
-        "conv_tail5": lambda lib: tail(lib, 5, True),
-        "conv_tail7": lambda lib: tail(lib, 7, False),
+        "tail_int8_5": lambda lib, key: tail_i8(lib, 5),
+        "tail_int8_7": lambda lib, key: tail_i8(lib, 7),
+        "conv_tail5": lambda lib, key: tail(lib, 5, True),
+        "conv_tail7": lambda lib, key: tail(lib, 7, False),
         # The serving tails at x2 (co 12, npad 16): bench's branch-A 5x5
         # with ReLU, xla_fold's 7x7, the split tail in mode "off".
-        "tail_conv5": lambda lib: lib.tux_tail_conv(
+        "tail_conv5": lambda lib, key: lib.tux_tail_conv(
             x.data_ptr(), tails[5][0].data_ptr(), bt.data_ptr(),
             y12.data_ptr(), 1, H, W, 5, 12, 16, 1, 0, 0, stream),
-        "tail_conv7": lambda lib: lib.tux_tail_conv(
+        "tail_conv7": lambda lib, key: lib.tux_tail_conv(
             x.data_ptr(), tails[7][0].data_ptr(), bt.data_ptr(),
             y12.data_ptr(), 1, H, W, 7, 12, 16, 0, 0, 0, stream),
-        "tail_finish": lambda lib: lib.tux_tail_finish(
+        "tail_finish": lambda lib, key: lib.tux_tail_finish(
             x.data_ptr(), wmid.data_ptr(), bt.data_ptr(), wfin.data_ptr(),
             bt.data_ptr(), y12.data_ptr(), 1, H, W, 12, 16, 12, 16, 0, 0, 0,
             stream),
+        "conv1": conv1,
+        # The core reads the stream when it is called: a graph captures on
+        # a stream of its own.
+        "window_attn": lambda lib, key: lib.tux_window_attn(
+            wqkv.data_ptr(), wbias.data_ptr(), wctx.data_ptr(), NW, c, HEADS,
+            0, torch.cuda.current_stream().cuda_stream),
     }
 
-    def ms(call) -> float:
+    def ms(call, graphed=False) -> float:
         def run():
             err = call()
             if err:
@@ -516,21 +648,33 @@ def main() -> None:
         for _ in range(3):
             run()
         torch.cuda.synchronize()
+        if graphed:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(REPS):
+                    run()
+            graph.replay()
+            torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(REPS):
-            run()
+        if graphed:
+            graph.replay()
+        else:
+            for _ in range(REPS):
+                run()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / REPS
 
     for rnd in range(args.rounds):
-        for name, lib in libs.items():
+        for name, (lib, key) in libs.items():
             kernel, variant = name.split(":")
             print(json.dumps({"device": smi, "kernel": kernel,
-                              "variant": variant, "round": rnd,
-                              "ms": ms(lambda: calls[kernel](lib))}),
+                              "variant": variant, "design": key,
+                              "round": rnd,
+                              "ms": ms(lambda: calls[kernel](lib, key),
+                                       kernel in GRAPHED)}),
                   flush=True)
 
 

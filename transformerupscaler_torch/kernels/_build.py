@@ -31,7 +31,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # cudaError_t of its launch as an int.
 SIGNATURES = {
     "conv1": {
-        "tux_conv1": [_P] * 4 + [_I] * 5 + [_P],
+        "tux_conv1": [_P] * 5 + [_I] * 7 + [_P],
     },
     "conv3x3": {
         "tux_conv3x3_any": [_P] * 5 + [_I] * 9 + [_P],
@@ -57,6 +57,7 @@ SIGNATURES = {
     },
     "window_attn": {
         "tux_window_attn": [_P] * 3 + [_I] * 4 + [_P],
+        "tux_window_attn_empty": [_I] * 3 + [_P],
     },
     "window_trunk": {
         "tux_window_trunk": [_P] * 7 + [_I] * 5 + [_P],

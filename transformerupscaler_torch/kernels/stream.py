@@ -84,6 +84,9 @@ order; the int8 products they sum in float64, exactly.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from transformerupscaler_torch.kernels import _build
@@ -271,6 +274,26 @@ def conv1_plain(x, kernel, bias=None, relu: bool = False):
     return torch.relu(y) if relu else y
 
 
+# The halo tile of csrc/conv1.cu: a block's tile is CONV1_TILE = (8, 32)
+# output pixels; its input halo, 10 rows of 34 pixels x 3 channels, lies in
+# shared memory as rows of CONV1_PITCH bf16 elements, pixel x0 - 1's first
+# channel at element CONV1_LEAD of its row (the row starts at input column
+# element 3 x0 - 8, where a TMA box may start).
+CONV1_TILE, CONV1_PITCH, CONV1_LEAD = (8, 32), 112, 5
+
+
+def conv1_taps() -> tuple[int, ...]:
+    """The tap table the host hands ``csrc/conv1.cu``: for each column k =
+    (dy * 3 + dx) * 3 + c of the 3x3x3 operand, K padded from 27 to 32, the
+    element offset in the halo tile from the output pixel's own slot, -1
+    where k >= 27 (a zero operand). Output pixel (row r, column p) of the
+    tile reads k at element r * CONV1_PITCH + 3 p + taps[k] of the halo,
+    that is input row y0 + r + dy - 1, column x0 + p + dx - 1, channel c."""
+    taps = [dy * CONV1_PITCH + 3 * dx + c + CONV1_LEAD
+            for dy in range(3) for dx in range(3) for c in range(3)]
+    return tuple(taps + [-1] * (32 - len(taps)))
+
+
 def conv1_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
                  relu: bool = False) -> torch.Tensor:
     """conv1: 3x3 zero-padded conv, 3 -> 64 channels.
@@ -278,7 +301,10 @@ def conv1_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
     x: (B, H, W, 3); kernel: (3, 3, 3, 64) HWIO, rounded to x's dtype;
     bias: (64,), rounded to x's dtype. Returns (B, H, W, 64) in x's dtype:
     the f32 sum rounded to that dtype first, then the bias added in it, then
-    the ReLU (stream.py:1259-1263). The card takes bfloat16.
+    the ReLU (stream.py:1259-1263). The card takes bfloat16. The kernel
+    reads the weights as HWIO rows and rounds f32 weights and bias to bf16
+    itself, so a call launches nothing but the kernel when they are f32 or
+    bf16 and contiguous.
     """
     if not _on_card(x, kernel, bias):
         return conv1_plain(x, kernel, bias, relu)
@@ -287,19 +313,35 @@ def conv1_stream(x: torch.Tensor, kernel: torch.Tensor, bias=None,
     if tuple(kernel.shape) != (3, 3, 3, 64):
         raise ValueError(f"kernel: expected (3, 3, 3, 64), got "
                          f"{tuple(kernel.shape)}")
-    # [cout][(dy * 3 + dx) * 3 + c], K zero-padded from 27 to 32.
-    wt = torch.zeros(64, 32, dtype=torch.bfloat16, device=x.device)
-    wt[:, :27] = kernel.to(torch.bfloat16).reshape(27, 64).t()
-    bb = (torch.zeros(64, dtype=torch.float32, device=x.device)
-          if bias is None else bias.to(torch.bfloat16).float().contiguous())
-    _check(bb, "bias", torch.float32, (64,))
+    k, kb = _bf16_or_f32(kernel, "kernel")
+    bb, bias_f32 = (None, 0) if bias is None else _bf16_or_f32(bias, "bias",
+                                                               (64,))
     out = torch.empty(b, h, w, 64, dtype=torch.bfloat16, device=x.device)
+    if out.numel() == 0:
+        return out
     err = _build.load("conv1").tux_conv1(
-        x.data_ptr(), wt.data_ptr(), bb.data_ptr(), out.data_ptr(), b, h, w,
-        int(relu), x.device.index, _stream(x))
+        x.data_ptr(), k.data_ptr(), None if bb is None else bb.data_ptr(),
+        out.data_ptr(), ctypes.addressof(_conv1_taps_c()), b, h, w, int(relu),
+        kb, bias_f32, x.device.index, _stream(x))
     _raise_on(err, "conv1_stream")
     LAUNCHES["conv1_stream"] += 1
     return out
+
+
+@functools.cache
+def _conv1_taps_c():
+    """conv1_taps() as the C array the launch reads, kept alive here."""
+    return (ctypes.c_int * 32)(*conv1_taps())
+
+
+def _bf16_or_f32(t: torch.Tensor, name: str, shape=None):
+    """``t`` as the kernel reads it, contiguous in bf16 or f32 (other types
+    rounded to bf16 here), and 1 if f32."""
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        t = t.to(torch.bfloat16)
+    t = t.contiguous()
+    _check(t, name, t.dtype, shape or t.shape)
+    return t, int(t.dtype == torch.float32)
 
 
 # ---------------------------------------------------- fused conv + tail

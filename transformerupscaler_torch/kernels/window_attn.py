@@ -21,7 +21,9 @@ accumulated in f32 and rounded once to ``dt``.
 
 A wrapper given CPU tensors computes the plain version (any shape); given CUDA
 tensors it launches the kernel, adds one to
-``LAUNCHES["window_attention_core"]`` and never falls back.
+``LAUNCHES["window_attention_core"]`` and never falls back (no windows: no
+launch, nothing counted). ``window_attention_empty`` launches the source's
+empty kernel on the core's grid, the floor a launch of that grid costs.
 """
 
 from __future__ import annotations
@@ -80,9 +82,22 @@ def window_attention_core(qkv: torch.Tensor, bias: torch.Tensor,
     check(qkv, "qkv", torch.bfloat16, (nw, TOKENS, 3 * c))
     check(bias, "bias", torch.float32, (num_heads, TOKENS, TOKENS))
     out = torch.empty(nw, TOKENS, c, dtype=torch.bfloat16, device=qkv.device)
+    if nw == 0:
+        return out
     err = _build.load("window_attn").tux_window_attn(
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), nw, c, num_heads,
         qkv.device.index, stream_of(qkv))
     raise_on(err, "window_attention_core")
     LAUNCHES["window_attention_core"] += 1
     return out
+
+
+def window_attention_empty(n_windows: int, num_heads: int,
+                           device: torch.device) -> None:
+    """Launch csrc/window_attn.cu's empty kernel on the grid the core takes
+    for ``n_windows`` windows of ``num_heads`` heads (``chip_smoke.py``
+    times it beside the core). Counted by no wrapper."""
+    err = _build.load("window_attn").tux_window_attn_empty(
+        n_windows, num_heads, device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    raise_on(err, "window_attention_empty")
