@@ -19,8 +19,16 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
    against the same model on the plain versions; JAX's default engine
    (``fast_exact``: f32, the exact path) on the whole frame at the f32
    bounds, TF32 off;
-5. the full slices: UpscalerEngine at full model width with seeded weights,
-   serving 720x1280 frames: FastTransformer on the route with the PyTorch
+5. the trained weights (``weights``): for each of the three models the
+   latest checkpoint found as the JAX engine finds it, read from its numpy
+   copy (fingerprint and _METADATA checked), its epoch, parameter count and
+   load time, and the default engine (f32, the exact path, TF32 off) on the
+   model's demo input against the JAX default engine's output on the same
+   weights (tests/fixtures/torch_port/trained_<Model>.npz) at the f32
+   bounds;
+6. the full slices: UpscalerEngine at full model width with the trained
+   weights, serving 720x1280 frames on its CUDA graphs: FastTransformer on
+   the route with the PyTorch
    trunk and the folded tail, then on the route bench.py runs (fused trunk,
    split tail), with its trunk's GEMMs in int8 (``int8_trunk``) and with the
    v1 trunk (``attn_impl="fused"``); FastTransformer as JAX's default
@@ -37,12 +45,19 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
    few seeded frames; FastTransformer on the ``bench`` route with conv1 on
    its kernel (``conv1_stream=True``) and with ``TUX_FUSE_STREAM=1`` (conv2
    and tail A, and the decoder conv and the folded tail B, each as one
-   kernel; the variable set for that route only). Each with the launch
-   counts per frame (the trunk's
-   also by kernel mode, the int8 options by option), set to zero just
-   before, and the output held against the same engine on the plain
-   versions;
-6. the paths of the JAX package's archived kernels, which no model route
+   kernel; the variable set for that route only). Each route is served
+   twice, by the engine on its CUDA graphs and by the same engine with
+   ``cuda_graphs=False``, each with the launch counts per frame (the
+   trunk's also by kernel mode, the int8 options by option), set to zero
+   just before; the two outputs must agree bit for bit, and the output is
+   held against the eager engine on the plain versions;
+7. ``quality``: FastTransformer's demo input (cropped to 176x320, which the
+   serving gate takes) at x2 on every served FastTransformer route, the
+   PSNR and the largest error against the trained exact f32 path on the
+   same frame; the int8 routes' static scales calibrated on another frame
+   (ResidualTransformer's demo input). It records, and fails only on a
+   wrong shape or a value that is not finite;
+8. the paths of the JAX package's archived kernels, which no model route
    reaches: ``archived``, the general 3x3 conv, the patch embed and the
    unembed + add of ``ops/pallas/conv3x3.py`` and ``patch_kernels.py``
    chained at the 720x1280 serving shapes with FastTransformer's seeded
@@ -52,7 +67,9 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
    seeded frame, with scales from ``trunk_int8_scales`` on those tokens;
    each with its launch counts, set to zero just before, and held against
    the same calls on the plain versions;
-7. the status of every TPU kernel of the JAX package in the port.
+9. ``bench``: ``python3 -m transformerupscaler_torch.bench`` (its ``bf16``
+   config), its JSON result;
+10. the status of every TPU kernel of the JAX package in the port.
 
 The device line also says whether ``tensorstore`` and ``zstandard`` import
 on this host (never a failure). Then one JSON line of kernel records and,
@@ -136,6 +153,13 @@ BENCH_LAUNCHES = dict(conv3x3_stream=2, tail_conv_stream=1, embed_stream=1,
                       unembed_combine_stream=1, tail_finish_stream=1)
 ROUTE_RESID = dict(packed_serve=True, pallas_serve=True, attn_impl="fused2")
 FIXTURES = "tests/fixtures/torch_port/"
+# The default checkpoints: epoch and parameter count.
+TRAINED = {"FastTransformer": (100, 6_447_379),
+           "WindowTransformer": (40, 2_763_651),
+           "ResidualTransformer": (17, 3_210_051)}
+QUALITY_ROUTES = ("bench", "xla_fold", "bench_int8_trunk", "fast_fused",
+                  "bench_conv1", "bench_fuse", "int8_tails", "int8_tails_dyn",
+                  "int8_residual", "int8_full")
 # The int8 routes' fixtures hold their static scales; bound of their
 # interior error against JAX (tests/test_torch_int8_serve.py).
 INT8_LIMIT = (1.5e-2, 2.5e-3)
@@ -1356,9 +1380,12 @@ def _serve(name: str) -> dict:
 
     spec = ROUTES[name]
     res_out = spec["res_out"]
-    engine = UpscalerEngine(spec["model"], dtype=spec.get("dtype",
-                                                          torch.bfloat16),
-                            seed=0, **spec["route"])
+    dtype = spec.get("dtype", torch.bfloat16)
+    # The trained weights (seeded only for a model with no checkpoint):
+    # the engine on its CUDA graphs, and the same engine eager.
+    engine = UpscalerEngine(spec["model"], dtype=dtype, **spec["route"])
+    eager = UpscalerEngine(spec["model"], dtype=dtype, cuda_graphs=False,
+                           **spec["route"])
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (*FRAME_HW, 3), np.uint8)
               for _ in range(spec["requests"])]
@@ -1369,25 +1396,37 @@ def _serve(name: str) -> dict:
         cal = np.random.default_rng(1).integers(0, 256, (3, *FRAME_HW, 3),
                                                 np.uint8)
         t0 = time.perf_counter()
-        engine.calibrate_int8(cal, res_out=res_out)
+        scales = engine.calibrate_int8(cal, res_out=res_out)
         calibration = dict(frames=len(cal),
                            seconds=time.perf_counter() - t0,
                            check=engine.calibration_check(frames[0],
                                                           res_out=res_out))
-    for fr in frames[:WARMUP]:
-        engine.upscale(fr, res_out=res_out)
-    torch.cuda.synchronize()
-    K.reset_launches()
-    outs, request_ms = [], []
-    for fr in frames:  # closed loop: one request after the other
-        t0 = time.perf_counter()
-        outs.append(engine.upscale(fr, res_out=res_out))
-        request_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = K.launch_counts()
-    per_frame = {k: v / len(frames) for k, v in launches.items()}
-    if per_frame != spec["launches"]:
-        raise AssertionError(f"{name}: launches per frame {per_frame} != "
-                             f"{spec['launches']}")
+        if eager.calibrate_int8(cal, res_out=res_out) != scales:
+            raise AssertionError(f"{name}: the two engines calibrated "
+                                 f"different scales")
+    served = {}
+    for way, eng in (("graphed", engine), ("eager", eager)):
+        for fr in frames[:WARMUP]:
+            eng.upscale(fr, res_out=res_out)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        outs, request_ms = [], []
+        for fr in frames:  # closed loop: one request after the other
+            t0 = time.perf_counter()
+            outs.append(eng.upscale(fr, res_out=res_out))
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = K.launch_counts()
+        per_frame = {k: v / len(frames) for k, v in launches.items()}
+        if per_frame != spec["launches"]:
+            raise AssertionError(f"{name} ({way}): launches per frame "
+                                 f"{per_frame} != {spec['launches']}")
+        served[way] = outs, request_ms, launches
+    outs, request_ms, launches = served["graphed"]
+    differ = [i for i, (a, b) in enumerate(zip(outs, served["eager"][0]))
+              if not np.array_equal(a, b)]
+    if differ:
+        raise AssertionError(f"{name}: graphed and eager outputs differ on "
+                             f"frames {differ}")
     out = outs[0]
     # Every model clips to [0, 1] but the bicubic baseline, which overshoots.
     lo, hi = (-0.5, 1.5) if spec["model"] == "BicubicInterpolation" else (0, 1)
@@ -1397,20 +1436,27 @@ def _serve(name: str) -> dict:
                              f"{out.max()}]")
 
     xd = torch.from_numpy(frames[0]).cuda().float().div(255.0)[None]
-    fwd_ms = cuda_ms(lambda: engine.model(xd, res_out=res_out), 10)
+    fwd_ms = cuda_ms(lambda: eager.model(xd, res_out=res_out), 10)
+    fwd_graphed_ms = cuda_ms(engine.captured(frames[0],
+                                             res_out=res_out).replay, 10)
 
     with plain_versions():
-        plain = engine.upscale(frames[0], res_out=res_out)
+        plain = eager.upscale(frames[0], res_out=res_out)
     emax, emean = interior_err(out, plain, 8)
     med = float(np.median(request_ms))
+    eager_ms = served["eager"][1]
     say("slice", route=name, model=spec["model"], dtype=str(engine.dtype),
-        flags=spec["route"],
-        env=spec.get("env", {}),
-        res_out=list(res_out), frames=len(frames),
+        flags=spec["route"], env=spec.get("env", {}),
+        weights=(f"epoch {engine.epoch}" if engine.checkpoint_path
+                 else "seeded (no checkpoint)"),
+        graphed=True, res_out=list(res_out), frames=len(frames),
         request_ms_median=med, request_ms_min=min(request_ms),
         request_ms_max=max(request_ms), fps_median=1e3 / med,
-        forward_ms=fwd_ms, launches=launches, launches_per_frame=per_frame,
-        out_shape=list(out.shape),
+        request_ms_median_eager=float(np.median(eager_ms)),
+        request_ms_min_eager=min(eager_ms), forward_ms=fwd_ms,
+        forward_ms_graphed=fwd_graphed_ms, launches=launches,
+        launches_per_frame={k: v / len(frames) for k, v in launches.items()},
+        graphed_equals_eager=True, out_shape=list(out.shape),
         out_range=[float(out.min()), float(out.max())],
         vs_plain_max_abs=emax, vs_plain_mean_abs=emean,
         tolerance=limit_text(), calibration=calibration)
@@ -1418,6 +1464,127 @@ def _serve(name: str) -> dict:
         raise AssertionError(f"{name}: kernels and plain versions disagree "
                              f"end to end")
     return launches
+
+
+def phase_weights() -> None:
+    """The three default checkpoints, found and read as the engine reads
+    them, and each default engine on its model's demo input against the
+    JAX default engine's output on the same weights, at the f32 bounds
+    (``fast_exact``'s) with TF32 off."""
+    from transformerupscaler_torch.checkpoint import (
+        default_checkpoint_dir,
+        fingerprint,
+        get_latest_checkpoint,
+        load_checkpoint,
+        param_count,
+    )
+    from transformerupscaler_torch.infer_lib import UpscalerEngine
+
+    atol, rtol = F32_TOL["atol"], F32_TOL["rtol"]
+    for name, (epoch, count) in TRAINED.items():
+        t0 = time.perf_counter()
+        path, found = get_latest_checkpoint(default_checkpoint_dir(name))
+        tree = load_checkpoint(path, name)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine = UpscalerEngine(name)
+        engine_s = time.perf_counter() - t0
+        if (found, engine.epoch, engine.checkpoint_path) != (epoch, epoch,
+                                                             path) or \
+                param_count(tree) != count or engine.param_count() != count:
+            raise AssertionError(f"{name}: loaded epoch {engine.epoch} from "
+                                 f"{engine.checkpoint_path}, "
+                                 f"{engine.param_count()} parameters")
+        with np.load(f"{FIXTURES}trained_{name}.npz") as f:
+            fix = {k: f[k] for k in f.files}
+        if str(fix["fingerprint"]) != fingerprint(path):
+            raise AssertionError(f"{name}: the trained fixture is not of "
+                                 f"{path}")
+        x, want = fix["x"], fix["y"]
+        sums = {}
+        with no_tf32():
+            if "crop" in fix:
+                y0, x0, h, w = (int(v) for v in fix["crop"])
+                got = engine.upscale(x[y0:y0 + h, x0:x0 + w],
+                                     upscale_factor=int(fix["scale"]))
+            else:
+                full = engine.upscale(x, res_out=tuple(
+                    int(v) for v in fix["res_out"]))
+                r0, c0, h, w = (int(v) for v in fix["window"])
+                got = full[r0:r0 + h, c0:c0 + w]
+                # Every element within atol + rtol |want| (want >= 0, the
+                # output is clipped) keeps the mean within atol + rtol mean.
+                mean = float(full.astype(np.float64).mean())
+                sums = dict(mean=mean, want_mean=float(fix["y_mean"]),
+                            sum=float(full.astype(np.float64).sum()),
+                            want_sum=float(fix["y_sum"]))
+                if abs(mean - sums["want_mean"]) > \
+                        atol + rtol * sums["want_mean"]:
+                    raise AssertionError(f"{name}: the whole output's mean "
+                                         f"{sums}")
+        err = np.abs(got - want)
+        excess = float((err - rtol * np.abs(want)).max())
+        say("weights", model=name, checkpoint=path, epoch=engine.epoch,
+            param_count=engine.param_count(), load_seconds=load_s,
+            engine_seconds=engine_s, input=list(x.shape),
+            shape=list(got.shape), max_abs=float(err.max()),
+            mean_abs=float(err.mean()), **sums,
+            tolerance=f"|got - want| <= {atol} + {rtol} |want|, TF32 off")
+        if got.shape != want.shape or not excess <= atol:
+            raise AssertionError(f"{name}: the trained default engine "
+                                 f"disagrees with the JAX fixture")
+
+
+def phase_quality() -> None:
+    """What each served FastTransformer route costs in fidelity on a real
+    frame with the trained weights: FastTransformer's demo input cropped to
+    176x320 at x2, against the trained exact f32 path (TF32 off) on the
+    same frame. Static int8 scales come from ``calibrate_int8`` on another
+    frame, ResidualTransformer's demo input. Numbers only: it fails on a
+    wrong shape or a value that is not finite, and sets no quality bar."""
+    from transformerupscaler_torch.infer_lib import UpscalerEngine
+
+    with np.load(f"{FIXTURES}trained_FastTransformer.npz") as f:
+        x = f["x"][:176]
+    with np.load(f"{FIXTURES}trained_ResidualTransformer.npz") as f:
+        cal = f["x"]
+    with no_tf32():
+        ref = UpscalerEngine("FastTransformer").upscale(x, upscale_factor=2)
+    for name in QUALITY_ROUTES:
+        spec = ROUTES[name]
+        with route_env(spec.get("env", {})):
+            engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16,
+                                    **spec["route"])
+            if spec.get("calibrate"):
+                engine.calibrate_int8(cal, upscale_factor=2)
+            got = engine.upscale(x, upscale_factor=2)
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"quality {name}: output {got.shape}")
+        err = np.abs(got.astype(np.float64) - ref)
+        mse = float((err ** 2).mean())
+        say("quality", route=name, weights=f"epoch {engine.epoch}",
+            input=list(x.shape), scale=2,
+            scales="static, calibrate_int8 on ResidualTransformer's demo "
+                   "input" if spec.get("calibrate") else None,
+            psnr_db=10 * np.log10(1.0 / mse) if mse else float("inf"),
+            max_abs=float(err.max()), mean_abs=float(err.mean()),
+            against="the trained exact f32 path (TF32 off)")
+
+
+def phase_bench() -> None:
+    """The port's bench (``bf16``) as a benchmark would run it: its own
+    process, its JSON result and what it said on stderr."""
+    cmd = [sys.executable, "-m", "transformerupscaler_torch.bench"]
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "TUX_BENCH_CONFIG": "bf16"})
+    if run.returncode:
+        raise AssertionError(f"bench failed ({run.returncode}): "
+                             f"{run.stderr[-4000:]}")
+    result = json.loads(run.stdout.strip().splitlines()[-1])
+    if set(result) != {"metric", "value", "unit"} or not result["value"] > 0:
+        raise AssertionError(f"bench printed {result}")
+    say("bench", command="python3 -m transformerupscaler_torch.bench",
+        config="bf16", result=result, stderr=run.stderr.strip().splitlines())
 
 
 def phase_archived() -> dict:
@@ -1570,9 +1737,12 @@ def main() -> None:
     for name, spec in ROUTES.items():
         if "fixture" in spec:
             phase_fixture(name)
+    phase_weights()
     launches = {name: phase_slice(name) for name in ROUTES}
+    phase_quality()
     launches["archived"] = phase_archived()
     launches["trunk_static"] = phase_trunk_static()
+    phase_bench()
     say("tpu_kernels", kernels=[dict(kernel=k, port=s) for k, s in TPU_KERNELS])
     for r in records:
         # The count of the record's counter (its wrapper, or the trunk's

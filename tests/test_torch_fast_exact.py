@@ -140,12 +140,14 @@ def test_fast_exact_fixture_is_fresh():
                                        err_msg=k)
 
 
-def test_port_on_cpu_matches_fast_exact_fixture():
+def test_port_on_cpu_matches_fast_exact_fixture(tmp_path):
     """The check chip_smoke.py makes on the card: the default engine at
-    full width, whole frame."""
+    full width, whole frame, on the fixture's seeded weights (``root``
+    holds no checkpoint)."""
     with np.load(FIXTURE) as f:
         seed, x, y = int(f["seed"]), f["x"], f["y"]
-    engine = UpscalerEngine("FastTransformer", device="cpu", seed=seed)
+    engine = UpscalerEngine("FastTransformer", device="cpu", seed=seed,
+                            root=str(tmp_path))
     got = engine.upscale(x, res_out=FIXTURE_RES_OUT)
     assert got.shape == y.shape == (1, *FIXTURE_RES_OUT, 3)
     np.testing.assert_allclose(got, y, **TOL)

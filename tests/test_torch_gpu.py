@@ -35,12 +35,19 @@ flip an element by one step (2^-7 of it), which a tail weight carries
 into the output: atol adds 2^-7 x max |conv output| x max |tail weight| to
 the tolerance of the output type; the emitted conv output is one rounding:
 the bf16 tolerance.
+
+The engine's CUDA graphs: every route chip_smoke.py serves, at full model
+width with seeded weights on 64x128 frames, replayed from its graph and run
+eagerly by the same engine: the outputs agree bit for bit and the launch
+counters count the same per frame.
 """
 
+import numpy as np
 import pytest
 import torch
 
-from transformerupscaler_torch.kernels import launch_counts
+from transformerupscaler_torch.infer_lib import UpscalerEngine
+from transformerupscaler_torch.kernels import launch_counts, reset_launches
 from transformerupscaler_torch.kernels import conv3x3 as C3
 from transformerupscaler_torch.kernels import encoder as E
 from transformerupscaler_torch.kernels import gmha as G
@@ -1073,3 +1080,108 @@ def test_tails_at_720p_match_plain(gen, kind):
     again = S.tail_conv_stream(x, k, b, kh == 5)
     _close(got, S.tail_conv_plain(x, k, b, kh == 5), BF16_TOL)
     assert torch.equal(got, again)
+
+
+# ------------------------------------------------------------ CUDA graphs
+BENCH = dict(compose_tails=True, pallas_serve=True, attn_impl="fused2")
+RESID = dict(packed_serve=True, pallas_serve=True, attn_impl="fused2",
+             token_hw=(4, 8))
+# route -> (model, flags, environment, res_out, calibrated int8 scales)
+ENGINE_ROUTES = {
+    "xla_fold": ("FastTransformer", dict(BENCH, attn_impl="xla",
+                                         split_tail=False), {}, None, False),
+    "bench": ("FastTransformer", BENCH, {}, None, False),
+    "bench_conv1": ("FastTransformer", dict(BENCH, conv1_stream=True), {},
+                    None, False),
+    "bench_fuse": ("FastTransformer", BENCH, {"TUX_FUSE_STREAM": "1"}, None,
+                   False),
+    "bench_int8_trunk": ("FastTransformer", dict(BENCH, int8_trunk=True), {},
+                         None, False),
+    "fast_fused": ("FastTransformer", dict(BENCH, attn_impl="fused"), {},
+                   None, False),
+    "fast_exact": ("FastTransformer", dict(dtype=torch.float32), {}, None,
+                   False),
+    "fast_exact_fused2": ("FastTransformer", dict(attn_impl="fused2"), {},
+                          None, False),
+    "window_pallas": ("WindowTransformer", dict(pallas_serve=True,
+                                                attn_impl="pallas"), {},
+                      None, False),
+    "window_fused2": ("WindowTransformer", dict(pallas_serve=True,
+                                                attn_impl="fused2"), {},
+                      None, False),
+    "window_fused": ("WindowTransformer", dict(pallas_serve=True,
+                                               attn_impl="fused"), {},
+                     None, False),
+    "resid_packed": ("ResidualTransformer", RESID, {}, (128, 256), False),
+    "resid_exact": ("ResidualTransformer", RESID, {}, None, False),
+    "bicubic": ("BicubicInterpolation", {}, {}, None, False),
+    **{f"int8_{scope}{suffix}": (
+        "FastTransformer", dict(BENCH, int8_serve=True, int8_scope=scope), {},
+        None, suffix == "") for scope, suffix in (
+            ("tails", ""), ("tails", "_dyn"), ("residual", ""),
+            ("full", ""))},
+}
+
+
+def _engines(tmp_path, route, monkeypatch):
+    """(graphed, eager) engines of ``route`` on the same seeded weights
+    (``root`` holds no checkpoint), calibrated alike where the route is,
+    and the route's res_out."""
+    model, flags, env, res_out, calibrate = ENGINE_ROUTES[route]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    flags = {"dtype": torch.bfloat16, **flags}
+    frame = _frames(1)[0]
+    res_out = res_out or (96, 192)
+    engines = tuple(UpscalerEngine(model, root=str(tmp_path),
+                                   cuda_graphs=graphs, **flags)
+                    for graphs in (True, False))
+    if calibrate:
+        scales = [e.calibrate_int8(frame, res_out=res_out) for e in engines]
+        assert scales[0] == scales[1]
+    return engines, res_out
+
+
+def _frames(n, hw=(64, 128)):
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, 256, (*hw, 3), np.uint8) for _ in range(n)]
+
+
+@pytest.mark.parametrize("route", sorted(ENGINE_ROUTES))
+def test_graphed_engine_equals_eager(gen, tmp_path, monkeypatch, route):
+    (graphed, eager), res_out = _engines(tmp_path, route, monkeypatch)
+    frames = _frames(3)
+    graphed.upscale(frames[0], res_out=res_out)  # captures
+    eager.upscale(frames[0], res_out=res_out)
+    counts = []
+    outs = []
+    for engine in (graphed, eager):
+        torch.cuda.synchronize()
+        reset_launches()
+        outs.append([engine.upscale(f, res_out=res_out) for f in frames])
+        counts.append(launch_counts())
+    assert counts[0] == counts[1]
+    for got, want in zip(*outs):
+        assert np.array_equal(got, want)
+    assert len(graphed._cache) == 1 and not eager._cache
+    dev = graphed.upscale(frames[0], res_out=res_out, device_out=True)
+    key = next(iter(graphed._cache))
+    assert dev.is_cuda and dev.data_ptr() != graphed._cache[key].out.data_ptr()
+    assert np.array_equal(dev.cpu().numpy(), outs[1][0])
+
+
+def test_graph_cache_per_geometry_and_calibration_clears_it(gen, tmp_path,
+                                                            monkeypatch):
+    (engine, _), res_out = _engines(tmp_path, "int8_tails", monkeypatch)
+    big, small = _frames(1)[0], _frames(1, (32, 64))[0]
+    for _ in range(2):
+        engine.upscale(big, res_out=res_out)
+    assert len(engine._cache) == 1
+    engine.upscale(small, upscale_factor=2)
+    engine.upscale(np.stack([big, big]), res_out=res_out)
+    assert len(engine._cache) == 3
+    engine.calibrate_int8(small, upscale_factor=2)
+    assert not engine._cache
+    assert engine.upscale(big, res_out=res_out).shape == (*res_out, 3)
+    assert engine.warmup((32, 64), upscale_factor=2) > 0
+    assert len(engine._cache) == 2

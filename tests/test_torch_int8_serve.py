@@ -159,9 +159,10 @@ def test_port_on_cpu_matches_int8_fixture(scope):
                    .numpy(), y)
 
 
-def test_calibration_needs_an_int8_model():
+def test_calibration_needs_an_int8_model(tmp_path):
     engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16,
-                            device="cpu", transformer_dim=32,
+                            device="cpu", root=str(tmp_path),
+                            transformer_dim=32,
                             num_window_blocks=1, num_heads=2,
                             compose_tails=True, pallas_serve=True)
     with pytest.raises(RuntimeError, match="no activation scale"):

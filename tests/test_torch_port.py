@@ -28,18 +28,20 @@ FAST_FLAGS = dict(compose_tails=True, packed_serve=True, pallas_serve=True,
 
 def test_port_imports_no_jax():
     """Importing every module of the port, in a fresh interpreter, loads no
-    jax, flax, orbax or transformerupscaler_tpu module."""
+    jax, flax, orbax, tensorstore, zstandard, PIL or transformerupscaler_tpu
+    module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import transformerupscaler_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'orbax',\n"
-        "              'transformerupscaler_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'orbax', 'tensorstore',\n"
+        "              'zstandard', 'PIL', 'transformerupscaler_tpu'))\n"
         "for m in ('ops.patch', 'kernels.gmha', 'kernels.window_attn',\n"
         "          'models.bicubic', 'models.window_transformer',\n"
-        "          'models.residual_transformer'):\n"
+        "          'models.residual_transformer', 'checkpoint',\n"
+        "          'torch_convert', 'bench', 'ops.quant'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
         "assert not bad, bad\n")
@@ -51,7 +53,8 @@ def test_port_imports_no_jax():
 
 def test_chip_smoke_imports_no_jax():
     """chip_smoke.py runs on a host without JAX: no import statement in it,
-    at any depth, names jax, flax, orbax or the JAX package."""
+    at any depth, names jax, flax, orbax, tensorstore, zstandard, PIL or
+    the JAX package."""
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
     names = set()
@@ -61,8 +64,8 @@ def test_chip_smoke_imports_no_jax():
         elif isinstance(node, ast.ImportFrom):
             names.add((node.module or "").split(".")[0])
     assert "transformerupscaler_torch" in names
-    assert not names & {"jax", "jaxlib", "flax", "orbax",
-                        "transformerupscaler_tpu"}
+    assert not names & {"jax", "jaxlib", "flax", "orbax", "tensorstore",
+                        "zstandard", "PIL", "transformerupscaler_tpu"}
 
 
 def test_entry_points_default_to_the_card():
@@ -103,7 +106,7 @@ def test_params_from_jax_round_trip():
                                   tree["up1"]["s4_c1_bias"])
 
 
-def test_other_routes_and_geometries_raise():
+def test_other_routes_and_geometries_raise(tmp_path):
     """The fused trunks build for both window models and the ``--fast``
     flag set for all four, FastTransformer also with ``int8_serve``;
     int8_mlp raises. FastTransformer routes as JAX does: without the serve
@@ -149,11 +152,12 @@ def test_other_routes_and_geometries_raise():
         get_model("WindowTransformer", device="cpu", int8_mlp=True)
     img = np.zeros((16, 32, 3), np.uint8)
     odd = np.zeros((12, 32, 3), np.uint8)
-    engine = UpscalerEngine(device="cpu", **SMALL)
+    # Seeded weights: the narrow model does not take the trained ones.
+    engine = UpscalerEngine(device="cpu", root=str(tmp_path), **SMALL)
     assert engine.upscale(img, upscale_factor=6).shape == (96, 192, 3)
     assert engine.upscale(odd, upscale_factor=2).shape == (24, 64, 3)
-    served = UpscalerEngine(device="cpu", compose_tails=True,
-                            pallas_serve=True, **SMALL)
+    served = UpscalerEngine(device="cpu", root=str(tmp_path),
+                            compose_tails=True, pallas_serve=True, **SMALL)
     with pytest.raises(NotImplementedError, match="x6"):
         served.upscale(img, upscale_factor=6)
     assert served.upscale(odd, upscale_factor=2).shape == (24, 64, 3)
@@ -213,9 +217,10 @@ def test_fixed_fields_raise_not_implemented_off_their_default(field, value):
               **{**FAST_FLAGS, field: value})
 
 
-def test_engine_upscale_contract():
+def test_engine_upscale_contract(tmp_path):
     """uint8 HWC in, float32 HWC out in [0, 1]; NHWC keeps its batch."""
-    engine = UpscalerEngine(device="cpu", dtype=torch.bfloat16, **SMALL)
+    engine = UpscalerEngine(device="cpu", dtype=torch.bfloat16,
+                            root=str(tmp_path), **SMALL)
     img = np.random.default_rng(0).integers(0, 256, (16, 32, 3), np.uint8)
     out = engine.upscale(img, res_out=(24, 48))
     assert out.shape == (24, 48, 3) and out.dtype == np.float32

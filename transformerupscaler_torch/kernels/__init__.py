@@ -17,6 +17,7 @@ from transformerupscaler_torch.kernels._common import (
     LAUNCHES,
     MODE_LAUNCHES,
     OPTION_LAUNCHES,
+    add_launches,
     launch_counts,
     reset_launches,
 )
@@ -43,6 +44,7 @@ ARCHIVED_PLAIN_VERSIONS = {
 }
 
 __all__ = ["ARCHIVED_LAUNCHES", "ARCHIVED_PLAIN_VERSIONS", "LAUNCHES",
-           "MODE_LAUNCHES", "OPTION_LAUNCHES", "PLAIN_VERSIONS", "conv3x3",
-           "encoder", "gmha", "launch_counts", "patch_kernels",
-           "reset_launches", "stream", "trunk2", "window_attn"]
+           "MODE_LAUNCHES", "OPTION_LAUNCHES", "PLAIN_VERSIONS",
+           "add_launches", "conv3x3", "encoder", "gmha", "launch_counts",
+           "patch_kernels", "reset_launches", "stream", "trunk2",
+           "window_attn"]

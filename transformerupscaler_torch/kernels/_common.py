@@ -40,6 +40,23 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
+def _counters():
+    """(name as ``launch_counts`` gives it, its dict, its key there) of
+    every counter."""
+    for counts in (LAUNCHES, ARCHIVED_LAUNCHES, OPTION_LAUNCHES):
+        for k in counts:
+            yield k, counts, k
+    for m in MODE_LAUNCHES:
+        yield f"fused_window_trunk.{m}", MODE_LAUNCHES, m
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add ``delta``, keyed as ``launch_counts`` keys it, to the counters:
+    a CUDA graph's replay launches again what its capture counted."""
+    for name, counts, k in _counters():
+        counts[k] += delta.get(name, 0)
+
+
 def launch_counts() -> dict[str, int]:
     """Every counter in one flat dict: the wrappers' (the archived ones
     too), the trunk's by mode as ``fused_window_trunk.<mode>``, and the

@@ -502,7 +502,11 @@ def _reflect_pad(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
     for dim, pad in ((1, pad_h), (2, pad_w)):
         if pad:
             n = x.shape[dim]
-            idx = torch.cat([torch.arange(n),
-                             2 * (n - 1) - torch.arange(n, n + pad)])
-            x = x.index_select(dim, idx.to(x.device))
+            # Rows n .. n + pad - 1 read 2 (n - 1) - i: n - 2 down to
+            # n - 1 - pad. Made on the device: a CUDA graph cannot capture
+            # a copy from pageable host memory.
+            idx = torch.cat([torch.arange(n, device=x.device),
+                             torch.arange(n - 2, n - 2 - pad, -1,
+                                          device=x.device)])
+            x = x.index_select(dim, idx)
     return x

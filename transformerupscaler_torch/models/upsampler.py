@@ -13,6 +13,8 @@ branch B into a mid conv and a small finish conv, whose outputs are
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 
@@ -105,10 +107,12 @@ def last_shuffle_factor(scale: int) -> int:
     return STAGES[scale][-1][1]
 
 
+@functools.lru_cache(maxsize=None)
 def _shuffle4_perm(o: int, device) -> torch.Tensor:
     """Output-channel permutation of the two-stage x4 composition: from the
     nested phase order (o, a2, b2, a1, b1) to ``pixel_shuffle(4)`` order
-    (o, i, j) with i = 2*a1 + a2 and j = 2*b1 + b2."""
+    (o, i, j) with i = 2*a1 + a2 and j = 2*b1 + b2. Copied to ``device``
+    once: a CUDA graph cannot capture a copy from pageable host memory."""
     perm = []
     for oc in range(o):
         for i in range(4):

@@ -56,6 +56,14 @@ def _commute_maps(r: int, k: int = 3):
     return dm_idx, dn_idx, mask
 
 
+@lru_cache(maxsize=None)
+def _commute_maps_on(r: int, k: int, device: torch.device):
+    """``_commute_maps`` as tensors on ``device``, copied there once: the
+    exact path composes tails on every forward, and a CUDA graph cannot
+    capture a copy from pageable host memory."""
+    return tuple(torch.from_numpy(a).to(device) for a in _commute_maps(r, k))
+
+
 def commute_conv_through_shuffle(kernel: torch.Tensor, r: int) -> torch.Tensor:
     """Repack an odd k x k HWIO kernel meant for ``conv(pixel_shuffle_r(x))``
     into the equivalent kernel for ``pixel_shuffle_r(conv'(x))``.
@@ -65,12 +73,11 @@ def commute_conv_through_shuffle(kernel: torch.Tensor, r: int) -> torch.Tensor:
     zero padding at the border. Channel orders match ``pixel_shuffle``:
     input (c, p, q), output (o, a, b).
     """
-    k = int(kernel.shape[0])
-    dm_idx, dn_idx, mask = _commute_maps(r, k)
+    dm_idx, dn_idx, mask = _commute_maps_on(r, int(kernel.shape[0]),
+                                            kernel.device)
     klo = dm_idx.shape[0]
     c, o = kernel.shape[2], kernel.shape[3]
-    dev = kernel.device
-    g = kernel[torch.from_numpy(dm_idx).to(dev), torch.from_numpy(dn_idx).to(dev)]
-    g = g.masked_fill(~torch.from_numpy(mask).to(dev)[..., None, None], 0)
+    g = kernel[dm_idx, dn_idx]
+    g = g.masked_fill(~mask[..., None, None], 0)
     g = g.permute(0, 1, 4, 2, 5, 3)  # (k', k', C, pq, O, ab)
     return g.reshape(klo, klo, c * r * r, o * r * r)

@@ -10,6 +10,9 @@ The port's own copy of what it needs from the JAX package:
 - the trunk's static mode: ``quantize_gemm_weights`` with calibrated
   per-input-channel activation scales folded into the weights, and the
   per-channel activation quantize of trunk2.py:182;
+- the reference's ``--quantize`` (``UpscalerEngine(quantize=True)``):
+  ``quantize_linear_params`` with ``_fake_quant`` (ops/quant.py:22-56), in
+  numpy on the parameter tree, bit for bit;
 - the int8 serving scopes (models/fast_transformer.py:379-398, 495-507):
   ``quantize_conv_kernel``, ``quantize_act`` and ``quantize_act_ch``
   (ops/quant.py:85-130), the dynamic per-channel activation scale of
@@ -22,14 +25,57 @@ step in f32 as there.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _F32 = torch.float32
 
 
+# Parents of the 2-D ``kernel`` leaves that are linear layers (the torch
+# {nn.Linear} set); the projections are named by their own keys.
+_LINEAR_PARENTS = {"attn", "mlp_fc1", "mlp_fc2"}
+_LINEAR_KERNELS = {"qkv_kernel", "proj_kernel", "in_kernel", "out_kernel"}
+
+
+def _fake_quant(w: np.ndarray) -> np.ndarray:
+    """Symmetric per-output-channel int8 round trip of an (in, out) kernel."""
+    w = np.asarray(w)
+    scale = np.max(np.abs(w), axis=0, keepdims=True) / 127.0
+    scale = np.where(scale == 0, 1.0, scale)
+    q = np.clip(np.round(w / scale), -127, 127)
+    return (q * scale).astype(w.dtype)
+
+
+def quantize_linear_params(params: dict) -> dict:
+    """A copy of the parameter tree with every linear kernel (attention and
+    MLP projections, never a conv) int8-round-tripped per output channel:
+    the accuracy effect of torch's dynamic quantization of nn.Linear."""
+
+    def walk(tree, parent=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, parent=k)
+            elif np.ndim(v) == 2 and (
+                    k in _LINEAR_KERNELS
+                    or (k == "kernel" and parent in _LINEAR_PARENTS)):
+                out[k] = _fake_quant(np.asarray(v))
+            else:
+                out[k] = v
+        return out
+
+    return walk(dict(params))
+
+
 def _f32(v: float) -> torch.Tensor:
     """A Python constant as the f32 value a weakly typed JAX scalar takes."""
     return torch.tensor(v, dtype=_F32)
+
+
+def _f32_on(v: float, device) -> torch.Tensor:
+    """``_f32(v)`` made on ``device`` by a fill, not copied from the host:
+    a CUDA graph cannot capture a copy from pageable host memory."""
+    return torch.full((), v, dtype=_F32, device=device)
 
 
 def rowwise_weights(wstack: torch.Tensor):
@@ -106,7 +152,7 @@ def act_scale(x: torch.Tensor) -> torch.Tensor:
     per channel, whose magnitudes are exact in any float type."""
     lo, hi = torch.aminmax(x.reshape(-1, x.shape[-1]), dim=0)
     m = torch.maximum(-lo, hi).to(_F32)
-    return torch.maximum(m, _f32(1e-8).to(x.device)) / 127.0
+    return torch.maximum(m, _f32_on(1e-8, x.device)) / 127.0
 
 
 def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -123,7 +169,7 @@ def quantize_act(x: torch.Tensor, scale=None):
     -127, 127)."""
     if scale is None:
         scale = torch.maximum(x.to(_F32).abs().amax(),
-                              _f32(1e-8).to(x.device)) / 127.0
+                              _f32_on(1e-8, x.device)) / 127.0
     scale = torch.as_tensor(scale, dtype=_F32, device=x.device)
     return _quantize(x, scale), scale
 

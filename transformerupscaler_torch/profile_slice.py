@@ -4,11 +4,11 @@
 
     python3 -m transformerupscaler_torch.profile_slice --route xla_fold
 
-Runs one model (bf16 but on ``fast_exact``, seeded full-width weights) on
-720x1280 frames, as
-``chip_smoke.py`` serves them, and prints JSON lines: the forward's time by
-CUDA events, then a ``torch.profiler`` trace of five forwards summed by
-kernel name (device milliseconds per frame), the device's busy time per
+Runs one model (bf16 but on ``fast_exact``, full width, the trained weights
+of its latest checkpoint, seeded where it has none) eagerly on 720x1280
+frames, as ``chip_smoke.py`` serves them, and prints JSON lines: the
+weights' epoch and the forward's time by CUDA events, then a
+``torch.profiler`` trace of five forwards summed by kernel name (device milliseconds per frame), the device's busy time per
 frame and its idle share of the forward. Routes: ``bench`` (the default:
 FastTransformer as bench.py runs it, fused trunk, split tail), ``xla_fold``
 (FastTransformer with the PyTorch trunk and the folded tail),
@@ -20,7 +20,7 @@ serves it: the stream conv and the fused trunk), ``resid_packed``
 ``resid_exact`` (its exact route), both on the global attention kernel;
 FastTransformer's int8 serving scopes on the ``bench`` route: ``int8_tails``
 (bench.py's ``int8_tails``), ``int8_residual`` and ``int8_full``, each with
-static scales from ``UpscalerEngine.calibrate_int8`` on three seeded
+static scales from ``UpscalerEngine.calibrate_int8`` on three random
 frames, and ``int8_tails_dyn`` (the tails scope with dynamic scales, as the
 command lines' ``--int8`` serves it); ``bench_conv1`` (``bench`` with conv1
 on its kernel, ``conv1_stream=True``) and ``bench_fuse`` (``bench`` with
@@ -92,7 +92,7 @@ def main() -> None:
                          text=True, timeout=60, check=True).stdout.strip()
     model, flags, res_out = ROUTES[route]
     dtype = torch.float32 if route in F32_ROUTES else torch.bfloat16
-    engine = UpscalerEngine(model, dtype=dtype, seed=0, **flags)
+    engine = UpscalerEngine(model, dtype=dtype, **flags)
     if route in CALIBRATED:
         engine.calibrate_int8(np.random.default_rng(1).integers(
             0, 256, (3, 720, 1280, 3), np.uint8), res_out=res_out)
@@ -130,6 +130,7 @@ def main() -> None:
     busy_ms = sum(per_kernel.values()) / 1e3 / FRAMES
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:TOP]
     print(json.dumps({"device": smi, "route": route, "model": model,
+                      "weights": f"epoch {engine.epoch}",
                       "env": ENV.get(route, {}),
                       "res_out": res_out, "forward_ms": fwd_ms,
                       "device_busy_ms": busy_ms,
