@@ -11,8 +11,10 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
 3. each hand-written kernel against its plain PyTorch version on the card,
    at the shapes the served 720x1280 frames give it, with its time, the
    plain version's, one PyTorch library call's (where one computes the same
-   function) and the card's bound for the same work; the fused encoder and
-   decoder adapters against theirs;
+   function) and the card's bound for the same work (the tails also with
+   f32 output, as ``serve_quality`` runs them: the 5x5 and 7x7 composed
+   tails and the split tail in "wf" at the x2 and x4 shapes); the fused
+   encoder and decoder adapters against theirs;
 4. each served route with a fixture at a small geometry against the
    committed JAX outputs (tests/fixtures/torch_port/*.npz), weights rebuilt
    from the numpy seed; FastTransformer's bf16 routes then at x3 and x4
@@ -45,7 +47,15 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
    few seeded frames; FastTransformer on the ``bench`` route with conv1 on
    its kernel (``conv1_stream=True``) and with ``TUX_FUSE_STREAM=1`` (conv2
    and tail A, and the decoder conv and the folded tail B, each as one
-   kernel; the variable set for that route only). Each route is served
+   kernel; the variable set for that route only); FastTransformer with
+   ``serve_quality`` (bench.py's ``quality``: f32 tails) at x2 and at x4
+   (``quality_x4``, 264x480 -> 1056x1920: the split tail in "wf", f32 out),
+   at x6 on the bench route (``fast_x6``, 176x320 -> 1056x1920: the direct
+   tails), on JAX's all-XLA packed path (``xla_packed``: ``--fast`` off a
+   TPU, no kernel) and bench.py's ``int8_full`` on that path
+   (``int8_full_xla``: calibrated; the int8 3x3 convs and tails on their
+   kernels, the int8 patch products and the 192-wide tokens scale in
+   PyTorch). Each route is served
    twice, by the engine on its CUDA graphs and by the same engine with
    ``cuda_graphs=False``, each with the launch counts per frame (the
    trunk's also by kernel mode, the int8 options by option), set to zero
@@ -152,6 +162,15 @@ ROUTE_WINDOW = dict(pallas_serve=True, attn_impl="fused2")
 BENCH_LAUNCHES = dict(conv3x3_stream=2, tail_conv_stream=1, embed_stream=1,
                       unembed_combine_stream=1, tail_finish_stream=1)
 ROUTE_RESID = dict(packed_serve=True, pallas_serve=True, attn_impl="fused2")
+# bench.py's ``quality``; JAX's all-XLA packed path as ``--fast`` builds it
+# off a TPU, and as bench.py builds its ``int8_full``.
+ROUTE_QUALITY = dict(ROUTE_BENCH, serve_quality=True)
+ROUTE_XLA = dict(compose_tails=True, packed_serve=True, attn_impl="xla")
+ROUTE_INT8_XLA = dict(compose_tails=True, int8_serve=True, int8_scope="full",
+                      pallas_serve=False, attn_impl="xla")
+# The largest frames under 1080x1920 that the serving gate takes (h % 8 ==
+# 0) at x4 and x6, each to the exact multiple 1056x1920.
+X4_HW, X6_HW, RES_OUT_1056 = (264, 480), (176, 320), (1056, 1920)
 FIXTURES = "tests/fixtures/torch_port/"
 # The default checkpoints: epoch and parameter count.
 TRAINED = {"FastTransformer": (100, 6_447_379),
@@ -159,11 +178,15 @@ TRAINED = {"FastTransformer": (100, 6_447_379),
            "ResidualTransformer": (17, 3_210_051)}
 QUALITY_ROUTES = ("bench", "xla_fold", "bench_int8_trunk", "fast_fused",
                   "bench_conv1", "bench_fuse", "int8_tails", "int8_tails_dyn",
-                  "int8_residual", "int8_full")
+                  "int8_residual", "int8_full", "quality", "xla_packed",
+                  "int8_full_xla")
 # The int8 routes' fixtures hold their static scales; bound of their
 # interior error against JAX (tests/test_torch_int8_serve.py).
 INT8_LIMIT = (1.5e-2, 2.5e-3)
 F32_TOL = dict(atol=5e-5, rtol=1e-4)
+# A kernel with f32 out against its plain version (tests/test_torch_gpu.py's
+# F32_TOL): far under one bf16 step, so an output rounded to bf16 fails.
+KERNEL_F32_TOL = dict(rtol=1e-5, atol=1e-4)
 INT8_TENSORS = ("feat1", "feat", "combined", "dec", "tokens")
 
 
@@ -248,6 +271,38 @@ ROUTES = {
         model="FastTransformer", route=int8_route("full"), calibrate=True,
         fixture=FIXTURES + "int8_full_x2_bf16.npz", res_out=RES_OUT,
         requests=10, launches=int8_counts("full", True)),
+    # serve_quality: both tails emit f32 (B folded at x2); at x4 the split
+    # tail in "wf" with f32 output.
+    "quality": dict(
+        model="FastTransformer", route=ROUTE_QUALITY,
+        fixture=FIXTURES + "quality_x2_bf16.npz", res_out=RES_OUT,
+        requests=10,
+        launches=counts("v2", conv3x3_stream=2, tail_conv_stream=2,
+                        embed_stream=1, unembed_combine_stream=1)),
+    "quality_x4": dict(
+        model="FastTransformer", route=ROUTE_QUALITY,
+        fixture=FIXTURES + "quality_x4_bf16.npz", in_hw=X4_HW,
+        res_out=RES_OUT_1056, requests=10,
+        launches=counts("v2", **BENCH_LAUNCHES)),
+    # x6: the direct tails (PyTorch convs), conv2 and the decoder conv on
+    # the stream conv at 176x320.
+    "fast_x6": dict(
+        model="FastTransformer", route=ROUTE_BENCH,
+        fixture=FIXTURES + "fast_x6_bf16.npz", in_hw=X6_HW,
+        res_out=RES_OUT_1056, requests=10,
+        launches=counts("v2", conv3x3_stream=2, embed_stream=1,
+                        unembed_combine_stream=1)),
+    # JAX's all-XLA packed path: no TPU kernel, plain PyTorch; under the
+    # "full" scope its int8 3x3 convs and int8 tails on rows 8 and 9.
+    "xla_packed": dict(
+        model="FastTransformer", route=ROUTE_XLA,
+        fixture=FIXTURES + "xla_packed_x2_bf16.npz", res_out=RES_OUT,
+        requests=5, launches=counts()),
+    "int8_full_xla": dict(
+        model="FastTransformer", route=ROUTE_INT8_XLA, calibrate=True,
+        fixture=FIXTURES + "int8_full_xla_x2_bf16.npz", res_out=RES_OUT,
+        requests=5,
+        launches=counts(conv3x3_int8_stream=2, tail_conv_int8_stream=2)),
 }
 
 # Every function of transformerupscaler_tpu/ops/pallas that reaches
@@ -257,7 +312,7 @@ TPU_KERNELS = [
      "ported and checked: conv3x3_stream (csrc/conv3x3.cu; bf16, and its "
      "int8 out_scale)"),
     ("stream.py:777 tail_macro8_stream",
-     "ported and checked: tail_conv_stream"),
+     "ported and checked: tail_conv_stream (bf16 and f32 out)"),
     ("stream.py:325 embed_stream",
      "ported and checked: embed_stream (bf16, and its int8 in_scale)"),
     ("stream.py:239 unembed_combine_stream",
@@ -269,13 +324,15 @@ TPU_KERNELS = [
      "int8_acts='rowwise' and the static int8_gemms mode 'int8_static' on "
      "int8 wgmma at C=192)"),
     ("stream.py:1078 tail_finish_stream",
-     "ported and checked: tail_finish_stream (hi_lo_fin off, wf, full)"),
+     "ported and checked: tail_finish_stream (hi_lo_fin off, wf, full; "
+     "bf16 and f32 out)"),
     ("stream.py:82 conv3x3_packed_stream",
      "ported and checked: conv3x3_stream (the same conv without the "
      "width-2 packing; bf16)"),
     ("stream.py:147 conv3x3_packed_int8_stream",
      "ported and checked: conv3x3_int8_stream (int8 x int8 -> int32; the "
-     "int8 form of csrc/conv3x3.cu's kernel)"),
+     "int8 form of csrc/conv3x3.cu's kernel; also serves the XLA "
+     "conv2d_packed_int8)"),
     ("stream.py:893 tail_macro8_stream_int8",
      "ported and checked: tail_conv_int8_stream (5x5 and 7x7; also serves "
      "the XLA conv2d_tail_packed_int8; the int8 form of "
@@ -537,6 +594,7 @@ def phase_kernels() -> list[dict]:
     x_cl = x.permute(0, 3, 1, 2)  # channels-last NCHW view for F.conv2d
     tok = rn(1, ht, wt, d).bfloat16()
     bf16 = dict(rtol=2.0 ** -7, atol=1e-3)  # one bf16 rounding step
+    f32 = KERNEL_F32_TOL
     records = []
 
     def conv_case(name, k, co, relu, replaces, on="bench", x=x):
@@ -560,10 +618,11 @@ def phase_kernels() -> list[dict]:
             xq = x[:, :h // 2, :w // 2].contiguous()
             for cw in (27, 48):
                 kw, bw = rn(k, k, 64, cw, std=(k * k * 64) ** -0.5), rn(cw)
-                for odt in (torch.bfloat16, torch.float32):
+                for odt, tol in ((torch.bfloat16, bf16),
+                                 (torch.float32, f32)):
                     err = max(err, close_enough(
                         S.tail_conv_stream(xq, kw, bw, relu, odt),
-                        S.tail_conv_plain(xq, kw, bw, relu, odt), **bf16))
+                        S.tail_conv_plain(xq, kw, bw, relu, odt), **tol))
         flops = 2.0 * h * w * k * k * 64 * co
         bnd, by = bound_ms(nbytes(x, out) + k * k * 64 * co * 2 + co * 4,
                            flops)
@@ -623,7 +682,8 @@ def phase_kernels() -> list[dict]:
         replaces="transformerupscaler_tpu/ops/pallas/stream.py:239",
         max_abs_err=err, bound_ms=bnd, bound_by=by,
         **unembed_yardsticks(run, plain, x, tok2, ku16), on="bench"))
-    records.append(tail_finish_case(x, x_cl, rn, bf16))
+    records.append(tail_finish_case(x, x_cl, rn, bf16, f32))
+    records.extend(f32_tail_cases(x, x_cl, rn, f32))
     records.extend(trunk_case(rn, *case) for case in TRUNK_CASES)
     records.append(window_attention_case(rn, bf16))
     records.append(global_mha_case(rn, bf16))
@@ -636,7 +696,7 @@ def phase_kernels() -> list[dict]:
     return records
 
 
-def tail_finish_case(x, x_cl, rn, bf16) -> dict:
+def tail_finish_case(x, x_cl, rn, bf16, f32) -> dict:
     """The split tail at the x2 serving shape (5x5 64 -> 12, 3x3 12 -> 12,
     "off"), then its other modes and the f32 output on a quarter frame, and
     the x3 and x4 widths."""
@@ -648,21 +708,16 @@ def tail_finish_case(x, x_cl, rn, bf16) -> dict:
     km, bm = rn(5, 5, 64, 12, std=1600 ** -0.5), rn(12, std=0.1)
     kf, bf = rn(3, 3, 12, 12, std=108 ** -0.5), rn(12, std=0.1)
 
-    def tol(xs, k_mid, b_mid, k_fin):
-        # A mid element that sums in another order can land one bf16 step
-        # (at most 2^-7 of its value) away, and a finish weight carries that
-        # into the output: one such flip on top of the usual bound.
-        mid = S.tail_conv_plain(xs, k_mid, b_mid, out_dtype=torch.float32)
-        flip = 2.0 ** -7 * mid.abs().max().item() * k_fin.abs().max().item()
-        return dict(rtol=bf16["rtol"], atol=bf16["atol"] + flip)
+    def tol(xs, k_mid, b_mid, k_fin, base=bf16):
+        return finish_tol(S, xs, k_mid, b_mid, k_fin, base)
 
     out = S.tail_finish_stream(x, km, bm, kf, bf)
     t = tol(x, km, bm, kf)
     err = close_enough(out, S.tail_finish_plain(x, km, bm, kf, bf), **t)
     xq = x[:, :h // 2, :w // 2].contiguous()
-    tq = tol(xq, km, bm, kf)
+    tq16, tq32 = tol(xq, km, bm, kf), tol(xq, km, bm, kf, f32)
     for mode in S.HI_LO_FIN:
-        for odt in (torch.bfloat16, torch.float32):
+        for odt, tq in ((torch.bfloat16, tq16), (torch.float32, tq32)):
             err = max(err, close_enough(
                 S.tail_finish_stream(xq, km, bm, kf, bf, odt, mode),
                 S.tail_finish_plain(xq, km, bm, kf, bf, odt, mode), **tq))
@@ -690,6 +745,110 @@ def tail_finish_case(x, x_cl, rn, bf16) -> dict:
         **timing(lambda: S.tail_finish_stream(x, km, bm, kf, bf),
                  lambda: S.tail_finish_plain(x, km, bm, kf, bf), lib),
         on="bench")
+
+
+def finish_tol(S, xs, k_mid, b_mid, k_fin, base) -> dict:
+    """``base`` for the split tail, plus one flipped mid element: a mid that
+    sums in another order can land one bf16 step (at most 2^-7 of its
+    value) away, and a finish weight carries that into the output."""
+    mid = S.tail_conv_plain(xs, k_mid, b_mid, out_dtype=torch.float32)
+    flip = 2.0 ** -7 * mid.abs().max().item() * k_fin.abs().max().item()
+    return dict(rtol=base["rtol"], atol=base["atol"] + flip)
+
+
+def f32_tail_cases(x, x_cl, rn, f32) -> list[dict]:
+    """The tails as ``serve_quality`` runs them, f32 out: the composed 5x5
+    (tail A, ReLU) and 7x7 (the folded tail B) at 720p, on ``quality``; the
+    split tail in "wf" at the x2 shape (720p, 64 -> 12 -> 12) and at the x4
+    shape of ``quality_x4`` (264x480, 64 -> 12 -> 48), on ``quality_x4``.
+    Each against its plain version at ``f32`` (KERNEL_F32_TOL, far under
+    one bf16 step, so an output rounded to bf16 fails), the split tail with
+    one flipped mid element on top. That flip can outweigh the finish's lo
+    weights, so the split tail's mean error must also stay under a tenth of
+    the mean distance between the plain "wf" and "off" outputs: a flip
+    moves a few outputs, the wrong mode all of them. With
+    ``bf16_counterpart_ms``, the same kernel with bf16 out, and as
+    ``library_ms`` the bf16 records' PyTorch calls (one ``F.conv2d``; two
+    for the split tail), which emit bf16."""
+    import torch.nn.functional as F
+
+    from transformerupscaler_torch.kernels import stream as S
+
+    fl = torch.float32
+    records = []
+    for name, k, relu in (("tail_conv_stream/5x5_f32", 5, True),
+                          ("tail_conv_stream/7x7_f32", 7, False)):
+        _, h, w, _ = x.shape
+        kern = rn(k, k, 64, 12, std=(k * k * 64) ** -0.5)
+        bias = rn(12, std=0.1)
+        run = lambda: S.tail_conv_stream(x, kern, bias, relu, fl)  # noqa: E731
+        plain = lambda: S.tail_conv_plain(x, kern, bias, relu, fl)  # noqa: E731
+        out = run()
+        if out.dtype != fl:
+            raise AssertionError(f"{name}: out {out.dtype}")
+        err = close_enough(out, plain(), **f32)
+        w_oihw = kern.bfloat16().permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b16 = bias.bfloat16()
+        lib = lambda: F.conv2d(x_cl, w_oihw, b16, padding=k // 2)  # noqa: E731
+        bnd, by = bound_ms(nbytes(x, out) + k * k * 64 * 12 * 2 + 12 * 4,
+                           2.0 * h * w * k * k * 64 * 12)
+        records.append(dict(
+            name=name, route="cuda",
+            source="transformerupscaler_torch/csrc/tail_strip.cu",
+            replaces="transformerupscaler_tpu/ops/pallas/stream.py:777",
+            max_abs_err=err, tolerance=f32, bound_ms=bnd, bound_by=by,
+            **timing(run, plain, lib), library_call="F.conv2d (bf16 out)",
+            bf16_counterpart="tail_conv_stream (bf16 out)",
+            bf16_counterpart_ms=device_ms(
+                lambda: S.tail_conv_stream(x, kern, bias, relu)),
+            on="quality"))
+    xs4 = rn(1, *X4_HW, 64).bfloat16()
+    for name, xs, co in (("tail_finish_stream/x2_wf_f32", x, 12),
+                         ("tail_finish_stream/x4_wf_f32", xs4, 48)):
+        _, h, w, _ = xs.shape
+        km, bm = rn(5, 5, 64, 12, std=1600 ** -0.5), rn(12, std=0.1)
+        kf, bf = rn(3, 3, 12, co, std=108 ** -0.5), rn(co, std=0.1)
+        run = lambda: S.tail_finish_stream(xs, km, bm, kf, bf, fl, "wf")  # noqa: E731
+        plain = lambda: S.tail_finish_plain(xs, km, bm, kf, bf, fl, "wf")  # noqa: E731
+        out = run()
+        if out.dtype != fl:
+            raise AssertionError(f"{name}: out {out.dtype}")
+        tol = finish_tol(S, xs, km, bm, kf, f32)
+        want = plain()
+        err = close_enough(out, want, **tol)
+        mean_err = (out - want).abs().mean().item()
+        off_mean = (S.tail_finish_plain(xs, km, bm, kf, bf, fl, "off")
+                    - want).abs().mean().item()
+        if not mean_err <= 0.1 * off_mean:
+            raise AssertionError(f"{name}: mean err {mean_err:.3e} against "
+                                 f"the plain \"wf\" is not under a tenth of "
+                                 f"its distance to \"off\", {off_mean:.3e}")
+        xs_cl = xs.permute(0, 3, 1, 2)
+        wm = km.bfloat16().permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        wf = kf.bfloat16().permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bm16, bf16_ = bm.bfloat16(), bf.bfloat16()
+        lib = lambda: F.conv2d(F.conv2d(xs_cl, wm, bm16, padding=2), wf,  # noqa: E731
+                               bf16_, padding=1)
+        n_w = 25 * 64 * 12 + 9 * 12 * co
+        # "wf": the finish's products twice (hi and lo weights).
+        flops = 2.0 * h * w * (25 * 64 * 12 + 2 * 9 * 12 * co)
+        bnd, by = bound_ms(nbytes(xs, out) + 3 * n_w * 2 + (12 + co) * 4,
+                           flops)
+        records.append(dict(
+            name=name, route="cuda",
+            source="transformerupscaler_torch/csrc/tail_strip.cu",
+            replaces="transformerupscaler_tpu/ops/pallas/stream.py:1078",
+            max_abs_err=err, tolerance=tol, mean_abs_err=mean_err,
+            off_vs_wf_mean_abs=off_mean, bound_ms=bnd, bound_by=by,
+            **timing(run, plain, lib), library_call="two F.conv2d (bf16)",
+            bf16_counterpart='tail_finish_stream ("off", bf16 out)',
+            bf16_counterpart_ms=device_ms(
+                lambda: S.tail_finish_stream(xs, km, bm, kf, bf)),
+            on="quality_x4"))
+    return records
 
 
 def window_attention_case(rn, bf16) -> dict:
@@ -1387,8 +1546,8 @@ def _serve(name: str) -> dict:
     eager = UpscalerEngine(spec["model"], dtype=dtype, cuda_graphs=False,
                            **spec["route"])
     rng = np.random.default_rng(0)
-    frames = [rng.integers(0, 256, (*FRAME_HW, 3), np.uint8)
-              for _ in range(spec["requests"])]
+    frames = [rng.integers(0, 256, (*spec.get("in_hw", FRAME_HW), 3),
+                           np.uint8) for _ in range(spec["requests"])]
     calibration = None
     if spec.get("calibrate"):
         # Static scales from three other seeded frames, as a user
@@ -1449,7 +1608,8 @@ def _serve(name: str) -> dict:
         flags=spec["route"], env=spec.get("env", {}),
         weights=(f"epoch {engine.epoch}" if engine.checkpoint_path
                  else "seeded (no checkpoint)"),
-        graphed=True, res_out=list(res_out), frames=len(frames),
+        graphed=True, in_hw=list(frames[0].shape[:2]),
+        res_out=list(res_out), frames=len(frames),
         request_ms_median=med, request_ms_min=min(request_ms),
         request_ms_max=max(request_ms), fps_median=1e3 / med,
         request_ms_median_eager=float(np.median(eager_ms)),

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.ops.pallas.conv3x3 import conv3x3_pallas
 from transformerupscaler_tpu.ops.pallas.patch_kernels import (
     fused_patch_embed as jax_fused_patch_embed,

@@ -9,6 +9,7 @@ import re
 
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch.kernels import _build
 
 _TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,

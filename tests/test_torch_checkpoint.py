@@ -22,6 +22,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch import checkpoint as C
 from transformerupscaler_torch.infer_lib import UpscalerEngine
 from transformerupscaler_tpu.checkpoint import (

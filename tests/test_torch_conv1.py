@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.ops.pallas.stream import (
     conv1_dots_stream,
     conv1_flat_stream,

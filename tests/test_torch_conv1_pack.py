@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch.kernels import stream as S
 
 TH, TW = S.CONV1_TILE

@@ -19,6 +19,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch.kernels import stream as S
 
 

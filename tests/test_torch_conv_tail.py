@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.ops.pallas.encoder import (
     fused_decoder as jax_fused_decoder,
     fused_encoder as jax_fused_encoder,

@@ -16,6 +16,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch import bench
 from transformerupscaler_torch.checkpoint import param_count
 from transformerupscaler_torch.infer_lib import UpscalerEngine, _failing_op
@@ -183,10 +184,10 @@ def test_fast_gate_warning_fires_where_jax_does(tmp_path, flags):
     assert len(_warnings(port(), GEOMETRIES)) == (1 if flags else 0)
 
 
-def _bench_py_flags(config, monkeypatch) -> dict:
-    """The flags of the model the repo's bench.py serves for ``config``:
-    its main() run with the JAX model and the timing chain swapped for
-    stand-ins that record what it builds."""
+def _bench_py_flags(config, monkeypatch) -> list[dict]:
+    """The flags of each model the repo's bench.py builds for ``config``,
+    in order (the served one last): its main() run with the JAX model and
+    the timing chain swapped for stand-ins that record what it builds."""
     from tools import probe_lib
 
     built = []
@@ -215,32 +216,45 @@ def _bench_py_flags(config, monkeypatch) -> dict:
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     module.main()
-    served = dict(built[-1])
-    for key in ("dtype", "int8_scales"):
-        served.pop(key, None)
-    if not served.get("serve_quality", True):
-        del served["serve_quality"]
-    return served
+    out = []
+    for kwargs in built:
+        flags = dict(kwargs)
+        for key in ("dtype", "int8_scales"):
+            flags.pop(key, None)
+        if not flags.get("serve_quality", True):
+            del flags["serve_quality"]
+        out.append(flags)
+    return out
 
 
 @pytest.mark.parametrize("config", bench.CONFIGS)
 def test_bench_configs_build_bench_py_flags(config, monkeypatch):
-    """Each TUX_BENCH_CONFIG builds bench.py's flags, but int8_residual and
-    int8_full with pallas_serve=True: bench.py serves them on JAX's all-XLA
-    packed path, which the port does not have."""
-    want = _bench_py_flags(config, monkeypatch)
-    flags, calibrate = bench.bench_flags(config)
+    """Each TUX_BENCH_CONFIG builds bench.py's flags: the served model's
+    (int8_residual and int8_full on JAX's all-XLA packed path,
+    ``pallas_serve=False``) and, for the int8 configs, those of its
+    dynamic calibration model."""
+    built = _bench_py_flags(config, monkeypatch)
+    flags, calibration = bench.bench_flags(config)
+    assert flags == built[-1]
     if config.removesuffix("_trunk") in ("int8_residual", "int8_full"):
-        assert want["pallas_serve"] is False
-        want["pallas_serve"] = True
-    assert flags == want
-    assert calibrate == config.startswith("int8")
-    get_model("FastTransformer", device="cpu", dtype=torch.bfloat16, **flags,
-              **SMALL)
+        assert flags["pallas_serve"] is False
+    if config.startswith("int8"):
+        assert calibration == built[1]
+    else:
+        assert calibration is None
+    for fl in (flags, calibration or {}):
+        get_model("FastTransformer", device="cpu", dtype=torch.bfloat16,
+                  **fl, **SMALL)
 
 
 def test_bench_quality_and_unknown_configs_raise():
-    with pytest.raises(NotImplementedError, match="serve_quality"):
-        bench.bench_flags("quality")
+    """``quality`` builds bench.py's served model, serve_quality on the
+    bench route; an unknown config raises."""
+    flags, calibration = bench.bench_flags("quality")
+    assert flags == dict(compose_tails=True, pallas_serve=True,
+                         attn_impl="fused2", serve_quality=True)
+    assert calibration is None
+    assert get_model("FastTransformer", device="cpu", **flags,
+                     **SMALL).route(2).tail_f32
     with pytest.raises(ValueError, match="TUX_BENCH_CONFIG"):
         bench.bench_flags("fp8")

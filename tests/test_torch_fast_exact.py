@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.infer_lib import UpscalerEngine as JaxEngine
 from transformerupscaler_tpu.registry import get_model as jax_get_model
 from transformerupscaler_torch import kernels as K

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_fast_transformer import GEOMETRIES, GEOMETRY_IDS, run_both
 
 

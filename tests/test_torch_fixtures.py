@@ -32,6 +32,8 @@ import os
 import numpy as np
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                    "torch_port")
 FIXTURE = os.path.join(DIR, "slice_x2_bf16.npz")

@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 import transformerupscaler_tpu.ops.pallas.stream as jax_stream
 from transformerupscaler_tpu.registry import get_model as jax_get_model
 from transformerupscaler_torch.models import fast_transformer as FT

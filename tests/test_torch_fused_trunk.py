@@ -11,6 +11,7 @@ import pytest
 import torch
 import torch.nn as nn
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.models.common import (
     WindowBlock as JaxWindowBlock,
     run_window_trunk as jax_run_window_trunk,

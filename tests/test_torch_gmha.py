@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.ops.attention import (
     multihead_attention as jax_multihead_attention,
 )

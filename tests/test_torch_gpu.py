@@ -40,6 +40,12 @@ The engine's CUDA graphs: every route chip_smoke.py serves, at full model
 width with seeded weights on 64x128 frames, replayed from its graph and run
 eagerly by the same engine: the outputs agree bit for bit and the launch
 counters count the same per frame.
+
+The int8 products off the kernels: rows 8 and 9's kernels equal their plain
+versions on the CPU bit for bit (which equal JAX's XLA int8 convs,
+tests/test_torch_packed_xla.py), and the exact int32 products of x6's
+108-output int8 tails and the int8 patch GEMMs (``torch._int_mm``) equal
+the same calls on the CPU bit for bit.
 """
 
 import numpy as np
@@ -1082,6 +1088,86 @@ def test_tails_at_720p_match_plain(gen, kind):
     assert torch.equal(got, again)
 
 
+# The tails with f32 output, as serve_quality runs them: strip widths around
+# the strips, ragged heights, every finish mode; and the x4 serving shape.
+F32_W = [1, 61, 62, 63, 123, 124, 125, 187, 245, 300]
+
+
+@pytest.mark.parametrize("w", F32_W)
+@pytest.mark.parametrize("kh,relu", [(5, True), (7, False)])
+def test_tail_conv_f32_out_strip_widths_match_plain(gen, w, kh, relu):
+    _tail_case(gen, (2, 5, w), kh, 12, relu, torch.float32)
+
+
+@pytest.mark.parametrize("hi_lo_fin", S.HI_LO_FIN)
+@pytest.mark.parametrize("w", F32_W)
+def test_tail_finish_f32_out_strip_widths_match_plain(gen, w, hi_lo_fin):
+    _finish_case(gen, (2, 5, w), 5, 12, 12, hi_lo_fin, torch.float32)
+
+
+@pytest.mark.parametrize("hi_lo_fin", S.HI_LO_FIN)
+@pytest.mark.parametrize("shape,co", [((1, 7, 130), 12), ((1, 33, 77), 48),
+                                      ((1, 264, 480), 48)])
+def test_tail_finish_f32_out_ragged_and_x4_match_plain(gen, shape, co,
+                                                      hi_lo_fin):
+    """Ragged heights and widths at x2 and x4's 48 outputs, and quality_x4's
+    serving shape (264x480, 64 -> 12 -> 48)."""
+    _finish_case(gen, shape, 5, 12, co, hi_lo_fin, torch.float32)
+
+
+# The all-XLA path's and x6's int8 products: rows 8 and 9's kernels compute
+# JAX's conv2d_packed_int8 / conv2d_tail_packed_int8 (the CPU plain versions
+# equal those bit for bit, tests/test_torch_packed_xla.py); the 108-output
+# tails and the patch GEMMs run torch._int_mm on the card.
+@pytest.mark.parametrize("k,co", [(3, 64), (5, 12), (7, 12), (5, 27),
+                                  (7, 48)])
+def test_int8_kernels_equal_the_xla_functions_on_the_cpu(gen, k, co):
+    q = torch.randint(-127, 128, (2, 21, 70, 64), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    s = torch.rand(64, generator=gen, device="cuda") * 0.05 + 1e-3
+    kq, ks = Q.fold_conv_kernel(_rn(gen, k, k, 64, co, std=0.05), s)
+    b = _rn(gen, co)
+    wrap = S.conv3x3_int8_stream if k == 3 else S.tail_conv_int8_stream
+    plain = S.conv3x3_int8_plain if k == 3 else S.tail_conv_int8_plain
+    for odt in (torch.bfloat16, torch.float32):
+        got = wrap(q, kq, ks, b, k != 7, odt).cpu()
+        want = plain(q.cpu(), kq.cpu(), ks.cpu(), b.cpu(), k != 7, odt)
+        assert torch.equal(got, want)
+
+
+def test_int8_products_on_the_card_equal_the_cpu(gen):
+    """x6's direct int8 tails (``conv2d_int8_mm``, 64 -> 108) and the int8
+    patch GEMMs (``patch_embed_int8`` / ``patch_unembed_int8``, D 192) on
+    the card, bit for bit with the same calls on the CPU."""
+    from transformerupscaler_torch.ops.conv import conv2d_int8_mm
+    from transformerupscaler_torch.ops.patch import (
+        patch_embed_int8,
+        patch_unembed_int8,
+    )
+
+    q = torch.randint(-127, 128, (1, 40, 72, 64), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    s = torch.rand(64, generator=gen, device="cuda") * 0.05 + 1e-3
+    for k, relu in ((5, True), (7, False)):
+        kq, ks = Q.fold_conv_kernel(_rn(gen, k, k, 64, 108, std=0.05), s)
+        b = _rn(gen, 108)
+        got = conv2d_int8_mm(q, kq, ks, b, relu=relu).cpu()
+        assert torch.equal(got, conv2d_int8_mm(q.cpu(), kq.cpu(), ks.cpu(),
+                                               b.cpu(), relu=relu))
+    ke, be = _rn(gen, 8, 8, 64, 192, std=0.05), _rn(gen, 192)
+    got = patch_embed_int8(q, s, ke, be).cpu()
+    assert torch.equal(got, patch_embed_int8(q.cpu(), s.cpu(), ke.cpu(),
+                                             be.cpu()))
+    tq = torch.randint(-127, 128, (1, 5, 9, 192), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    ts = torch.rand(192, generator=gen, device="cuda") * 0.05 + 1e-3
+    ku, bu = _rn(gen, 192, 8, 8, 64, std=0.05), _rn(gen, 64)
+    for odt in (torch.bfloat16, torch.float32):
+        got = patch_unembed_int8(tq, ts, ku, bu, odt).cpu()
+        assert torch.equal(got, patch_unembed_int8(tq.cpu(), ts.cpu(),
+                                                   ku.cpu(), bu.cpu(), odt))
+
+
 # ------------------------------------------------------------ CUDA graphs
 BENCH = dict(compose_tails=True, pallas_serve=True, attn_impl="fused2")
 RESID = dict(packed_serve=True, pallas_serve=True, attn_impl="fused2",
@@ -1120,6 +1206,17 @@ ENGINE_ROUTES = {
         None, suffix == "") for scope, suffix in (
             ("tails", ""), ("tails", "_dyn"), ("residual", ""),
             ("full", ""))},
+    "quality": ("FastTransformer", dict(BENCH, serve_quality=True), {}, None,
+                False),
+    "quality_x4": ("FastTransformer", dict(BENCH, serve_quality=True), {},
+                   (256, 512), False),
+    "fast_x6": ("FastTransformer", BENCH, {}, (384, 768), False),
+    "xla_packed": ("FastTransformer", dict(compose_tails=True,
+                                           packed_serve=True,
+                                           attn_impl="xla"), {}, None, False),
+    "int8_full_xla": ("FastTransformer", dict(
+        compose_tails=True, int8_serve=True, int8_scope="full",
+        pallas_serve=False, attn_impl="xla"), {}, None, True),
 }
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.ops import quant as jq
 from transformerupscaler_tpu.ops.conv import (
     conv2d_int8 as jax_conv2d_int8,

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.registry import get_model as jax_get_model
 from transformerupscaler_torch.models.fast_transformer import INT8_TENSORS
 from transformerupscaler_torch.registry import get_model

@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_fixtures import DIR, SEED, _assert_fresh
 from transformerupscaler_tpu.infer_lib import UpscalerEngine as JaxEngine
 from transformerupscaler_torch.infer_lib import UpscalerEngine

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_trunk_widths import Trunk
 from transformerupscaler_tpu.models.common import WindowBlock as JaxWindowBlock
 from transformerupscaler_tpu.ops.pallas.trunk import _layernorm as jax_layernorm

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch.kernels import stream as S
 
 OUT_DTYPES = [torch.bfloat16, torch.float32]

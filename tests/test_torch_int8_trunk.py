@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_fixtures import DIR, _assert_fresh, jax_fixture
 from test_torch_trunk_widths import Trunk
 from transformerupscaler_tpu.ops.pallas.trunk2 import (

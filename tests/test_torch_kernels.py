@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.ops.pallas.stream import (
     conv3x3_deint_stream,
     conv3x3_packed_stream,

@@ -23,6 +23,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.checkpoint import load_checkpoint
 from transformerupscaler_tpu.ops.pallas import window_attn as jax_window_attn
 from transformerupscaler_tpu.registry import get_model as jax_get_model

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.models.upsampler import (
     composed_tail_kernel as jax_composed_tail_kernel,
 )

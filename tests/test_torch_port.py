@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch.device import resolve_device
 from transformerupscaler_torch.infer_lib import UpscalerEngine
-from transformerupscaler_torch.registry import get_model
+from transformerupscaler_torch.registry import FIXED_ROUTE, get_model
 from transformerupscaler_torch.weights import params_from_jax, seeded_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -109,11 +110,12 @@ def test_params_from_jax_round_trip():
 def test_other_routes_and_geometries_raise(tmp_path):
     """The fused trunks build for both window models and the ``--fast``
     flag set for all four, FastTransformer also with ``int8_serve``;
-    int8_mlp raises. FastTransformer routes as JAX does: without the serve
-    flags (``pallas_serve=False``, ``compose_tails=False``) it builds and
-    serves the exact path, at x6 and outside the gate (12x32) too; with
-    them x6 raises, as does ``packed_serve`` without ``pallas_serve`` (JAX's
-    all-XLA packed path), and 12x32 falls through to the exact path."""
+    int8_mlp and int8_weights raise. FastTransformer routes as JAX does:
+    without the serve flags (``pallas_serve=False``, ``compose_tails=False``)
+    it builds and serves the exact path, at x6 and outside the gate (12x32)
+    too; with them x6 serves on the serving forward, as does
+    ``packed_serve`` without ``pallas_serve`` (JAX's all-XLA packed path),
+    and 12x32 falls through to the exact path."""
     for name, flags in (("FastTransformer", dict(attn_impl="fused")),
                         ("FastTransformer", FAST_FLAGS),
                         ("FastTransformer", {**FAST_FLAGS,
@@ -132,6 +134,9 @@ def test_other_routes_and_geometries_raise(tmp_path):
                                                             False)
     with pytest.raises(NotImplementedError, match="int8_mlp"):
         get_model("FastTransformer", device="cpu", int8_mlp=True)
+    with pytest.raises(NotImplementedError, match="int8_weights"):
+        get_model("FastTransformer", device="cpu", int8_serve=True,
+                  int8_weights=())
     x = torch.rand(1, 16, 32, 3, generator=torch.Generator().manual_seed(0))
     for flags in (dict(pallas_serve=False), dict(compose_tails=False)):
         m = get_model("FastTransformer", device="cpu", **flags, **SMALL)
@@ -139,8 +144,8 @@ def test_other_routes_and_geometries_raise(tmp_path):
         assert m(x, upscale_factor=2).shape == (1, 32, 64, 3)
     packed = get_model("FastTransformer", device="cpu", compose_tails=True,
                        packed_serve=True, **SMALL)
-    with pytest.raises(NotImplementedError, match="pallas_serve"):
-        packed(x, upscale_factor=2)
+    assert packed.route(2).pallas is False
+    assert packed(x, upscale_factor=2).shape == (1, 32, 64, 3)
     for route in (dict(attn_impl="fused2"), dict(split_tail=True),
                   dict(attn_impl="xla", split_tail=False, hi_lo_fin="wf"),
                   dict(attn_impl="fused2", conv1_stream=True)):
@@ -158,8 +163,8 @@ def test_other_routes_and_geometries_raise(tmp_path):
     assert engine.upscale(odd, upscale_factor=2).shape == (24, 64, 3)
     served = UpscalerEngine(device="cpu", root=str(tmp_path),
                             compose_tails=True, pallas_serve=True, **SMALL)
-    with pytest.raises(NotImplementedError, match="x6"):
-        served.upscale(img, upscale_factor=6)
+    assert served.model.route(6).direct_tails
+    assert served.upscale(img, upscale_factor=6).shape == (96, 192, 3)
     assert served.upscale(odd, upscale_factor=2).shape == (24, 64, 3)
 
 
@@ -176,9 +181,9 @@ def _jax_engine_keywords() -> list[str]:
     raise AssertionError("no self._model_kwargs in the JAX engine")
 
 
-# The JAX defaults of FastTransformer's serving fields: fix_ratio_bug
-# (fast_transformer.py:51), served either way, and those the port serves at
-# no other value (:102, 138, 163, 169).
+# The JAX defaults of FastTransformer's serving fields (fast_transformer.py:
+# 51, 102, 138, 163, 169): all served at other values too but int8_weights
+# (registry.FIXED_ROUTE).
 FIXED_DEFAULTS = dict(fix_ratio_bug=False, int8_weights=None,
                       quality_parts="tails", f32_tail=False, fold_pre=True)
 
@@ -209,9 +214,16 @@ def test_jax_engine_keyword_set_builds_every_model():
     ("quality_parts", "conv1,tails"), ("f32_tail", True),
     ("fold_pre", False)])
 def test_fixed_fields_raise_not_implemented_off_their_default(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        get_model("FastTransformer", device="cpu",
-                  **{**FAST_FLAGS, field: value}, **SMALL)
+    """A field of ``registry.FIXED_ROUTE`` (int8_weights) raises off its
+    default; the serving fields the port now serves (serve_quality,
+    quality_parts, f32_tail, fold_pre) build with the value."""
+    flags = {**FAST_FLAGS, field: value}
+    if field in FIXED_ROUTE["FastTransformer"]:
+        with pytest.raises(NotImplementedError, match=field):
+            get_model("FastTransformer", device="cpu", **flags, **SMALL)
+    else:
+        m = get_model("FastTransformer", device="cpu", **flags, **SMALL)
+        assert getattr(m, field) == value
     # The other models drop the field, as the JAX registry does.
     get_model("WindowTransformer", device="cpu",
               **{**FAST_FLAGS, field: value})

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.models.upsampler import (
     split_tail_kernels as jax_split_tail_kernels,
 )

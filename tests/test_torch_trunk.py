@@ -10,6 +10,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_tpu.models.common import (
     WindowBlock as JaxWindowBlock,
     run_window_trunk as jax_run_window_trunk,

@@ -13,6 +13,8 @@ import re
 
 import numpy as np
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "transformerupscaler_torch", "csrc", "window_trunk.cu")
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 import torch.nn as nn
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_fixtures import DIR, _assert_fresh, jax_fixture
 from transformerupscaler_tpu.ops.pallas.trunk import (
     fused_window_trunk as jax_fused_window_trunk,

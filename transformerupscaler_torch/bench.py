@@ -11,11 +11,14 @@ generator, to res_out 1080x1920 (x2 and the squash), bf16, batch 1, on
 ``get_model("FastTransformer", compose_tails=True, pallas_serve=True,
 attn_impl="fused2")`` with the trained weights, served by
 ``UpscalerEngine`` on its CUDA graph. ``TUX_BENCH_CONFIG`` takes bench.py's
-values (``CONFIGS``): ``bf16`` (the default), ``int8_tails``,
-``int8_residual``, ``int8_full``, each optionally with ``_trunk`` (the
-trunk's GEMMs in int8), and ``bf16_trunk``. The int8 configs take their
-static scales as bench.py does: one dynamic forward on the bench frame,
-times 1.1. ``quality`` (``serve_quality``) is not ported yet.
+values (``CONFIGS``) and builds its models (``bench_flags``): ``bf16`` (the
+default); ``quality``, the same with ``serve_quality=True`` on an f32 frame;
+``int8_tails``, ``int8_residual``, ``int8_full``, each optionally with
+``_trunk`` (the trunk's GEMMs in int8); and ``bf16_trunk``. The int8
+configs take their static scales as bench.py does: one dynamic forward on
+the bench frame through bench.py's calibration model (``int8_residual``
+and ``int8_full`` on JAX's all-XLA packed path, ``pallas_serve=False``,
+with ``attn_impl="xla"``), times 1.1, then serve with bench.py's flags.
 
 Timing: CUDA events around each replay of the frame's graph, ``FRAMES``
 replays after ``WARMUP``; frames/sec = 1000 / median ms. Then one
@@ -42,7 +45,7 @@ METRIC = "FastTransformer 720p->1080p 2x upscaling throughput"
 FRAME_HW, RES_OUT = (720, 1280), (1080, 1920)
 WARMUP, FRAMES, REQUESTS = 5, 100, 20
 INT8_CONFIGS = ("int8_tails", "int8_residual", "int8_full")
-CONFIGS = ("bf16", "bf16_trunk") + INT8_CONFIGS + tuple(
+CONFIGS = ("bf16", "bf16_trunk", "quality") + INT8_CONFIGS + tuple(
     f"{c}_trunk" for c in INT8_CONFIGS)
 
 
@@ -50,16 +53,10 @@ def log(*args) -> None:
     print(*args, file=sys.stderr, flush=True)
 
 
-def bench_flags(config: str) -> tuple[dict, bool]:
-    """(the FastTransformer flags of ``config``, whether it takes static
-    int8 scales), as bench.py builds its served model, but for
-    ``int8_residual`` and ``int8_full``: bench.py serves them on JAX's
-    all-XLA packed path (``pallas_serve=False``), which the port does not
-    have; here they run with ``pallas_serve=True``."""
-    if config == "quality":
-        raise NotImplementedError(
-            "TUX_BENCH_CONFIG=quality serves with serve_quality, which the "
-            "port does not have yet")
+def bench_flags(config: str) -> tuple[dict, dict | None]:
+    """(the FastTransformer flags bench.py serves ``config`` with, the flags
+    of its dynamic calibration model or None), as bench.py:74-123 builds
+    them."""
     if config not in CONFIGS:
         raise ValueError(f"TUX_BENCH_CONFIG: one of {CONFIGS}, got "
                          f"{config!r}")
@@ -67,34 +64,43 @@ def bench_flags(config: str) -> tuple[dict, bool]:
     base = config.removesuffix("_trunk")
     if base in INT8_CONFIGS:
         scope = base.split("_", 1)[1]
-        return dict(compose_tails=True, int8_serve=True, int8_scope=scope,
-                    pallas_serve=True, int8_trunk=int8_trunk,
-                    attn_impl="fused2" if scope == "tails" or int8_trunk
-                    else "xla"), True
+        tails = scope == "tails"
+        int8 = dict(compose_tails=True, int8_serve=True, int8_scope=scope,
+                    pallas_serve=tails)
+        return (dict(int8, int8_trunk=int8_trunk,
+                     attn_impl="fused2" if tails or int8_trunk else "xla"),
+                dict(int8, attn_impl="fused2" if tails else "xla"))
     flags = dict(compose_tails=True, pallas_serve=True, attn_impl="fused2")
     if int8_trunk:
         flags["int8_trunk"] = True
-    return flags, False
+    if config == "quality":
+        flags["serve_quality"] = True
+    return flags, None
 
 
 def main() -> None:
     config = os.environ.get("TUX_BENCH_CONFIG", "bf16")
-    flags, calibrate = bench_flags(config)
+    flags, calibration = bench_flags(config)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     log(f"device: {smi} ({torch.cuda.get_device_name(0)})")
     t0 = time.perf_counter()
+    # bench.py's frame: f32 for serve_quality, whose model keeps it; the
+    # other configs' models cast it to bf16 first (bench.py:74-75).
+    x = np.random.default_rng(0).random((1, *FRAME_HW, 3), dtype=np.float32)
+    if calibration is not None:
+        cal = UpscalerEngine("FastTransformer", dtype=torch.bfloat16,
+                             **calibration)
+        flags["int8_scales"] = cal.calibrate_int8(
+            x, res_out=RES_OUT, margin=1.1, floor_frac=0.0)
+        del cal
     engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16, **flags)
     weights = (f"epoch {engine.epoch} ({engine.checkpoint_path})"
                if engine.checkpoint_path else "seeded (no checkpoint)")
-    log(f"config: {config} {flags}; weights: {weights}")
-    if config.removesuffix("_trunk") in ("int8_residual", "int8_full"):
-        log("differs from bench.py: served with pallas_serve=True (bench.py "
-            "runs JAX's all-XLA packed path, which the port does not have)")
-    x = np.random.default_rng(0).random((1, *FRAME_HW, 3), dtype=np.float32)
-    if calibrate:
-        engine.calibrate_int8(x, res_out=RES_OUT, margin=1.1, floor_frac=0.0)
+    shown = {k: v for k, v in flags.items() if k != "int8_scales"}
+    log(f"config: {config} {shown}; calibration: {calibration}; weights: "
+        f"{weights}")
     engine.upscale(x, res_out=RES_OUT, device_out=True)
     graph = engine.captured(x, res_out=RES_OUT)
     for _ in range(WARMUP):

@@ -11,6 +11,13 @@ the card this engine captures each geometry's forward once in a CUDA graph,
 from a static input buffer to the float32 output, and replays it for every
 later frame of that geometry; ``cuda_graphs=False`` runs every frame
 eagerly, as the engine does on the CPU.
+
+Frames reach the model as float32 in [0, 1] (uint8 normalized on the
+device); the model casts them to its dtype itself. Under FastTransformer's
+``serve_quality`` the model also keeps that f32 frame for the exact-uint8
+conv1 of its "conv1" part, as the JAX engine feeds it an f32 frame there
+(transformerupscaler_tpu/infer_lib.py:58-63, 160-162); as in the JAX
+engine, ``quality_parts`` reaches the model only with ``serve_quality``.
 """
 
 from __future__ import annotations
@@ -128,6 +135,15 @@ class UpscalerEngine:
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
         if config.get("int8_serve"):
             config["compose_tails"] = True
+        # serve_quality is FastTransformer's alone, and quality_parts goes
+        # with it (JAX infer_lib.py:58-63).
+        self.serve_quality = bool(config.pop("serve_quality", False)
+                                  and model_name == "FastTransformer")
+        parts = config.pop("quality_parts", None)
+        if self.serve_quality:
+            config["serve_quality"] = True
+            if parts is not None:
+                config["quality_parts"] = parts
         self._config = config
         self.model = get_model(model_name, device=self.device, dtype=dtype,
                                **config)
@@ -175,7 +191,8 @@ class UpscalerEngine:
     def _forward(self, model, x, res_out, upscale_factor, require_ratio):
         """uint8 or float frames on the device -> the model's float32
         output; uint8 is normalized here, on the device, so that uint8 and
-        not float32 crosses the bus."""
+        not float32 crosses the bus. The model gets f32 and casts it to its
+        dtype (under serve_quality after the exact-uint8 conv1 read it)."""
         x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
         x = x[None] if x.ndim == 3 else x
         kwargs = {}

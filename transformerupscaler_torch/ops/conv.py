@@ -68,6 +68,43 @@ def conv2d_int8_q(xq: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     return y.to(out_dtype)
 
 
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact: ``torch._int_mm``.
+    On the card cuBLAS wants M > 16 and N a multiple of 8: a and b are
+    padded with zeros to that and the result cut back."""
+    m, n = a.shape[0], b.shape[1]
+    if a.is_cuda:
+        if a.shape[1] % 8:
+            raise ValueError(f"int_mm: K {a.shape[1]} is not a multiple of 8")
+        a = F.pad(a, (0, 0, 0, max(0, 17 - m)))
+        b = F.pad(b, (0, -n % 8))
+    return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
+
+
+def conv2d_int8_mm(xq: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                   bias=None, padding: int | None = None, relu: bool = False,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``conv2d_int8_q``'s function with the sums in int32: the k x k
+    patches of the zero-padded int8 input gathered once (im2col, k k Cin
+    bytes a pixel) and one ``int_mm`` with the (k k Cin, O) weights. For
+    the composed tails with more outputs than the int8 tail kernel takes
+    (x6: 64 -> 108), which the JAX package runs on XLA."""
+    k = kq.shape[0]
+    pad = (k - 1) // 2 if padding is None else padding
+    xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    b, ho, wo = xq.shape[0], xp.shape[1] - k + 1, xp.shape[2] - k + 1
+    # (B, Ho, Wo, C, dy, dx) -> rows (dy, dx, c), the order of kq's rows.
+    cols = xp.unfold(1, k, 1).unfold(2, k, 1).permute(0, 1, 2, 4, 5, 3)
+    acc = int_mm(cols.reshape(b * ho * wo, -1),
+                 kq.reshape(-1, kq.shape[3]))
+    y = acc.to(torch.float32) * ks.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    if relu:
+        y = torch.relu(y)
+    return y.to(out_dtype).reshape(b, ho, wo, -1)
+
+
 def conv2d_int8(xq: torch.Tensor, kernel: torch.Tensor, x_scale, bias=None,
                 padding: int | None = None, relu: bool = False,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -80,13 +117,37 @@ def conv2d_int8(xq: torch.Tensor, kernel: torch.Tensor, x_scale, bias=None,
     block layout) and ``conv2d_int8`` (:385-416, NHWC with explicit
     padding). ``kernel`` is the raw float HWIO kernel: the activation scale
     folds into it in f32 and the result is quantized per output channel
-    (``ops.quant.fold_conv_kernel``), then ``conv2d_int8_q``. The offline
+    (``ops.quant.fold_conv_kernel``), then ``conv2d_int8_mm``. The offline
     GPTQ weights (``pre_q``) are not ported.
     """
     from transformerupscaler_torch.ops.quant import fold_conv_kernel
 
     kq, ks = fold_conv_kernel(kernel, x_scale)
-    return conv2d_int8_q(xq, kq, ks, bias, padding, relu, out_dtype)
+    return conv2d_int8_mm(xq, kq, ks, bias, padding, relu, out_dtype)
+
+
+def conv2d_uint8_exact(x_in: torch.Tensor, kernel: torch.Tensor, bias=None,
+                       relu: bool = False,
+                       out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``serve_quality``'s exact-uint8 conv1 (JAX ``conv2d_packed_dots_deint``
+    with ``k_hi_lo`` and ``pre_scale=1/255``, ops/conv.py:152-286; the model
+    calls it at fast_transformer.py:563-579): the f32 input x_in goes in as
+    bf16(x_in * 255), exact for the integers of a uint8 frame, and the
+    kernel times 1/255, in f32, splits into bf16 hi and lo halves; the two
+    convs sum in f32 and add, then the f32 bias, the ReLU and one rounding
+    to ``out_dtype``. Every operand is a bf16 value, which TF32 holds
+    exactly, so cuDNN's TF32 default changes nothing here."""
+    xq = (x_in.to(torch.float32) * 255.0).to(torch.bfloat16).float()
+    k32 = kernel.to(torch.float32) * torch.tensor(1.0 / 255.0,
+                                                  dtype=torch.float32)
+    k_hi = k32.to(torch.bfloat16).float()
+    k_lo = (k32 - k_hi).to(torch.bfloat16).float()
+    y = conv2d(xq, k_hi) + conv2d(xq, k_lo)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    if relu:
+        y = torch.relu(y)
+    return y.to(out_dtype)
 
 
 def compose_conv3x3_kernels(k1: torch.Tensor, b1, k2: torch.Tensor, b2):

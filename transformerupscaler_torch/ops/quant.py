@@ -20,7 +20,8 @@ The port's own copy of what it needs from the JAX package:
   conv kernel before its weights are quantized (ops/conv.py:368-371).
 
 Symmetric, round half to even (``torch.round`` as ``jnp.round``), every
-step in f32 as there.
+step in f32 as there; the serving scopes divide by 127 as a true division
+on the card too (``div127``), so their scales and weights are the CPU's.
 """
 
 from __future__ import annotations
@@ -78,6 +79,13 @@ def _f32_on(v: float, device) -> torch.Tensor:
     return torch.full((), v, dtype=_F32, device=device)
 
 
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127, a true f32 division on x's device. PyTorch multiplies a CUDA
+    tensor by the reciprocal of a CPU scalar divisor, one rounding apart
+    from the CPU's (and JAX's) quotient; a divisor on the device divides."""
+    return x / _f32_on(127.0, x.device)
+
+
 def rowwise_weights(wstack: torch.Tensor):
     """(wq int8 (L, k, n), sw f32 (L, n)) from stacked (L, k, n) GEMM
     weights (as ``dt`` values), per output channel: sw0 = max(max_k |w| /
@@ -127,7 +135,7 @@ def quantize_conv_kernel(k: torch.Tensor):
     """HWIO conv kernel -> (int8 kernel, per-output-channel (O,) scale):
     scale = max|k| over (H, W, I) / 127, 1 where that is 0; q = clip(round(k
     / scale), -127, 127). Computed in k's dtype, as the reference does."""
-    scale = k.abs().amax(dim=(0, 1, 2)) / 127.0
+    scale = div127(k.abs().amax(dim=(0, 1, 2)))
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(k / scale), -127, 127)
     return q.to(torch.int8), scale
@@ -152,7 +160,7 @@ def act_scale(x: torch.Tensor) -> torch.Tensor:
     per channel, whose magnitudes are exact in any float type."""
     lo, hi = torch.aminmax(x.reshape(-1, x.shape[-1]), dim=0)
     m = torch.maximum(-lo, hi).to(_F32)
-    return torch.maximum(m, _f32_on(1e-8, x.device)) / 127.0
+    return div127(torch.maximum(m, _f32_on(1e-8, x.device)))
 
 
 def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -168,8 +176,8 @@ def quantize_act(x: torch.Tensor, scale=None):
     max(max|x|, 1e-8) / 127 when not given, q = clip(round(x / scale),
     -127, 127)."""
     if scale is None:
-        scale = torch.maximum(x.to(_F32).abs().amax(),
-                              _f32_on(1e-8, x.device)) / 127.0
+        scale = div127(torch.maximum(x.to(_F32).abs().amax(),
+                                     _f32_on(1e-8, x.device)))
     scale = torch.as_tensor(scale, dtype=_F32, device=x.device)
     return _quantize(x, scale), scale
 

@@ -28,8 +28,15 @@ on its kernel, ``conv1_stream=True``) and ``bench_fuse`` (``bench`` with
 tail B, each as one kernel; the variable is set for the run);
 ``fast_exact`` (FastTransformer as JAX's default engine serves it: f32,
 ``attn_impl="xla"``, no serving flags, the exact path) and
-``fast_exact_fused2`` (the exact path in bf16 on the fused trunk); every
-other route at res_out 1080x1920.
+``fast_exact_fused2`` (the exact path in bf16 on the fused trunk);
+``quality`` (``bench`` with ``serve_quality=True`` on an f32 frame: both
+tails emit f32, the B tail folded), ``quality_x4`` (the same at x4,
+264x480 -> 1056x1920: the split tail in "wf" with f32 output),
+``fast_x6`` (``bench`` at x6, 176x320 -> 1056x1920: the direct tails),
+``xla_packed`` (JAX's all-XLA packed path, ``packed_serve=True,
+attn_impl="xla"``: no kernel) and ``int8_full_xla`` (bench.py's
+``int8_full``: that path with the "full" scope, calibrated); every other
+route at res_out 1080x1920 from 720x1280.
 """
 
 from __future__ import annotations
@@ -76,10 +83,24 @@ ROUTES = {
         RES_OUT) for scope, suffix in (("tails", ""), ("tails", "_dyn"),
                                        ("residual", ""), ("full", ""))},
 }
-CALIBRATED = ("int8_tails", "int8_residual", "int8_full")
-# Environment switches a route sets; the routes served in f32.
+_XLA = dict(compose_tails=True, packed_serve=True, attn_impl="xla")
+ROUTES.update({
+    "quality": ("FastTransformer", dict(_BENCH, serve_quality=True),
+                RES_OUT),
+    "quality_x4": ("FastTransformer", dict(_BENCH, serve_quality=True),
+                   (1056, 1920)),
+    "fast_x6": ("FastTransformer", _BENCH, (1056, 1920)),
+    "xla_packed": ("FastTransformer", _XLA, RES_OUT),
+    "int8_full_xla": ("FastTransformer", dict(
+        compose_tails=True, int8_serve=True, int8_scope="full",
+        pallas_serve=False, attn_impl="xla"), RES_OUT),
+})
+CALIBRATED = ("int8_tails", "int8_residual", "int8_full", "int8_full_xla")
+# Environment switches a route sets; the routes served in f32; the input
+# size of the routes not served from 720x1280.
 ENV = {"bench_fuse": {"TUX_FUSE_STREAM": "1"}}
 F32_ROUTES = ("fast_exact",)
+IN_HW = {"quality_x4": (264, 480), "fast_x6": (176, 320)}
 
 
 def main() -> None:
@@ -97,7 +118,8 @@ def main() -> None:
         engine.calibrate_int8(np.random.default_rng(1).integers(
             0, 256, (3, 720, 1280, 3), np.uint8), res_out=res_out)
     g = torch.Generator(device=engine.device).manual_seed(0)
-    x = torch.rand(1, 720, 1280, 3, generator=g, device=engine.device)
+    x = torch.rand(1, *IN_HW.get(route, (720, 1280)), 3, generator=g,
+                   device=engine.device)
 
     def forward():
         return engine.model(x, res_out=res_out)
@@ -132,7 +154,8 @@ def main() -> None:
     print(json.dumps({"device": smi, "route": route, "model": model,
                       "weights": f"epoch {engine.epoch}",
                       "env": ENV.get(route, {}),
-                      "res_out": res_out, "forward_ms": fwd_ms,
+                      "in_hw": list(x.shape[1:3]), "res_out": res_out,
+                      "forward_ms": fwd_ms,
                       "device_busy_ms": busy_ms,
                       "idle_share": 1.0 - busy_ms / fwd_ms,
                       "kernel_names": len(per_kernel),

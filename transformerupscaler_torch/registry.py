@@ -5,16 +5,17 @@ The port serves the four models of the JAX package:
 
 - ``FastTransformer``: the exact path (JAX ``__call__``, the default
   fields, ``compose_tails`` and ``fix_ratio_bug`` either way), and its
-  serving forward on the stream kernels (``compose_tails=True,
-  pallas_serve=True``; ``packed_serve`` alone, JAX's all-XLA packed path,
-  raises at the forward), the trunk fused
-  (``attn_impl="fused2"``, with ``int8_trunk`` its GEMMs in int8, or
+  serving forward at x2, x3, x4 and x6: on the stream kernels
+  (``compose_tails=True, pallas_serve=True``) or JAX's all-XLA packed path
+  (``packed_serve`` or ``int8_serve`` without ``pallas_serve``), the trunk
+  fused (``attn_impl="fused2"``, with ``int8_trunk`` its GEMMs in int8, or
   ``"fused"``), block by block in PyTorch (``"xla"``) or block by block
-  around the window-attention kernel (``"pallas"``), and the branch-B tail
-  split, folded or chosen by dtype (``split_tail`` True, False, None); with
-  ``int8_serve`` in the scopes "full", "residual" and "tails"
-  (``int8_scope``), with dynamic or static (``int8_scales``) scales; conv1
-  on its kernel (``conv1_stream``);
+  around the window-attention kernel (``"pallas"``), the branch-B tail
+  split, folded or chosen by dtype (``split_tail`` True, False, None), or
+  factored (``fold_pre=False``); with ``int8_serve`` in the scopes "full",
+  "residual" and "tails" (``int8_scope``), with dynamic or static
+  (``int8_scales``) scales; conv1 on its kernel (``conv1_stream``);
+  ``serve_quality`` with ``quality_parts``, ``f32_tail`` and ``hi_lo_fin``;
 - ``WindowTransformer``: the exact path, ``pallas_serve`` and
   ``attn_impl`` "xla", "pallas", "fused" or "fused2";
 - ``ResidualTransformer``: the exact path, ``packed_serve``, ``pallas_serve``
@@ -23,11 +24,11 @@ The port serves the four models of the JAX package:
 - ``BicubicInterpolation``, which has no fields.
 
 Asking for a route the port does not serve raises ``NotImplementedError``
-(``int8_mlp``, ``serve_quality``, and any value but the JAX default of
-``int8_weights``, ``quality_parts``, ``f32_tail`` and ``fold_pre``). Like
-the JAX ``get_model``, fields a model does not have are dropped, so that one
-set of serving flags can go to every model: the flags the JAX command lines pass
-with ``--fast`` (inference.py:83-98, speed_test.py:35-48) serve all four.
+(``int8_mlp``, and any value but the JAX default of ``int8_weights``, the
+offline GPTQ weights). Like the JAX ``get_model``, fields a model does not
+have are dropped, so that one set of serving flags can go to every model:
+the flags the JAX command lines pass with ``--fast`` (inference.py:83-98,
+speed_test.py:35-48) serve all four.
 """
 
 from __future__ import annotations
@@ -55,11 +56,8 @@ _MODELS = {"BicubicInterpolation": BicubicInterpolation,
 # value the port serves; and the ``attn_impl`` values it serves (a model not
 # named takes any).
 FIXED_ROUTE = {
-    "FastTransformer": {"int8_mlp": False, "serve_quality": False,
-                        # JAX defaults, fast_transformer.py:102, 138, 163,
-                        # 169
-                        "int8_weights": None, "quality_parts": "tails",
-                        "f32_tail": False, "fold_pre": True},
+    # JAX defaults, fast_transformer.py:50, 102
+    "FastTransformer": {"int8_mlp": False, "int8_weights": None},
     "WindowTransformer": {"int8_mlp": False},
 }
 ATTN_IMPLS = {"FastTransformer": TRUNK_IMPLS, "WindowTransformer": TRUNK_IMPLS}
