@@ -2,12 +2,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (an H100 is the target).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only stream,gptq,int8_mlp
 
-Run from the root of a checkout, with no arguments. Phases, one line each:
+Run from the root of a checkout, with no arguments. (``--only`` runs the
+device, the build and the named ones of phases 10-12, and prints no result
+lines.) Phases, one line each:
 
 1. the device: torch's name for it, and nvidia-smi's name and power limit
    and maximum SM clock;
-2. the kernel build (nvcc, sm_90a) from transformerupscaler_torch/csrc/;
+2. the kernel build (nvcc, sm_90a) from transformerupscaler_torch/csrc/,
+   and the host resize library's (``native.py``, from csrc/resize.cpp);
 3. each hand-written kernel against its plain PyTorch version on the card,
    at the shapes the served 720x1280 frames give it, with its time, the
    plain version's, one PyTorch library call's (where one computes the same
@@ -79,7 +83,32 @@ Run from the root of a checkout, with no arguments. Phases, one line each:
    the same calls on the plain versions;
 9. ``bench``: ``python3 -m transformerupscaler_torch.bench`` (its ``bf16``
    config), its JSON result;
-10. the status of every TPU kernel of the JAX package in the port.
+10. ``stream``: the streaming pipeline as the port's stream CLI builds it
+    with ``--fast`` (``stream.build_pipeline``; FastTransformer, the trained
+    weights, bf16, with ``bgr_out`` as the overlays build it), 720x1280 ->
+    1080x1920, on ~120 of the CLI's seeded synthetic frames: its frame rate,
+    the five stage averages, the graphed step's time, the launch counts per
+    frame (set to zero just before), every frame against the eager step's
+    bit for bit, and the device's idle share over a traced run of the
+    loop; then 1080x1920 frames through the native resize (its calls
+    counted), the ``--quality`` pipeline, and the pipeline at the committed
+    fixture's geometry and flags against the JAX pipeline's frames
+    (tests/fixtures/torch_port/stream_fast_bf16.npz);
+11. ``gptq`` and ``gptq_xla``: FastTransformer's "full" int8 scope on the
+    stream kernels and as bench.py builds it (``pallas_serve=False``):
+    ``calibrate_int8`` then ``gptq_int8`` on FastTransformer's demo input,
+    their seconds; the model with JAX's entries against the JAX model with
+    them (tests/fixtures/torch_port/gptq_FastTransformer.npz) at the int8
+    limit; rows 8 and 9 on the entries against their plain versions, bit
+    for bit; the launch counts per frame, graphed and eager, equal; the
+    PSNR against the exact f32 path on the demo crop at x2, beside the same
+    scope calibrated on that frame without GPTQ;
+12. ``int8_mlp``: the two ``int8_mlp`` routes of phases 4 and 6
+    (``window_int8_mlp``: WindowTransformer on the stream conv and the
+    window-attention kernel with the blocks' MLP in int8;
+    ``fast_exact_int8_mlp``: FastTransformer's exact path in bf16 with it),
+    summed up: their fixture errors and launches;
+13. the status of every TPU kernel of the JAX package in the port.
 
 The device line also says whether ``tensorstore`` and ``zstandard`` import
 on this host (never a failure). Then one JSON line of kernel records and,
@@ -91,6 +120,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import os
 import re
@@ -179,7 +209,7 @@ TRAINED = {"FastTransformer": (100, 6_447_379),
 QUALITY_ROUTES = ("bench", "xla_fold", "bench_int8_trunk", "fast_fused",
                   "bench_conv1", "bench_fuse", "int8_tails", "int8_tails_dyn",
                   "int8_residual", "int8_full", "quality", "xla_packed",
-                  "int8_full_xla")
+                  "int8_full_xla", "fast_exact_int8_mlp")
 # The int8 routes' fixtures hold their static scales; bound of their
 # interior error against JAX (tests/test_torch_int8_serve.py).
 INT8_LIMIT = (1.5e-2, 2.5e-3)
@@ -303,7 +333,34 @@ ROUTES = {
         fixture=FIXTURES + "int8_full_xla_x2_bf16.npz", res_out=RES_OUT,
         requests=5,
         launches=counts(conv3x3_int8_stream=2, tail_conv_int8_stream=2)),
+    # int8_mlp: the blocks' MLP as two int8 products (torch._int_mm) on the
+    # block-by-block trunks; held at the bf16 limit.
+    "window_int8_mlp": dict(
+        model="WindowTransformer",
+        route=dict(pallas_serve=True, attn_impl="pallas", int8_mlp=True),
+        fixture=FIXTURES + "window_int8_mlp_bf16.npz", res_out=RES_OUT,
+        requests=10,
+        launches=counts(conv3x3_stream=1, window_attention_core=8)),
+    "fast_exact_int8_mlp": dict(
+        model="FastTransformer", route=dict(int8_mlp=True),
+        fixture=FIXTURES + "fast_exact_int8_mlp_bf16.npz", res_out=RES_OUT,
+        requests=5, launches=counts()),
 }
+INT8_MLP_ROUTES = ("window_int8_mlp", "fast_exact_int8_mlp")
+# The stream phase: the stream CLI's --fast on the card as the overlays
+# build it, at the fixture's geometry (tests/test_torch_stream.py), and its
+# tolerance in uint8 levels (max, mean).
+STREAM_FAST = dict(compose_tails=True, packed_serve=True, pallas_serve=True,
+                   attn_impl="fused2", bgr_out=True)
+STREAM_FIXTURE = FIXTURES + "stream_fast_bf16.npz"
+STREAM_TOL = (4, 0.15)
+STREAM_FRAMES, STREAM_TRACED, STREAM_SHORT = 121, 41, 21
+# The GPTQ phase: its fixture (tests/test_torch_gptq.py), the routes.
+GPTQ_FIXTURE = FIXTURES + "gptq_FastTransformer.npz"
+GPTQ_NAMES = ("conv1", "conv2", "tailA_s2")
+GPTQ_CROP = (slice(56, 120), slice(96, 224))
+GPTQ_ROUTES = {"gptq": ("pallas", int8_route("full")),
+               "gptq_xla": ("xla", ROUTE_INT8_XLA)}
 
 # Every function of transformerupscaler_tpu/ops/pallas that reaches
 # pl.pallas_call, and where the port stands on it.
@@ -543,8 +600,12 @@ def imports(module: str) -> bool:
 
 
 def phase_build() -> None:
+    from transformerupscaler_torch import native
     from transformerupscaler_torch.kernels import _build
 
+    t0 = time.perf_counter()
+    native.build()
+    native_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     built = _build.build_all()
     regs, spill_bytes = [], 0
@@ -556,7 +617,8 @@ def phase_build() -> None:
                 spill_bytes += int(ln.split("stack frame,")[1].split()[0])
     say("build", seconds=round(time.perf_counter() - t0, 3),
         built={k: round(v, 3) for k, v in built.items()}, ptxas=regs,
-        ptxas_spill_store_bytes=spill_bytes)
+        ptxas_spill_store_bytes=spill_bytes,
+        native=dict(seconds=round(native_s, 3), **native.build_info()))
 
 
 PATCH_MATMUL = "torch.matmul on the materialized patch view"
@@ -1890,9 +1952,327 @@ def phase_trunk_static() -> dict:
     return launches
 
 
+def _stream_run(pipe, frames, n, sink="last", traced=False) -> dict:
+    """``pipe.run`` over ``n`` + 1 frames cycled from ``frames`` (the first
+    only primes the worker) with a fresh timer and the launch counts set to
+    zero just before. ``sink``: "last" keeps the last output, as the stream
+    CLI does; "keep" keeps every output (no frame array is reused); a list,
+    the eager step's frame for each of ``frames``, holds output k against
+    entry k % len as it arrives (a 6.2 MB comparison a frame: not a run to
+    time). ``traced``: under torch.profiler (CUDA activity), whose device
+    events (kernels, copies) sum to the busy time. Raises where a checked
+    or kept output differs from the eager step's frame. Returns the run's
+    stats with stage averages, launches per frame and busy ms (or None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from transformerupscaler_torch import kernels as K
+    from transformerupscaler_torch.stream_lib import STAGES, StageTimer
+
+    pipe.timer = StageTimer(STAGES)
+    outs, differ, last = [], [], {}
+
+    def check(out):
+        k = len(outs)
+        outs.append(None)
+        if not np.array_equal(out, sink[k % len(sink)]):
+            differ.append(k)
+
+    if isinstance(sink, list):
+        fn = check
+    elif sink == "keep":
+        fn = outs.append
+    else:
+        fn = lambda out: last.update(frame=out)  # noqa: E731
+    src = itertools.islice(itertools.cycle(frames), n + 1)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    busy = None
+    if traced:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stats = pipe.run(src, sink=fn)
+            torch.cuda.synchronize()
+        busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA) / 1e3
+    else:
+        stats = pipe.run(src, sink=fn)
+    launches = K.launch_counts()
+    if stats["frames"] != n or pipe.timer.iterations != n:
+        raise AssertionError(f"stream: {stats['frames']} frames of {n + 1}")
+    if sink == "keep":
+        differ = [k for k, out in enumerate(outs)
+                  if not np.array_equal(out, pipe.step(frames[k % len(
+                      frames)]))]
+    if differ:
+        raise AssertionError(f"stream: graphed frames {differ} differ from "
+                             f"the eager step's")
+    stats.update(busy_ms=busy, stage_ms={
+        k: pipe.timer.totals[k] / pipe.timer.iterations * 1e3
+        for k in STAGES},
+        launches_per_frame={k: v / n for k, v in launches.items()})
+    return stats
+
+
+def _stream_summary(st: dict) -> dict:
+    """What a stream line prints of a run."""
+    out = {k: st[k] for k in ("frames", "wall_s", "fps", "stage_ms")}
+    out["launches_per_frame"] = {k: v for k, v in
+                                 st["launches_per_frame"].items() if v}
+    return out
+
+
+def phase_stream() -> dict:
+    """The streaming pipeline on the card (phase 10); returns the launch
+    counts of the --fast run."""
+    from transformerupscaler_torch import native
+    from transformerupscaler_torch import stream as cli
+    from transformerupscaler_torch.stream_lib import StreamPipeline
+
+    args = cli.parser().parse_args(["--fast", "--frames",
+                                    str(STREAM_FRAMES - 1)])
+    pipe = cli.build_pipeline(args, bgr_out=True)
+    if not (pipe.from_checkpoint and pipe.cuda_graphs
+            and pipe.dtype == torch.bfloat16):
+        raise AssertionError("stream: not the trained bf16 graphed pipeline")
+    warm_s = pipe.warmup()
+    synthetic = list(itertools.islice(cli.frame_source(args, pipe.res_in),
+                                      8))
+    eager = [pipe.step(f) for f in synthetic]
+    # Timed as the CLI runs (its sink keeps the last frame), then traced
+    # likewise, then checked frame by frame, then with every frame kept.
+    fast = _stream_run(pipe, synthetic, STREAM_FRAMES - 1)
+    if fast["launches_per_frame"] != counts("v2", **BENCH_LAUNCHES):
+        raise AssertionError(f"stream: launches per frame "
+                             f"{fast['launches_per_frame']}")
+    graph_ms = cuda_ms(pipe._graph.replay, 20)
+    traced = _stream_run(pipe, synthetic, STREAM_TRACED - 1, traced=True)
+    idle = 1.0 - traced["busy_ms"] / (traced["wall_s"] * 1e3)
+    _stream_run(pipe, synthetic, STREAM_TRACED - 1, sink=eager)
+    kept = _stream_run(pipe, synthetic, STREAM_TRACED - 1, sink="keep")
+
+    # Frames of 1080x1920 through the native resize to 720x1280.
+    rng = np.random.default_rng(4)
+    big = [rng.integers(0, 256, (*RES_OUT, 3), np.uint8) for _ in range(3)]
+    calls = native.CALLS["resize_bilinear_u8"]
+    resized = _stream_run(pipe, big, STREAM_SHORT - 1)
+    n_resized = native.CALLS["resize_bilinear_u8"] - calls
+    if n_resized < STREAM_SHORT - 1:
+        raise AssertionError(f"stream: the native resize ran {n_resized} "
+                             f"times for {STREAM_SHORT} frames")
+    _stream_run(pipe, big, 5, sink=[
+        pipe.step(native.resize_bilinear_u8(f, pipe.res_in)) for f in big])
+
+    # --quality.
+    qpipe = cli.build_pipeline(
+        cli.parser().parse_args(["--quality"]), bgr_out=True)
+    q_warm = qpipe.warmup()
+    quality = _stream_run(qpipe, synthetic, STREAM_SHORT - 1)
+    if quality["launches_per_frame"] != counts(
+            "v2", conv3x3_stream=2, tail_conv_stream=2, embed_stream=1,
+            unembed_combine_stream=1):
+        raise AssertionError(f"stream quality: launches per frame "
+                             f"{quality['launches_per_frame']}")
+    _stream_run(qpipe, synthetic, 8, sink=[qpipe.step(f) for f in synthetic])
+
+    # The fixture: the JAX pipeline's frames at its geometry and flags.
+    with np.load(STREAM_FIXTURE) as f:
+        fix = {k: f[k] for k in f.files}
+    fpipe = StreamPipeline("FastTransformer", tuple(fix["res_in"]),
+                           tuple(fix["res_out"]), **STREAM_FAST)
+    f_outs = []
+    fpipe.run(iter(list(fix["frames"])), sink=f_outs.append)
+    d = np.abs(np.stack(f_outs).astype(np.int64) - fix["y"])
+    f_max, f_mean = int(d.max()), float(d.mean())
+    say("stream", command="python3 -m transformerupscaler_torch.stream "
+        "--fast (bgr_out, as the overlays)", model="FastTransformer",
+        weights=f"epoch {int(fix['epoch'])}", dtype="bfloat16",
+        flags=cli.pipeline_flags(args), res_in=list(pipe.res_in),
+        res_out=list(pipe.res_out), warmup_seconds=warm_s,
+        **_stream_summary(fast), graph_step_ms=graph_ms,
+        graphed_equals_eager=True,
+        traced=dict(frames=traced["frames"], fps=traced["fps"],
+                    device_busy_ms=traced["busy_ms"],
+                    device_idle_share=idle),
+        sink_keeps_every_frame=_stream_summary(kept),
+        resize=dict(in_hw=list(RES_OUT), native_calls=n_resized,
+                    build=native.build_info(), **_stream_summary(resized)),
+        quality=dict(warmup_seconds=q_warm, **_stream_summary(quality)),
+        fixture=dict(res_in=fix["res_in"].tolist(), frames=len(f_outs),
+                     max_levels=f_max, mean_levels=f_mean,
+                     tolerance=f"max <= {STREAM_TOL[0]} levels, mean <= "
+                               f"{STREAM_TOL[1]}"))
+    if f_max > STREAM_TOL[0] or f_mean > STREAM_TOL[1]:
+        raise AssertionError("stream: the pipeline disagrees with the JAX "
+                             "pipeline's frames")
+    return {k: int(round(v * fast["frames"]))
+            for k, v in fast["launches_per_frame"].items()}
+
+
+def _psnr(got, ref) -> float:
+    mse = float(((got.astype(np.float64) - ref) ** 2).mean())
+    return 10 * np.log10(1.0 / mse) if mse else float("inf")
+
+
+def phase_gptq(name: str, ref: np.ndarray) -> dict:
+    """One GPTQ route (phase 11); returns its launch counts. ``ref``: the
+    exact f32 path on the demo crop at x2."""
+    from transformerupscaler_torch import kernels as K
+    from transformerupscaler_torch.infer_lib import UpscalerEngine
+    from transformerupscaler_torch.kernels import stream as S
+    from transformerupscaler_torch.ops.quant import quantize_act_ch
+    from transformerupscaler_torch.registry import get_model
+    from transformerupscaler_torch.weights import params_from_jax
+
+    tag, flags = GPTQ_ROUTES[name]
+    with np.load(GPTQ_FIXTURE) as f:
+        fix = {k: f[k] for k in f.files}
+    x = fix["x"]
+    engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16, **flags)
+    t0 = time.perf_counter()
+    engine.calibrate_int8(x, upscale_factor=2)
+    calib_s = time.perf_counter() - t0
+    plain_int8 = engine.upscale(x, upscale_factor=2)
+    t0 = time.perf_counter()
+    engine.gptq_int8(x)
+    gptq_s = time.perf_counter() - t0
+    got = engine.upscale(x, upscale_factor=2)
+    ours = {e[0]: e for e in engine.model.int8_weights}
+    kq_share = {n: float((np.frombuffer(ours[n][2], np.int8).reshape(
+        ours[n][1]) != fix[f"kq_{n}"]).mean()) for n in GPTQ_NAMES}
+
+    # The model with JAX's entries against JAX's model with them.
+    entries = tuple((n, tuple(fix[f"kq_{n}"].shape), fix[f"kq_{n}"].tobytes(),
+                     fix[f"ks_{n}"].tobytes(), fix[f"b_{n}"].tobytes())
+                    for n in GPTQ_NAMES)
+    scales = tuple(tuple(fix[f"scale_{n}"].tolist()) for n in INT8_TENSORS)
+    model = get_model("FastTransformer", dtype=torch.bfloat16,
+                      int8_scales=scales, int8_weights=entries, **flags)
+    params_from_jax(model, engine._params)
+    xc = torch.from_numpy(x[GPTQ_CROP].astype(np.float32)[None] / 255.0)
+    y = model(xc.cuda(), upscale_factor=2).float().cpu().numpy()
+    emax, emean = interior_err(y, fix[f"y_{tag}"], 4)
+    if y.shape != fix[f"y_{tag}"].shape or not within_limit(emax, emean,
+                                                             INT8_LIMIT):
+        raise AssertionError(f"{name}: the port with JAX's entries disagrees "
+                             f"with JAX: {emax}, {emean}")
+
+    # Rows 8 and 9 on the entries against their plain versions.
+    g = torch.Generator(device="cuda").manual_seed(5)
+    feat = torch.rand(1, *FRAME_HW, 64, generator=g, device="cuda")
+    s_in = torch.tensor(scales[1], device="cuda")
+    fq = quantize_act_ch(feat.bfloat16(), s_in)[0]
+    exact = {}
+    for ent, run, plain in (
+            (model._pre_q("conv2", fq.device),
+             S.conv3x3_int8_stream, S.conv3x3_int8_plain),
+            (model._pre_q("tailA_s2", fq.device),
+             S.tail_conv_int8_stream, S.tail_conv_int8_plain)):
+        out = run(fq, *ent, relu=True)
+        want = plain(fq, *ent, relu=True)
+        exact[run.__name__] = bool(torch.equal(out, want))
+        if not exact[run.__name__]:
+            raise AssertionError(f"{name}: {run.__name__} on the GPTQ "
+                                 f"entry differs from its plain version")
+
+    # Launches per frame, graphed and eager on the same model.
+    eager = UpscalerEngine("FastTransformer", dtype=torch.bfloat16,
+                           cuda_graphs=False, **flags)
+    eager.model = engine.model
+    frames = np.random.default_rng(0).integers(0, 256, (5, *FRAME_HW, 3),
+                                               np.uint8)
+    served = {}
+    for way, eng in (("graphed", engine), ("eager", eager)):
+        eng.upscale(frames[0], res_out=RES_OUT)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        served[way] = ([eng.upscale(f, res_out=RES_OUT) for f in frames],
+                       K.launch_counts())
+    want = (int8_counts("full", True) if tag == "pallas" else
+            counts(conv3x3_int8_stream=2, tail_conv_int8_stream=2))
+    for way, (outs, launches) in served.items():
+        per = {k: v / len(frames) for k, v in launches.items()}
+        if per != want:
+            raise AssertionError(f"{name} ({way}): launches per frame {per}")
+    if not all(np.array_equal(a, b) for a, b in zip(served["graphed"][0],
+                                                     served["eager"][0])):
+        raise AssertionError(f"{name}: graphed and eager outputs differ")
+    with plain_versions():
+        plain = eager.upscale(frames[0], res_out=RES_OUT)
+    pmax, pmean = interior_err(served["graphed"][0][0], plain, 8)
+    if not within_limit(pmax, pmean):
+        raise AssertionError(f"{name}: kernels and plain versions disagree")
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{name}: output {got.shape}")
+    launches = served["graphed"][1]
+    say(name, model="FastTransformer", flags=flags, weights=f"epoch "
+        f"{engine.epoch}", input=list(x.shape), scale=2,
+        calibrate_seconds=calib_s, gptq_int8_seconds=gptq_s,
+        entries={n: list(ours[n][1]) for n in GPTQ_NAMES},
+        kq_share_differing_from_jax=kq_share,
+        psnr_db=_psnr(got, ref), psnr_db_same_scope_without_gptq=_psnr(
+            plain_int8, ref),
+        max_abs=float(np.abs(got - ref).max()),
+        against="the trained exact f32 path (TF32 off)",
+        jax_entries=dict(shape=list(y.shape), max_abs=emax, mean_abs=emean,
+                         tolerance=limit_text(INT8_LIMIT)),
+        entry_kernels_equal_plain=exact,
+        launches_per_frame={k: v / len(frames) for k, v in launches.items()
+                            if v},
+        graphed_equals_eager=True, vs_plain_max_abs=pmax,
+        vs_plain_mean_abs=pmean)
+    return launches
+
+
+def phase_int8_mlp(launches: dict) -> None:
+    """The int8_mlp routes' summary (phase 12): their fixture and slice
+    lines came before; here their launches and fixtures side by side."""
+    say("int8_mlp", routes={
+        name: dict(model=ROUTES[name]["model"], flags=ROUTES[name]["route"],
+                   fixture=ROUTES[name]["fixture"],
+                   launches_per_frame={k: v / ROUTES[name]["requests"]
+                                       for k, v in launches[name].items()
+                                       if v})
+        for name in INT8_MLP_ROUTES})
+
+
+def phase_new_paths(launches: dict, only=None) -> None:
+    """Phases 10-12 (``only``: a subset of "stream", "gptq", "int8_mlp")."""
+    from transformerupscaler_torch.infer_lib import UpscalerEngine
+
+    if only is None or "stream" in only:
+        launches["stream"] = phase_stream()
+    if only is None or "gptq" in only:
+        with np.load(GPTQ_FIXTURE) as f:
+            x = f["x"]
+        with no_tf32():
+            ref = UpscalerEngine("FastTransformer").upscale(
+                x, upscale_factor=2)
+        for name in GPTQ_ROUTES:
+            launches[name] = phase_gptq(name, ref)
+    if only is None or "int8_mlp" in only:
+        if only is not None:
+            for name in INT8_MLP_ROUTES:
+                phase_fixture(name)
+                launches[name] = phase_slice(name)
+        phase_int8_mlp(launches)
+
+
 def main() -> None:
+    """With no arguments, every phase and the result lines. ``--only
+    stream,gptq,int8_mlp`` (any of them): the device, the build and those
+    phases, for a quick check of that part; it prints no result lines."""
+    only = None
+    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
+        only = set(sys.argv[2].split(","))
+        if not only <= {"stream", "gptq", "int8_mlp"}:
+            sys.exit("chip_smoke: --only takes stream, gptq, int8_mlp")
+    elif sys.argv[1:]:
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     kind = phase_device()
     phase_build()
+    if only is not None:
+        phase_new_paths({}, only)
+        return
     records = phase_kernels()
     for name, spec in ROUTES.items():
         if "fixture" in spec:
@@ -1903,6 +2283,7 @@ def main() -> None:
     launches["archived"] = phase_archived()
     launches["trunk_static"] = phase_trunk_static()
     phase_bench()
+    phase_new_paths(launches)
     say("tpu_kernels", kernels=[dict(kernel=k, port=s) for k, s in TPU_KERNELS])
     for r in records:
         # The count of the record's counter (its wrapper, or the trunk's

@@ -258,3 +258,17 @@ def test_bench_quality_and_unknown_configs_raise():
                      **SMALL).route(2).tail_f32
     with pytest.raises(ValueError, match="TUX_BENCH_CONFIG"):
         bench.bench_flags("fp8")
+
+
+def test_engine_normalizes_uint8_as_the_jax_engine(tmp_path):
+    """uint8 frames reach the model as JAX's engine gives them, numpy's f32
+    x / 255, bit for bit at all 256 levels (tests/test_torch_gpu.py checks
+    the card, where a division by a Python scalar would be a product with
+    its reciprocal, 126 levels one rounding apart)."""
+    engine = UpscalerEngine("BicubicInterpolation", device="cpu",
+                            root=str(tmp_path))
+    levels = np.arange(256, dtype=np.uint8)[None, None, :, None]
+    got = engine._forward(lambda x, **kw: x, torch.from_numpy(levels), None,
+                          None, True)
+    want = levels.astype(np.float32) / 255.0
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -45,7 +45,14 @@ The int8 products off the kernels: rows 8 and 9's kernels equal their plain
 versions on the CPU bit for bit (which equal JAX's XLA int8 convs,
 tests/test_torch_packed_xla.py), and the exact int32 products of x6's
 108-output int8 tails and the int8 patch GEMMs (``torch._int_mm``) equal
-the same calls on the CPU bit for bit.
+the same calls on the CPU bit for bit; so does ``int8_dense`` (the int8
+MLP's product).
+
+The streaming pipeline: its frames from the CUDA graph with the pinned
+slots equal the eager step's bit for bit, on the stream CLI's ``--fast``
+FastTransformer (trained weights, bf16, BGR), its ``--quality`` mode, a
+bf16 WindowTransformer and f32 bicubic, with frames of the input size and
+larger ones that the native resize brings to it.
 """
 
 import numpy as np
@@ -1217,6 +1224,11 @@ ENGINE_ROUTES = {
     "int8_full_xla": ("FastTransformer", dict(
         compose_tails=True, int8_serve=True, int8_scope="full",
         pallas_serve=False, attn_impl="xla"), {}, None, True),
+    "window_int8_mlp": ("WindowTransformer", dict(
+        pallas_serve=True, attn_impl="pallas", int8_mlp=True), {}, None,
+        False),
+    "fast_exact_int8_mlp": ("FastTransformer", dict(int8_mlp=True), {}, None,
+                            False),
 }
 
 
@@ -1282,3 +1294,59 @@ def test_graph_cache_per_geometry_and_calibration_clears_it(gen, tmp_path,
     assert engine.upscale(big, res_out=res_out).shape == (*res_out, 3)
     assert engine.warmup((32, 64), upscale_factor=2) > 0
     assert len(engine._cache) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_dense_on_the_card_equals_the_cpu(gen, dtype):
+    x = _rn(gen, 3, 64, 192, std=2.0).to(dtype)
+    w = _rn(gen, 192, 768, std=0.05)
+    b = _rn(gen, 768, std=0.1)
+    wq, ws = Q.quantize_weight(w)
+    got = Q.int8_dense(x, wq, ws, b)
+    cq, cs = Q.quantize_weight(w.cpu())
+    assert torch.equal(wq.cpu(), cq) and torch.equal(ws.cpu(), cs)
+    want = Q.int8_dense(x.cpu(), cq, cs, b.cpu())
+    assert got.is_cuda and got.dtype == dtype
+    assert torch.equal(got.cpu(), want)
+
+
+FAST_CARD = dict(compose_tails=True, packed_serve=True, pallas_serve=True,
+                 attn_impl="fused2")
+STREAM_CASES = {
+    "fast": ("FastTransformer", dict(FAST_CARD, bgr_out=True)),
+    "quality": ("FastTransformer", dict(FAST_CARD, serve_quality=True)),
+    "window": ("WindowTransformer", dict(pallas_serve=True,
+                                         attn_impl="fused2")),
+    "bicubic": ("BicubicInterpolation", dict(dtype=torch.float32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+def test_stream_pipeline_graphed_equals_eager(gen, case):
+    from transformerupscaler_torch import native
+    from transformerupscaler_torch.stream_lib import StreamPipeline
+
+    name, flags = STREAM_CASES[case]
+    pipe = StreamPipeline(name, (64, 128), (96, 192), **flags)
+    assert pipe.cuda_graphs and pipe.warmup() > 0
+    frames = _frames(4) + _frames(3, (128, 256))
+    outs = []
+    stats = pipe.run(iter(frames), sink=outs.append)
+    assert stats["frames"] == len(outs) == len(frames) - 1
+    for f, got in zip(frames, outs):
+        if f.shape[:2] != (64, 128):
+            f = native.resize_bilinear_u8(f, (64, 128))
+        assert got.shape == (96, 192, 3) and got.dtype == np.uint8
+        assert np.array_equal(got, pipe.step(f))
+
+
+def test_engine_normalizes_uint8_on_the_card_as_numpy(gen, tmp_path):
+    """The engine's uint8 / 255 on the card equals numpy's f32 division (the
+    JAX engine's) at all 256 levels, bit for bit."""
+    engine = UpscalerEngine("BicubicInterpolation", root=str(tmp_path))
+    levels = np.arange(256, dtype=np.uint8)[None, None, :, None]
+    got = engine._forward(lambda x, **kw: x,
+                          torch.from_numpy(levels).cuda(), None, None, True)
+    assert got.is_cuda
+    assert np.array_equal(got.cpu().numpy(),
+                          levels.astype(np.float32) / 255.0)

@@ -155,7 +155,8 @@ def test_int8_serve_folds_the_b_tail(split_tail):
 def test_int8_fields_are_checked():
     """The registry takes ``int8_serve`` in every scope; an unknown scope,
     a scale tuple of the wrong length and the placeholder where the scope
-    quantizes raise, and ``int8_mlp`` is still not served."""
+    quantizes raise; ``int8_mlp`` is served with it (its blocks take the
+    field)."""
     for scope in SCOPES:
         m = get_model("FastTransformer", device="cpu", int8_serve=True,
                       int8_scope=scope, **ROUTE, **SMALL)
@@ -166,9 +167,9 @@ def test_int8_fields_are_checked():
     with pytest.raises(ValueError, match="int8_scales"):
         get_model("FastTransformer", device="cpu", int8_serve=True,
                   int8_scales=((1.0,),) * 4, **SMALL)
-    with pytest.raises(NotImplementedError, match="int8_mlp"):
-        get_model("FastTransformer", device="cpu", int8_serve=True,
+    m = get_model("FastTransformer", device="cpu", int8_serve=True,
                   int8_mlp=True, **SMALL)
+    assert m.int8_mlp and all(b.int8_mlp for b in m.blocks)
     model, _ = _port("tails", ((1.0,),) * 5)
     with pytest.raises(ValueError, match="feat needs 64"):
         model(torch.from_numpy(_x()), res_out=RES_OUT)

@@ -148,15 +148,16 @@ def test_bicubic_matches_jax_and_engine_resolves_scale(rng):
 
 
 def test_registry_routes_of_the_new_models():
-    """Served routes build, the fused trunks included; the ones that need
-    kernels the port lacks raise by name; FastTransformer's serving flags
-    are accepted and ignored."""
+    """Served routes build, the fused trunks and ``int8_mlp`` included; the
+    ones that need kernels the port lacks raise by name; FastTransformer's
+    serving flags are accepted and ignored."""
     for impl in ("fused", "fused2"):
         w = get_model("WindowTransformer", device="cpu", attn_impl=impl,
                       int8_trunk=True, **WINDOW_SMALL)
         assert w.attn_impl == impl and not w.int8_trunk
-    with pytest.raises(NotImplementedError, match="int8_mlp"):
-        get_model("WindowTransformer", device="cpu", int8_mlp=True)
+    w = get_model("WindowTransformer", device="cpu", int8_mlp=True,
+                  **WINDOW_SMALL)
+    assert w.int8_mlp and all(b.int8_mlp for b in w.blocks)
     for flags in (dict(pallas_serve=False, packed_serve=False),
                   dict(pallas_serve=True, packed_serve=True,
                        compose_tails=True, dropout=0.1, split_tail=None)):

@@ -14,7 +14,9 @@ import torch
 from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch.device import resolve_device
 from transformerupscaler_torch.infer_lib import UpscalerEngine
-from transformerupscaler_torch.registry import FIXED_ROUTE, get_model
+from transformerupscaler_torch import stream as stream_cli
+from transformerupscaler_torch.registry import get_model
+from transformerupscaler_torch.stream_lib import StreamPipeline
 from transformerupscaler_torch.weights import params_from_jax, seeded_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,7 +44,9 @@ def test_port_imports_no_jax():
         "for m in ('ops.patch', 'kernels.gmha', 'kernels.window_attn',\n"
         "          'models.bicubic', 'models.window_transformer',\n"
         "          'models.residual_transformer', 'checkpoint',\n"
-        "          'torch_convert', 'bench', 'ops.quant'):\n"
+        "          'torch_convert', 'bench', 'ops.quant', 'ops.gptq',\n"
+        "          'native', 'stream_lib', 'capture', 'stream',\n"
+        "          'overlay', 'app_overlay'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
         "assert not bad, bad\n")
@@ -80,6 +84,10 @@ def test_entry_points_default_to_the_card():
             get_model(name)
         with pytest.raises(RuntimeError, match="CUDA"):
             UpscalerEngine(name)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            StreamPipeline(name, (16, 16), (32, 32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stream_cli.build_pipeline(stream_cli.parser().parse_args(["--fast"]))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -132,11 +140,10 @@ def test_other_routes_and_geometries_raise(tmp_path):
             flags["attn_impl"]
         assert getattr(m, "int8_trunk", False) == flags.get("int8_trunk",
                                                             False)
-    with pytest.raises(NotImplementedError, match="int8_mlp"):
-        get_model("FastTransformer", device="cpu", int8_mlp=True)
-    with pytest.raises(NotImplementedError, match="int8_weights"):
-        get_model("FastTransformer", device="cpu", int8_serve=True,
-                  int8_weights=())
+    assert get_model("FastTransformer", device="cpu", int8_mlp=True,
+                     **SMALL).blocks[0].int8_mlp
+    assert get_model("FastTransformer", device="cpu", int8_serve=True,
+                     int8_weights=(), **SMALL).int8_weights == ()
     x = torch.rand(1, 16, 32, 3, generator=torch.Generator().manual_seed(0))
     for flags in (dict(pallas_serve=False), dict(compose_tails=False)):
         m = get_model("FastTransformer", device="cpu", **flags, **SMALL)
@@ -153,8 +160,8 @@ def test_other_routes_and_geometries_raise(tmp_path):
                   pallas_serve=True, **route, **SMALL)
     with pytest.raises(KeyError):
         get_model("SwinIR", device="cpu")
-    with pytest.raises(NotImplementedError, match="int8_mlp"):
-        get_model("WindowTransformer", device="cpu", int8_mlp=True)
+    assert get_model("WindowTransformer", device="cpu",
+                     int8_mlp=True).blocks[0].int8_mlp
     img = np.zeros((16, 32, 3), np.uint8)
     odd = np.zeros((12, 32, 3), np.uint8)
     # Seeded weights: the narrow model does not take the trained ones.
@@ -182,8 +189,7 @@ def _jax_engine_keywords() -> list[str]:
 
 
 # The JAX defaults of FastTransformer's serving fields (fast_transformer.py:
-# 51, 102, 138, 163, 169): all served at other values too but int8_weights
-# (registry.FIXED_ROUTE).
+# 51, 102, 138, 163, 169): all served at other values too.
 FIXED_DEFAULTS = dict(fix_ratio_bug=False, int8_weights=None,
                       quality_parts="tails", f32_tail=False, fold_pre=True)
 
@@ -214,16 +220,13 @@ def test_jax_engine_keyword_set_builds_every_model():
     ("quality_parts", "conv1,tails"), ("f32_tail", True),
     ("fold_pre", False)])
 def test_fixed_fields_raise_not_implemented_off_their_default(field, value):
-    """A field of ``registry.FIXED_ROUTE`` (int8_weights) raises off its
-    default; the serving fields the port now serves (serve_quality,
-    quality_parts, f32_tail, fold_pre) build with the value."""
+    """No field raises off its default any more: the serving fields
+    (serve_quality, quality_parts, f32_tail, fold_pre) and the GPTQ entries
+    (int8_weights, since the registry's FIXED_ROUTE went) build with the
+    value."""
     flags = {**FAST_FLAGS, field: value}
-    if field in FIXED_ROUTE["FastTransformer"]:
-        with pytest.raises(NotImplementedError, match=field):
-            get_model("FastTransformer", device="cpu", **flags, **SMALL)
-    else:
-        m = get_model("FastTransformer", device="cpu", **flags, **SMALL)
-        assert getattr(m, field) == value
+    m = get_model("FastTransformer", device="cpu", **flags, **SMALL)
+    assert getattr(m, field) == value
     # The other models drop the field, as the JAX registry does.
     get_model("WindowTransformer", device="cpu",
               **{**FAST_FLAGS, field: value})

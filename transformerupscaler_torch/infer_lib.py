@@ -41,6 +41,9 @@ from transformerupscaler_torch.device import resolve_device
 from transformerupscaler_torch.kernels import add_launches, launch_counts
 from transformerupscaler_torch.models.common import resolve_geometry
 from transformerupscaler_torch.models.fast_transformer import INT8_TENSORS
+from transformerupscaler_torch.models.upsampler import composed_tail_kernel
+from transformerupscaler_torch.ops.conv import conv2d
+from transformerupscaler_torch.ops.gptq import quantize_conv_gptq
 from transformerupscaler_torch.ops.quant import quantize_linear_params
 from transformerupscaler_torch.registry import get_model
 from transformerupscaler_torch.weights import params_from_jax, seeded_params
@@ -173,6 +176,11 @@ class UpscalerEngine:
         self._calib_scales = None
         self._cache: dict = {}
         self._warned_fast_gate = False
+        # uint8 / 255 as JAX's engine computes it on the host, a true f32
+        # division: PyTorch multiplies a CUDA tensor by the reciprocal of a
+        # Python divisor, one rounding apart; a divisor on the device
+        # divides.
+        self._255 = torch.full((), 255.0, device=self.device)
 
     def param_count(self) -> int:
         return param_count(self._params)
@@ -193,7 +201,7 @@ class UpscalerEngine:
         output; uint8 is normalized here, on the device, so that uint8 and
         not float32 crosses the bus. The model gets f32 and casts it to its
         dtype (under serve_quality after the exact-uint8 conv1 read it)."""
-        x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+        x = x.float() / self._255 if x.dtype == torch.uint8 else x.float()
         x = x[None] if x.ndim == 3 else x
         kwargs = {}
         if self.model_name != "BicubicInterpolation":
@@ -342,6 +350,77 @@ class UpscalerEngine:
         params_from_jax(self.model, self._params)
         self._cache.clear()
         return scales
+
+    def gptq_int8(self, images, scale: int = 2, n_samples: int = 32768,
+                  crop: int = 256, bias_correct: bool = True) -> None:
+        """GPTQ the image branch's conv weights against calibration frames
+        (JAX infer_lib.py:276-358; a "full"-scope int8_serve engine, after
+        ``calibrate_int8``, whose static activation scales fold into the
+        quantized kernels).
+
+        From ``crop``-sized centre crops of ``images`` (a frame or a list),
+        conv1's and conv2's inputs are computed in f32 on the CPU, as JAX
+        pins them to its CPU device, and the composed branch-A tail of
+        ``scale`` in f32; ``ops.gptq.quantize_conv_gptq`` makes the entries
+        "conv1", "conv2" and "tailA_s<scale>" (with bias correction unless
+        ``bias_correct`` is False). The entries so depend only on the
+        weights, the frames and the scales, not on the device that serves
+        them. The engine then serves a model with the static scales and
+        these ``int8_weights`` (its graphs are captured anew); the model
+        reads the entries where JAX reads them (``models.fast_transformer``).
+        """
+        if not self._calib_scales or "feat1" not in self._calib_scales:
+            raise RuntimeError(
+                "gptq_int8 requires calibrate_int8 on a FULL-scope "
+                "int8_serve engine first (needs feat1/feat scales)")
+        p = self._params.get("params", self._params)
+
+        def f32(v):
+            return torch.from_numpy(np.array(v, np.float32))
+
+        if not isinstance(images, (list, tuple)):
+            images = [images]
+        xs, f1s, fps = [], [], []
+        with torch.inference_mode():
+            k1, b1 = f32(p["conv1"]["kernel"]), f32(p["conv1"]["bias"])
+            k2, b2 = f32(p["conv2"]["kernel"]), f32(p["conv2"]["bias"])
+            for img in images:
+                x = np.asarray(img)
+                if x.dtype == np.uint8:
+                    x = x.astype(np.float32) / 255.0
+                h, w = x.shape[:2]
+                y0, x0 = max(0, (h - crop) // 2), max(0, (w - crop) // 2)
+                x = np.ascontiguousarray(x[y0:y0 + crop, x0:x0 + crop][None],
+                                         np.float32)
+                f1 = conv2d(torch.from_numpy(x), k1, b1, relu=True)
+                xs.append(x)
+                f1s.append(f1.numpy())
+                fps.append(conv2d(f1, k2, b2, relu=True).numpy())
+            ka, ba = composed_tail_kernel(
+                {k: f32(v) for k, v in p["up1"].items()}, scale,
+                f32(p["up1_conv_kernel"]), None, torch.float32)
+        ka = ka.numpy()
+        ba = None if ba is None else ba.numpy()
+        entries = []
+        for name, kern, bias, feat, s_in in (
+                ("conv1", p["conv1"]["kernel"], p["conv1"]["bias"],
+                 np.concatenate(xs), 1.0 / 127),
+                ("conv2", p["conv2"]["kernel"], p["conv2"]["bias"],
+                 np.concatenate(f1s), self._calib_scales["feat1"]),
+                (f"tailA_s{scale}", ka, ba, np.concatenate(fps),
+                 self._calib_scales["feat"])):
+            kq, ks, nb = quantize_conv_gptq(
+                np.asarray(kern), feat, s_in, n_samples=n_samples,
+                bias=None if bias is None or not bias_correct
+                else np.asarray(bias))
+            entries.append((name, kq.shape, kq.tobytes(), ks.tobytes(),
+                            None if nb is None else nb.tobytes()))
+        self.model = get_model(
+            self.model_name, device=self.device, dtype=self.dtype,
+            **{**self._config, "int8_scales": self.model.int8_scales,
+               "int8_weights": tuple(entries)})
+        params_from_jax(self.model, self._params)
+        self._cache.clear()
 
     def calibration_check(self, image, res_out=None, upscale_factor=None,
                           require_ratio: bool = True) -> dict:

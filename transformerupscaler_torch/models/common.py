@@ -2,9 +2,10 @@
 transformer block, its int8 calibration and the window trunk.
 
 JAX counterpart: transformerupscaler_tpu models/common.py:26, :55-76 and
-:123-243 (the trunk block by block, ``attn_impl="xla"`` or ``"pallas"``, and
-the fused one, ``"fused"`` or ``"fused2"``, with ``int8_acts``; the blocks'
-``calib_trunk_int8`` as ``trunk_int8_scales``). Parameters are kept in the
+:123-243 (the trunk block by block, ``attn_impl="xla"`` or ``"pallas"``, the
+blocks' MLP in int8 with ``int8_mlp``, and the fused one, ``"fused"`` or
+``"fused2"``, with ``int8_acts``; the blocks' ``calib_trunk_int8`` as
+``trunk_int8_scales``). Parameters are kept in the
 JAX layout, HWIO conv kernels and (in, out) dense kernels, and in f32;
 compute runs in the activation dtype.
 """
@@ -25,6 +26,7 @@ from transformerupscaler_torch.kernels.trunk2 import (
 )
 from transformerupscaler_torch.ops.attention import window_attention
 from transformerupscaler_torch.ops.conv import conv2d
+from transformerupscaler_torch.ops.quant import int8_dense, quantize_weight
 from transformerupscaler_torch.ops.windows import window_partition, window_reverse
 
 
@@ -132,11 +134,19 @@ def _abs_max(v: torch.Tensor) -> torch.Tensor:
 
 class WindowBlock(nn.Module):
     """Pre-LN window attention + pre-LN 4x exact-GELU MLP, with residuals
-    (inference: no dropout)."""
+    (inference: no dropout).
+
+    ``int8_mlp`` (JAX common.py:136, 168-180): the MLP's two products as
+    ``ops.quant.int8_dense``, the f32 weights quantized per output channel
+    at each forward (``quantize_weight``), the activations per tensor over
+    the whole (zero-padded) window batch the block is given. Only the
+    block-by-block trunk runs the blocks; the fused trunk ignores it, as in
+    JAX."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, int8_mlp: bool = False):
         super().__init__()
+        self.int8_mlp = int8_mlp
         hidden = int(dim * mlp_ratio)
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, window_size, num_heads)
@@ -157,6 +167,11 @@ class WindowBlock(nn.Module):
         z = self.norm2(x)
         if calib is not None:
             calib["fc1"] = _abs_max(z)
+        if self.int8_mlp:
+            # As in JAX, the int8 MLP records no "fc2" maximum.
+            f1, f2 = self.mlp_fc1, self.mlp_fc2
+            y = gelu(int8_dense(z, *quantize_weight(f1.kernel), f1.bias))
+            return x + int8_dense(y, *quantize_weight(f2.kernel), f2.bias)
         h = gelu(self.mlp_fc1(z))
         if calib is not None:
             calib["fc2"] = _abs_max(h)

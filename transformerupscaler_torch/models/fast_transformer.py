@@ -7,8 +7,9 @@ the serving forward ``_packed_forward`` (:333-961). ``forward`` routes as
 ``__call__`` does (:236-242): with ``compose_tails`` and one of
 ``packed_serve``, ``int8_serve`` or ``pallas_serve``, at scale 2, 3, 4 or 6
 with h % 8 == 0 and w % 16 == 0, the serving forward; everything else, the
-default fields included, the exact path. Only ``int8_mlp`` and the offline
-GPTQ weights ``int8_weights`` are not ported (``registry.FIXED_ROUTE``).
+default fields included, the exact path. Every field of the JAX model is
+served, ``int8_mlp`` and the offline GPTQ weights ``int8_weights`` (below)
+included.
 
 The exact path (fast_transformer.py:244-330) runs in plain PyTorch but for
 the trunk: conv1 and conv2, the features reflect-padded to the patch size,
@@ -124,7 +125,31 @@ records the scales it used in ``int8_scales_used`` under the JAX ``sow``
 names (``int8_scale_feat``, ...). JAX's int8 tail is the XLA
 ``conv2d_tail_packed_int8`` unless ``TUX_INT8_TAIL=pallas`` picks
 ``tail_macro8_stream_int8``; both compute one function, which the port
-serves with the one int8 tail kernel, so the switch is not carried.
+serves with the one int8 tail kernel, so the switch matters only where the
+XLA form would read a GPTQ entry (below).
+
+``int8_weights`` (fast_transformer.py:102, 414-421): JAX's entries
+``(name, shape, int8 kernel bytes, f32 scale bytes, f32 bias bytes or
+None)``, as ``UpscalerEngine.gptq_int8`` bakes them, decoded once per
+device (``clear_derived`` drops them). An entry's kernel and scales go to
+the int8 conv in place of the fold of the raw kernel (the activation scale
+is already in them), and its bias, where not None, replaces the layer's.
+They are read where JAX reads them, and nowhere else:
+
+  "conv2"         conv2 under "full" off ``pallas_serve`` (:539); on the
+                  Pallas path JAX's ``conv3x3_packed_int8_stream`` ignores
+                  it (:529-536), and so does the port, on the same kernel
+  "tailA_s<r>"    tail A under "full" (:638), and under "tails" unless
+                  ``TUX_INT8_TAIL=pallas`` (:651-660)
+  "tailB_s<r>"    tail B under "tails" unless ``TUX_INT8_TAIL=pallas``
+                  (:817-824)
+
+Not at x6's direct int8 tails under "tails" (:664-670), and never the
+"conv1" entry ``gptq_int8`` bakes: conv1 stays bf16 (:426-432).
+
+``int8_mlp`` (fast_transformer.py:50, 219): the window blocks' MLP in int8
+(``models.common.WindowBlock``) under ``attn_impl`` "xla" and "pallas", on
+the exact path and the serving forward; the fused trunks ignore it.
 
 ``serve_quality`` (or ``TUX_SERVE_QUALITY=1``) with ``quality_parts``
 (default "tails"; comma-separated, fast_transformer.py:107-138, 467-480):
@@ -190,6 +215,7 @@ import dataclasses
 import os
 import warnings
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -309,7 +335,8 @@ class FastTransformer(FusedTrunk, nn.Module):
                  compose_tails: bool = False, pallas_serve: bool = False,
                  packed_serve: bool = False, fix_ratio_bug: bool = False,
                  serve_quality: bool = False, quality_parts: str = "tails",
-                 f32_tail: bool = False, fold_pre: bool = True):
+                 f32_tail: bool = False, fold_pre: bool = True,
+                 int8_mlp: bool = False, int8_weights: tuple | None = None):
         super().__init__()
         bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
         if attn_impl not in TRUNK_IMPLS:
@@ -327,6 +354,10 @@ class FastTransformer(FusedTrunk, nn.Module):
         if int8_scales is not None and len(int8_scales) != len(INT8_TENSORS):
             raise ValueError(f"int8_scales: one tuple for each of "
                              f"{INT8_TENSORS}")
+        if int8_weights is not None and any(len(e) != 5
+                                            for e in int8_weights):
+            raise ValueError("int8_weights: entries (name, shape, kernel "
+                             "bytes, scale bytes, bias bytes or None)")
         self.in_channels = ic
         self.base_channels = bc
         self.transformer_dim = td
@@ -351,6 +382,9 @@ class FastTransformer(FusedTrunk, nn.Module):
         self.quality_parts = quality_parts
         self.f32_tail = f32_tail
         self.fold_pre = fold_pre
+        self.int8_mlp = int8_mlp
+        self.int8_weights = (None if int8_weights is None
+                             else tuple(map(tuple, int8_weights)))
         self.conv1 = ConvLayer(ic, bc)
         self.conv2 = ConvLayer(bc, bc)
         self.up1 = Upsampler(bc)
@@ -361,7 +395,7 @@ class FastTransformer(FusedTrunk, nn.Module):
         self.patch_embed_kernel = param(ps, ps, bc, td)
         self.patch_embed_bias = param(td)
         self.blocks = nn.ModuleList(
-            WindowBlock(td, window_size, num_heads, mlp_ratio)
+            WindowBlock(td, window_size, num_heads, mlp_ratio, int8_mlp)
             for _ in range(num_window_blocks))
         self.patch_unembed_kernel = param(td, ps, ps, bc)
         self.patch_unembed_bias = param(bc)
@@ -511,11 +545,37 @@ class FastTransformer(FusedTrunk, nn.Module):
             self._int8[key] = fold_conv_kernel(kernel, s)
         return self._int8[key]
 
-    def _tail_int8(self, name, xq, kernel, s, bias, relu, scale):
+    def _pre_q(self, name: str, device, tails: bool = False):
+        """The ``int8_weights`` entry ``name`` as (kq int8 HWIO, ks f32,
+        bias f32 or None) on ``device``, or None. ``tails``: a read of the
+        tails scope, which ``TUX_INT8_TAIL=pallas`` turns off."""
+        if self.int8_weights is None or (
+                tails and os.environ.get("TUX_INT8_TAIL", "xla") == "pallas"):
+            return None
+        key = ("int8_weights", device)
+        if key not in self._int8:
+            def put(b, dt):
+                return torch.from_numpy(np.frombuffer(b, dt).copy()).to(device)
+
+            self._int8[key] = {
+                name: (put(kq, np.int8).reshape(tuple(shape)),
+                       put(ks, np.float32),
+                       None if bb is None else put(bb, np.float32))
+                for name, shape, kq, ks, bb in self.int8_weights}
+        return self._int8[key].get(name)
+
+    def _int8_weights(self, name, kernel, s, bias, scale, pre):
+        """(kq, ks, bias) of an int8 conv: the GPTQ entry ``pre`` (its bias
+        where it has one), else the fold of ``kernel`` for ``s``."""
+        if pre is None:
+            return (*self._fold(name, kernel, s, scale), bias)
+        return pre[0], pre[1], bias if pre[2] is None else pre[2]
+
+    def _tail_int8(self, name, xq, kernel, s, bias, relu, scale, pre=None):
         """JAX's int8 composed tail (``conv2d_tail_packed_int8`` /
         ``conv2d_int8``): the int8 tail kernel up to 48 outputs, the exact
-        int32 im2col product beyond (x6)."""
-        kq, ks = self._fold(name, kernel, s, scale)
+        int32 im2col product beyond (x6); ``pre``: a GPTQ entry."""
+        kq, ks, bias = self._int8_weights(name, kernel, s, bias, scale, pre)
         if kernel.shape[3] <= INT8_TAIL_MAX_CO:
             return tail_conv_int8_stream(xq, kq, ks, bias, relu=relu,
                                          out_dtype=self.dtype)
@@ -613,9 +673,10 @@ class FastTransformer(FusedTrunk, nn.Module):
             feat1 = conv2d(x, self.conv1.kernel, self.conv1.bias, relu=True)
         if r.i8a:
             f1q, s1 = self._act_q("feat1", feat1)
+            pre = None if r.pallas else self._pre_q("conv2", x.device)
             feat = conv3x3_int8_stream(
-                f1q, *self._fold("conv2", k2, s1, scale), b2, relu=True,
-                out_dtype=dt)
+                f1q, *self._int8_weights("conv2", k2, s1, b2, scale, pre),
+                relu=True, out_dtype=dt)
         elif r.i8t:
             # ``feat_q`` is the int8 map from here on, dequantized in the
             # embed's and the unembed's kernels.
@@ -631,11 +692,13 @@ class FastTransformer(FusedTrunk, nn.Module):
         # Branch A (:634-678).
         if r.i8a or r.i8dt:
             fq, s2 = self._act_q("feat", feat)
-            a = self._tail_int8("tail_a", fq, ka, s2, ba, True, scale)
+            pre = self._pre_q(f"tailA_s{scale}", x.device) if r.i8a else None
+            a = self._tail_int8("tail_a", fq, ka, s2, ba, True, scale, pre)
         elif r.i8t:
+            pre = self._pre_q(f"tailA_s{scale}", x.device, tails=True)
             a = tail_conv_int8_stream(
-                feat_q, *self._fold("tail_a", ka, s_feat, scale), ba,
-                relu=True, out_dtype=dt)
+                feat_q, *self._int8_weights("tail_a", ka, s_feat, ba, scale,
+                                            pre), relu=True, out_dtype=dt)
         elif r.pallas and not r.direct_tails and not r.fuse_enc:
             a = tail_conv_stream(feat, ka, ba, relu=True, out_dtype=todt)
         elif not r.fuse_enc:  # x6's direct conv, or the all-XLA tail
@@ -672,9 +735,10 @@ class FastTransformer(FusedTrunk, nn.Module):
                                      out_dtype=todt)
         elif r.i8t:
             dq, s4 = self._conv_q("dec", combined, kd, bd)
+            pre = self._pre_q(f"tailB_s{scale}", x.device, tails=True)
             bt = tail_conv_int8_stream(
-                dq, *self._fold("tail_b", tail_b[0], s4, scale), tail_b[1],
-                out_dtype=dt)
+                dq, *self._int8_weights("tail_b", tail_b[0], s4, tail_b[1],
+                                        scale, pre), out_dtype=dt)
         else:
             if r.i8b:
                 cq, s3 = self._act_q("combined", combined)

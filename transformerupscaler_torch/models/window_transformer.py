@@ -22,7 +22,9 @@ Kernels (``pallas_serve`` and ``attn_impl`` as in the JAX model):
                               "xla": plain PyTorch
   everything else             plain PyTorch, as it is XLA in the JAX package
 
-``int8_mlp`` is not served: the registry raises ``NotImplementedError``.
+``int8_mlp`` (window_transformer.py:40, 59) runs each block's MLP as two
+int8 products (``models.common.WindowBlock``) under ``attn_impl`` "xla" and
+"pallas"; the fused trunks ignore it, as in JAX.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ class WindowTransformer(FusedTrunk, nn.Module):
                  num_heads: int = 8, mlp_ratio: float = 4.0,
                  window_size: int = 8, patch_size: int = 8,
                  attn_impl: str = "xla", pallas_serve: bool = False,
-                 dtype=torch.float32):
+                 int8_mlp: bool = False, dtype=torch.float32):
         super().__init__()
         bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
         if attn_impl not in TRUNK_IMPLS:
@@ -64,6 +66,7 @@ class WindowTransformer(FusedTrunk, nn.Module):
         self.patch_size = ps
         self.attn_impl = attn_impl
         self.pallas_serve = pallas_serve
+        self.int8_mlp = int8_mlp
         self.dtype = dtype
         self.conv1 = ConvLayer(ic, bc, relu=True)
         self.conv2 = ConvLayer(bc, bc, relu=True)
@@ -71,7 +74,7 @@ class WindowTransformer(FusedTrunk, nn.Module):
         self.patch_embed_kernel = param(ps, ps, bc, td)
         self.patch_embed_bias = param(td)
         self.blocks = nn.ModuleList(
-            WindowBlock(td, window_size, num_heads, mlp_ratio)
+            WindowBlock(td, window_size, num_heads, mlp_ratio, int8_mlp)
             for _ in range(num_window_blocks))
         self.patch_unembed_kernel = param(td, ps, ps, bc)
         self.patch_unembed_bias = param(bc)

@@ -17,7 +17,9 @@ The port's own copy of what it needs from the JAX package:
   ``quantize_conv_kernel``, ``quantize_act`` and ``quantize_act_ch``
   (ops/quant.py:85-130), the dynamic per-channel activation scale of
   ``act_q`` / ``tail_scale`` and the fold of an activation scale into a
-  conv kernel before its weights are quantized (ops/conv.py:368-371).
+  conv kernel before its weights are quantized (ops/conv.py:368-371);
+- ``int8_mlp``: ``quantize_weight`` and ``int8_dense`` (ops/quant.py:59-84),
+  the int8 MLP of the window blocks.
 
 Symmetric, round half to even (``torch.round`` as ``jnp.round``), every
 step in f32 as there; the serving scopes divide by 127 as a true division
@@ -129,6 +131,40 @@ def quantize_rows(x: torch.Tensor):
     srow = torch.maximum(xf.abs().amax(dim=-1, keepdim=True),
                          _f32(1e-6)) * _f32(1.0 / 127.0)
     return torch.round(xf * torch.reciprocal(srow)), srow
+
+
+def quantize_weight(w: torch.Tensor):
+    """(in, out) float -> (int8 kernel, (1, out) scale): scale = max|w| over
+    the inputs / 127, 1 where that is 0; q = clip(round(w / scale), -127,
+    127); in w's dtype."""
+    scale = div127(w.abs().amax(dim=0, keepdim=True))
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(w / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def int8_dense(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+               bias=None) -> torch.Tensor:
+    """y = dequant(quant(x) @ w_q) + bias with an int8 product.
+
+    x: (..., in) float; w_q: (in, out) int8; w_scale: (1, out) f32. The
+    activations quantize per tensor, in x's dtype as the reference computes
+    them: x_scale = max(max|x|, 1e-8) / 127 (a bf16 scale under a bf16
+    model), x_q = clip(round(x / x_scale), -127, 127). The int32 product is
+    ``ops.conv.int_mm``; then float(acc) * (x_scale * w_scale) in f32, the
+    scale product formed first, + bias in f32, one cast to x's dtype."""
+    from transformerupscaler_torch.ops.conv import int_mm
+
+    dt = x.dtype
+    floor = torch.full((), 1e-8, dtype=dt, device=x.device)
+    x_scale = torch.maximum(x.abs().amax(), floor) / torch.full(
+        (), 127.0, dtype=dt, device=x.device)
+    x_q = torch.clamp(torch.round(x / x_scale), -127, 127).to(torch.int8)
+    acc = int_mm(x_q.reshape(-1, x.shape[-1]), w_q)
+    y = acc.to(_F32) * (x_scale.to(_F32) * w_scale.to(_F32))
+    if bias is not None:
+        y = y + bias.to(_F32)
+    return y.to(dt).reshape(*x.shape[:-1], w_q.shape[1])
 
 
 def quantize_conv_kernel(k: torch.Tensor):

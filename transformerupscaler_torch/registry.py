@@ -16,19 +16,19 @@ The port serves the four models of the JAX package:
   "residual" and "tails" (``int8_scope``), with dynamic or static
   (``int8_scales``) scales; conv1 on its kernel (``conv1_stream``);
   ``serve_quality`` with ``quality_parts``, ``f32_tail`` and ``hi_lo_fin``;
-- ``WindowTransformer``: the exact path, ``pallas_serve`` and
+  ``int8_mlp``, and the offline GPTQ weights ``int8_weights``;
+- ``WindowTransformer``: the exact path, ``pallas_serve``, ``int8_mlp`` and
   ``attn_impl`` "xla", "pallas", "fused" or "fused2";
 - ``ResidualTransformer``: the exact path, ``packed_serve``, ``pallas_serve``
   and any ``attn_impl`` ("xla" is the eager attention, every other value the
   ``global_mha`` kernel, as in the JAX model);
 - ``BicubicInterpolation``, which has no fields.
 
-Asking for a route the port does not serve raises ``NotImplementedError``
-(``int8_mlp``, and any value but the JAX default of ``int8_weights``, the
-offline GPTQ weights). Like the JAX ``get_model``, fields a model does not
-have are dropped, so that one set of serving flags can go to every model:
-the flags the JAX command lines pass with ``--fast`` (inference.py:83-98,
-speed_test.py:35-48) serve all four.
+Asking for an ``attn_impl`` the port does not serve raises
+``NotImplementedError``. Like the JAX ``get_model``, fields a model does
+not have are dropped, so that one set of serving flags can go to every
+model: the flags the JAX command lines pass with ``--fast``
+(inference.py:83-98, speed_test.py:35-48) serve all four.
 """
 
 from __future__ import annotations
@@ -52,14 +52,8 @@ _MODELS = {"BicubicInterpolation": BicubicInterpolation,
            "FastTransformer": FastTransformer,
            "ResidualTransformer": ResidualTransformer,
            "WindowTransformer": WindowTransformer}
-# Per model: JAX fields that are not fields of the port's model, with the one
-# value the port serves; and the ``attn_impl`` values it serves (a model not
-# named takes any).
-FIXED_ROUTE = {
-    # JAX defaults, fast_transformer.py:50, 102
-    "FastTransformer": {"int8_mlp": False, "int8_weights": None},
-    "WindowTransformer": {"int8_mlp": False},
-}
+# Per model: the ``attn_impl`` values the port serves (a model not named
+# takes any).
 ATTN_IMPLS = {"FastTransformer": TRUNK_IMPLS, "WindowTransformer": TRUNK_IMPLS}
 # JAX fields the port's models accept and ignore (inference only; the other
 # models take FastTransformer's serving flags without having them).
@@ -78,14 +72,11 @@ def get_model(name: str, device=None, dtype=torch.float32, **config):
     """Build model ``name`` on ``device`` (default: the card).
 
     ``config`` takes the model's constructor fields and the JAX serving route
-    flags; a route the port does not serve raises ``NotImplementedError``.
+    flags; an ``attn_impl`` the port does not serve raises
+    ``NotImplementedError``.
     """
     if name not in _MODELS:
         raise KeyError(f"unknown model {name!r}; available: {list_models()}")
-    for key, want in FIXED_ROUTE.get(name, {}).items():
-        if config.pop(key, want) != want:
-            raise NotImplementedError(
-                f"{name}: the port serves {key}={want!r} only")
     impls = ATTN_IMPLS.get(name)
     if impls is not None and config.get("attn_impl", "xla") not in impls:
         raise NotImplementedError(

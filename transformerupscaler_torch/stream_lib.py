@@ -1,0 +1,315 @@
+"""Streaming upscale pipeline (JAX counterpart:
+transformerupscaler_tpu/stream_lib.py:31-221).
+
+The headless core of the live overlay: frames come from a source, are
+preprocessed one frame ahead in a worker thread, upscaled and quantized back
+to uint8 on the device, and handed to a sink, with two frames in flight.
+``stream``, ``overlay`` and ``app_overlay`` are its frontends.
+
+On the card the step, from a static uint8 input frame to a static uint8
+output frame (normalize, the model, the optional RGB->BGR flip, the clip
+and the cast), runs as one CUDA graph (``infer_lib.CapturedForward``). The
+host holds two pinned input slots and two pinned output slots. Frame i's
+host-to-device copy, its replay and its device-to-host copy are enqueued in
+that order on one stream, and an event is recorded after each copy; frame i
+is dispatched before frame i-1 is fetched, and a fetch waits on its output
+slot's event and copies the frame out of the pinned slot. So:
+
+- replay i+1 cannot overwrite the static output before frame i's copy out
+  has read it: the copy is enqueued before the replay, on the same stream;
+- the copies are asynchronous because their host memory is pinned (a
+  ``non_blocking`` copy from pageable memory is synchronous);
+- the host refills a pinned input slot only after that slot's last copy
+  has completed (its event), and an output slot is read only after its
+  copy has completed and before the next copy into it is enqueued.
+
+Each output frame is a numpy array of its own, as the JAX pipeline's are;
+an array the sink has let go of (no reference left but the pipeline's) is
+reused for a later frame rather than a new one allocated.
+
+With ``device="cpu"`` the step runs eagerly, with the same stages and the
+same frames; ``step`` runs it eagerly on the card too, to compare with.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from transformerupscaler_torch import native
+from transformerupscaler_torch.checkpoint import load_latest_params
+from transformerupscaler_torch.device import resolve_device
+from transformerupscaler_torch.infer_lib import CapturedForward
+from transformerupscaler_torch.ops.quant import quantize_linear_params
+from transformerupscaler_torch.registry import get_model
+from transformerupscaler_torch.weights import params_from_jax, seeded_params
+
+STAGES = ("capture", "preprocess", "inference", "postprocess", "display")
+# Output frames the pipeline keeps to reuse once the sink has let go.
+HANDED = 3
+
+
+class StageTimer:
+    """Per-stage wall-clock totals and their report (JAX stream_lib.py:31-51,
+    the same text)."""
+
+    def __init__(self, stages):
+        self.totals = {s: 0.0 for s in stages}
+        self.iterations = 0
+
+    def add(self, stage: str, dt: float):
+        self.totals[stage] += dt
+
+    def report(self) -> str:
+        lines = []
+        it = max(self.iterations, 1)
+        for step, total in self.totals.items():
+            lines.append(f"{step}: total = {total:.4f} sec, "
+                         f"average per iteration = {total / it:.4f} sec")
+        max_step = max(self.totals, key=lambda k: self.totals[k])
+        lines.append(f"Step that took the most time on average: {max_step} "
+                     f"({self.totals[max_step] / it:.4f} sec per iteration)")
+        return "\n".join(lines)
+
+
+class StreamPipeline:
+    """Upscale a stream of HWC uint8 frames of any size to ``res_out`` uint8
+    frames (RGB, or BGR with ``bgr_out``).
+
+    The arguments are JAX's (stream_lib.py:54-92), plus ``device`` (None:
+    the card) and ``config`` (further model fields, such as narrower
+    widths). Weights: ``params`` (a JAX tree) if given, else the latest
+    checkpoint unless ``load_checkpoint`` is False (``from_checkpoint`` says
+    which), else ``seeded_params(model, 0)``; ``quantize`` int8 round-trips
+    their linear kernels.
+    ``int8_serve`` implies ``compose_tails``; ``serve_quality`` applies to
+    FastTransformer only and is dropped for the other models."""
+
+    def __init__(self, model_name: str, res_in: tuple[int, int],
+                 res_out: tuple[int, int], params=None, dtype=torch.bfloat16,
+                 attn_impl: str = "xla", quantize: bool = False,
+                 compose_tails: bool = False,
+                 checkpoint_dir: str | None = None, bgr_out: bool = False,
+                 load_checkpoint: bool = True, int8_mlp: bool = False,
+                 pallas_serve: bool = False, packed_serve: bool = False,
+                 int8_serve: bool = False, int8_scope: str = "full",
+                 int8_trunk: bool = False, serve_quality: bool = False,
+                 device=None, config: dict | None = None):
+        self.device = resolve_device(device)
+        compose_tails = compose_tails or int8_serve
+        serve_quality = serve_quality and model_name == "FastTransformer"
+        extra = {"serve_quality": True} if serve_quality else {}
+        self.model = get_model(model_name, device=self.device, dtype=dtype,
+                               attn_impl=attn_impl,
+                               compose_tails=compose_tails,
+                               int8_mlp=int8_mlp, pallas_serve=pallas_serve,
+                               packed_serve=packed_serve,
+                               int8_serve=int8_serve, int8_scope=int8_scope,
+                               int8_trunk=int8_trunk, **extra,
+                               **(config or {}))
+        self.model_name = model_name
+        self.res_in = tuple(res_in)
+        self.res_out = tuple(res_out)
+        self.dtype = dtype
+        self.bgr_out = bgr_out
+        if params is None and load_checkpoint:
+            params = load_latest_params(model_name, checkpoint_dir)
+        self.from_checkpoint = params is not None
+        if params is None:
+            params = seeded_params(self.model, 0)
+        if quantize:
+            params = quantize_linear_params(params)
+        self.params = params
+        params_from_jax(self.model, params)
+        # serve_quality reads the frame in f32 (its exact conv1 and f32
+        # boundaries), as the JAX step normalizes it.
+        self.in_dtype = torch.float32 if serve_quality else dtype
+        # JAX's jitted step divides by 255 as a product with the f32
+        # reciprocal, then rounds to the input dtype.
+        self._inv255 = torch.full((), np.float32(1.0 / 255.0),
+                                  dtype=torch.float32, device=self.device)
+        self.cuda_graphs = self.device.type == "cuda"
+        self._graph = None
+        self.timer = StageTimer(STAGES)
+
+    def _step(self, frame_u8: torch.Tensor) -> torch.Tensor:
+        """HWC uint8 frame on the device -> HWC uint8 ``res_out`` frame, with
+        the rounding points of JAX's jitted step (stream_lib.py:102-114):
+        the frame normalized as f32(frame) * f32(1 / 255) rounded to the
+        input dtype (XLA's form of the division by 255), the model, the
+        flip, then clip(out * 255 + 0.5, 0, 255) in the dtype the model
+        returns, truncated to uint8."""
+        x = (frame_u8.to(torch.float32) * self._inv255).to(self.in_dtype)
+        kwargs = {"res_out": self.res_out}
+        if self.model_name != "BicubicInterpolation":
+            kwargs["require_ratio"] = True
+        out = self.model(x[None], **kwargs)[0]
+        if self.bgr_out:
+            out = out.flip(-1)
+        return torch.clamp(out * 255.0 + 0.5, 0, 255).to(torch.uint8)
+
+    def step(self, frame: np.ndarray) -> np.ndarray:
+        """One frame of ``res_in`` through the eager step (no graph, no
+        pinned slots): the frame the pipeline must give for it."""
+        x = torch.from_numpy(np.ascontiguousarray(frame)).to(self.device)
+        return self._step(x).cpu().numpy()
+
+    def _capture(self) -> CapturedForward:
+        if self._graph is None:
+            frame = torch.zeros(*self.res_in, 3, dtype=torch.uint8,
+                                device=self.device)
+            self._graph = CapturedForward(self._step, frame,
+                                          what=f"the {self.model_name} "
+                                               f"stream step")
+            pin = dict(dtype=torch.uint8, pin_memory=True)
+            self._host_in = [torch.empty(*self.res_in, 3, **pin)
+                             for _ in range(2)]
+            self._host_out = [torch.empty(*self._graph.out.shape, **pin)
+                              for _ in range(2)]
+            self._in_done = [None, None]
+            self._out_done = [None, None]
+            self._handed = []
+        return self._graph
+
+    def warmup(self) -> float:
+        """Build the step ahead of use (on the card: capture its graph, the
+        kernels built on the way); returns the seconds."""
+        t0 = time.perf_counter()
+        if self.cuda_graphs:
+            self._capture().replay()
+            torch.cuda.synchronize(self.device)
+        else:
+            self.step(np.zeros((*self.res_in, 3), np.uint8))
+        return time.perf_counter() - t0
+
+    def _dispatch(self, frame: np.ndarray, slot: int):
+        """Enqueue one preprocessed frame; returns its handle for
+        ``_fetch``."""
+        if not self.cuda_graphs:
+            return self._step(torch.from_numpy(frame).to(self.device))
+        g = self._capture()
+        if self._in_done[slot] is not None:
+            self._in_done[slot].synchronize()
+        self._host_in[slot].numpy()[...] = frame
+        g.static_in.copy_(self._host_in[slot], non_blocking=True)
+        self._in_done[slot] = torch.cuda.Event()
+        self._in_done[slot].record()
+        g.replay()
+        self._host_out[slot].copy_(g.out, non_blocking=True)
+        self._out_done[slot] = torch.cuda.Event()
+        self._out_done[slot].record()
+        return slot
+
+    def _fetch(self, handle) -> np.ndarray:
+        """The frame of a dispatch, on the host, waiting for it: copied out
+        of its pinned slot into a frame array of its own."""
+        if not self.cuda_graphs:
+            return np.asarray(handle)
+        self._out_done[handle].synchronize()
+        out = self._frame_array()
+        np.copyto(out, self._host_out[handle].numpy())
+        return out
+
+    def _frame_array(self) -> np.ndarray:
+        """An array for the next output frame: one handed out before that
+        nobody but the pipeline holds any more, else a new one. (A new
+        6.2 MB array faults in its pages as it is first written, ~1500 page
+        faults a 1080p frame, which cost milliseconds where faults are
+        slow.) The pipeline keeps the last few frames it handed out; a
+        frame the sink still holds is never reused."""
+        for i in range(len(self._handed)):
+            if sys.getrefcount(self._handed[i]) == 2:  # the list's, the call's
+                out = self._handed.pop(i)
+                break
+        else:
+            out = np.empty(self._host_out[0].shape, np.uint8)
+        self._handed = self._handed[-(HANDED - 1):] + [out]
+        return out
+
+    def run(self, source, sink=None, max_frames: int | None = None,
+            preprocess=None) -> dict:
+        """Drive the pipeline with two frames in flight (JAX
+        stream_lib.py:126-221, the same stages and result).
+
+        source: an iterator of HWC uint8 frames of any size; preprocess
+        defaults to the native resize to ``res_in`` of a frame of another
+        size; sink: a callable taking each output frame, or None. The
+        first frame only primes the preprocess worker, and the source's last
+        frame is preprocessed but never dispatched: a source of n frames
+        gives n - 1.
+
+        Stages: capture, pulling the next frame from the source; preprocess,
+        waiting for the one-ahead worker; inference, from frame i's dispatch
+        to its fetch (device latency with the copies; host work overlaps
+        it, so the stages may sum past the wall clock); postprocess, the
+        time blocked in the fetch; display, the sink.
+
+        Returns {"frames", "wall_s", "fps", "report"}."""
+
+        def default_preprocess(frame):
+            if frame.shape[:2] != self.res_in:
+                frame = native.resize_bilinear_u8(frame, self.res_in)
+            return np.ascontiguousarray(frame, dtype=np.uint8)
+
+        preprocess = preprocess or default_preprocess
+        executor = ThreadPoolExecutor(max_workers=1)
+        timer = self.timer
+
+        def finish(pending):
+            handle, t_dispatch = pending
+            t0 = time.perf_counter()
+            out_np = self._fetch(handle)
+            t1 = time.perf_counter()
+            timer.add("postprocess", t1 - t0)
+            timer.add("inference", t1 - t_dispatch)
+            t0 = time.perf_counter()
+            if sink is not None:
+                sink(out_np)
+            timer.add("display", time.perf_counter() - t0)
+            timer.iterations += 1
+
+        pre_future = None
+        pending = None  # (handle, dispatch time) of frame i-1
+        n = 0
+        t_loop = time.perf_counter()
+        src = iter(source)
+        try:
+            while max_frames is None or n < max_frames:
+                t0 = time.perf_counter()
+                frame = next(src, None)
+                if frame is None:
+                    break
+                timer.add("capture", time.perf_counter() - t0)
+
+                t0 = time.perf_counter()
+                if pre_future is None:
+                    pre_future = executor.submit(preprocess, frame)
+                    continue
+                ready = pre_future.result()
+                pre_future = executor.submit(preprocess, frame)
+                timer.add("preprocess", time.perf_counter() - t0)
+
+                # Dispatch frame i, then retire frame i-1.
+                t_dispatch = time.perf_counter()
+                handle = self._dispatch(ready, n % 2)
+                if pending is not None:
+                    finish(pending)
+                pending = (handle, t_dispatch)
+                n += 1
+            if pending is not None:
+                finish(pending)
+                pending = None
+        finally:
+            executor.shutdown(wait=False)
+
+        wall = time.perf_counter() - t_loop
+        return {
+            "frames": n,
+            "wall_s": wall,
+            "fps": n / wall if wall > 0 else 0.0,
+            "report": self.timer.report(),
+        }
