@@ -2,10 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (an H100 is the target).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only stream,gptq,int8_mlp
+    python3 chip_smoke.py --only stream,gptq,int8_mlp,train
 
 Run from the root of a checkout, with no arguments. (``--only`` runs the
-device, the build and the named ones of phases 10-12, and prints no result
+device, the build and the named ones of phases 10-13, and prints no result
 lines.) Phases, one line each:
 
 1. the device: torch's name for it, and nvidia-smi's name and power limit
@@ -108,7 +108,19 @@ lines.) Phases, one line each:
     window-attention kernel with the blocks' MLP in int8;
     ``fast_exact_int8_mlp``: FastTransformer's exact path in bf16 with it),
     summed up: their fixture errors and launches;
-13. the status of every TPU kernel of the JAX package in the port.
+13. ``train``: training on the card, where no kernel of the port may
+    launch (the kernels have no backward): one f32 step (TF32 off) of the
+    full-width FastTransformer (dropout 0) from the epoch-100 weights
+    against JAX's Trainer (tests/fixtures/torch_port/
+    train_step_FastTransformer.npz: the loss and per-leaf checksums of the
+    gradient, the parameters after the Adam step and the step); the bf16
+    step at train.py's defaults on two 720x1280 -> 1080x1920 samples and
+    one 96x96 -> 192x192 (step ms by CUDA events, samples/s, peak memory,
+    the losses, the device's busy time a step and idle share); the train CLI on the demo PNGs (train one epoch, resume
+    with the Adam state to two, refused with exit code 3); its epoch-2
+    checkpoint served on ``bench``'s six kernels against its exact f32
+    path at ``LIMIT``;
+14. the status of every TPU kernel of the JAX package in the port.
 
 The device line also says whether ``tensorstore`` and ``zstandard`` import
 on this host (never a failure). Then one JSON line of kernel records and,
@@ -357,6 +369,29 @@ STREAM_TOL = (4, 0.15)
 STREAM_FRAMES, STREAM_TRACED, STREAM_SHORT = 121, 41, 21
 # The GPTQ phase: its fixture (tests/test_torch_gptq.py), the routes.
 GPTQ_FIXTURE = FIXTURES + "gptq_FastTransformer.npz"
+# The ``train`` phase: JAX's f32 step at full width (tests/test_torch_train.py
+# writes it) and the tolerances of the card's step against it, TF32 off. The
+# loss relative. Per leaf the errors are normalized: a sum of squares by its
+# value, a dot with the probe by the Cauchy-Schwarz bound |v| |probe|, so that
+# a relative error e of the leaf gives at most ~2e and e. The gradient: f32
+# sums in another order (cuDNN's, the CPU's) agree to ~1e-5 relative, 1e-3
+# allows a hundredfold. The step (after - before): Adam moves an element by
+# lr * g / (|g| + eps), +-lr wherever |g| >> eps = 1e-8, so only elements
+# with |g| within a few eps may move otherwise (by up to ~lr); those are
+# few: the step's dot 1e-2. The parameters after the step: f32 rounding
+# (2^-23) and the step's share of them, 1e-5. (The port on the CPU: loss
+# 3.3e-8, gradient 8.2e-7 / 1.6e-7, parameters 2.9e-7 / 1.3e-7, step
+# 2.6e-5 / 8.5e-6.)
+TRAIN_FIXTURE = FIXTURES + "train_step_FastTransformer.npz"
+TRAIN_TOL = {"loss": 1e-5, "grad_sumsq": 2e-3, "grad_dot": 1e-3,
+             "param_sumsq": 1e-5, "param_dot": 1e-5, "step_sumsq": 2e-2,
+             "step_dot": 1e-2}
+# The timed bf16 steps (train.py's defaults): two 720x1280 -> 1080x1920
+# samples and one 96x96 -> 192x192, uint8, on the card as the trainer's
+# device cache keeps them.
+TRAIN_BATCH = (((720, 1280), (1080, 1920)), ((720, 1280), (1080, 1920)),
+               ((96, 96), (192, 192)))
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 GPTQ_NAMES = ("conv1", "conv2", "tailA_s2")
 GPTQ_CROP = (slice(56, 120), slice(96, 224))
 GPTQ_ROUTES = {"gptq": ("pallas", int8_route("full")),
@@ -1706,7 +1741,7 @@ def phase_weights() -> None:
     for name, (epoch, count) in TRAINED.items():
         t0 = time.perf_counter()
         path, found = get_latest_checkpoint(default_checkpoint_dir(name))
-        tree = load_checkpoint(path, name)
+        tree = load_checkpoint(path, name)["params"]
         load_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         engine = UpscalerEngine(name)
@@ -2234,9 +2269,205 @@ def phase_int8_mlp(launches: dict) -> None:
                                        if v})
         for name in INT8_MLP_ROUTES})
 
+def train_checksums(before: dict, grads: dict, after: dict,
+                    probe_seed: int) -> dict:
+    """Per leaf in sorted path order (flat {JAX path: array} dicts), as
+    tests/test_torch_train.py's fixture holds them: the sum of squares and
+    the dot with a standard normal probe (``default_rng(probe_seed)``, leaf
+    by leaf) of the gradient, of the parameters after the step and of the
+    step, in float64; also each probe's norm."""
+    rng = np.random.default_rng(probe_seed)
+    out = {k: np.zeros(len(before)) for k in (
+        "grad_sumsq", "grad_dot", "param_sumsq", "param_dot", "step_sumsq",
+        "step_dot", "probe_norm")}
+    for i, path in enumerate(sorted(before)):
+        probe = rng.standard_normal(before[path].shape)
+        step = after[path].astype(np.float64) - before[path]
+        out["probe_norm"][i] = np.sqrt((probe * probe).sum())
+        for kind, v in (("grad", grads[path]), ("param", after[path]),
+                        ("step", step)):
+            v = np.asarray(v, np.float64)
+            out[f"{kind}_sumsq"][i] = (v * v).sum()
+            out[f"{kind}_dot"][i] = (v * probe).sum()
+    return out
+
+
+def train_step_errors(got: dict, loss: float, fix) -> dict:
+    """The normalized errors of a step's checksums against the fixture
+    (``TRAIN_TOL``'s comments); each kind's largest over the leaves."""
+    errs = {"loss": abs(loss - float(fix["loss"])) / abs(float(fix["loss"]))}
+    for kind in ("grad", "param", "step"):
+        want_sq = fix[f"{kind}_sumsq"]
+        errs[f"{kind}_sumsq"] = float(np.max(
+            np.abs(got[f"{kind}_sumsq"] - want_sq)
+            / np.maximum(want_sq, 1e-300)))
+        scale = np.sqrt(want_sq) * got["probe_norm"]
+        errs[f"{kind}_dot"] = float(np.max(
+            np.abs(got[f"{kind}_dot"] - fix[f"{kind}_dot"])
+            / np.maximum(scale, 1e-300)))
+    return errs
+
+
+def train_step_vs_jax(device) -> dict:
+    """One f32 step of the full-width FastTransformer (dropout 0) from the
+    epoch-100 weights on the fixture's batch: its errors against JAX's
+    (``train_step_errors``) and the launches of the port's kernels."""
+    from transformerupscaler_torch import kernels as K
+    from transformerupscaler_torch.train_lib import Trainer
+    from transformerupscaler_torch.weights import flatten
+
+    with np.load(TRAIN_FIXTURE) as f:
+        fix = {k: f[k] for k in f.files}
+    samples = [(fix[f"lr_{i}"], fix[f"hr_{i}"]) for i in range(3)]
+    tr = Trainer("FastTransformer", dtype=torch.float32, dropout=0.0,
+                 device=device)
+    if not tr.try_resume(int(fix["epoch"]) + 1) or \
+            tr.epochs_trained != int(fix["epoch"]):
+        raise AssertionError(f"train: resumed epoch {tr.epochs_trained}, "
+                             f"the fixture's is {int(fix['epoch'])}")
+    before = flatten(tr.params())
+    K.reset_launches()
+    with no_tf32():
+        loss = tr.train_step(samples)
+    launches = sum(K.launch_counts().values())
+    grads = {k: p.grad.cpu().numpy() for k, p in tr.names.items()}
+    got = train_checksums(before, grads, flatten(tr.params()),
+                          int(fix["probe_seed"]))
+    return dict(loss=loss, want_loss=float(fix["loss"]),
+                errors=train_step_errors(got, loss, fix),
+                kernel_launches=launches)
+
+
+def _train_cli(args: list, ck: str) -> subprocess.CompletedProcess:
+    cmd = [sys.executable, "-m", "transformerupscaler_torch.train",
+           "--model", "FastTransformer", "--data_dir",
+           "models/FastTransformer/demo", "--pairs", "small",
+           "--checkpoint_dir", ck, *args]
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+
+
+def phase_train() -> dict:
+    """Training on the card (``train``): the full-width f32 step against
+    JAX's; the bf16 step's time, rate and peak memory at train.py's
+    defaults; the train CLI (train, resume with the Adam state, exit 3);
+    the trained checkpoint served on ``bench``'s kernels against its exact
+    f32 path. The port's kernels must not launch while training. The timed
+    steps also give the device's busy time a step (``device_ms`` over all
+    CUDA kernels) and its idle share against the median step."""
+    import tempfile
+
+    from transformerupscaler_torch import kernels as K
+    from transformerupscaler_torch.checkpoint import load_checkpoint
+    from transformerupscaler_torch.infer_lib import UpscalerEngine
+    from transformerupscaler_torch.train_lib import Trainer
+
+    step = train_step_vs_jax("cuda")
+    bad = {k: v for k, v in step["errors"].items() if not v <= TRAIN_TOL[k]}
+    say("train_step", model="FastTransformer", width="dim 192, 6 blocks, "
+        "12 heads", dtype="float32, TF32 off", dropout=0.0,
+        weights="epoch 100", batch="2 x 32x64->64x128, 1 x 32x64->48x96",
+        **step, tolerance=TRAIN_TOL)
+    if bad or step["kernel_launches"]:
+        raise AssertionError(f"train: the f32 step disagrees with JAX's "
+                             f"({bad}) or launched a kernel")
+
+    # The bf16 step at train.py's defaults, from the trained weights.
+    tr = Trainer("FastTransformer")
+    tr.try_resume(10 ** 6)
+    rng = np.random.default_rng(0)
+    samples = [tuple(torch.from_numpy(rng.integers(0, 256, (*hw, 3),
+                                                   np.uint8)).cuda()
+                     for hw in pair) for pair in TRAIN_BATCH]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(TRAIN_WARMUP):
+        tr.train_step(samples, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(tr.train_step(samples, gen))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    launches = sum(K.launch_counts().values())
+    med = float(np.median(ms))
+    # The device's share of a step: every CUDA kernel a step launches, as
+    # torch.profiler traces it; the rest of the step the device waits for
+    # the host.
+    busy = device_ms(lambda: tr.train_step(samples, gen), port_only=False,
+                     reps=3)
+    timed = dict(dtype="bfloat16", attn_impl="xla", dropout=tr.model.dropout,
+                 lr=tr.learning_rate, weights=f"epoch {tr.epochs_trained}",
+                 batch=[f"{a[0]}x{a[1]}->{b[0]}x{b[1]}"
+                        for a, b in TRAIN_BATCH],
+                 step_ms=ms, step_ms_median=med,
+                 samples_per_s=len(samples) / (med / 1e3),
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 losses=losses, kernel_launches=launches,
+                 device_busy_ms=busy, device_idle_share=1.0 - busy / med)
+    say("train_time", **timed)
+    del tr, samples
+    if launches or not np.isfinite(losses).all():
+        raise AssertionError(f"train: launches {launches}, losses {losses}")
+
+    with tempfile.TemporaryDirectory() as ck:
+        runs = {}
+        for key, epochs in (("train", 1), ("resume", 2), ("refused", 2)):
+            t0 = time.perf_counter()
+            run = _train_cli(["--epochs", str(epochs)], ck)
+            runs[key] = dict(rc=run.returncode,
+                             seconds=time.perf_counter() - t0,
+                             resumed="Loading checkpoint" in run.stdout,
+                             tail=run.stdout.strip().splitlines()[-3:])
+            if run.returncode != (3 if key == "refused" else 0):
+                raise AssertionError(f"train CLI {key}: rc {run.returncode}:"
+                                     f" {run.stdout[-2000:]}"
+                                     f"{run.stderr[-4000:]}")
+        opt = load_checkpoint(os.path.join(ck, "model_epoch_2.npz"))[
+            "opt_state"]
+        demo = [f for f in os.listdir("models/FastTransformer/demo")
+                if f.endswith(".png")]
+        steps = -(-len(demo) * 4 // 6)  # four small pairs, batch 6
+        if not runs["resume"]["resumed"] or opt["count"] != 2 * steps:
+            raise AssertionError(f"train CLI: resumed {runs['resume']}, "
+                                 f"Adam count {opt['count']}, not "
+                                 f"{2 * steps}")
+        engine = UpscalerEngine("FastTransformer", checkpoint_dir=ck,
+                                dtype=torch.bfloat16, **ROUTE_BENCH)
+        frame = np.random.default_rng(0).integers(0, 256, (*FRAME_HW, 3),
+                                                  np.uint8)
+        engine.upscale(frame, res_out=RES_OUT)
+        K.reset_launches()
+        got = engine.upscale(frame, res_out=RES_OUT)
+        per_frame = K.launch_counts()
+        if per_frame != ROUTES["bench"]["launches"]:
+            raise AssertionError(f"train: the trained checkpoint's bench "
+                                 f"launches {per_frame}")
+        with no_tf32():
+            ref = UpscalerEngine("FastTransformer", checkpoint_dir=ck).upscale(
+                frame, res_out=RES_OUT)
+        emax, emean = interior_err(got, ref, 8)
+        say("train_cli", command="python3 -m transformerupscaler_torch.train"
+            " --model FastTransformer --data_dir models/FastTransformer/demo"
+            " --pairs small --epochs 1|2|2", runs=runs,
+            adam_count_epoch_2=opt["count"], served_epoch=engine.epoch,
+            served_route="bench", launches_per_frame={
+                k: v for k, v in per_frame.items() if v},
+            vs_exact_f32_max_abs=emax, vs_exact_f32_mean_abs=emean,
+            tolerance=limit_text())
+        if engine.epoch != 2 or not within_limit(emax, emean):
+            raise AssertionError("train: the trained checkpoint served on "
+                                 "bench disagrees with its exact path")
+    return timed
+
 
 def phase_new_paths(launches: dict, only=None) -> None:
-    """Phases 10-12 (``only``: a subset of "stream", "gptq", "int8_mlp")."""
+    """Phases 10-13 (``only``: a subset of "stream", "gptq", "int8_mlp",
+    "train")."""
     from transformerupscaler_torch.infer_lib import UpscalerEngine
 
     if only is None or "stream" in only:
@@ -2255,17 +2486,20 @@ def phase_new_paths(launches: dict, only=None) -> None:
                 phase_fixture(name)
                 launches[name] = phase_slice(name)
         phase_int8_mlp(launches)
+    if only is None or "train" in only:
+        phase_train()
 
 
 def main() -> None:
     """With no arguments, every phase and the result lines. ``--only
-    stream,gptq,int8_mlp`` (any of them): the device, the build and those
-    phases, for a quick check of that part; it prints no result lines."""
+    stream,gptq,int8_mlp,train`` (any of them): the device, the build and
+    those phases, for a quick check of that part; it prints no result
+    lines."""
     only = None
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = set(sys.argv[2].split(","))
-        if not only <= {"stream", "gptq", "int8_mlp"}:
-            sys.exit("chip_smoke: --only takes stream, gptq, int8_mlp")
+        if not only <= {"stream", "gptq", "int8_mlp", "train"}:
+            sys.exit("chip_smoke: --only takes stream, gptq, int8_mlp, train")
     elif sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     kind = phase_device()

@@ -1350,3 +1350,90 @@ def test_engine_normalizes_uint8_on_the_card_as_numpy(gen, tmp_path):
     assert got.is_cuda
     assert np.array_equal(got.cpu().numpy(),
                           levels.astype(np.float32) / 255.0)
+
+
+# ----------------------------------------------------------------- training
+TRAIN_SMALL = dict(transformer_dim=32, num_window_blocks=2, num_heads=2)
+
+
+def test_kernel_wrappers_raise_on_tensors_that_require_grad(gen):
+    """The kernels have no backward: a wrapper given a CUDA tensor that
+    requires grad raises while autograd records (a launch would silently
+    cut the graph); under no_grad it launches."""
+    x = _rn(gen, 1, 8, 16, 64).bfloat16()
+    k = (_rn(gen, 3, 3, 64, 64) * 0.05).requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        S.conv3x3_stream(x, k, None, relu=True)
+    q = _rn(gen, 1, 64, 16).bfloat16().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        G.global_mha(q, q, q, 1)
+    with torch.no_grad():
+        S.conv3x3_stream(x, k.bfloat16(), None, relu=True)
+
+
+def _train_pair(dtype=torch.float32, **config):
+    """Two trainers of a narrow FastTransformer (``TRAIN_SMALL`` unless
+    ``config`` says otherwise), on the card and on the CPU, with the same
+    fresh parameters."""
+    from transformerupscaler_torch.train_lib import Trainer
+    from transformerupscaler_torch.weights import init_params, params_from_jax
+
+    config = {**TRAIN_SMALL, **config}
+    trainers = [Trainer("FastTransformer", device=d, dtype=dtype,
+                        dropout=0.0, **config)
+                for d in ("cuda", "cpu")]
+    tree = init_params(trainers[1].model, 0)
+    for tr in trainers:
+        params_from_jax(tr.model, tree)
+        tr.set_opt_state(None)
+    return trainers
+
+
+def _train_batch(seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.random((16, 32, 3), np.float32),
+             rng.random(hr + (3,), np.float32))
+            for hr in ((32, 64), (32, 64), (24, 48))]
+
+
+def test_f32_train_step_on_the_card_equals_the_cpu(gen):
+    """One f32 step (TF32 off, dropout 0) on the card and on the CPU from
+    the same parameters: the loss and every gradient at the f32 parity
+    bound; the parameters after the step within a tenth of lr (Adam moves
+    an element by ~lr where |g| >> eps)."""
+    cuda, cpu = _train_pair()
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = cuda.train_step(_train_batch())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    want = cpu.train_step(_train_batch())
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    for path, p in cuda.names.items():
+        np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                   cpu.names[path].grad.numpy(),
+                                   err_msg=path, **F32_TOL)
+        assert (p.detach().cpu() - cpu.names[path].detach()).abs().max() \
+            <= 1e-5, path
+
+
+def test_training_launches_no_port_kernel(gen):
+    """A model built with the bench route's flags trains on plain PyTorch
+    (no launch counted) and serves on the kernels afterwards (at width 128,
+    one the trunk kernel takes)."""
+    cuda, _ = _train_pair(torch.bfloat16, compose_tails=True,
+                          pallas_serve=True, attn_impl="fused2",
+                          transformer_dim=128, num_heads=8,
+                          num_window_blocks=1)
+    reset_launches()
+    cuda.train_step(_train_batch(), torch.Generator(device="cuda"))
+    assert not any(launch_counts().values()), launch_counts()
+    cuda.model.eval()
+    cuda.model(torch.rand(1, 16, 32, 3, generator=gen, device="cuda"),
+               upscale_factor=2)
+    counts = launch_counts()
+    assert counts["fused_window_trunk"] == 1 and counts["embed_stream"] == 1

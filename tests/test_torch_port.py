@@ -15,8 +15,10 @@ from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch.device import resolve_device
 from transformerupscaler_torch.infer_lib import UpscalerEngine
 from transformerupscaler_torch import stream as stream_cli
+from transformerupscaler_torch import train as train_cli
 from transformerupscaler_torch.registry import get_model
 from transformerupscaler_torch.stream_lib import StreamPipeline
+from transformerupscaler_torch.train_lib import Trainer
 from transformerupscaler_torch.weights import params_from_jax, seeded_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,7 +48,9 @@ def test_port_imports_no_jax():
         "          'models.residual_transformer', 'checkpoint',\n"
         "          'torch_convert', 'bench', 'ops.quant', 'ops.gptq',\n"
         "          'native', 'stream_lib', 'capture', 'stream',\n"
-        "          'overlay', 'app_overlay'):\n"
+        "          'overlay', 'app_overlay', 'png', 'data',\n"
+        "          'data.bucketing', 'data.datasets', 'train_lib',\n"
+        "          'train'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
         "assert not bad, bad\n")
@@ -88,6 +92,13 @@ def test_entry_points_default_to_the_card():
             StreamPipeline(name, (16, 16), (32, 32))
     with pytest.raises(RuntimeError, match="CUDA"):
         stream_cli.build_pipeline(stream_cli.parser().parse_args(["--fast"]))
+    for name in ("FastTransformer", "WindowTransformer",
+                 "ResidualTransformer"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(name)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(train_cli.parser().parse_args(
+            ["--model", "FastTransformer", "--data_dir", "."]))
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -14,6 +14,13 @@ against the directory's ``_METADATA``. A missing or stale copy raises
 ``StaleCopyError``, never ``FileNotFoundError``: the engine falls back to
 seeded weights only where there is no checkpoint at all. The copies are
 written from the JAX package's own loader by ``GENERATOR``.
+
+The port's trainer writes ``model_epoch_{n}.npz`` (``save_checkpoint``;
+the card cannot write Orbax): the float32 parameters keyed by JAX path, as
+in the copies, and the Adam state under ``opt_state/``: ``opt_state/mu/<JAX
+path>``, ``opt_state/nu/<JAX path>`` and ``opt_state/count``.
+``get_latest_checkpoint`` finds such files beside Orbax directories and
+``.pth`` files, and ``UpscalerEngine(checkpoint_dir=...)`` serves them.
 """
 
 from __future__ import annotations
@@ -26,12 +33,16 @@ from pathlib import Path
 
 import numpy as np
 
-from transformerupscaler_torch.torch_convert import load_pth
+import torch
 
-_EPOCH_RE = re.compile(r"model_epoch_(\d+)(?:\.pth)?$")
+from transformerupscaler_torch.torch_convert import load_pth
+from transformerupscaler_torch.weights import flatten, unflatten
+
+_EPOCH_RE = re.compile(r"model_epoch_(\d+)(?:\.pth|\.npz)?$")
 COPIES = Path(__file__).resolve().parent / "checkpoints"
 GENERATOR = "PYTHONPATH=. python tests/test_torch_checkpoint.py"
 FINGERPRINT = "_fingerprint"  # the copy's key for its source's fingerprint
+OPT_STATE = "opt_state/"  # the prefix of the Adam state's keys
 
 
 class StaleCopyError(RuntimeError):
@@ -45,8 +56,9 @@ def default_checkpoint_dir(model_name: str, root: str = ".") -> str:
 
 def get_latest_checkpoint(checkpoint_dir: str) -> tuple[str, int]:
     """(path, epoch) of the highest-epoch checkpoint in ``checkpoint_dir``:
-    an Orbax directory ``model_epoch_{n}`` or a file ``model_epoch_{n}.pth``.
-    Raises FileNotFoundError when there is none."""
+    an Orbax directory ``model_epoch_{n}``, a file ``model_epoch_{n}.pth`` or
+    one the port wrote, ``model_epoch_{n}.npz``. Raises FileNotFoundError
+    when there is none."""
     entries = []
     for f in os.listdir(checkpoint_dir):
         m = _EPOCH_RE.match(f)
@@ -95,23 +107,18 @@ def metadata_shapes(orbax_dir: str) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
-def _unflatten(flat: dict[str, np.ndarray]) -> dict:
-    tree: dict = {}
-    for path, v in flat.items():
-        *parents, leaf = path.split("/")
-        node = tree
-        for k in parents:
-            node = node.setdefault(k, {})
-        node[leaf] = v
-    return tree
-
-
-def _read_npz(path) -> tuple[dict, str | None]:
-    """(flat {JAX path: float32 array}, the stored fingerprint or None)."""
+def _read_npz(path) -> tuple[dict, str | None, dict | None]:
+    """(flat {JAX path: float32 array}, the stored fingerprint or None, the
+    Adam state or None)."""
     with np.load(path) as f:
-        flat = {k: f[k] for k in f.files if k != FINGERPRINT}
+        flat = {k: f[k] for k in f.files
+                if k != FINGERPRINT and not k.startswith(OPT_STATE)}
         stamp = str(f[FINGERPRINT]) if FINGERPRINT in f.files else None
-    return flat, stamp
+        opt = unflatten({k[len(OPT_STATE):]: f[k] for k in f.files
+                         if k.startswith(OPT_STATE)}) or None
+    if opt is not None:
+        opt["count"] = int(opt["count"])
+    return flat, stamp, opt
 
 
 def _read_copy(orbax_dir: str) -> dict:
@@ -120,7 +127,7 @@ def _read_copy(orbax_dir: str) -> dict:
         raise StaleCopyError(
             f"{orbax_dir} has no numpy copy ({copy}); the card cannot read "
             f"Orbax: write the copy with `{GENERATOR}`")
-    flat, stamp = _read_npz(copy)
+    flat, stamp, _ = _read_npz(copy)
     if stamp != fingerprint(orbax_dir):
         raise StaleCopyError(
             f"{copy} is stale: its fingerprint does not match {orbax_dir}; "
@@ -134,22 +141,59 @@ def _read_copy(orbax_dir: str) -> dict:
 
 
 def load_checkpoint(path: str, model_name: str | None = None) -> dict:
-    """{"params": tree} of a checkpoint, the tree as ``weights.params_from_jax``
-    takes it: an Orbax directory (read from its numpy copy, checked), a
-    legacy ``.pth`` (``model_name`` required) or a copy's ``.npz``."""
+    """{"params": tree, "opt_state": Adam state or None} of a checkpoint,
+    the tree as ``weights.params_from_jax`` takes it: an Orbax directory
+    (read from its numpy copy, checked), a legacy ``.pth`` (``model_name``
+    required), or an ``.npz`` (a copy, or what ``save_checkpoint`` wrote,
+    the only kind with an Adam state)."""
     path = str(path)
     if path.endswith(".pth"):
         if model_name is None:
             raise ValueError("model_name is required to convert a .pth "
                              "checkpoint")
-        return load_pth(path, model_name)
+        return {"opt_state": None, **load_pth(path, model_name)}
     if path.endswith(".npz"):
-        return {"params": _unflatten(_read_npz(path)[0])}
+        flat, _, opt = _read_npz(path)
+        return {"params": unflatten(flat), "opt_state": opt}
     if not os.path.isdir(path):
         raise FileNotFoundError(f"no checkpoint at {path}")
     if not os.path.isfile(os.path.join(path, "_METADATA")):
         raise ValueError(f"not an Orbax checkpoint (no _METADATA): {path}")
-    return {"params": _unflatten(_read_copy(path))}
+    return {"params": unflatten(_read_copy(path)), "opt_state": None}
+
+
+def _host(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+    return np.asarray(v, np.float32)
+
+
+def save_checkpoint(checkpoint_dir: str, epoch: int, params,
+                    opt_state=None) -> str:
+    """Write ``model_epoch_{epoch}.npz`` in ``checkpoint_dir`` (made if
+    missing): the JAX tree ``params`` (numpy arrays or tensors) as float32
+    keyed by JAX path and, if given, the Adam state {"mu", "nu", "count"}
+    under ``opt_state/``. The file appears whole or not at all (written
+    beside, then renamed). Returns its absolute path."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    path = os.path.abspath(os.path.join(checkpoint_dir,
+                                        f"model_epoch_{epoch}.npz"))
+    arrays = {k: _host(v) for k, v in flatten(params).items()}
+    if opt_state is not None:
+        for moment in ("mu", "nu"):
+            arrays.update({f"{OPT_STATE}{moment}/{k}": _host(v) for k, v in
+                           flatten(opt_state[moment]).items()})
+        arrays[f"{OPT_STATE}count"] = np.asarray(int(opt_state["count"]),
+                                                 np.int64)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
 
 
 def load_latest_params(model_name: str, checkpoint_dir: str | None = None,

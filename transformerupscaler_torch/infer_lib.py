@@ -165,7 +165,7 @@ class UpscalerEngine:
             else:
                 seeded = False
                 self.checkpoint_path, self.epoch = path, epoch
-                params = load_checkpoint(path, model_name)
+                params = load_checkpoint(path, model_name)["params"]
         if quantize and not seeded:
             params = quantize_linear_params(params)
         self._params = params

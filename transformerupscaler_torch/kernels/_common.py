@@ -68,7 +68,10 @@ def launch_counts() -> dict[str, int]:
 
 def on_card(*tensors: torch.Tensor) -> bool:
     """False for CPU tensors (plain version), True for CUDA tensors (kernel);
-    raises on anything else or on a mix. None entries are skipped."""
+    raises on anything else or on a mix. None entries are skipped. A CUDA
+    tensor that requires grad while autograd records raises too: the
+    kernels have no backward, and launching one would detach the result
+    from the graph without a word."""
     devs = {t.device for t in tensors if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
@@ -77,6 +80,11 @@ def on_card(*tensors: torch.Tensor) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError("a CUDA kernel of the port got a tensor that "
+                           "requires grad: the kernels have no backward "
+                           "(train mode runs the plain PyTorch path)")
     return True
 
 

@@ -12,12 +12,17 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from transformerupscaler_torch.models.common import inference_unless_training
 from transformerupscaler_torch.ops.resize import interpolate_bicubic
 
 
 class BicubicInterpolation(nn.Module):
     """x: (B, H, W, C) -> (B, res_out..., C) in x's dtype, not clipped."""
 
-    @torch.inference_mode()
+    def __init__(self):
+        super().__init__()
+        self.eval()  # serves in eval mode, as the other models
+
+    @inference_unless_training
     def forward(self, x: torch.Tensor, res_out=(1080, 1920)) -> torch.Tensor:
         return interpolate_bicubic(x, tuple(res_out))

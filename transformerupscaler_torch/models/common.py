@@ -8,10 +8,20 @@ blocks' MLP in int8 with ``int8_mlp``, and the fused one, ``"fused"`` or
 ``trunk_int8_scales``). Parameters are kept in the
 JAX layout, HWIO conv kernels and (in, out) dense kernels, and in f32;
 compute runs in the activation dtype.
+
+Training mode (JAX's ``deterministic=False``): a model serves in eval
+mode, where its forward runs under ``torch.inference_mode()``
+(``inference_unless_training``); after ``train()`` the forward runs under
+autograd, block by block in PyTorch whatever ``attn_impl`` says (no fused
+trunk, no window-attention kernel, no int8 MLP: the kernels have no
+backward, as the Pallas ones have no VJP), with ``Dropout`` at JAX's
+sites: window attention's probabilities and projected output, global
+attention's probabilities, and each block's MLP output.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -42,8 +52,58 @@ def resolve_geometry(in_hw: tuple[int, int], res_out, upscale_factor):
 
 
 def param(*shape) -> nn.Parameter:
-    """An inference parameter, zeros until weights are loaded."""
+    """A parameter, zeros until weights are loaded. It requires no grad:
+    serving models never do; a ``Trainer`` turns it on for its own."""
     return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+
+
+def inference_unless_training(forward):
+    """Decorate a model's ``forward``: in eval mode (serving, the models'
+    mode from construction) it runs under ``torch.inference_mode()``; in
+    train mode under autograd as the caller has it."""
+    @functools.wraps(forward)
+    def run(self, *args, **kwargs):
+        if self.training:
+            return forward(self, *args, **kwargs)
+        with torch.inference_mode():
+            return forward(self, *args, **kwargs)
+    return run
+
+
+class Dropout:
+    """Inverted dropout at ``rate`` with masks drawn from ``generator``:
+    an element is kept with probability keep = 1 - rate and then divided by
+    keep rounded to the element's dtype, as JAX divides by a weakly typed
+    Python float (``ops/attention._dropout``, ``nn.Dropout``). One instance
+    serves one forward; every call draws a new mask."""
+
+    def __init__(self, rate: float, generator: torch.Generator):
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+        self.rate = rate
+        self.generator = generator
+
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < 1.0 - self.rate
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        keep = torch.full((), 1.0 - self.rate, dtype=x.dtype, device=x.device)
+        return torch.where(self.keep_mask(x), x / keep, keep.new_zeros(()))
+
+
+def dropout_for(model: nn.Module, generator) -> Dropout | None:
+    """The ``Dropout`` of one train-mode forward of ``model`` (None in eval
+    mode or at rate 0). Train mode at a rate above 0 needs a
+    ``torch.Generator`` on the input's device, as JAX needs a dropout
+    key."""
+    if not model.training or model.dropout == 0.0:
+        return None
+    if generator is None:
+        raise ValueError(f"{type(model).__name__} in train mode with dropout "
+                         f"{model.dropout} needs a torch.Generator "
+                         f"(generator=)")
+    return Dropout(model.dropout, generator)
 
 
 class ConvLayer(nn.Module):
@@ -104,7 +164,8 @@ class WindowAttention(nn.Module):
         self.window_size = window_size
         self.num_heads = num_heads
 
-    def forward(self, x, impl: str = "xla", calib: dict | None = None):
+    def forward(self, x, impl: str = "xla", calib: dict | None = None,
+                drop: Dropout | None = None):
         if calib is not None:
             # proj's input is a per-head convex combination of v rows, so
             # the per-channel max |v| bounds it (JAX common.py:104-111): v
@@ -116,7 +177,7 @@ class WindowAttention(nn.Module):
         return window_attention(x, self.qkv_kernel, self.qkv_bias,
                                 self.proj_kernel, self.proj_bias,
                                 self.bias_table, self.num_heads,
-                                self.window_size, impl)
+                                self.window_size, impl, drop)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -133,15 +194,16 @@ def _abs_max(v: torch.Tensor) -> torch.Tensor:
 
 
 class WindowBlock(nn.Module):
-    """Pre-LN window attention + pre-LN 4x exact-GELU MLP, with residuals
-    (inference: no dropout).
+    """Pre-LN window attention + pre-LN 4x exact-GELU MLP, with residuals,
+    and in train mode ``drop`` at JAX's sites (attention, then the MLP's
+    output, ``mlp_drop``).
 
     ``int8_mlp`` (JAX common.py:136, 168-180): the MLP's two products as
     ``ops.quant.int8_dense``, the f32 weights quantized per output channel
     at each forward (``quantize_weight``), the activations per tensor over
     the whole (zero-padded) window batch the block is given. Only the
     block-by-block trunk runs the blocks; the fused trunk ignores it, as in
-    JAX."""
+    JAX, and so does train mode (JAX applies it only when deterministic)."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, int8_mlp: bool = False):
@@ -154,7 +216,8 @@ class WindowBlock(nn.Module):
         self.mlp_fc1 = Dense(dim, hidden)
         self.mlp_fc2 = Dense(hidden, dim)
 
-    def forward(self, x, impl: str = "xla", calib: dict | None = None):
+    def forward(self, x, impl: str = "xla", calib: dict | None = None,
+                drop: Dropout | None = None):
         """``calib``: a dict that receives the per-channel max |input| of
         the four GEMMs, as JAX ``calib_trunk_int8`` sows them (common.py:
         98-110, 136-186): "qkv" (LN1 output), "proj" (v), "fc1" (LN2
@@ -163,11 +226,11 @@ class WindowBlock(nn.Module):
         y = self.norm1(x)
         if calib is not None:
             calib["qkv"] = _abs_max(y)
-        x = x + self.attn(y, impl, calib)
+        x = x + self.attn(y, impl, calib, drop)
         z = self.norm2(x)
         if calib is not None:
             calib["fc1"] = _abs_max(z)
-        if self.int8_mlp:
+        if self.int8_mlp and not self.training:
             # As in JAX, the int8 MLP records no "fc2" maximum.
             f1, f2 = self.mlp_fc1, self.mlp_fc2
             y = gelu(int8_dense(z, *quantize_weight(f1.kernel), f1.bias))
@@ -175,7 +238,8 @@ class WindowBlock(nn.Module):
         h = gelu(self.mlp_fc1(z))
         if calib is not None:
             calib["fc2"] = _abs_max(h)
-        return x + self.mlp_fc2(h)
+        y = self.mlp_fc2(h)
+        return x + (y if drop is None else drop(y))
 
 
 CALIB_GEMMS = ("qkv", "proj", "fc1", "fc2")
@@ -203,8 +267,8 @@ FUSED_MODES = {"fused": "v1", "fused2": "v2"}
 
 
 def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int,
-                     impl: str = "xla", stacked=None,
-                     int8_acts=None) -> torch.Tensor:
+                     impl: str = "xla", stacked=None, int8_acts=None,
+                     drop: Dropout | None = None) -> torch.Tensor:
     """tokens (B, Ht, Wt, D) -> same shape: zero-pad the grid to a window
     multiple, run the blocks on the windows, unpad.
 
@@ -226,7 +290,8 @@ def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int,
     ``chip_smoke.py``'s ``trunk_static`` line runs it at full width,
     ``tests/test_torch_int8_static_trunk.py`` against JAX on the CPU).
     The zero tokens of the padding go through either as ordinary tokens,
-    unmasked, as in JAX."""
+    unmasked, as in JAX. ``drop`` goes to the blocks ("xla" and "pallas"
+    only; a train-mode model runs "xla")."""
     if impl not in TRUNK_IMPLS:
         raise ValueError(f"impl: one of {TRUNK_IMPLS}, got {impl!r}")
     mode = FUSED_MODES.get(impl)
@@ -250,7 +315,7 @@ def run_window_trunk(tokens: torch.Tensor, blocks, window_size: int,
         win = fused_window_trunk(win.contiguous(), stacked, mode)
     else:
         for block in blocks:
-            win = block(win, impl)
+            win = block(win, impl, drop=drop)
     tokens = window_reverse(win.reshape(b, n_win, -1, d), window_size, hp, wp)
     return tokens[:, :ht, :wt, :]
 
@@ -290,7 +355,14 @@ class FusedTrunk:
                 self.int8_trunk and self.attn_impl == "fused2")
         return self._trunk[key]
 
-    def run_trunk(self, tokens: torch.Tensor) -> torch.Tensor:
+    def run_trunk(self, tokens: torch.Tensor,
+                  drop: Dropout | None = None) -> torch.Tensor:
+        """The trunk by ``attn_impl``; in train mode block by block in
+        PyTorch, with ``drop`` (JAX common.py:214: the fused trunk and the
+        Pallas core serve only when deterministic)."""
+        if self.training:
+            return run_window_trunk(tokens, self.blocks, self.window_size,
+                                    "xla", drop=drop)
         fused = self.attn_impl in FUSED_MODES
         return run_window_trunk(
             tokens, self.blocks, self.window_size, self.attn_impl,

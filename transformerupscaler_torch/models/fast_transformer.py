@@ -237,6 +237,8 @@ from transformerupscaler_torch.models.common import (
     ConvLayer,
     FusedTrunk,
     WindowBlock,
+    dropout_for,
+    inference_unless_training,
     param,
     resolve_geometry,
 )
@@ -305,9 +307,12 @@ class PackedRoute:
 
 
 class FastTransformer(FusedTrunk, nn.Module):
-    """Inference-only FastTransformer. Parameters are f32 in the JAX layout
-    (see ``transformerupscaler_torch.weights``); compute runs in ``dtype``.
-    Input x: (B, H, W, 3) in [0, 1]; output (B, res_out..., 3).
+    """FastTransformer. Parameters are f32 in the JAX layout (see
+    ``transformerupscaler_torch.weights``); compute runs in ``dtype``.
+    Input x: (B, H, W, 3) in [0, 1]; output (B, res_out..., 3). It serves
+    in eval mode; in train mode (``train()``, JAX's ``deterministic=False``)
+    the forward runs the exact path under autograd with the trunk in
+    PyTorch and ``dropout`` (0.1) drawn from the forward's ``generator``.
 
     ``attn_impl``: "xla", "pallas", "fused" or "fused2" (the trunk, see the
     module docstring); ``int8_trunk``: the fused2 trunk's GEMMs in int8;
@@ -336,7 +341,8 @@ class FastTransformer(FusedTrunk, nn.Module):
                  packed_serve: bool = False, fix_ratio_bug: bool = False,
                  serve_quality: bool = False, quality_parts: str = "tails",
                  f32_tail: bool = False, fold_pre: bool = True,
-                 int8_mlp: bool = False, int8_weights: tuple | None = None):
+                 int8_mlp: bool = False, int8_weights: tuple | None = None,
+                 dropout: float = 0.1):
         super().__init__()
         bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
         if attn_impl not in TRUNK_IMPLS:
@@ -385,6 +391,7 @@ class FastTransformer(FusedTrunk, nn.Module):
         self.int8_mlp = int8_mlp
         self.int8_weights = (None if int8_weights is None
                              else tuple(map(tuple, int8_weights)))
+        self.dropout = dropout
         self.conv1 = ConvLayer(ic, bc)
         self.conv2 = ConvLayer(bc, bc)
         self.up1 = Upsampler(bc)
@@ -402,6 +409,7 @@ class FastTransformer(FusedTrunk, nn.Module):
         self.decoder_conv1 = ConvLayer(bc, bc)
         self.decoder_conv2 = ConvLayer(bc, ic)
         self.clear_derived()
+        self.eval()
 
     def clear_derived(self) -> None:
         """Drop what was derived from the parameters (the composed tail
@@ -591,28 +599,33 @@ class FastTransformer(FusedTrunk, nn.Module):
         return (require_ratio and tuple(res_out) != compare
                 and tuple(res_out) != out_hw)
 
-    @torch.inference_mode()
+    @inference_unless_training
     def forward(self, x: torch.Tensor, res_out=(1080, 1920),
                 upscale_factor: int | None = None,
-                require_ratio: bool = True) -> torch.Tensor:
+                require_ratio: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the dropout masks' source in train mode."""
         res_out, scale = resolve_geometry(x.shape[1:3], res_out,
                                           upscale_factor)
         x_in = x  # the pre-cast input: the exact-uint8 conv1 reads it
         x = x.to(self.dtype)
         h, w = x.shape[1:3]
         self.int8_scales_used = {}
-        if not ((self.packed_serve or self.int8_serve or self.pallas_serve)
+        if self.training or not (
+                (self.packed_serve or self.int8_serve or self.pallas_serve)
                 and self.compose_tails and scale in GATE_SCALES
                 and h % self.patch_size == 0 and w % 16 == 0):
-            return self._exact_forward(x, res_out, scale, require_ratio)
+            return self._exact_forward(x, res_out, scale, require_ratio,
+                                       dropout_for(self, generator))
         if self.pallas_serve and (self.base_channels != 64
                                   or self.patch_size != 8):
             raise NotImplementedError("the serving kernels take 64 channels "
                                       "and 8x8 patches")
         return self._packed_forward(x, x_in, res_out, scale, require_ratio)
 
-    def _exact_forward(self, x, res_out, scale, require_ratio):
-        """JAX ``__call__``'s own path (fast_transformer.py:244-330)."""
+    def _exact_forward(self, x, res_out, scale, require_ratio, drop=None):
+        """JAX ``__call__``'s own path (fast_transformer.py:244-330), with
+        ``drop`` in the trunk in train mode."""
         feat = conv2d(x, self.conv1.kernel, self.conv1.bias, relu=True)
         feat = conv2d(feat, self.conv2.kernel, self.conv2.bias, relu=True)
         h, w = feat.shape[1:3]
@@ -626,7 +639,7 @@ class FastTransformer(FusedTrunk, nn.Module):
                                   return_preshuffle=squash)
         tokens = patch_embed(feat_pad, self.patch_embed_kernel,
                              self.patch_embed_bias)
-        tokens = self.run_trunk(tokens)
+        tokens = self.run_trunk(tokens, drop)
         feat_trans = patch_unembed(tokens, self.patch_unembed_kernel,
                                    self.patch_unembed_bias)
         combined = feat + feat_trans[:, :h, :w, :]

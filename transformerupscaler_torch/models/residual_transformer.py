@@ -24,6 +24,11 @@ Routes, as in the JAX model:
 
 The JAX package's ``TUX_RESID_BICUBIC=conv`` and ``TUX_RESID_DEC_PALLAS=0``
 switches are not served and raise ``NotImplementedError`` when set.
+
+In train mode (``train()``, JAX's ``deterministic=False``) the exact route
+runs under autograd with the eager attention whatever ``attn_impl`` says,
+and ``dropout`` (0.1) on the attention probabilities and each block's MLP
+output, drawn from the forward's ``generator``.
 """
 
 from __future__ import annotations
@@ -37,8 +42,11 @@ from transformerupscaler_torch.kernels.stream import conv3x3_stream
 from transformerupscaler_torch.models.common import (
     ConvLayer,
     Dense,
+    Dropout,
     LayerNorm,
+    dropout_for,
     gelu,
+    inference_unless_training,
     param,
     resolve_geometry,
 )
@@ -52,7 +60,8 @@ SERVED_SWITCHES = {"TUX_RESID_BICUBIC": "matmul", "TUX_RESID_DEC_PALLAS": "1"}
 
 class GlobalAttentionBlock(nn.Module):
     """Pre-LN global multi-head attention + pre-LN 4x exact-GELU MLP, with
-    residuals (inference: no dropout)."""
+    residuals, and in train mode ``drop`` on the attention probabilities and
+    the MLP's output (``mlp_drop``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
         super().__init__()
@@ -66,25 +75,28 @@ class GlobalAttentionBlock(nn.Module):
         self.mlp_fc2 = Dense(int(dim * mlp_ratio), dim)
         self.num_heads = num_heads
 
-    def forward(self, x, impl: str = "xla"):
+    def forward(self, x, impl: str = "xla", drop: Dropout | None = None):
         x = x + multihead_attention(self.norm1(x), self.in_kernel,
                                     self.in_bias, self.out_kernel,
-                                    self.out_bias, self.num_heads, impl)
-        return x + self.mlp_fc2(gelu(self.mlp_fc1(self.norm2(x))))
+                                    self.out_bias, self.num_heads, impl, drop)
+        y = self.mlp_fc2(gelu(self.mlp_fc1(self.norm2(x))))
+        return x + (y if drop is None else drop(y))
 
 
 class ResidualTransformer(nn.Module):
-    """Inference-only ResidualTransformer. Parameters are f32 in the JAX
-    layout (see ``transformerupscaler_torch.weights``); compute runs in
-    ``dtype``. Input x: (B, H, W, 3) in [0, 1] with H / 16 x W / 16 equal to
-    ``token_hw``; output (B, res_out..., 3)."""
+    """ResidualTransformer. Parameters are f32 in the JAX layout (see
+    ``transformerupscaler_torch.weights``); compute runs in ``dtype``. Input
+    x: (B, H, W, 3) in [0, 1] with H / 16 x W / 16 equal to ``token_hw``;
+    output (B, res_out..., 3). Serves in eval mode; trains in train mode
+    (module docstring)."""
 
     def __init__(self, in_channels: int = 3, base_channels: int = 64,
                  transformer_dim: int = 128, num_transformer_blocks: int = 8,
                  num_heads: int = 8, mlp_ratio: float = 4.0,
                  patch_size: int = 8, token_hw: tuple[int, int] = (45, 80),
                  packed_serve: bool = False, pallas_serve: bool = False,
-                 attn_impl: str = "xla", dtype=torch.float32):
+                 attn_impl: str = "xla", dtype=torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
         self.token_hw = tuple(token_hw)
@@ -92,6 +104,7 @@ class ResidualTransformer(nn.Module):
         self.pallas_serve = pallas_serve
         self.attn_impl = attn_impl
         self.dtype = dtype
+        self.dropout = dropout
         self.conv1 = ConvLayer(ic, bc, relu=True)
         self.conv2 = ConvLayer(bc, bc, relu=True)
         self.downsample = ConvLayer(bc, bc, stride=2)
@@ -105,9 +118,12 @@ class ResidualTransformer(nn.Module):
         self.patch_unembed_bias = param(bc)
         self.decoder_conv1 = ConvLayer(bc, bc, relu=True)
         self.decoder_conv2 = ConvLayer(bc, ic)
+        self.eval()
 
-    def _transformer(self, feat_down: torch.Tensor) -> torch.Tensor:
-        """Embed, add ``pos_embed``, run the blocks, unembed."""
+    def _transformer(self, feat_down: torch.Tensor,
+                     drop: Dropout | None = None) -> torch.Tensor:
+        """Embed, add ``pos_embed``, run the blocks (in train mode the eager
+        attention, with ``drop``), unembed."""
         tokens = patch_embed(feat_down, self.patch_embed_kernel,
                              self.patch_embed_bias)
         b, ht, wt, d = tokens.shape
@@ -117,28 +133,33 @@ class ResidualTransformer(nn.Module):
                 f"{self.token_hw} ({16 * self.token_hw[0]}x"
                 f"{16 * self.token_hw[1]} input); got {(ht, wt)}")
         seq = tokens.reshape(b, ht * wt, d) + self.pos_embed.to(self.dtype)
+        impl = "xla" if self.training else self.attn_impl
         for block in self.blocks:
-            seq = block(seq, self.attn_impl)
+            seq = block(seq, impl, drop)
         return patch_unembed(seq.reshape(b, ht, wt, d),
                              self.patch_unembed_kernel,
                              self.patch_unembed_bias)
 
-    @torch.inference_mode()
+    @inference_unless_training
     def forward(self, x: torch.Tensor, res_out=(1080, 1920),
                 upscale_factor: int | None = None,
-                require_ratio: bool = True) -> torch.Tensor:
+                require_ratio: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the dropout masks' source in train mode."""
         del require_ratio  # accepted and unused, as in the reference
         res_out, _ = resolve_geometry(x.shape[1:3], res_out, upscale_factor)
         x = x.to(self.dtype)
         h, w = x.shape[1:3]
-        if (self.packed_serve and res_out[0] % h == 0 and res_out[1] % w == 0
+        if (self.packed_serve and not self.training
+                and res_out[0] % h == 0 and res_out[1] % w == 0
                 and res_out[0] // h == res_out[1] // w
                 and res_out[0] // h >= 2 and h % 2 == 0 and w % 16 == 0):
             return self._packed_forward(x, res_out[0] // h)
 
         upscaled_input = interpolate_bicubic(x, res_out)
         feat_down = self.downsample(self.conv2(self.conv1(x)))
-        combined = feat_down + self._transformer(feat_down)
+        combined = feat_down + self._transformer(feat_down,
+                                                 dropout_for(self, generator))
         residual = self.decoder_conv2(self.decoder_conv1(combined))
         out = upscaled_input + interpolate_bicubic(residual, res_out)
         return out.clamp(0.0, 1.0)

@@ -112,7 +112,8 @@ def _shuffle4_perm(o: int, device) -> torch.Tensor:
     """Output-channel permutation of the two-stage x4 composition: from the
     nested phase order (o, a2, b2, a1, b1) to ``pixel_shuffle(4)`` order
     (o, i, j) with i = 2*a1 + a2 and j = 2*b1 + b2. Copied to ``device``
-    once: a CUDA graph cannot capture a copy from pageable host memory."""
+    once: a CUDA graph cannot capture a copy from pageable host memory;
+    outside inference mode, as a train-mode forward may save it."""
     perm = []
     for oc in range(o):
         for i in range(4):
@@ -120,7 +121,8 @@ def _shuffle4_perm(o: int, device) -> torch.Tensor:
                 a1, a2 = i // 2, i % 2
                 b1, b2 = j // 2, j % 2
                 perm.append((((oc * 2 + a2) * 2 + b2) * 2 + a1) * 2 + b1)
-    return torch.tensor(perm, device=device)
+    with torch.inference_mode(False):
+        return torch.tensor(perm, device=device)
 
 
 def split_tail_kernels(up_params: dict, scale: int, tail_kernel, tail_bias,

@@ -25,6 +25,10 @@ Kernels (``pallas_serve`` and ``attn_impl`` as in the JAX model):
 ``int8_mlp`` (window_transformer.py:40, 59) runs each block's MLP as two
 int8 products (``models.common.WindowBlock``) under ``attn_impl`` "xla" and
 "pallas"; the fused trunks ignore it, as in JAX.
+
+In train mode (``train()``, JAX's ``deterministic=False``) the forward runs
+under autograd on plain PyTorch only: conv2 as ``conv2d``, the blocks in
+PyTorch with ``dropout`` (0.01) drawn from the forward's ``generator``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ from transformerupscaler_torch.models.common import (
     ConvLayer,
     FusedTrunk,
     WindowBlock,
+    dropout_for,
+    inference_unless_training,
     param,
     resolve_geometry,
 )
@@ -46,16 +52,18 @@ from transformerupscaler_torch.ops.resize import interpolate_bicubic
 
 
 class WindowTransformer(FusedTrunk, nn.Module):
-    """Inference-only WindowTransformer. Parameters are f32 in the JAX layout
-    (see ``transformerupscaler_torch.weights``); compute runs in ``dtype``.
-    Input x: (B, H, W, 3) in [0, 1]; output (B, res_out..., 3)."""
+    """WindowTransformer. Parameters are f32 in the JAX layout (see
+    ``transformerupscaler_torch.weights``); compute runs in ``dtype``.
+    Input x: (B, H, W, 3) in [0, 1]; output (B, res_out..., 3). Serves in
+    eval mode; trains in train mode (module docstring)."""
 
     def __init__(self, in_channels: int = 3, base_channels: int = 64,
                  transformer_dim: int = 128, num_window_blocks: int = 8,
                  num_heads: int = 8, mlp_ratio: float = 4.0,
                  window_size: int = 8, patch_size: int = 8,
                  attn_impl: str = "xla", pallas_serve: bool = False,
-                 int8_mlp: bool = False, dtype=torch.float32):
+                 int8_mlp: bool = False, dtype=torch.float32,
+                 dropout: float = 0.01):
         super().__init__()
         bc, td, ps, ic = base_channels, transformer_dim, patch_size, in_channels
         if attn_impl not in TRUNK_IMPLS:
@@ -68,6 +76,7 @@ class WindowTransformer(FusedTrunk, nn.Module):
         self.pallas_serve = pallas_serve
         self.int8_mlp = int8_mlp
         self.dtype = dtype
+        self.dropout = dropout
         self.conv1 = ConvLayer(ic, bc, relu=True)
         self.conv2 = ConvLayer(bc, bc, relu=True)
         self.downsample = ConvLayer(bc, bc, stride=2)
@@ -81,11 +90,14 @@ class WindowTransformer(FusedTrunk, nn.Module):
         self.decoder_conv1 = ConvLayer(bc, bc, relu=True)
         self.decoder_conv2 = ConvLayer(bc, ic)
         self.clear_derived()
+        self.eval()
 
-    @torch.inference_mode()
+    @inference_unless_training
     def forward(self, x: torch.Tensor, res_out=(1080, 1920),
                 upscale_factor: int | None = None,
-                require_ratio: bool = True) -> torch.Tensor:
+                require_ratio: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the dropout masks' source in train mode."""
         del require_ratio  # accepted and unused, as in the reference
         res_out, _ = resolve_geometry(x.shape[1:3], res_out, upscale_factor)
         dt = self.dtype
@@ -93,7 +105,8 @@ class WindowTransformer(FusedTrunk, nn.Module):
         upscaled_input = interpolate_bicubic(x, res_out)
 
         h0, w0 = x.shape[1:3]
-        if (self.pallas_serve and self.base_channels == 64 and h0 % 8 == 0
+        if (self.pallas_serve and not self.training
+                and self.base_channels == 64 and h0 % 8 == 0
                 and w0 % 16 == 0):
             feat = conv3x3_stream(self.conv1(x), self.conv2.kernel.to(dt),
                                   self.conv2.bias, relu=True)
@@ -107,7 +120,7 @@ class WindowTransformer(FusedTrunk, nn.Module):
         ht, wt = hd // ps, wd // ps
         tokens = patch_embed(feat_down[:, :ht * ps, :wt * ps, :],
                              self.patch_embed_kernel, self.patch_embed_bias)
-        tokens = self.run_trunk(tokens)
+        tokens = self.run_trunk(tokens, dropout_for(self, generator))
         feat_trans = patch_unembed(tokens, self.patch_unembed_kernel,
                                    self.patch_unembed_bias)
 

@@ -14,6 +14,11 @@ eager form, "pallas" puts ``kernels.window_attn.window_attention_core``
 between the two projections. ``multihead_attention``: "xla" is the eager
 form, which materializes the (B, heads, N, N) f32 scores; any other value puts
 ``kernels.gmha.global_mha`` between the two projections.
+
+``drop`` (a ``models.common.Dropout``, train mode) drops at JAX's sites:
+window attention's probabilities and its projected output
+(ops/attention.py:69-77), global attention's probabilities (:123-125).
+A caller in train mode passes impl "xla": the kernels have no backward.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ WINDOW_IMPLS = ("xla", "pallas")
 
 def window_attention(x: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
                      bias_table, num_heads: int, window_size: int,
-                     impl: str = "xla") -> torch.Tensor:
+                     impl: str = "xla", drop=None) -> torch.Tensor:
     """x: (B, N, C) with N == window_size**2 tokens per window."""
     if impl not in WINDOW_IMPLS:
         raise ValueError(f"impl: one of {WINDOW_IMPLS}, got {impl!r}")
@@ -39,6 +44,8 @@ def window_attention(x: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
     qkv = x @ qkv_w.to(dt) + qkv_b.to(dt)
     bias = gather_relative_bias(bias_table.float(), window_size)
     if impl == "pallas":
+        if drop is not None:
+            raise ValueError("dropout runs on the eager form (impl='xla')")
         out = window_attention_core(qkv, bias.contiguous(), num_heads)
         return out @ proj_w.to(dt) + proj_b.to(dt)
     qkv = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
@@ -46,12 +53,16 @@ def window_attention(x: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
     q = q * hd ** -0.5
     attn = q.float() @ k.float().transpose(-1, -2)
     attn = torch.softmax(attn + bias, dim=-1).to(dt)
+    if drop is not None:
+        attn = drop(attn)
     out = (attn @ v).permute(0, 2, 1, 3).reshape(b, n, c)
-    return out @ proj_w.to(dt) + proj_b.to(dt)
+    out = out @ proj_w.to(dt) + proj_b.to(dt)
+    return out if drop is None else drop(out)
 
 
 def multihead_attention(x: torch.Tensor, in_w, in_b, out_w, out_b,
-                        num_heads: int, impl: str = "xla") -> torch.Tensor:
+                        num_heads: int, impl: str = "xla",
+                        drop=None) -> torch.Tensor:
     """Self-attention as ``nn.MultiheadAttention(batch_first=True)`` computes
     it. x: (B, N, C); in_w: (C, 3C) packed q/k/v projection; out_w: (C, C)."""
     b, n, c = x.shape
@@ -59,6 +70,8 @@ def multihead_attention(x: torch.Tensor, in_w, in_b, out_w, out_b,
     hd = c // num_heads
     qkv = x @ in_w.to(dt) + in_b.to(dt)
     if impl != "xla":
+        if drop is not None:
+            raise ValueError("dropout runs on the eager form (impl='xla')")
         ctx = global_mha(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
                          num_heads)
         return ctx @ out_w.to(dt) + out_b.to(dt)
@@ -67,5 +80,7 @@ def multihead_attention(x: torch.Tensor, in_w, in_b, out_w, out_b,
     q = q * torch.tensor(hd ** -0.5, dtype=dt)
     attn = q.float() @ k.float().transpose(-1, -2)
     attn = torch.softmax(attn, dim=-1).to(dt)
+    if drop is not None:
+        attn = drop(attn)
     out = (attn @ v).permute(0, 2, 1, 3).reshape(b, n, c)
     return out @ out_w.to(dt) + out_b.to(dt)

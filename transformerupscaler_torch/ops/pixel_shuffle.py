@@ -60,8 +60,11 @@ def _commute_maps(r: int, k: int = 3):
 def _commute_maps_on(r: int, k: int, device: torch.device):
     """``_commute_maps`` as tensors on ``device``, copied there once: the
     exact path composes tails on every forward, and a CUDA graph cannot
-    capture a copy from pageable host memory."""
-    return tuple(torch.from_numpy(a).to(device) for a in _commute_maps(r, k))
+    capture a copy from pageable host memory. Made outside inference mode:
+    a train-mode forward saves them for backward."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in _commute_maps(r, k))
 
 
 def commute_conv_through_shuffle(kernel: torch.Tensor, r: int) -> torch.Tensor:

@@ -35,5 +35,8 @@ def gather_relative_bias(table: torch.Tensor, window_size: int) -> torch.Tensor:
 
 @lru_cache(maxsize=8)
 def _index_on(window_size: int, device: torch.device) -> torch.Tensor:
-    """The flattened index map on ``device``, copied there once."""
-    return torch.from_numpy(relative_position_index(window_size)).reshape(-1).to(device)
+    """The flattened index map on ``device``, copied there once, outside
+    inference mode: a train-mode forward saves it for backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            relative_position_index(window_size)).reshape(-1).to(device)

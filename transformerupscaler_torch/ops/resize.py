@@ -143,6 +143,9 @@ def resize_shuffled(z: torch.Tensor, r: int, out_hw: tuple[int, int],
 def _phase_matrix(in_size, r, out_size, method, antialias, a, device, dtype):
     """``resize_matrix(in_size * r, out_size)`` split by phase to
     (out, in, r), on ``device`` in ``dtype``: built and copied once per
-    geometry, not on every frame."""
+    geometry, not on every frame, outside inference mode (a train-mode
+    forward saves it for backward)."""
     m = resize_matrix(in_size * r, out_size, method, antialias, a)
-    return torch.from_numpy(m.reshape(out_size, in_size, r)).to(device, dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(m.reshape(out_size, in_size, r)).to(device,
+                                                                    dtype)

@@ -55,8 +55,9 @@ _MODELS = {"BicubicInterpolation": BicubicInterpolation,
 # Per model: the ``attn_impl`` values the port serves (a model not named
 # takes any).
 ATTN_IMPLS = {"FastTransformer": TRUNK_IMPLS, "WindowTransformer": TRUNK_IMPLS}
-# JAX fields the port's models accept and ignore (inference only; the other
-# models take FastTransformer's serving flags without having them).
+# JAX fields that a model without them drops, so that one set of flags can
+# go to every model (the serving flags are FastTransformer's; the bicubic
+# baseline has no ``dropout``).
 IGNORED = ("dropout", "compose_tails", "packed_serve", "pallas_serve",
            "int8_mlp", "int8_serve", "int8_scope", "int8_scales",
            "int8_trunk", "serve_quality", "attn_impl", "split_tail",
