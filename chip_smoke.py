@@ -2,10 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (an H100 is the target).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only stream,gptq,int8_mlp,train
+    python3 chip_smoke.py --only stream,gptq,int8_mlp,train,cli,mesh,resid_switches
 
 Run from the root of a checkout, with no arguments. (``--only`` runs the
-device, the build and the named ones of phases 10-13, and prints no result
+device, the build and the named ones of phases 10-16, and prints no result
 lines.) Phases, one line each:
 
 1. the device: torch's name for it, and nvidia-smi's name and power limit
@@ -120,7 +120,31 @@ lines.) Phases, one line each:
     with the Adam state to two, refused with exit code 3); its epoch-2
     checkpoint served on ``bench``'s six kernels against its exact f32
     path at ``LIMIT``;
-14. the status of every TPU kernel of the JAX package in the port.
+14. ``cli``: the port's command lines. ``python3 -m
+    transformerupscaler_torch.inference --image_path
+    models/FastTransformer/demo/model_x6.png --res_in 720 --scale 2 --fast``
+    (the trained weights, the ``bench`` route in bf16) in its own process in
+    a temporary directory: exit code, the PNGs' sizes, the two score lines;
+    the same ``main`` in process: only ``bench``'s kernels launched, a whole
+    number of frames' worth, its output against the exact f32 path at
+    ``LIMIT``; ``speed_test --fast`` and ``ab_test --model_a FastTransformer
+    --model_b BicubicInterpolation`` over a directory of the two demo frames
+    (720x1280, 1080x1920), their report numbers;
+15. ``mesh``: ``make_mesh()`` over the visible cards; ``speed_test --mesh
+    -1``; ``ShardedUpscaler`` on [cuda:0, cuda:0] (a batch of 3 at 720x1280
+    on the bench flags: shards [2, 1], the pad and the crop) against the
+    single-device engine at ``LIMIT``, placement asserted; one f32 step
+    (TF32 off, dropout 0) on a 2x1 and a 2x2 mesh of cuda:0 against the
+    single-device step and JAX's, at ``TRAIN_TOL``, no launch;
+16. ``resid_switches``: ResidualTransformer's ``TUX_RESID_DEC_PALLAS=0``
+    and ``TUX_RESID_BICUBIC=conv``, at the small fixture's geometry against
+    JAX (tests/fixtures/torch_port/resid_switches_small.npz, bf16), then on
+    ``resid_packed`` at full width with the trained weights against the
+    route without the switch at ``LIMIT`` (launches per frame: the stream
+    conv once under ``DEC_PALLAS=0``, twice otherwise, ``global_mha`` 8;
+    eager and graphed forward ms), and ``BICUBIC=conv`` on the f32 all-XLA
+    packed route at the f32 bounds;
+17. the status of every TPU kernel of the JAX package in the port.
 
 The device line also says whether ``tensorstore`` and ``zstandard`` import
 on this host (never a failure). Then one JSON line of kernel records and,
@@ -214,6 +238,8 @@ ROUTE_INT8_XLA = dict(compose_tails=True, int8_serve=True, int8_scope="full",
 # 0) at x4 and x6, each to the exact multiple 1056x1920.
 X4_HW, X6_HW, RES_OUT_1056 = (264, 480), (176, 320), (1056, 1920)
 FIXTURES = "tests/fixtures/torch_port/"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEMO_DIR = os.path.join(ROOT, "models", "FastTransformer", "demo")
 # The default checkpoints: epoch and parameter count.
 TRAINED = {"FastTransformer": (100, 6_447_379),
            "WindowTransformer": (40, 2_763_651),
@@ -2144,8 +2170,9 @@ def phase_stream() -> dict:
 
 
 def _psnr(got, ref) -> float:
-    mse = float(((got.astype(np.float64) - ref) ** 2).mean())
-    return 10 * np.log10(1.0 / mse) if mse else float("inf")
+    from transformerupscaler_torch.metrics import psnr
+
+    return psnr(ref, got, data_range=1.0)
 
 
 def phase_gptq(name: str, ref: np.ndarray) -> dict:
@@ -2308,10 +2335,11 @@ def train_step_errors(got: dict, loss: float, fix) -> dict:
     return errs
 
 
-def train_step_vs_jax(device) -> dict:
+def train_step_vs_jax(device, mesh=None) -> dict:
     """One f32 step of the full-width FastTransformer (dropout 0) from the
-    epoch-100 weights on the fixture's batch: its errors against JAX's
-    (``train_step_errors``) and the launches of the port's kernels."""
+    epoch-100 weights on the fixture's batch (on ``mesh`` if given): its
+    errors against JAX's (``train_step_errors``), its checksums and the
+    launches of the port's kernels."""
     from transformerupscaler_torch import kernels as K
     from transformerupscaler_torch.train_lib import Trainer
     from transformerupscaler_torch.weights import flatten
@@ -2320,7 +2348,7 @@ def train_step_vs_jax(device) -> dict:
         fix = {k: f[k] for k in f.files}
     samples = [(fix[f"lr_{i}"], fix[f"hr_{i}"]) for i in range(3)]
     tr = Trainer("FastTransformer", dtype=torch.float32, dropout=0.0,
-                 device=device)
+                 device=None if mesh else device, mesh=mesh)
     if not tr.try_resume(int(fix["epoch"]) + 1) or \
             tr.epochs_trained != int(fix["epoch"]):
         raise AssertionError(f"train: resumed epoch {tr.epochs_trained}, "
@@ -2335,7 +2363,7 @@ def train_step_vs_jax(device) -> dict:
                           int(fix["probe_seed"]))
     return dict(loss=loss, want_loss=float(fix["loss"]),
                 errors=train_step_errors(got, loss, fix),
-                kernel_launches=launches)
+                kernel_launches=launches, checksums=got)
 
 
 def _train_cli(args: list, ck: str) -> subprocess.CompletedProcess:
@@ -2362,6 +2390,7 @@ def phase_train() -> dict:
     from transformerupscaler_torch.train_lib import Trainer
 
     step = train_step_vs_jax("cuda")
+    step.pop("checksums")
     bad = {k: v for k, v in step["errors"].items() if not v <= TRAIN_TOL[k]}
     say("train_step", model="FastTransformer", width="dim 192, 6 blocks, "
         "12 heads", dtype="float32, TF32 off", dropout=0.0,
@@ -2465,9 +2494,337 @@ def phase_train() -> dict:
     return timed
 
 
+def _cli_run(module: str, args: list, cwd: str) -> dict:
+    """``python3 -m transformerupscaler_torch.<module> args`` in ``cwd``
+    with the checkout on the path: rc, seconds, stdout's last lines."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m",
+                          f"transformerupscaler_torch.{module}", *args],
+                         cwd=cwd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"{module} {args}: rc {run.returncode}: "
+                             f"{run.stdout[-2000:]}{run.stderr[-4000:]}")
+    return dict(rc=run.returncode, seconds=time.perf_counter() - t0,
+                stdout=run.stdout)
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its stdout kept: (result, the lines printed)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def _data_dir(tmp: str) -> str:
+    """A directory holding FastTransformer's demo model_x4.png (720x1280)
+    and model_x6.png (1080x1920): the CLIs' dataset."""
+    import shutil
+
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    for name in ("model_x4.png", "model_x6.png"):
+        shutil.copy(os.path.join(DEMO_DIR, name), data)
+    return data
+
+
+def phase_cli() -> dict:
+    """The port's inference, speed-test and A/B command lines on the card
+    (``cli``): the inference CLI in its own process on the 1080x1920 demo
+    frame downscaled to 720x1280, x2, ``--fast`` (the bench route, trained
+    weights), its files and score lines; the same ``main`` in process, its
+    launches and its output against the exact f32 path; then ``speed_test
+    --fast`` and ``ab_test`` over the two demo frames. Returns the in-process
+    run's launch counts."""
+    import tempfile
+
+    from transformerupscaler_torch import ab_test, inference, speed_test
+    from transformerupscaler_torch import kernels as K
+    from transformerupscaler_torch.infer_lib import UpscalerEngine
+    from transformerupscaler_torch.png import read_png
+
+    ckpt = os.path.join(ROOT, "models", "FastTransformer", "checkpoints")
+    image = os.path.join(DEMO_DIR, "model_x6.png")
+    argv = ["--image_path", image, "--res_in", "720", "--scale", "2",
+            "--fast", "--checkpoint_dir", ckpt]
+    with tempfile.TemporaryDirectory() as tmp:
+        run = _cli_run("inference", argv, tmp)
+        sizes = {f: list(read_png(os.path.join(tmp, f)).shape)
+                 for f in ("input.png", "model.png", "bicubic.png")}
+        scores = [ln for ln in run["stdout"].splitlines()
+                  if "Scores:" in ln]
+        if sizes != {"input.png": [720, 1280, 3],
+                     "model.png": [1440, 2560, 3],
+                     "bicubic.png": [1440, 2560, 3]} or len(scores) != 2:
+            raise AssertionError(f"inference CLI: files {sizes}, score "
+                                 f"lines {scores}")
+        say("cli_inference", command="python3 -m "
+            "transformerupscaler_torch.inference " + " ".join(argv),
+            rc=run["rc"], seconds=run["seconds"], files=sizes,
+            score_lines=scores)
+
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            K.reset_launches()
+            got, _ = _quiet(inference.main, inference.parser().parse_args(
+                argv + ["--inp", "in2.png", "--out", "out2.png"]))
+            launches = K.launch_counts()
+            lr = read_png("in2.png").astype(np.float32) / 255.0
+        finally:
+            os.chdir(cwd)
+        # Every launch is one of the bench route's kernels, the same
+        # number of frames' worth of each (the graph's two eager warm-ups
+        # and one replay).
+        per_frame = {k: v for k, v in ROUTES["bench"]["launches"].items()
+                     if v}
+        frames = {launches[k] / v for k, v in per_frame.items()}
+        extra = {k: v for k, v in launches.items()
+                 if v and k not in per_frame}
+        with no_tf32():
+            ref = UpscalerEngine("FastTransformer",
+                                 checkpoint_dir=ckpt).upscale(
+                lr, upscale_factor=2)
+        emax, emean = interior_err(got["output"], ref, 8)
+        say("cli_inference_in_process", dtype=str(got["dtype"]),
+            launches={k: v for k, v in launches.items() if v},
+            frames_launched=sorted(frames), scores={
+                k: v for k, v in got.items() if k.endswith(("psnr",
+                                                            "ssim"))},
+            vs_exact_f32_max_abs=emax, vs_exact_f32_mean_abs=emean,
+            tolerance=limit_text())
+        if len(frames) != 1 or min(frames) < 1 or extra or \
+                not within_limit(emax, emean):
+            raise AssertionError(f"inference CLI in process: launches "
+                                 f"{launches}, error {emax} / {emean}")
+
+        data = _data_dir(tmp)
+        t0 = time.perf_counter()
+        st, lines = _quiet(speed_test.main, speed_test.parser().parse_args(
+            ["--data_dir", data, "--fast", "--checkpoint_dir", ckpt]))
+        say("cli_speed_test", command="python3 -m "
+            "transformerupscaler_torch.speed_test --data_dir <model_x4.png, "
+            "model_x6.png> --fast", seconds=time.perf_counter() - t0,
+            report=lines[-4:], **st)
+        t0 = time.perf_counter()
+        ab, lines = _quiet(ab_test.main, ab_test.parser().parse_args(
+            ["--data_dir", data, "--model_a", "FastTransformer",
+             "--model_b", "BicubicInterpolation", "--checkpoint_dir_a",
+             ckpt]))
+        say("cli_ab_test", command="python3 -m "
+            "transformerupscaler_torch.ab_test --data_dir <model_x4.png, "
+            "model_x6.png> --model_a FastTransformer --model_b "
+            "BicubicInterpolation", seconds=time.perf_counter() - t0,
+            report=lines[-4:], **ab)
+        if st["images"] < 1 or ab["processed"] < 1 or \
+                not np.isfinite([st["average_s"], ab["total_loss_a"],
+                                 ab["total_loss_b"]]).all():
+            raise AssertionError(f"speed_test {st}, ab_test {ab}")
+    return launches
+
+
+def phase_mesh() -> dict:
+    """Meshes on the card (``mesh``): ``make_mesh()`` over the visible
+    cards; ``speed_test --mesh -1``; ``ShardedUpscaler`` on [cuda:0,
+    cuda:0] with a batch of 3 at 720x1280 on the bench flags against the
+    single-device engine; one f32 step (TF32 off, dropout 0) on a 2x1 and
+    a 2x2 mesh of cuda:0 against the single-device step and JAX's. Returns
+    the sharded batch's launch counts."""
+    import tempfile
+
+    from transformerupscaler_torch import kernels as K
+    from transformerupscaler_torch import speed_test
+    from transformerupscaler_torch.checkpoint import load_latest_params
+    from transformerupscaler_torch.infer_lib import UpscalerEngine
+    from transformerupscaler_torch.parallel.batch_infer import (
+        ShardedUpscaler,
+    )
+    from transformerupscaler_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    say("mesh_default", shape=mesh.shape,
+        devices=[str(d) for d in mesh.devices.flat])
+    if mesh.shape != {"data": torch.cuda.device_count(), "model": 1} or \
+            any(d.type != "cuda" for d in mesh.devices.flat):
+        raise AssertionError(f"make_mesh(): {mesh}")
+
+    ckpt = os.path.join(ROOT, "models", "FastTransformer", "checkpoints")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        st, lines = _quiet(speed_test.main, speed_test.parser().parse_args(
+            ["--data_dir", _data_dir(tmp), "--mesh", "-1",
+             "--checkpoint_dir", ckpt]))
+        say("mesh_speed_test", command="python3 -m "
+            "transformerupscaler_torch.speed_test --data_dir <model_x4.png, "
+            "model_x6.png> --mesh -1", seconds=time.perf_counter() - t0,
+            report=lines[-4:], **st)
+        if st["images"] < 1 or st["mesh"]["data"] != mesh.shape["data"]:
+            raise AssertionError(f"speed_test --mesh -1: {st}")
+
+    dev = torch.device("cuda", 0)
+    params = load_latest_params("FastTransformer")
+    two = make_mesh(2, devices=[dev, dev])
+    up = ShardedUpscaler("FastTransformer", two, params=params,
+                         **ROUTE_BENCH)
+    frames = np.random.default_rng(0).integers(0, 256, (3, *FRAME_HW, 3),
+                                               np.uint8)
+    up.upscale_batch(frames, RES_OUT)  # kernels built, weights derived
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    outs = up.upscale_batch(frames, RES_OUT)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = K.launch_counts()
+    placed = [str(o.device) for o in outs]
+    got = torch.cat([o.float().cpu() for o in outs]).numpy()
+    engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16,
+                            checkpoint_dir=ckpt, **ROUTE_BENCH)
+    want = engine.upscale(frames, res_out=RES_OUT)
+    emax, emean = interior_err(got, want, 8)
+    replicas = [sorted({str(p.device) for p in m.parameters()})
+                for m in up.replicas]
+    say("mesh_sharded_upscaler", mesh=two.shape, route="bench",
+        batch=[3, *FRAME_HW], res_out=list(RES_OUT),
+        shard_rows=[o.shape[0] for o in outs], shard_devices=placed,
+        replica_devices=replicas, batch_ms=batch_ms,
+        launches={k: v for k, v in launches.items() if v},
+        vs_engine_max_abs=emax, vs_engine_mean_abs=emean,
+        tolerance=limit_text())
+    if [o.shape[0] for o in outs] != [2, 1] or \
+            set(placed) != {str(dev)} or \
+            replicas != [[str(dev)], [str(dev)]] or \
+            not within_limit(emax, emean):
+        raise AssertionError("ShardedUpscaler disagrees with the engine")
+    del up, engine
+
+    single = train_step_vs_jax("cuda")
+    fix = dict(single["checksums"], loss=single["loss"])
+    for shape in ((2, 1), (2, 2)):
+        m = make_mesh(shape[0] * shape[1], tp=shape[1],
+                      devices=[dev] * (shape[0] * shape[1]))
+        step = train_step_vs_jax("cuda", mesh=m)
+        vs_single = train_step_errors(step.pop("checksums"), step["loss"],
+                                      fix)
+        bad = {k: v for k, v in {**step["errors"], **vs_single}.items()
+               if not v <= TRAIN_TOL[k]}
+        say("mesh_train_step", mesh=m.shape, model="FastTransformer",
+            width="dim 192, 6 blocks, 12 heads", dtype="float32, TF32 off",
+            dropout=0.0, loss=step["loss"], single_device_loss=single["loss"],
+            jax_loss=step["want_loss"], errors_vs_jax=step["errors"],
+            errors_vs_single_device=vs_single,
+            kernel_launches=step["kernel_launches"], tolerance=TRAIN_TOL)
+        if bad or step["kernel_launches"]:
+            raise AssertionError(f"mesh {shape}: the step disagrees ({bad}) "
+                                 f"or launched a kernel")
+    return launches
+
+
+RESID_SWITCHES = {"dec_xla": {"TUX_RESID_DEC_PALLAS": "0"},
+                  "bicubic_conv": {"TUX_RESID_BICUBIC": "conv"}}
+RESID_SWITCH_LAUNCHES = {
+    "dec_xla": counts(conv3x3_stream=1, global_mha=8),
+    "bicubic_conv": counts(conv3x3_stream=2, global_mha=8)}
+
+
+def phase_resid_switches() -> dict:
+    """ResidualTransformer's two JAX switches on the card
+    (``resid_switches``): the small fixture's bf16 cases against JAX
+    (tests/fixtures/torch_port/resid_switches_small.npz); ``resid_packed``
+    at full width on the trained weights with each switch set, against the
+    route without it at ``LIMIT``, with the launches per frame and the
+    forward's time; ``TUX_RESID_BICUBIC=conv`` on the f32 all-XLA packed
+    route against the route without it at the f32 bounds, TF32 off.
+    Returns the served switches' launch counts."""
+    from transformerupscaler_torch import kernels as K
+    from transformerupscaler_torch.infer_lib import UpscalerEngine
+    from transformerupscaler_torch.registry import get_model
+    from transformerupscaler_torch.weights import params_from_jax, \
+        seeded_params
+
+    with np.load(FIXTURES + "resid_switches_small.npz") as f:
+        fix = {k: f[k] for k in f.files}
+    small = get_model("ResidualTransformer", dtype=torch.bfloat16,
+                      transformer_dim=32, num_transformer_blocks=2,
+                      num_heads=2, token_hw=(2, 2), **ROUTE_RESID)
+    params_from_jax(small, seeded_params(small, int(fix["seed"])))
+    for name, env in RESID_SWITCHES.items():
+        with route_env(env):
+            got = small(torch.from_numpy(fix["x"]).cuda(),
+                        upscale_factor=int(fix["scale"])).float().cpu()
+        emax, emean = interior_err(got.numpy(), fix[f"{name}_bf16"], 4)
+        say("resid_switch_fixture", switch=env, shape=list(got.shape),
+            max_abs=emax, mean_abs=emean, tolerance=limit_text())
+        if not within_limit(emax, emean):
+            raise AssertionError(f"{name}: the port on the card disagrees "
+                                 f"with the JAX fixture")
+
+    res_out = ROUTES["resid_packed"]["res_out"]
+    frame = np.random.default_rng(0).integers(0, 256, (*FRAME_HW, 3),
+                                              np.uint8)
+    base = UpscalerEngine("ResidualTransformer", dtype=torch.bfloat16,
+                          **ROUTE_RESID)
+    want = base.upscale(frame, res_out=res_out)
+    xd = torch.from_numpy(frame).cuda().float().div(255.0)[None]
+    base_ms = cuda_ms(lambda: base.model(xd, res_out=res_out), 10)
+    base_graphed_ms = cuda_ms(base.captured(frame, res_out=res_out).replay,
+                              10)
+    launches = {}
+    for name, env in RESID_SWITCHES.items():
+        with route_env(env):
+            engine = UpscalerEngine("ResidualTransformer",
+                                    dtype=torch.bfloat16, **ROUTE_RESID)
+            engine.upscale(frame, res_out=res_out)  # the graph captured
+            K.reset_launches()
+            got = engine.upscale(frame, res_out=res_out)
+            launches[name] = K.launch_counts()
+            ms = cuda_ms(lambda: engine.model(xd, res_out=res_out), 10)
+            graphed_ms = cuda_ms(engine.captured(
+                frame, res_out=res_out).replay, 10)
+        emax, emean = interior_err(got, want, 8)
+        say("resid_switch", switch=env, route="resid_packed",
+            weights=f"epoch {engine.epoch}", in_hw=list(FRAME_HW),
+            res_out=list(res_out), launches_per_frame={
+                k: v for k, v in launches[name].items() if v},
+            forward_ms=ms, forward_ms_without_switch=base_ms,
+            forward_ms_graphed=graphed_ms,
+            forward_ms_graphed_without_switch=base_graphed_ms,
+            vs_route_without_max_abs=emax, vs_route_without_mean_abs=emean,
+            tolerance=limit_text())
+        if launches[name] != RESID_SWITCH_LAUNCHES[name] or \
+                not within_limit(emax, emean):
+            raise AssertionError(f"{name}: launches {launches[name]} or "
+                                 f"error {emax} / {emean}")
+        del engine
+
+    xla = dict(packed_serve=True)
+    with no_tf32():
+        f32 = UpscalerEngine("ResidualTransformer", cuda_graphs=False,
+                             **xla)
+        want = f32.upscale(frame, res_out=res_out)
+        with route_env(RESID_SWITCHES["bicubic_conv"]):
+            got = f32.upscale(frame, res_out=res_out)
+    err = np.abs(got - want)
+    excess = float((err - F32_TOL["rtol"] * np.abs(want)).max())
+    say("resid_switch", switch=RESID_SWITCHES["bicubic_conv"],
+        route="packed_serve (all-XLA), float32", max_abs=float(err.max()),
+        mean_abs=float(err.mean()),
+        tolerance=f"whole frame |got - want| <= {F32_TOL['atol']} + "
+                  f"{F32_TOL['rtol']} |want|, TF32 off")
+    if excess > F32_TOL["atol"]:
+        raise AssertionError("bicubic_conv f32 disagrees with the route "
+                             "without it")
+    return launches
+
+
 def phase_new_paths(launches: dict, only=None) -> None:
-    """Phases 10-13 (``only``: a subset of "stream", "gptq", "int8_mlp",
-    "train")."""
+    """Phases 10-16 (``only``: a subset of "stream", "gptq", "int8_mlp",
+    "train", "cli", "mesh", "resid_switches")."""
     from transformerupscaler_torch.infer_lib import UpscalerEngine
 
     if only is None or "stream" in only:
@@ -2488,18 +2845,28 @@ def phase_new_paths(launches: dict, only=None) -> None:
         phase_int8_mlp(launches)
     if only is None or "train" in only:
         phase_train()
+    if only is None or "cli" in only:
+        launches["cli"] = phase_cli()
+    if only is None or "mesh" in only:
+        launches["mesh"] = phase_mesh()
+    if only is None or "resid_switches" in only:
+        launches.update(phase_resid_switches())
+
+
+ONLY = ("stream", "gptq", "int8_mlp", "train", "cli", "mesh",
+        "resid_switches")
 
 
 def main() -> None:
     """With no arguments, every phase and the result lines. ``--only
-    stream,gptq,int8_mlp,train`` (any of them): the device, the build and
-    those phases, for a quick check of that part; it prints no result
-    lines."""
+    stream,gptq,int8_mlp,train,cli,mesh,resid_switches`` (any of them): the
+    device, the build and those phases, for a quick check of that part; it
+    prints no result lines."""
     only = None
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = set(sys.argv[2].split(","))
-        if not only <= {"stream", "gptq", "int8_mlp", "train"}:
-            sys.exit("chip_smoke: --only takes stream, gptq, int8_mlp, train")
+        if not only <= set(ONLY):
+            sys.exit(f"chip_smoke: --only takes {', '.join(ONLY)}")
     elif sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     kind = phase_device()

@@ -124,9 +124,15 @@ def test_residual_transformer_rejects_another_token_grid(rng, monkeypatch):
         model(x, res_out=(64, 96))   # served route
     with pytest.raises(ValueError, match="token grid"):
         model(x, res_out=(48, 72))   # exact route
+    # The served route's switch TUX_RESID_BICUBIC=conv serves as JAX does
+    # (tests/test_torch_resid_switches.py holds both switches).
     monkeypatch.setenv("TUX_RESID_BICUBIC", "conv")
-    with pytest.raises(NotImplementedError, match="TUX_RESID_BICUBIC"):
-        model(torch.zeros(1, 32, 32, 3), res_out=(64, 64))
+    with np.load(os.path.join(ROOT, "tests", "fixtures", "torch_port",
+                              "resid_switches_small.npz")) as f:
+        x, want, seed = f["x"], f["bicubic_conv_f32"], int(f["seed"])
+    params_from_jax(model, seeded_params(model, seed))
+    got = model(torch.from_numpy(x), res_out=(64, 64)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 # --------------------------------------------------------------- bicubic

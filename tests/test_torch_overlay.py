@@ -22,6 +22,7 @@ from transformerupscaler_torch.capture import (
     WindowInfo,
     select_window,
 )
+from transformerupscaler_torch.png import write_png
 from transformerupscaler_torch.stream_lib import StreamPipeline
 
 
@@ -190,9 +191,10 @@ def test_stream_cli_runs_on_the_cpu(capsys, monkeypatch):
 
 
 def test_frontends_need_their_display_packages(monkeypatch, tmp_path):
-    """overlay needs cv2 and mss, app_overlay cv2, the stream CLI's
-    --source PIL: without them each exits saying so, never a silent
-    fallback."""
+    """overlay needs cv2 and mss, app_overlay cv2: without them each exits
+    saying so, never a silent fallback. The stream CLI's --source needs no
+    PIL: it reads PNGs with ``png.read_png``, and a .jpg raises naming the
+    missing decoder."""
     import builtins
 
     from transformerupscaler_torch import overlay
@@ -213,5 +215,10 @@ def test_frontends_need_their_display_packages(monkeypatch, tmp_path):
     args = stream_cli.parser().parse_args(
         ["--model", "BicubicInterpolation", "--device", "cpu", "--source",
          str(tmp_path)])
-    with pytest.raises(SystemExit, match="PIL"):
+    frame = np.random.default_rng(0).integers(0, 256, (16, 32, 3), np.uint8)
+    write_png(tmp_path / "a.png", frame)
+    np.testing.assert_array_equal(
+        next(stream_cli.frame_source(args, (16, 32))), frame)
+    (tmp_path / "b.jpg").write_bytes(b"")
+    with pytest.raises(ValueError, match="JPEG decoder"):
         stream_cli.frame_source(args, (16, 32))

@@ -14,8 +14,13 @@ import torch
 from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch.device import resolve_device
 from transformerupscaler_torch.infer_lib import UpscalerEngine
+from transformerupscaler_torch import ab_test as ab_test_cli
+from transformerupscaler_torch import inference as inference_cli
+from transformerupscaler_torch import speed_test as speed_test_cli
 from transformerupscaler_torch import stream as stream_cli
 from transformerupscaler_torch import train as train_cli
+from transformerupscaler_torch.parallel.batch_infer import ShardedUpscaler
+from transformerupscaler_torch.parallel.mesh import make_mesh
 from transformerupscaler_torch.registry import get_model
 from transformerupscaler_torch.stream_lib import StreamPipeline
 from transformerupscaler_torch.train_lib import Trainer
@@ -50,14 +55,17 @@ def test_port_imports_no_jax():
         "          'native', 'stream_lib', 'capture', 'stream',\n"
         "          'overlay', 'app_overlay', 'png', 'data',\n"
         "          'data.bucketing', 'data.datasets', 'train_lib',\n"
-        "          'train'):\n"
+        "          'train', 'metrics', 'cli', 'inference', 'ab_test',\n"
+        "          'speed_test', 'parallel', 'parallel.mesh',\n"
+        "          'parallel.context', 'parallel.batch_infer',\n"
+        "          'profiling'):\n"
         "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 21  # the modules really loaded
+    assert int(out.stdout.split()[-1]) >= 31  # the modules really loaded
 
 
 def test_chip_smoke_imports_no_jax():
@@ -99,6 +107,22 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(train_cli.parser().parse_args(
             ["--model", "FastTransformer", "--data_dir", "."]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(train_cli.parser().parse_args(
+            ["--model", "FastTransformer", "--data_dir", ".", "--mesh",
+             "2"]))
+    for cli, argv in ((inference_cli, ["--image_path", "x.png"]),
+                      (ab_test_cli, ["--data_dir", ".", "--model_a",
+                                     "BicubicInterpolation", "--model_b",
+                                     "BicubicInterpolation"]),
+                      (speed_test_cli, ["--data_dir", "."]),
+                      (speed_test_cli, ["--data_dir", ".", "--mesh", "-1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(cli.parser().parse_args(argv))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedUpscaler("BicubicInterpolation", make_mesh(1))
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -519,7 +519,8 @@ def test_train_cli(tmp_path, capsys):
     """``python -m transformerupscaler_torch.train`` on the CPU: trains
     from a directory of PNGs into ``model_epoch_1.npz``, refuses to go on
     past it with exit code 3; the stale default model raises KeyError with
-    the model list; several chips raise NotImplementedError."""
+    the model list; ``--mesh 2 --device cpu`` trains on two replicas of
+    the CPU."""
     from transformerupscaler_torch import train as cli
 
     img_dir = tmp_path / "imgs"
@@ -540,9 +541,15 @@ def test_train_cli(tmp_path, capsys):
     with pytest.raises(KeyError, match="FastTransformer"):
         cli.main(cli.parser().parse_args(["--data_dir", str(img_dir),
                                           "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(cli.parser().parse_args(args + ["--mesh", "2"]))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # Two replicas on a mesh of the CPU, one more epoch from the
+    # checkpoint; a mesh argument that is not a Mesh raises TypeError.
+    cli.main(cli.parser().parse_args(
+        [*args[:7], "2", *args[8:], "--mesh", "2"]))
+    out = capsys.readouterr().out
+    assert "Device mesh: {'data': 2, 'model': 1}" in out
+    assert "Training complete!" in out
+    assert get_latest_checkpoint(str(ck))[1] == 2
+    with pytest.raises(TypeError, match="Mesh"):
         Trainer("WindowTransformer", device="cpu", mesh=object())
 
 

@@ -30,6 +30,7 @@ from transformerupscaler_torch.capture import (
     pick_backend,
     select_window,
 )
+from transformerupscaler_torch.cli import on_card, serve_flags
 from transformerupscaler_torch.resolutions import resolutions
 from transformerupscaler_torch.stream_lib import StreamPipeline
 
@@ -106,16 +107,13 @@ def run_overlay(args, backend=None, pipe=None, chooser=None, imshow=None,
     if pipe is None:
         # getattr keeps Namespaces without the newer flags working.
         device = getattr(args, "device", None)
-        fast = getattr(args, "fast", False) or getattr(args, "quality", False)
-        pallas = fast and device != "cpu"
         pipe = StreamPipeline(args.model, res_in, res_out,
                               checkpoint_dir=args.checkpoint_dir,
                               quantize=args.quantize, bgr_out=True,
-                              compose_tails=fast, packed_serve=fast,
-                              pallas_serve=pallas,
-                              serve_quality=getattr(args, "quality", False),
-                              attn_impl="fused2" if pallas else "xla",
-                              device=device)
+                              device=device, **serve_flags(
+                                  getattr(args, "fast", False),
+                                  getattr(args, "quality", False),
+                                  card=on_card(device)))
         print(f"checkpoint loaded: {pipe.from_checkpoint}")
         print(f"compiled in {pipe.warmup():.1f}s")
 

@@ -84,8 +84,11 @@ class Dropout:
         self.generator = generator
 
     def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < 1.0 - self.rate
+        """Drawn on the generator's device, then moved to x's (a head group
+        on another device of a mesh)."""
+        return (torch.rand(x.shape, generator=self.generator,
+                           device=self.generator.device)
+                < 1.0 - self.rate).to(x.device)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         keep = torch.full((), 1.0 - self.rate, dtype=x.dtype, device=x.device)

@@ -22,8 +22,18 @@ Routes, as in the JAX model:
 - on either route ``attn_impl`` other than "xla" puts each block's attention
   core on ``kernels.gmha.global_mha``.
 
-The JAX package's ``TUX_RESID_BICUBIC=conv`` and ``TUX_RESID_DEC_PALLAS=0``
-switches are not served and raise ``NotImplementedError`` when set.
+The packed route reads JAX's two switches at each forward, as JAX reads
+them at trace time (residual_transformer.py:244-255, 264-301):
+
+- ``TUX_RESID_DEC_PALLAS`` other than "1" under ``pallas_serve``:
+  ``decoder_conv1`` runs as JAX's XLA conv (``conv2d_packed_raw``): a plain
+  conv rounded to the dtype, then the dtype bias, then ReLU; the stream
+  kernel then launches once a frame (conv2), not twice;
+- ``TUX_RESID_BICUBIC`` other than "matmul": both bicubic branches are
+  ``ops.resize.bicubic_upscale_conv`` convs emitting pixel-shuffle
+  channels, the residual's at 2 x scale from half resolution, its channels
+  permuted and shuffled by 2 onto the full-resolution grid, added to the
+  input's and shuffled once by the scale.
 
 In train mode (``train()``, JAX's ``deterministic=False``) the exact route
 runs under autograd with the eager attention whatever ``attn_impl`` says,
@@ -33,6 +43,7 @@ output, drawn from the forward's ``generator``.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -52,10 +63,24 @@ from transformerupscaler_torch.models.common import (
 )
 from transformerupscaler_torch.ops.attention import multihead_attention
 from transformerupscaler_torch.ops.patch import patch_embed, patch_unembed
-from transformerupscaler_torch.ops.resize import interpolate_bicubic
+from transformerupscaler_torch.ops.pixel_shuffle import pixel_shuffle
+from transformerupscaler_torch.ops.resize import (
+    bicubic_upscale_conv,
+    interpolate_bicubic,
+)
 
-# JAX environment switches of this model and the one value the port serves.
-SERVED_SWITCHES = {"TUX_RESID_BICUBIC": "matmul", "TUX_RESID_DEC_PALLAS": "1"}
+
+@functools.lru_cache(maxsize=None)
+def _resid_perm(r: int, device) -> torch.Tensor:
+    """The channel order ((c, i, j), a, b) of the residual's pre-shuffle
+    channels (c, a r + i, b r + j) at 2 r (residual_transformer.py:289-297),
+    on ``device``, made once outside inference mode."""
+    perm = [(c * 2 * r + a * r + i) * 2 * r + bb * r + j
+            for c in range(3) for i in range(r) for j in range(r)
+            for a in range(2) for bb in range(2)]
+    with torch.inference_mode(False):
+        return torch.tensor(perm, device=device)
+
 
 
 class GlobalAttentionBlock(nn.Module):
@@ -168,11 +193,6 @@ class ResidualTransformer(nn.Module):
         """The integer-scale serving path: the exact path's arithmetic with
         the two 64 -> 64 stride-1 convs on the stream kernel when
         ``pallas_serve`` is set."""
-        for name, served in SERVED_SWITCHES.items():
-            if os.environ.get(name, served) != served:
-                raise NotImplementedError(
-                    f"{name}={os.environ[name]}: the port serves "
-                    f"{name}={served} only")
         dt = self.dtype
         h, w = x.shape[1:3]
         feat = self.conv1(x)
@@ -183,13 +203,24 @@ class ResidualTransformer(nn.Module):
             feat = self.conv2(feat)
         feat_down = self.downsample(feat)
         combined = feat_down + self._transformer(feat_down)
-        if self.pallas_serve:
+        if self.pallas_serve and \
+                os.environ.get("TUX_RESID_DEC_PALLAS", "1") == "1":
             dec = conv3x3_stream(combined, self.decoder_conv1.kernel.to(dt),
                                  self.decoder_conv1.bias, relu=True)
         else:
             dec = self.decoder_conv1(combined)
         residual = self.decoder_conv2(dec)
-        res_out = (h * scale, w * scale)
-        out = interpolate_bicubic(x, res_out) + interpolate_bicubic(residual,
-                                                                    res_out)
+        if os.environ.get("TUX_RESID_BICUBIC", "matmul") == "matmul":
+            res_out = (h * scale, w * scale)
+            out = interpolate_bicubic(x, res_out) + interpolate_bicubic(
+                residual, res_out)
+            return out.clamp(0.0, 1.0)
+        # The residual at half resolution, upscaled by 2 * scale: channels
+        # (c, I, J), I, J < 2 scale, reordered to ((c, i, j), a, b) with
+        # I = a scale + i, so that a shuffle by 2 leaves the input branch's
+        # pre-shuffle channels (c, i, j) on the full-resolution grid.
+        pre2 = bicubic_upscale_conv(residual, 2 * scale)
+        resid_pre = pixel_shuffle(
+            pre2.index_select(-1, _resid_perm(scale, pre2.device)), 2)
+        out = pixel_shuffle(bicubic_upscale_conv(x, scale) + resid_pre, scale)
         return out.clamp(0.0, 1.0)

@@ -3,7 +3,9 @@ transformerupscaler_tpu/native.py).
 
 ``csrc/resize.cpp`` (the port's copy of the JAX package's
 ``native/resize.cpp``) is PIL's antialiased bilinear resize in C++ with
-OpenMP row parallelism: the streaming pipeline's host preprocess. It is
+OpenMP row parallelism: the streaming pipeline's host preprocess; and,
+beside it, PIL's BICUBIC resize (``resize_bicubic_u8``, the inference
+CLI's bicubic control image), in PIL's own fixed-point arithmetic. It is
 built at first use into ``build/torch_native/`` at the root of the
 checkout, under a name that carries a hash of the source and the host's CPU
 model, and loaded with ctypes. The build takes the first of the host's C++
@@ -35,7 +37,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "resize.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_native"
 CXX_FLAGS = ("-O3", "-march=native", "-fopenmp", "-fPIC", "-std=c++17",
              "-Wall", "-shared")
-CALLS = {"resize_bilinear_u8": 0, "resize_to_model_input": 0}
+CALLS = {"resize_bilinear_u8": 0, "resize_to_model_input": 0,
+         "resize_bicubic_u8": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -120,7 +123,9 @@ def load() -> ctypes.CDLL:
             lib.tux_resize_bilinear_u8.argtypes = [u8, i, i, i, u8, i, i]
             lib.tux_resize_bilinear_u8_to_f32.argtypes = [u8, i, i, i, f32,
                                                           i, i]
+            lib.tux_resize_bicubic_u8.argtypes = [u8, i, i, i, u8, i, i]
             lib.tux_resize_bilinear_u8.restype = ctypes.c_int
+            lib.tux_resize_bicubic_u8.restype = ctypes.c_int
             lib.tux_resize_bilinear_u8_to_f32.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -148,6 +153,14 @@ def resize_bilinear_u8(src: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
     out = _resize("tux_resize_bilinear_u8", src, out_hw, np.uint8)
     with _lock:
         CALLS["resize_bilinear_u8"] += 1
+    return out
+
+
+def resize_bicubic_u8(src: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """HWC uint8 -> HWC uint8, PIL's ``Image.resize(..., Image.BICUBIC)``."""
+    out = _resize("tux_resize_bicubic_u8", src, out_hw, np.uint8)
+    with _lock:
+        CALLS["resize_bicubic_u8"] += 1
     return out
 
 

@@ -19,6 +19,11 @@ form, which materializes the (B, heads, N, N) f32 scores; any other value puts
 window attention's probabilities and its projected output
 (ops/attention.py:69-77), global attention's probabilities (:123-125).
 A caller in train mode passes impl "xla": the kernels have no backward.
+
+The eager forms call ``parallel.context.maybe_shard_heads`` on q, k and v
+where the JAX ops do: under ``activation_sharding`` with a ``model`` axis
+above 1, each group of heads computes its scores, softmax and context on
+its own device, and the contexts are gathered back (``parallel.context``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ import torch
 from transformerupscaler_torch.kernels.gmha import global_mha
 from transformerupscaler_torch.kernels.window_attn import window_attention_core
 from transformerupscaler_torch.ops.relpos import gather_relative_bias
+from transformerupscaler_torch.parallel.context import (
+    gather_heads,
+    maybe_shard_heads,
+)
 
 WINDOW_IMPLS = ("xla", "pallas")
 
@@ -50,14 +59,30 @@ def window_attention(x: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
         return out @ proj_w.to(dt) + proj_b.to(dt)
     qkv = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, hd)
-    q = q * hd ** -0.5
-    attn = q.float() @ k.float().transpose(-1, -2)
-    attn = torch.softmax(attn + bias, dim=-1).to(dt)
-    if drop is not None:
-        attn = drop(attn)
-    out = (attn @ v).permute(0, 2, 1, 3).reshape(b, n, c)
+    q, k, v = maybe_shard_heads(q), maybe_shard_heads(k), maybe_shard_heads(v)
+    if isinstance(q, list):  # head groups on their devices
+        ctx = gather_heads([
+            _heads(qg * hd ** -0.5, kg, vg, bg, dt, drop)
+            for qg, kg, vg, bg in zip(q, k, v, maybe_shard_heads(bias))],
+            x.device)
+    else:
+        ctx = _heads(q * hd ** -0.5, k, v, bias, dt, drop)
+    out = ctx.permute(0, 2, 1, 3).reshape(b, n, c)
     out = out @ proj_w.to(dt) + proj_b.to(dt)
     return out if drop is None else drop(out)
+
+
+def _heads(q, k, v, bias, dt, drop):
+    """softmax(q k^T + bias) v over (B, H, N, hd) heads: the scores and the
+    softmax in f32, the probabilities rounded to ``dt`` (and dropped) before
+    the product with v."""
+    attn = q.float() @ k.float().transpose(-1, -2)
+    if bias is not None:
+        attn = attn + bias
+    attn = torch.softmax(attn, dim=-1).to(dt)
+    if drop is not None:
+        attn = drop(attn)
+    return attn @ v
 
 
 def multihead_attention(x: torch.Tensor, in_w, in_b, out_w, out_b,
@@ -77,10 +102,12 @@ def multihead_attention(x: torch.Tensor, in_w, in_b, out_w, out_b,
         return ctx @ out_w.to(dt) + out_b.to(dt)
     qkv = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, hd)
-    q = q * torch.tensor(hd ** -0.5, dtype=dt)
-    attn = q.float() @ k.float().transpose(-1, -2)
-    attn = torch.softmax(attn, dim=-1).to(dt)
-    if drop is not None:
-        attn = drop(attn)
-    out = (attn @ v).permute(0, 2, 1, 3).reshape(b, n, c)
+    q, k, v = maybe_shard_heads(q), maybe_shard_heads(k), maybe_shard_heads(v)
+    scale = torch.tensor(hd ** -0.5, dtype=dt)
+    if isinstance(q, list):  # head groups on their devices
+        ctx = gather_heads([_heads(qg * scale, kg, vg, None, dt, drop)
+                            for qg, kg, vg in zip(q, k, v)], x.device)
+    else:
+        ctx = _heads(q * scale, k, v, None, dt, drop)
+    out = ctx.permute(0, 2, 1, 3).reshape(b, n, c)
     return out @ out_w.to(dt) + out_b.to(dt)

@@ -3,7 +3,10 @@
 JAX counterpart: transformerupscaler_tpu ops/resize.py:27-112 (the numpy
 ``resize_matrix``), :180 ``resize``, :344 ``interpolate_bicubic`` and
 :228-284 ``resize_shuffled``, each in its dense form only: the banded form
-(:113-176) is a TPU tiling. The matrices are built once per geometry in numpy
+(:113-176) is a TPU tiling; and :288-341, ``bicubic_upscale_conv``, the
+integer-scale bicubic upscale as one 5x5 conv that emits pixel-shuffle
+channels (JAX ``bicubic_upscale_conv_packed``, without the TPU's width-2
+packed layout). The matrices are built once per geometry in numpy
 float64, cast to the compute dtype as the JAX ops cast them, and kept on the
 device per (sizes, dtype).
 """
@@ -14,6 +17,7 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _cubic(x: np.ndarray, a: float) -> np.ndarray:
@@ -149,3 +153,49 @@ def _phase_matrix(in_size, r, out_size, method, antialias, a, device, dtype):
     with torch.inference_mode(False):
         return torch.from_numpy(m.reshape(out_size, in_size, r)).to(device,
                                                                     dtype)
+
+
+@lru_cache(maxsize=None)
+def bicubic_shuffle_kernel(r: int, c: int = 3) -> np.ndarray:
+    """``F.interpolate(bicubic, align_corners=False)`` by an integer ``r``
+    as one 5x5 correlation kernel (5, 5, c, c*r*r), float32, whose output
+    channels are pixel_shuffle(r)-ordered (c, i, j) at the input's
+    resolution: every output phase reads 4 input pixels at offsets
+    base + [-1, 2] with base in {-1, 0}, so all phases fit a 5-tap frame,
+    applied as a VALID conv over the input edge-padded by 2 (edge
+    replication is the border index clamp). The 2-D taps are the outer
+    product of the 1-D ones (JAX ops/resize.py:288-319)."""
+    k1d = np.zeros((5, r), np.float64)
+    for phase in range(r):
+        src = (phase + 0.5) / r - 0.5
+        base = int(np.floor(src))
+        frac = src - base
+        for m in (-1, 0, 1, 2):
+            k1d[base + m + 2, phase] = _cubic(np.array([frac - m]), -0.75)[0]
+    kern = np.zeros((5, 5, c, c * r * r), np.float64)
+    for ch in range(c):
+        for i in range(r):
+            for j in range(r):
+                kern[:, :, ch, ch * r * r + i * r + j] = np.outer(
+                    k1d[:, i], k1d[:, j])
+    return kern.astype(np.float32)
+
+
+@lru_cache(maxsize=32)
+def _shuffle_kernel_on(r, c, device, dtype) -> torch.Tensor:
+    """``bicubic_shuffle_kernel`` as an OIHW weight in ``dtype`` on
+    ``device``, copied once (outside inference mode)."""
+    with torch.inference_mode(False):
+        k = torch.from_numpy(bicubic_shuffle_kernel(r, c))
+        return k.permute(3, 2, 0, 1).contiguous().to(device, dtype)
+
+
+def bicubic_upscale_conv(x: torch.Tensor, r: int) -> torch.Tensor:
+    """``interpolate_bicubic(x, (H*r, W*r))`` before its pixel shuffle:
+    x (B, H, W, C) -> (B, H, W, C*r*r) in pixel_shuffle(r) channel order,
+    borders included. The conv runs in x's dtype with the kernel rounded to
+    it and one rounding of its result, as the JAX function's XLA conv."""
+    c = x.shape[-1]
+    xe = F.pad(x.permute(0, 3, 1, 2), (2, 2, 2, 2), mode="replicate")
+    out = F.conv2d(xe, _shuffle_kernel_on(r, c, x.device, x.dtype))
+    return out.permute(0, 2, 3, 1).contiguous()

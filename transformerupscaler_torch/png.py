@@ -1,6 +1,7 @@
-"""A PNG reader in zlib, struct and numpy: what ``PIL.Image.open(path)
-.convert("RGB")`` gives the JAX package's datasets (data/datasets.py), for
-a host without PIL.
+"""A PNG reader and writer in zlib, struct and numpy: what
+``PIL.Image.open(path).convert("RGB")`` gives the JAX package's datasets
+(data/datasets.py), and what ``PIL.Image.fromarray(a).save(path)`` writes,
+for a host without PIL.
 
 It reads 8-bit, non-interlaced PNGs of colour types 0 (grey), 2 (RGB), 3
 (palette), 4 (grey + alpha) and 6 (RGBA), undoes all five row filters and
@@ -15,6 +16,10 @@ operation. The decoder walks the image's anti-diagonals instead: the
 pixels (r, x) with r + x = d depend only on diagonals d - 1 and d - 2, so
 each step undoes one diagonal of every row at once, H + W - 1 steps in
 all.
+
+``write_png`` writes 8-bit RGB, non-interlaced, each row with the Sub
+filter (the byte to its left subtracted), in one IDAT chunk: a file that
+``read_png`` and PIL read back bit for bit, not PIL's own bytes.
 """
 
 from __future__ import annotations
@@ -56,6 +61,13 @@ def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     if ftype.max(initial=0) > 4:
         raise ValueError(f"PNG row filter {int(ftype.max())} is not 0-4")
     data = raw[:, 1:].reshape(h, w, bpp)
+    if ftype.max(initial=0) <= 1:
+        # None and Sub only (what write_png writes): each row on its own, a
+        # running sum modulo 256 along it.
+        out = data.copy()
+        sub = ftype == 1
+        out[sub] = np.cumsum(data[sub], axis=1, dtype=np.uint8)
+        return out
     # Diagonal-major storage: s[d + 1, r + 1] holds pixel (r, x = d - r),
     # so that a step reads and writes contiguous rows; a zero row and
     # column and zeros off the image give the filters' zero borders.
@@ -131,3 +143,35 @@ def read_png(path) -> np.ndarray:
     """The PNG at ``path`` as (H, W, 3) uint8 RGB."""
     with open(path, "rb") as f:
         return decode_png(f.read())
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload)))
+
+
+def encode_png(hwc: np.ndarray, level: int = 6) -> bytes:
+    """(H, W, 3) uint8 RGB -> the bytes of a PNG file."""
+    a = np.asarray(hwc)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"write_png: (H, W, 3) uint8 RGB, got {a.dtype} "
+                         f"{a.shape}")
+    h, w, _ = a.shape
+    if h == 0 or w == 0:
+        raise ValueError(f"write_png: empty image {a.shape}")
+    rows = a.reshape(h, 3 * w)
+    sub = np.empty((h, 1 + 3 * w), np.uint8)
+    sub[:, 0] = 1  # filter type Sub
+    sub[:, 1:4] = rows[:, :3]
+    sub[:, 4:] = rows[:, 3:] - rows[:, :-3]  # modulo 256
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(sub.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path, hwc_uint8: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 RGB to ``path`` as a PNG."""
+    data = encode_png(hwc_uint8)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -13,7 +13,10 @@ flags are those of the root stream.py, plus ``--device``: the card unless
 kernels with the fused trunk (``pallas_serve=True, attn_impl="fused2"``),
 the counterpart of the JAX CLI's choice on a TPU (stream.py:47-59); with
 ``--device cpu`` they serve JAX's choice off a TPU, the all-XLA packed path
-with ``attn_impl="xla"``. ``--source`` and ``--save_last`` need PIL.
+with ``attn_impl="xla"`` (``cli.serve_flags``). ``--source`` reads the
+``.png`` images of a directory (``png.read_png``) and ``--save_last``
+writes a ``.png`` (``png.write_png``); a ``.jpg`` in either raises, naming
+the missing JPEG codec: the card's host has no PIL.
 """
 
 from __future__ import annotations
@@ -25,34 +28,32 @@ import os
 import numpy as np
 import torch
 
+from transformerupscaler_torch.cli import (
+    on_card,
+    read_image,
+    require_png,
+    serve_flags,
+    write_image,
+)
 from transformerupscaler_torch.resolutions import resolutions
 from transformerupscaler_torch.stream_lib import StreamPipeline
-
-
-def _pil():
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise SystemExit(f"--source and --save_last read and write images "
-                         f"with PIL, which is not installed here ({e}); "
-                         f"leave them out to stream synthetic frames") from e
-    return Image
 
 
 def frame_source(args, res_in):
     """The frames: the images of ``args.source`` cycled, or 8 seeded
     synthetic frames of ``res_in`` cycled (the JAX CLI's)."""
     if args.source:
-        image = _pil()
         files = sorted(
             os.path.join(args.source, f) for f in os.listdir(args.source)
-            if f.lower().endswith((".png", ".jpg")))
+            if f.lower().endswith((".png", ".jpg", ".jpeg")))
         if not files:
             raise SystemExit(f"no .png or .jpg in {args.source}")
+        for path in files:
+            require_png(path, "decoder")
 
         def gen():
             for path in itertools.cycle(files):
-                yield np.asarray(image.open(path).convert("RGB"))
+                yield read_image(path)
         return gen()
     rng = np.random.default_rng(0)
     frames = [(rng.random((*res_in, 3)) * 255).astype(np.uint8)
@@ -63,16 +64,9 @@ def frame_source(args, res_in):
 def pipeline_flags(args) -> dict:
     """The model flags of the CLI's pipeline (root stream.py:47-59, with the
     card in place of the TPU)."""
-    on_card = getattr(args, "device", None) != "cpu"
-    fast = args.fast or args.quality
-    pallas = (fast and on_card) or args.int8 == "tails"
     return dict(quantize=args.quantize, int8_mlp=args.int8_mlp,
-                int8_serve=args.int8 != "off",
-                int8_scope=args.int8 if args.int8 != "off" else "full",
-                compose_tails=fast or args.int8 != "off",
-                packed_serve=fast, pallas_serve=pallas,
-                serve_quality=args.quality,
-                attn_impl="fused2" if pallas and on_card else "xla")
+                **serve_flags(args.fast, args.quality, args.int8,
+                              card=on_card(getattr(args, "device", None))))
 
 
 def build_pipeline(args, **overrides) -> StreamPipeline:
@@ -89,6 +83,8 @@ def build_pipeline(args, **overrides) -> StreamPipeline:
 def main(args):
     res_in = resolutions[args.res_in]
     res_out = resolutions[args.res_out]
+    if args.save_last:
+        require_png(args.save_last, "encoder")
     pipe = build_pipeline(args)
     dev = pipe.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -109,7 +105,7 @@ def main(args):
     print(stats["report"])
 
     if args.save_last and "frame" in last:
-        _pil().fromarray(last["frame"]).save(args.save_last)
+        write_image(args.save_last, last["frame"])
         print(f"last frame saved to {args.save_last}")
     return stats
 

@@ -9,9 +9,11 @@ including the stale ``StrippedTransformer`` default model name, which
 raises KeyError with the list of models, and JAX's ``--pairs``,
 ``--dtype``, ``--no_device_cache`` and ``--fallback_dir``; ``--device``
 picks the device (default: the card). ``--traceback`` writes a
-``torch.profiler`` trace of the run into ``--trace_dir``. ``--mesh`` and
-``--tp`` other than 0 or 1 (several chips) raise NotImplementedError
-(ROADMAP.md section 1 item 9). Without ``--data_dir`` the online dataset
+``torch.profiler`` trace of the run into ``--trace_dir``
+(``profiling.trace``). ``--mesh N --tp T`` trains on a mesh of N devices
+(-1: all), T of them a model row (``parallel.mesh.cli_mesh``: the visible
+cards, or under ``--device cpu`` the CPU repeated N times); on one card
+``--mesh 2`` raises JAX's ValueError. Without ``--data_dir`` the online dataset
 needs ``--fallback_dir`` (a directory of PNGs): the port has no network
 fetch. Checkpoints are ``model_epoch_{n}.npz`` in ``--checkpoint_dir``
 (default ``models/<model>/checkpoints/``), which the engine serves.
@@ -31,6 +33,8 @@ from transformerupscaler_torch.data.datasets import (
     OnlineHighresDataset,
 )
 from transformerupscaler_torch.device import resolve_device
+from transformerupscaler_torch.parallel.mesh import cli_mesh
+from transformerupscaler_torch.profiling import trace
 from transformerupscaler_torch.resolutions import SCALE_PAIRS
 from transformerupscaler_torch.train_lib import Trainer
 
@@ -42,10 +46,6 @@ def main(args) -> None:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"Training on device: {device} ({name})")
-    if args.mesh not in (0, 1) or args.tp not in (0, 1):
-        raise NotImplementedError(
-            f"--mesh {args.mesh} --tp {args.tp}: training over several chips "
-            f"is not ported yet (ROADMAP.md section 1 item 9)")
 
     if args.pairs == "small":
         pairs = [p for p in SCALE_PAIRS if p["lr"] == (96, 96)]
@@ -64,18 +64,16 @@ def main(args) -> None:
         dataset = HighresImageDataset(args.data_dir, scale_pairs=pairs,
                                       cache=True, uint8=True)
 
+    mesh = None
+    if args.mesh:
+        mesh = cli_mesh(args.mesh, args.tp, device)
+        print(f"Device mesh: {mesh.shape} (data-parallel replicas, gradients "
+              f"summed on the first device; heads over 'model')")
     trainer = Trainer(args.model, checkpoint_dir=args.checkpoint_dir,
                       learning_rate=args.lr, dtype=DTYPES[args.dtype],
-                      device=device)
-    if args.traceback:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        ctx = profile(activities=activities)
-    else:
-        ctx = contextlib.nullcontext()
+                      device=None if mesh else device, mesh=mesh)
+    ctx = (trace(args.trace_dir) if args.traceback
+           else contextlib.nullcontext())
     try:
         with ctx:
             trainer.fit(dataset, epochs=args.epochs,
@@ -88,10 +86,8 @@ def main(args) -> None:
         if isinstance(dataset, OnlineHighresDataset):
             dataset.close()
     if args.traceback:
-        os.makedirs(args.trace_dir, exist_ok=True)
-        path = os.path.join(args.trace_dir, "trace.json")
-        ctx.export_chrome_trace(path)
-        print(f"Profiler trace written to {path}")
+        print(f"Profiler trace written to "
+              f"{os.path.join(args.trace_dir, 'trace.json')}")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -126,10 +122,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
                    help="Training compute dtype (params and loss stay f32)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="Chips to train on: 0 or 1 (several chips are not "
-                        "ported yet)")
+                   help="Train data-parallel over this many devices "
+                        "(-1 = all; 0 = one device, no mesh)")
     p.add_argument("--tp", type=int, default=1,
-                   help="Tensor-parallel size: 1 (not ported beyond)")
+                   help="Tensor-parallel size: the attention heads split "
+                        "over this many devices of each mesh row")
     p.add_argument("--no_device_cache", action="store_true",
                    help="Keep training samples host-side")
     p.add_argument("--traceback", action="store_true",

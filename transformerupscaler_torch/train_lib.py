@@ -28,13 +28,34 @@ backward, as the Pallas kernels have no VJP, so training launches none.
 Parameters and Adam moments are float32; compute runs in ``dtype`` (bf16
 by default, as in JAX; no loss scaling). JAX pads each group's rows to a
 power of two to bound its jit cache; the padded rows weigh 0 in the loss,
-so the port, which compiles nothing, does not pad. ``mesh`` (data and
-tensor parallelism over several chips) is not ported yet (ROADMAP.md
-section 1 item 9).
+so the port, which compiles nothing, does not pad on one device.
+
+``mesh`` (a ``parallel.mesh.Mesh``) trains data parallel over its data
+rows, with the heads cut over its model axis (JAX train_lib.py:52-59,
+138-140, 166-190), from one process:
+
+- replica i of the model lives on ``mesh.devices[i, 0]``; replica 0, the
+  primary, holds the parameters and the Adam state (``model``,
+  ``device``), and the others get a copy of its parameters at the start
+  of every step;
+- each group's k rows are padded with zero-weight rows as JAX pads them,
+  to max(next power of two of k, the mesh's device count), and split into
+  contiguous shares over the data rows; each replica computes the weighted
+  L1 sum of its share and its backward (inside ``activation_sharding``
+  when the model axis is above 1: the heads run on the plain attention,
+  group by group on the row's devices);
+- the gradients are summed onto the primary in replica order and divided
+  by the batch size; Adam steps on the primary; checkpoints are saved from
+  it; ``fit``'s ``device_cache`` is off, as in JAX.
+
+Each replica draws its own dropout masks, so a mesh step equals the
+single-device step only at dropout 0 (and then within f32 summation
+order).
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 
@@ -54,6 +75,8 @@ from transformerupscaler_torch.data.bucketing import (
 )
 from transformerupscaler_torch.device import resolve_device
 from transformerupscaler_torch.ops.resize import resize
+from transformerupscaler_torch.parallel.context import activation_sharding
+from transformerupscaler_torch.parallel.mesh import Mesh
 from transformerupscaler_torch.registry import get_model
 from transformerupscaler_torch.weights import (
     flatten,
@@ -65,34 +88,53 @@ from transformerupscaler_torch.weights import (
 )
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
 class Trainer:
-    """JAX ``Trainer``'s arguments, plus ``device`` (default: the card)."""
+    """JAX ``Trainer``'s arguments, plus ``device`` (default: the card;
+    under a ``mesh``, its first device)."""
 
     def __init__(self, model_name: str, checkpoint_dir: str | None = None,
                  learning_rate: float = 1e-4, dtype=torch.bfloat16,
                  attn_impl: str = "xla", mesh=None, root: str = ".",
                  device=None, **model_kw):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): multi-GPU training is not ported yet "
-                "(ROADMAP.md section 1 item 9)")
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh: a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        if mesh is None:
+            devices = [resolve_device(device)]
+        else:
+            devices = list(mesh.devices[:, 0])
+            if device is not None and torch.device(device) != devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {devices[0]}")
+        self.device = devices[0]
         self.model_name = model_name
-        self.model = get_model(model_name, device=self.device, dtype=dtype,
-                               attn_impl=attn_impl, **model_kw)
+        self.replicas = [get_model(model_name, device=d, dtype=dtype,
+                                   attn_impl=attn_impl, **model_kw)
+                         for d in devices]
+        self.model = self.replicas[0]
         self.names = {jax_path(n): p
                       for n, p in self.model.named_parameters()}
         if not self.names:
             raise ValueError(f"{model_name} has no parameters to train")
-        self.model.requires_grad_(True)
-        self.model.train()
+        for model in self.replicas:
+            model.requires_grad_(True)
+            model.train()
         self.checkpoint_dir = checkpoint_dir or default_checkpoint_dir(
             model_name, root)
         self.learning_rate = learning_rate
         self.optimizer = None  # made with the parameters
         self.epochs_trained = 0
-        # uint8 / 255 as a true f32 division (module docstring).
-        self._255 = torch.full((), 255.0, device=self.device)
+        # uint8 / 255 as a true f32 division (module docstring), by the
+        # device each replica's parameters are on.
+        self._255 = {}
+        for model in self.replicas:
+            dev = next(model.parameters()).device
+            self._255[dev] = torch.full((), 255.0, device=dev)
 
     # ------------------------------------------------------------------
     def _new_optimizer(self) -> None:
@@ -166,22 +208,29 @@ class Trainer:
         return True
 
     # ------------------------------------------------------------------
-    def _on_device(self, a) -> torch.Tensor:
+    def _on_device(self, a, device) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):
             a = torch.from_numpy(np.ascontiguousarray(a))
-        a = a.to(self.device)
-        return a.float() / self._255 if a.dtype == torch.uint8 else a
+        a = a.to(device)
+        return a.float() / self._255[device] if a.dtype == torch.uint8 else a
 
-    def bucket_loss_sum(self, lrs, hrs, generator=None) -> torch.Tensor:
+    def bucket_loss_sum(self, lrs, hrs, generator=None, model=None,
+                        weights=None) -> torch.Tensor:
         """The sum over one geometry's samples of each sample's L1 loss
-        (float32, a 0-d tensor under autograd)."""
-        lrs, hrs = self._on_device(lrs), self._on_device(hrs)
-        out = self.model(lrs, res_out=tuple(hrs.shape[1:3]),
-                         require_ratio=False, generator=generator)
+        (float32, a 0-d tensor under autograd), each weighted by
+        ``weights`` if given; ``model``: a replica (default the primary),
+        on whose device the samples are put."""
+        model = self.model if model is None else model
+        dev = next(model.parameters()).device
+        lrs, hrs = self._on_device(lrs, dev), self._on_device(hrs, dev)
+        out = model(lrs, res_out=tuple(hrs.shape[1:3]), require_ratio=False,
+                    generator=generator)
         if out.shape[1:3] != hrs.shape[1:3]:
             out = resize(out, tuple(hrs.shape[1:3]), "bilinear",
                          antialias=True)
         per_sample = (out.float() - hrs.float()).abs().mean(dim=(1, 2, 3))
+        if weights is not None:
+            per_sample = per_sample * weights.to(dev)
         return per_sample.sum()
 
     def train_step(self, samples, generator=None) -> float:
@@ -193,11 +242,14 @@ class Trainer:
             self.init_params()
         n = len(samples)
         self.optimizer.zero_grad(set_to_none=True)
-        total = torch.zeros((), device=self.device)
-        for lrs, hrs in bucket_batch(samples).values():
-            loss_sum = self.bucket_loss_sum(lrs, hrs, generator)
-            loss_sum.backward()
-            total += loss_sum.detach()
+        if self.mesh is None:
+            total = torch.zeros((), device=self.device)
+            for lrs, hrs in bucket_batch(samples).values():
+                loss_sum = self.bucket_loss_sum(lrs, hrs, generator)
+                loss_sum.backward()
+                total += loss_sum.detach()
+        else:
+            total = self._mesh_grads(samples, generator)
         for p in self.names.values():
             # A parameter the batch does not reach (another scale's
             # upsampler stage) gets a zero gradient, as under JAX's grad,
@@ -213,6 +265,50 @@ class Trainer:
             self.model.clear_derived()
         return float(total) / n
 
+    def _mesh_grads(self, samples, generator) -> torch.Tensor:
+        """The mesh step's loss sum over the batch, with the gradients
+        summed into the primary's ``.grad`` (module docstring)."""
+        with torch.no_grad():
+            for model in self.replicas[1:]:
+                for p, src in zip(model.parameters(),
+                                  self.model.parameters()):
+                    p.copy_(src)
+                    p.grad = None
+                if hasattr(model, "clear_derived"):
+                    model.clear_derived()
+        n_dev = self.mesh.devices.size
+        tp = self.mesh.shape["model"] > 1
+        total = torch.zeros((), device=self.device)
+        for lrs, hrs in bucket_batch(samples).values():
+            k = lrs.shape[0]
+            rows = max(_next_pow2(k), n_dev)
+            lrs, hrs = _pad_rows(lrs, rows), _pad_rows(hrs, rows)
+            weights = torch.zeros(rows)
+            weights[:k] = 1.0
+            per = -(-rows // len(self.replicas))
+            for i, model in enumerate(self.replicas):
+                share = slice(i * per, (i + 1) * per)
+                ctx = (activation_sharding(self.mesh, row=i) if tp
+                       else contextlib.nullcontext())
+                with ctx:
+                    loss_sum = self.bucket_loss_sum(
+                        lrs[share], hrs[share], generator, model,
+                        weights[share])
+                    loss_sum.backward()
+                total += loss_sum.detach().to(self.device)
+        with torch.no_grad():
+            for model in self.replicas[1:]:
+                for p, src in zip(self.model.parameters(),
+                                  model.parameters()):
+                    if src.grad is None:
+                        continue
+                    g = src.grad.to(p.device)
+                    if p.grad is None:
+                        p.grad = g.clone()
+                    else:
+                        p.grad += g
+        return total
+
     # ------------------------------------------------------------------
     def fit(self, dataset, epochs: int, batch_size: int = 6,
             log_interval: int = 1, checkpoint_interval: int = 1,
@@ -226,7 +322,7 @@ class Trainer:
             # A distinct code: a supervisor must not take a crash (exit 1)
             # for "training complete".
             sys.exit(3)
-        if device_cache:
+        if device_cache and self.mesh is None:
             dataset = _DeviceCachedDataset(dataset, self.device)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         epoch_losses = []
@@ -255,6 +351,17 @@ class Trainer:
                 print(f"Saved checkpoint: {path}")
         print("Training complete!")
         return epoch_losses
+
+
+def _pad_rows(a, rows: int):
+    """A bucket's stacked samples (numpy or tensor) with zero rows added up
+    to ``rows``."""
+    pad = rows - a.shape[0]
+    if not pad:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, a.new_zeros((pad, *a.shape[1:]))])
+    return np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)])
 
 
 def _moment(v, p: torch.Tensor) -> torch.Tensor:
