@@ -2,11 +2,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (an H100 is the target).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only stream,gptq,int8_mlp,train,cli,mesh,resid_switches
+    python3 chip_smoke.py --only stream,gptq,int8_mlp,train,cli,mesh,resid_switches,banded,batch_split
 
 Run from the root of a checkout, with no arguments. (``--only`` runs the
-device, the build and the named ones of phases 10-16, and prints no result
-lines.) Phases, one line each:
+device, the build and the named ones of phases 10-17 and ``batch_split``,
+and prints no result lines.) Phases, one line each:
 
 1. the device: torch's name for it, and nvidia-smi's name and power limit
    and maximum SM clock;
@@ -18,7 +18,10 @@ lines.) Phases, one line each:
    function) and the card's bound for the same work (the tails also with
    f32 output, as ``serve_quality`` runs them: the 5x5 and 7x7 composed
    tails and the split tail in "wf" at the x2 and x4 shapes); the fused
-   encoder and decoder adapters against theirs;
+   encoder and decoder adapters against theirs; then ``batch_split``: the
+   bench route's forward on three seeded 720x1280 frames (epoch-100
+   weights), each of its stages called again on each frame's rows of the
+   inputs it got, every kernel bit for bit with its batch-of-3 output;
 4. each served route with a fixture at a small geometry against the
    committed JAX outputs (tests/fixtures/torch_port/*.npz), weights rebuilt
    from the numpy seed; FastTransformer's bf16 routes then at x3 and x4
@@ -131,9 +134,15 @@ lines.) Phases, one line each:
     --model_b BicubicInterpolation`` over a directory of the two demo frames
     (720x1280, 1080x1920), their report numbers;
 15. ``mesh``: ``make_mesh()`` over the visible cards; ``speed_test --mesh
-    -1``; ``ShardedUpscaler`` on [cuda:0, cuda:0] (a batch of 3 at 720x1280
-    on the bench flags: shards [2, 1], the pad and the crop) against the
-    single-device engine at ``LIMIT``, placement asserted; one f32 step
+    -1``; ``ShardedUpscaler`` on [cuda:0, cuda:0] (a batch of 3 float
+    frames at 720x1280 on the bench flags: shards [2, 1], the pad and the
+    crop) against the single-device engine on the whole frame at
+    ``LIMIT``, placement asserted; the engine's batch of 3 against each
+    frame alone, graphed and eager, on the whole frame; the shards against
+    the eager engine at their own batch sizes, bit for bit; the eager
+    forward stage by stage at batch 3 against the frames alone, which
+    names the first op that differs, and each stage alone on the batch's
+    inputs (a kernel that differs fails); one f32 step
     (TF32 off, dropout 0) on a 2x1 and a 2x2 mesh of cuda:0 against the
     single-device step and JAX's, at ``TRAIN_TOL``, no launch;
 16. ``resid_switches``: ResidualTransformer's ``TUX_RESID_DEC_PALLAS=0``
@@ -144,7 +153,14 @@ lines.) Phases, one line each:
     conv once under ``DEC_PALLAS=0``, twice otherwise, ``global_mha`` 8;
     eager and graphed forward ms), and ``BICUBIC=conv`` on the f32 all-XLA
     packed route at the f32 bounds;
-17. the status of every TPU kernel of the JAX package in the port.
+17. ``banded``: the banded squash (``TUX_BANDED_RESIZE``): ``quality``
+    and ``fast_exact`` under "auto" (banded: f32 squashes) against "0",
+    ``bench`` under "auto" (dense: a bf16 squash) against "1", trained
+    weights, graphed forward ms in turns and eager, the difference (f32:
+    the f32 bounds on the whole frame; bench: ``LIMIT``); the f32 squash
+    alone at (1, 720, 1280, 12) -> 1080x1920, dense and banded, device ms
+    and bound;
+18. the status of every TPU kernel of the JAX package in the port.
 
 The device line also says whether ``tensorstore`` and ``zstandard`` import
 on this host (never a failure). Then one JSON line of kernel records and,
@@ -170,6 +186,7 @@ import torch
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
 # exp2 and the other special functions: 16 a clock on each SM of compute
 # capability 9.0 (CUDA C Programming Guide, arithmetic instruction
 # throughput), at the card's maximum SM clock (``max_sm_clock_hz``).
@@ -600,14 +617,15 @@ def max_sm_clock_hz() -> float:
 
 
 def bound_ms(n_bytes: float, flops: float, int8_ops: float = 0.0,
-             exps: float = 0.0) -> tuple[float, str]:
+             exps: float = 0.0, f32_flops: float = 0.0) -> tuple[float, str]:
     """The least time for the work, the largest of: bytes at the memory
-    rate; the operations (bf16, plus any int8 ones at the int8 rate); the
-    exponentials (special-function operations) at SFU_PER_SM_CLOCK on every
-    SM at the maximum SM clock."""
+    rate; the operations (bf16, plus any int8 ones at the int8 rate and any
+    float32 ones at the float32 rate); the exponentials (special-function
+    operations) at SFU_PER_SM_CLOCK on every SM at the maximum SM clock."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     times = {"bytes": n_bytes / PEAK_BYTES,
-             "operations": flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS,
+             "operations": (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
+                            + f32_flops / PEAK_F32_FLOPS),
              "exponentials": exps / (sms * SFU_PER_SM_CLOCK
                                      * max_sm_clock_hz())}
     by = max(times, key=times.get)
@@ -816,6 +834,7 @@ def phase_kernels() -> list[dict]:
     torch.cuda.synchronize()
     for r in records:
         say("kernel", **r)
+    phase_batch_split()
     return records
 
 
@@ -1572,6 +1591,120 @@ def within_limit(emax: float, emean: float, limit=LIMIT) -> bool:
 
 def limit_text(limit=LIMIT) -> str:
     return f"interior max <= {limit[0]}, mean <= {limit[1]}"
+
+
+# FastTransformer's stages on the bench route, by their names in
+# models/fast_transformer.py: the positions of the arguments that hold one
+# row per frame (the rest are weights and options). ``run_trunk`` is the
+# model's method around the trunk kernel.
+STAGES = {"conv2d": (0,), "conv1_stream": (0,), "conv3x3_stream": (0,),
+          "tail_conv_stream": (0,), "embed_stream": (0,),
+          "unembed_combine_stream": (0, 1), "tail_finish_stream": (0,),
+          "resize_shuffled": (0,), "pixel_shuffle": (0,)}
+KERNEL_STAGES = ("conv1_stream", "conv3x3_stream", "tail_conv_stream",
+                 "embed_stream", "unembed_combine_stream",
+                 "tail_finish_stream", "run_trunk")
+
+
+@contextlib.contextmanager
+def recorded_stages(model):
+    """Every stage call of FastTransformer ``model``'s forward recorded, in
+    order, as (name, function, args, kwargs, output)."""
+    from transformerupscaler_torch.models import fast_transformer as FT
+
+    calls = []
+
+    def recorder(name, fn):
+        def rec(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls.append((name, fn, args, kwargs, out))
+            return out
+        return rec
+
+    saved = {name: getattr(FT, name) for name in STAGES}
+    try:
+        for name, fn in saved.items():
+            setattr(FT, name, recorder(name, fn))
+        model.run_trunk = recorder("run_trunk", model.run_trunk)
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(FT, name, fn)
+        del model.run_trunk
+
+
+def _frame_args(name, args, i):
+    rows = STAGES.get(name, (0,))
+    return [a[i:i + 1] if j in rows else a for j, a in enumerate(args)]
+
+
+def _diff(a: torch.Tensor, b: torch.Tensor) -> dict:
+    d = (a.float() - b.float()).abs()
+    return dict(equal=bool(torch.equal(a, b)), max_abs=d.max().item(),
+                mean_abs=d.mean().item(), differing=int((d > 0).sum()))
+
+
+def batch_split(model, x: torch.Tensor, res_out=RES_OUT) -> list[dict]:
+    """Each stage of ``model``'s forward on the batch ``x`` called again
+    on each frame's rows of the very inputs it got, against its output's
+    rows for that frame: a stage whose output for one frame depends on the
+    other frames of its batch differs. One record a call, in order."""
+    with torch.inference_mode(), recorded_stages(model) as calls:
+        model(x, res_out=res_out)
+    records = []
+    for name, fn, args, kwargs, out in calls:
+        per = [fn(*_frame_args(name, args, i), **kwargs)
+               for i in range(x.shape[0])]
+        d = _diff(torch.cat(per), out)
+        records.append(dict(stage=name, kernel=name in KERNEL_STAGES,
+                            in_shape=list(args[0].shape), **d))
+    return records
+
+
+def stage_divergence(model, x: torch.Tensor, res_out=RES_OUT) -> list[dict]:
+    """The forward on the batch ``x`` against the forwards on each frame
+    alone, stage by stage in call order: the first stage that differs is
+    the first op where the batch changes a frame's numbers (the stages
+    after it inherit the difference)."""
+    with torch.inference_mode(), recorded_stages(model) as batch:
+        model(x, res_out=res_out)
+    alone = []
+    for i in range(x.shape[0]):
+        with torch.inference_mode(), recorded_stages(model) as calls:
+            model(x[i:i + 1], res_out=res_out)
+        alone.append(calls)
+    records = []
+    for j, (name, _, _, _, out) in enumerate(batch):
+        if any(c[j][0] != name for c in alone):
+            raise AssertionError(f"stage {j}: {name} is not called alone")
+        d = _diff(torch.cat([c[j][4] for c in alone]), out)
+        records.append(dict(stage=name, kernel=name in KERNEL_STAGES, **d))
+    return records
+
+
+def phase_batch_split() -> None:
+    """Every kernel of the bench route at batch 3 against three batch-1
+    calls on the same inputs, bit for bit (epoch-100 weights, three seeded
+    720x1280 frames); the library stages are reported beside them."""
+    from transformerupscaler_torch.checkpoint import load_latest_params
+    from transformerupscaler_torch.registry import get_model
+    from transformerupscaler_torch.weights import params_from_jax
+
+    model = get_model("FastTransformer", dtype=torch.bfloat16, **ROUTE_BENCH)
+    params_from_jax(model, load_latest_params("FastTransformer"))
+    u8 = np.random.default_rng(5).integers(0, 256, (3, *FRAME_HW, 3),
+                                           np.uint8)
+    x = torch.from_numpy(u8).cuda().float() / 255.0
+    records = batch_split(model, x)
+    kernels = {r["stage"] for r in records if r["kernel"]}
+    for r in records:
+        say("batch_split", route="bench", batch=3, **r)
+    if kernels != set(KERNEL_STAGES) - {"conv1_stream"}:
+        raise AssertionError(f"bench's kernels not all checked: {kernels}")
+    bad = [r["stage"] for r in records if r["kernel"] and not r["equal"]]
+    if bad:
+        raise AssertionError(f"kernels whose output for a frame depends on "
+                             f"its batch: {bad}")
 
 
 def phase_fixture(name: str) -> None:
@@ -2673,35 +2806,46 @@ def phase_mesh() -> dict:
                          **ROUTE_BENCH)
     frames = np.random.default_rng(0).integers(0, 256, (3, *FRAME_HW, 3),
                                                np.uint8)
-    up.upscale_batch(frames, RES_OUT)  # kernels built, weights derived
+    # Float frames in [0, 1], as the engine normalizes uint8 (a true f32
+    # division) and as JAX's ShardedUpscaler takes them.
+    floats = frames.astype(np.float32) / np.float32(255.0)
+    up.upscale_batch(floats, RES_OUT)  # kernels built, weights derived
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
-    outs = up.upscale_batch(frames, RES_OUT)
+    outs = up.upscale_batch(floats, RES_OUT)
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3
     launches = K.launch_counts()
     placed = [str(o.device) for o in outs]
-    got = torch.cat([o.float().cpu() for o in outs]).numpy()
+    shards = [o.float().cpu().numpy() for o in outs]
     engine = UpscalerEngine("FastTransformer", dtype=torch.bfloat16,
                             checkpoint_dir=ckpt, **ROUTE_BENCH)
+    eager = UpscalerEngine("FastTransformer", dtype=torch.bfloat16,
+                           checkpoint_dir=ckpt, cuda_graphs=False,
+                           **ROUTE_BENCH)
     want = engine.upscale(frames, res_out=RES_OUT)
-    emax, emean = interior_err(got, want, 8)
+    got = np.concatenate(shards)
+    emax, emean = float(np.abs(got - want).max()), float(
+        np.abs(got - want).mean())
     replicas = [sorted({str(p.device) for p in m.parameters()})
                 for m in up.replicas]
     say("mesh_sharded_upscaler", mesh=two.shape, route="bench",
-        batch=[3, *FRAME_HW], res_out=list(RES_OUT),
+        batch=[3, *FRAME_HW], input="float32 frames in [0, 1]",
+        res_out=list(RES_OUT),
         shard_rows=[o.shape[0] for o in outs], shard_devices=placed,
         replica_devices=replicas, batch_ms=batch_ms,
         launches={k: v for k, v in launches.items() if v},
-        vs_engine_max_abs=emax, vs_engine_mean_abs=emean,
-        tolerance=limit_text())
+        vs_engine_batch3_max_abs=emax, vs_engine_batch3_mean_abs=emean,
+        tolerance=f"whole frame: {limit_text()}")
     if [o.shape[0] for o in outs] != [2, 1] or \
             set(placed) != {str(dev)} or \
             replicas != [[str(dev)], [str(dev)]] or \
             not within_limit(emax, emean):
         raise AssertionError("ShardedUpscaler disagrees with the engine")
-    del up, engine
+    del up
+    phase_batch_frames(engine, eager, frames, shards)
+    del engine, eager
 
     single = train_step_vs_jax("cuda")
     fix = dict(single["checksums"], loss=single["loss"])
@@ -2723,6 +2867,192 @@ def phase_mesh() -> dict:
             raise AssertionError(f"mesh {shape}: the step disagrees ({bad}) "
                                  f"or launched a kernel")
     return launches
+
+
+# The banded squash (ops/resize.py, TUX_BANDED_RESIZE): each route under
+# its default ("auto") and the other setting that changes its squash.
+BANDED_CASES = (("quality", ("auto", "0")), ("fast_exact", ("auto", "0")),
+                ("bench", ("auto", "1")))
+# Whether the squash bands, by (route, setting).
+BANDED_EXPECTED = {("quality", "auto"): True, ("quality", "0"): False,
+                   ("fast_exact", "auto"): True, ("fast_exact", "0"): False,
+                   ("bench", "auto"): False, ("bench", "1"): True}
+
+
+def graphed_ms(fn) -> float:
+    """Device milliseconds a call of ``fn`` (a few PyTorch operations):
+    the calls captured in one CUDA graph, its replays timed by CUDA events,
+    so the host's launches do not count."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # caches filled before the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay)
+
+
+def squash_flops(h, w, r, c, out_hw, band_h, band_w) -> tuple[float, float]:
+    """The products of ``resize_shuffled`` (B = 1): (banded, dense) flops,
+    two a multiply-add; ``band_*``: the device factors of each pass."""
+    oh, ow = out_hw
+    dense = 2.0 * oh * h * r * w * c * r + 2.0 * ow * w * r * oh * c
+    (nh, mh, kh), (nw, mw, kw) = band_h[0].shape, band_w[0].shape
+    return 2.0 * nh * mh * kh * w * c * r + 2.0 * nw * mw * kw * oh * c, dense
+
+
+def phase_banded() -> None:
+    """The banded resize on the card (``banded``): ``quality`` and
+    ``fast_exact`` (f32 squashes, banded under "auto") against
+    ``TUX_BANDED_RESIZE=0``, and ``bench`` (a bf16 squash, dense under
+    "auto") against "1": trained weights, a 720x1280 frame, graphed and
+    eager forward ms timed in turns, the outputs' difference; then the
+    f32 squash alone at (1, 720, 1280, 12) -> 1080x1920, dense and banded,
+    device ms (a graph replay) and its bound."""
+    import importlib
+
+    from transformerupscaler_torch.infer_lib import UpscalerEngine
+
+    R = importlib.import_module("transformerupscaler_torch.ops.resize")
+    frame = np.random.default_rng(0).integers(0, 256, (*FRAME_HW, 3),
+                                              np.uint8)
+    xd = torch.from_numpy(frame).cuda().float().div(255.0)[None]
+    for name, settings in BANDED_CASES:
+        spec = ROUTES[name]
+        dtype = spec.get("dtype", torch.bfloat16)
+        runs = {}
+        for v in settings:
+            with route_env({"TUX_BANDED_RESIZE": v}):
+                eng = UpscalerEngine(spec["model"], dtype=dtype,
+                                     **spec["route"])
+                before = R._band_on.cache_info()
+                out = eng.upscale(frame, res_out=RES_OUT)
+                after = R._band_on.cache_info()
+                eager_ms = cuda_ms(lambda: eng.model(xd, res_out=RES_OUT), 10)
+            runs[v] = dict(
+                engine=eng, out=out, eager_ms=eager_ms,
+                graph=eng.captured(frame, res_out=RES_OUT),
+                banded=after.hits + after.misses > before.hits
+                + before.misses)
+        graphed = {v: [] for v in settings}
+        for v in (*settings, *settings[::-1]):  # in turns: a, b, b, a
+            graphed[v].append(cuda_ms(runs[v]["graph"].replay))
+        base, other = settings
+        want, got = runs[base]["out"], runs[other]["out"]
+        d = np.abs(got - want)
+        if dtype == torch.float32 or name == "quality":
+            tol = F32_TOL
+            ok = float((d - tol["rtol"] * np.abs(want)).max()) <= tol["atol"]
+            tol_text = (f"whole frame |got - want| <= {tol['atol']} + "
+                        f"{tol['rtol']} |want|")
+        else:
+            ok = within_limit(*interior_err(got, want, 8))
+            tol_text = limit_text()
+        say("banded", route=name, weights=f"epoch {runs[base]['engine'].epoch}",
+            dtype=str(dtype), in_hw=list(FRAME_HW), res_out=list(RES_OUT),
+            **{f"banded_{v}": runs[v]["banded"] for v in settings},
+            **{f"forward_ms_graphed_{v}": graphed[v] for v in settings},
+            **{f"forward_ms_eager_{v}": runs[v]["eager_ms"] for v in settings},
+            max_abs=float(d.max()), mean_abs=float(d.mean()),
+            tolerance=tol_text)
+        for v in settings:
+            if runs[v]["banded"] != BANDED_EXPECTED[name, v]:
+                raise AssertionError(f"{name} under {v}: banded "
+                                     f"{runs[v]['banded']}")
+        if not ok or not np.isfinite(got).all():
+            raise AssertionError(f"{name}: the banded and the dense squash "
+                                 f"disagree")
+        del runs
+
+    h, w, r, c = *FRAME_HW, SCALE, 3
+    g = torch.Generator(device="cuda").manual_seed(0)
+    z = torch.rand(1, h, w, c * r * r, generator=g, device="cuda")
+    times, outs = {}, {}
+    for v in ("0", "1"):
+        with route_env({"TUX_BANDED_RESIZE": v}):
+            run = functools.partial(R.resize_shuffled, z, r, RES_OUT)
+            outs[v] = run()
+            times[v] = dict(ms=graphed_ms(run), wrapper_ms=cuda_ms(run))
+    args = ("bilinear", True, None, z.device, z.dtype)
+    band_h = R._band_on(h, r, RES_OUT[0], *args)
+    band_w = R._band_on(w, r, RES_OUT[1], *args)
+    banded_flops, dense_flops = squash_flops(h, w, r, c, RES_OUT, band_h,
+                                             band_w)
+    n_bytes = nbytes(z, outs["1"])
+    bnd, by = bound_ms(n_bytes, 0.0, f32_flops=banded_flops)
+    dense_bnd, dense_by = bound_ms(n_bytes, 0.0, f32_flops=dense_flops)
+    err = close_enough(outs["1"], outs["0"], **F32_TOL)
+    say("banded_squash", shape=list(z.shape), r=r, res_out=list(RES_OUT),
+        dtype="float32, TF32 off" if not
+        torch.backends.cuda.matmul.allow_tf32 else "float32, TF32 on",
+        dense=dict(**times["0"], flops=dense_flops, bound_ms=dense_bnd,
+                   bound_by=dense_by),
+        banded=dict(**times["1"], flops=banded_flops, bound_ms=bnd,
+                    bound_by=by,
+                    blocks=[list(band_h[0].shape), list(band_w[0].shape)]),
+        max_abs_err=err, tolerance=F32_TOL)
+
+
+def phase_batch_frames(engine, eager, frames, shards) -> None:
+    """Where a batch of 3 leaves the same frames served one at a time
+    (``mesh``): the engine's batch against each frame alone, graphed and
+    eager, on the whole frame; the sharded upscaler's eager shards against
+    the eager engine at their own batch sizes (bit for bit); then the
+    eager forward stage by stage (``stage_divergence``) and each stage
+    alone on the batch's own inputs (``batch_split``), which name the
+    first op that differs."""
+    batch = {way: e.upscale(frames, res_out=RES_OUT)
+             for way, e in (("graphed", engine), ("eager", eager))}
+    alone = {way: np.stack([e.upscale(f, res_out=RES_OUT) for f in frames])
+             for way, e in (("graphed", engine), ("eager", eager))}
+    whole = {}
+    for way in batch:
+        d = np.abs(batch[way] - alone[way])
+        whole[way] = dict(equal=bool((d == 0).all()), max_abs=float(d.max()),
+                          mean_abs=float(d.mean()),
+                          differing=int((d > 0).sum()),
+                          per_frame_max_abs=[float(v) for v in
+                                             d.max(axis=(1, 2, 3))])
+    said = dict(graphed=whole["graphed"], eager=whole["eager"],
+                graphed_equals_eager_batch3=bool(
+                    np.array_equal(batch["graphed"], batch["eager"])))
+    say("mesh_batch3_vs_alone", route="bench", weights=f"epoch "
+        f"{engine.epoch}", batch=[3, *FRAME_HW], res_out=list(RES_OUT),
+        crop=0, **said, tolerance=f"whole frame: {limit_text()}")
+    if not said["graphed_equals_eager_batch3"] or not all(
+            within_limit(w["max_abs"], w["mean_abs"]) for w in whole.values()):
+        raise AssertionError("the batch of 3 strays from the frames alone")
+
+    starts = np.cumsum([0] + [len(s) for s in shards])
+    ref = [eager.upscale(frames[a:b], res_out=RES_OUT)
+           for a, b in zip(starts[:-1], starts[1:])]
+    per_shard = []
+    for got, want in zip(shards, ref):
+        d = np.abs(got - want)
+        per_shard.append(dict(rows=len(got), equal=bool((d == 0).all()),
+                              max_abs=float(d.max()),
+                              mean_abs=float(d.mean())))
+    say("mesh_shards_vs_engine", route="bench", eager=True,
+        shards=per_shard, tolerance="bit for bit")
+    if not all(p["equal"] for p in per_shard):
+        raise AssertionError("a shard differs from the eager engine at its "
+                             "own batch size")
+
+    x = torch.from_numpy(frames).cuda().float() / 255.0
+    stages = stage_divergence(eager.model, x)
+    first = next((r for r in stages if not r["equal"]), None)
+    isolated = batch_split(eager.model, x)
+    at_fault = [r["stage"] for r in isolated if not r["equal"]]
+    say("mesh_stage_divergence", route="bench", batch=3, stages=stages,
+        first_differing=None if first is None else first["stage"],
+        isolated=[{k: r[k] for k in ("stage", "kernel", "equal", "max_abs",
+                                     "differing")} for r in isolated],
+        differing_alone=at_fault)
+    if any(r["kernel"] for r in isolated if not r["equal"]):
+        raise AssertionError(f"a kernel's output for one frame depends on "
+                             f"its batch: {at_fault}")
 
 
 RESID_SWITCHES = {"dec_xla": {"TUX_RESID_DEC_PALLAS": "0"},
@@ -2823,8 +3153,8 @@ def phase_resid_switches() -> dict:
 
 
 def phase_new_paths(launches: dict, only=None) -> None:
-    """Phases 10-16 (``only``: a subset of "stream", "gptq", "int8_mlp",
-    "train", "cli", "mesh", "resid_switches")."""
+    """Phases 10-17 (``only``: a subset of ``ONLY``; "batch_split", part of
+    phase 3, runs here only when named)."""
     from transformerupscaler_torch.infer_lib import UpscalerEngine
 
     if only is None or "stream" in only:
@@ -2851,17 +3181,21 @@ def phase_new_paths(launches: dict, only=None) -> None:
         launches["mesh"] = phase_mesh()
     if only is None or "resid_switches" in only:
         launches.update(phase_resid_switches())
+    if only is None or "banded" in only:
+        phase_banded()
+    if only is not None and "batch_split" in only:
+        phase_batch_split()
 
 
 ONLY = ("stream", "gptq", "int8_mlp", "train", "cli", "mesh",
-        "resid_switches")
+        "resid_switches", "banded", "batch_split")
 
 
 def main() -> None:
     """With no arguments, every phase and the result lines. ``--only
-    stream,gptq,int8_mlp,train,cli,mesh,resid_switches`` (any of them): the
-    device, the build and those phases, for a quick check of that part; it
-    prints no result lines."""
+    stream,gptq,int8_mlp,train,cli,mesh,resid_switches,banded,batch_split``
+    (any of them): the device, the build and those phases, for a quick
+    check of that part; it prints no result lines."""
     only = None
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = set(sys.argv[2].split(","))

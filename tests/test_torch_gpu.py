@@ -39,7 +39,9 @@ the bf16 tolerance.
 The engine's CUDA graphs: every route chip_smoke.py serves, at full model
 width with seeded weights on 64x128 frames, replayed from its graph and run
 eagerly by the same engine: the outputs agree bit for bit and the launch
-counters count the same per frame.
+counters count the same per frame. The bench route's kernels (conv1's
+too) at batch 3 equal their batch-1 calls on the same inputs, bit for bit
+(``chip_smoke.batch_split``).
 
 The int8 products off the kernels: rows 8 and 9's kernels equal their plain
 versions on the CPU bit for bit (which equal JAX's XLA int8 convs,
@@ -1277,6 +1279,26 @@ def test_graphed_engine_equals_eager(gen, tmp_path, monkeypatch, route):
     key = next(iter(graphed._cache))
     assert dev.is_cuda and dev.data_ptr() != graphed._cache[key].out.data_ptr()
     assert np.array_equal(dev.cpu().numpy(), outs[1][0])
+
+
+@pytest.mark.parametrize("route", ["bench", "bench_conv1"])
+@pytest.mark.parametrize("hw", [(64, 128), (72, 144)])
+def test_bench_kernels_at_batch_3_equal_batch_1(gen, tmp_path, monkeypatch,
+                                                route, hw):
+    """``chip_smoke.batch_split``: the bench route's forward on three
+    frames, each kernel called again on each frame's rows of the inputs it
+    got, equal bit for bit to its batch-of-3 output (a kernel whose output
+    for one frame depends on the other frames would differ)."""
+    import chip_smoke
+
+    (_, eager), res_out = _engines(tmp_path, route, monkeypatch)
+    x = torch.from_numpy(np.stack(_frames(3, hw))).cuda().float() / 255.0
+    records = chip_smoke.batch_split(eager.model, x,
+                                     (hw[0] * 3 // 2, hw[1] * 3 // 2))
+    checked = {r["stage"] for r in records if r["kernel"]}
+    assert checked == set(chip_smoke.KERNEL_STAGES) - (
+        set() if route == "bench_conv1" else {"conv1_stream"})
+    assert all(r["equal"] for r in records if r["kernel"]), records
 
 
 def test_graph_cache_per_geometry_and_calibration_clears_it(gen, tmp_path,

@@ -3,7 +3,9 @@ process driving a mesh whose devices repeat the CPU.
 
 - ``make_mesh`` shapes and errors, as tests/test_sharding.py holds JAX's;
 - ``ShardedUpscaler`` on [cpu, cpu] against the engine, b = 8 and 5 (the
-  zero padding and the crop), f32 at the parity bound;
+  zero padding and the crop), f32 at the parity bound, a uint8 batch cast
+  undivided as JAX casts it; against JAX's ``ShardedUpscaler`` on a
+  one-device CPU mesh, uint8 and float batches, f32 and bf16;
 - head sharding (``activation_sharding`` / ``maybe_shard_heads``) against
   no context: window and global attention, forward and gradients;
 - ``Trainer`` on 2x1 and 2x2 meshes against the single-device step (f32,
@@ -90,13 +92,91 @@ def test_sharded_upscaler_matches_the_engine(b):
     assert [o.shape[0] for o in outs] == [per, b - per]
     for i, o in enumerate(outs):
         assert o.device == mesh.devices[i, 0] and o.dtype == torch.float32
+    # uint8 is cast as JAX casts it (``jnp.asarray(batch, dtype)``): the
+    # model sees 0..255, not divided.
     got = torch.cat(outs).numpy()
-    want = engine.upscale(batch, res_out=(32, 64))
-    np.testing.assert_allclose(got, want, **F32)
+    with torch.inference_mode():
+        cast = engine.model(torch.from_numpy(batch).float(),
+                            res_out=(32, 64)).numpy()
+    np.testing.assert_allclose(got, cast, **F32)
     # Float frames in [0, 1] are taken as given.
+    want = engine.upscale(batch, res_out=(32, 64))
     got = torch.cat(up.upscale_batch(batch / np.float32(255.0),
                                      (32, 64))).numpy()
     np.testing.assert_allclose(got, want, **F32)
+
+
+@pytest.fixture(scope="module")
+def jax_sharded():
+    """JAX's ShardedUpscaler outputs on a one-device CPU mesh, FastTransformer
+    at dim 32 on the seeded weights, by (dtype, input kind)."""
+    import jax
+    import jax.numpy as jnp
+    from transformerupscaler_tpu.parallel.batch_infer import (
+        ShardedUpscaler as JaxSharded,
+    )
+    from transformerupscaler_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    tree = seeded_params(_small_fast("cpu", torch.float32), 4)
+    mesh = jax_mesh(1, devices=jax.devices("cpu"))
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        up = JaxSharded("FastTransformer", mesh, params={"params": tree},
+                        dtype=jnp.dtype(dt), **SMALL)
+        for kind, batch in _sharded_batches().items():
+            out[dt, kind] = np.asarray(up.upscale_batch(batch, (32, 64)),
+                                       np.float32)
+    return tree, out
+
+
+def _small_fast(device, dtype):
+    from transformerupscaler_torch.registry import get_model
+
+    return get_model("FastTransformer", device=device, dtype=dtype, **SMALL)
+
+
+def _sharded_batches() -> dict:
+    u8 = np.random.default_rng(11).integers(0, 256, (2, 16, 32, 3), np.uint8)
+    return {"uint8": u8, "float": u8 / np.float32(255.0)}
+
+
+# uint8 frames reach the model as 0..255, 255 times the range the parity
+# bounds were set for, and every rounding of the activations grows with
+# them: f32 sums in another order reach 1.3e-4 (atol 5e-4); in bf16 each
+# side's output lies 0.60 max / 1.6e-3 mean from its own f32 output, and
+# the two sides 0.068 / 3.9e-4 apart (interior max 0.1, mean the bf16
+# limit). Float frames in [0, 1] keep the parity bounds.
+SHARDED_TOL = {("float32", "float"): (F32, None),
+               ("float32", "uint8"): (dict(atol=5e-4, rtol=1e-4), None),
+               ("bfloat16", "float"): (None, (3e-2, 3e-3)),
+               ("bfloat16", "uint8"): (None, (0.1, 3e-3))}
+
+
+@pytest.mark.parametrize("kind", ["uint8", "float"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sharded_upscaler_matches_jax(jax_sharded, dtype, kind):
+    """The port's ShardedUpscaler against JAX's on a one-device CPU mesh,
+    the same seeded weights: uint8 cast to the dtype undivided, floats cast
+    to the dtype (bf16-rounded frames under bf16). f32 on the whole frame,
+    bf16 on the interior (a 4-pixel border cut, as
+    tests/test_torch_fast_transformer_bf16.py), at ``SHARDED_TOL``."""
+    tree, want = jax_sharded
+    up = ShardedUpscaler("FastTransformer", make_mesh(1, devices=["cpu"]),
+                         params=tree, dtype=getattr(torch, dtype), **SMALL)
+    (out,) = up.upscale_batch(_sharded_batches()[kind], (32, 64))
+    got = out.float().numpy()
+    want = want[dtype, kind]
+    assert got.shape == want.shape == (2, 32, 64, 3)
+    # Not all clipped (0..255 frames leave ~3% of the output inside).
+    assert np.mean((want > 0) & (want < 1)) > (0.01 if kind == "uint8"
+                                               else 0.1)
+    whole, interior = SHARDED_TOL[dtype, kind]
+    if whole is not None:
+        np.testing.assert_allclose(got, want, **whole)
+    else:
+        err = np.abs(got - want)[:, 4:-4, 4:-4]
+        assert err.max() <= interior[0] and err.mean() <= interior[1], (
+            err.max(), err.mean())
 
 
 def test_sharded_upscaler_pads_a_batch_smaller_than_the_mesh():
@@ -246,3 +326,51 @@ def test_trainer_mesh_argument_checks():
     mesh = make_mesh(2, devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="first device"):
         Trainer("WindowTransformer", device="meta", mesh=mesh, **SMALL)
+
+
+# ------------------------------------------------------- batch of frames
+def _bench_small():
+    from transformerupscaler_torch.registry import get_model
+
+    model = get_model("FastTransformer", device="cpu", dtype=torch.bfloat16,
+                      **chip_smoke.ROUTE_BENCH, **SMALL)
+    params_from_jax(model, seeded_params(model, 3))
+    x = torch.from_numpy(np.random.default_rng(0).random((3, 16, 32, 3),
+                                                         np.float32))
+    return model, x
+
+
+def test_batch_split_on_the_plain_versions():
+    """chip_smoke.py's batch checks on the CPU (the wrappers' plain
+    versions): every stage of the bench route is recorded, in order, and
+    none depends on the other frames of its batch."""
+    model, x = _bench_small()
+    split = chip_smoke.batch_split(model, x, (24, 48))
+    stages = [r["stage"] for r in split]
+    assert stages == ["conv2d", "conv3x3_stream", "tail_conv_stream",
+                      "embed_stream", "run_trunk", "unembed_combine_stream",
+                      "conv3x3_stream", "tail_finish_stream",
+                      "resize_shuffled"]
+    assert all(r["equal"] for r in split)
+    divergence = chip_smoke.stage_divergence(model, x, (24, 48))
+    assert [r["stage"] for r in divergence] == stages
+    assert all(r["equal"] for r in divergence)
+    assert "run_trunk" not in model.__dict__  # the recorder put it back
+
+
+def test_batch_split_names_a_stage_that_reads_its_batch(monkeypatch):
+    """A stage whose output for one frame depends on its batch (here the
+    tail, shifted by the batch's mean) is the one both checks name."""
+    from transformerupscaler_torch.models import fast_transformer as FT
+
+    model, x = _bench_small()
+    real = FT.tail_conv_stream
+    monkeypatch.setattr(FT, "tail_conv_stream",
+                        lambda feat, *a, **k: real(feat, *a, **k)
+                        + feat.float().mean().to(feat.dtype))
+    split = chip_smoke.batch_split(model, x, (24, 48))
+    assert [r["stage"] for r in split if not r["equal"]] == [
+        "tail_conv_stream"]
+    divergence = chip_smoke.stage_divergence(model, x, (24, 48))
+    first = next(r for r in divergence if not r["equal"])
+    assert first["stage"] == "tail_conv_stream" and first["kernel"]

@@ -47,7 +47,11 @@
 // the next is issued; the whole D of a tile is one unit, so the map is read
 // once. Each unit starts its K loop at its own pixel (u mod 64): when every
 // block read the same pixel at once, all requests shared address bits 7-9
-// and the map was read at 2.1 TB/s (patch_ablation.py). int8 A comes by TMA
+// and the map was read at 2.1 TB/s (patch_ablation.py). Units are counted
+// per frame (a frame's last unit holds zero-filled segments rather than the
+// next frame's first ones) and the start pixel is the unit's index in its
+// frame, so a frame's tokens sum in the same order whatever its batch: a
+// batch of 3 equals three batches of 1 bit for bit. int8 A comes by TMA
 // at half the bytes and is dequantized into wgmma's register A fragment.
 // Epilogue: + bias, one rounding, staged swizzled in shared memory (2 x 24
 // KB) and TMA-stored, clipped at Wt.
@@ -141,7 +145,8 @@ embed_kernel(const __grid_constant__ CUtensorMap fmap,
              const __grid_constant__ CUtensorMap tmap,
              const float* __restrict__ bias,
              const float* __restrict__ in_scale, int D, int seg_row,
-             int n_seg, int n_groups, int n_units) {
+             int frame_seg, int frame_tiles, int n_groups, int n_units,
+             int n_rows) {
   using L = EmbedSmem<I8>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* stages = align1024(smem_raw);
@@ -164,12 +169,20 @@ embed_kernel(const __grid_constant__ CUtensorMap fmap,
     uint32_t phase = 0;
     for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
       const int n0 = (u % n_groups) * E_NG;
-      const int s0 = (u / n_groups) * 2 * E_WG;
+      const int b = u / (frame_tiles * n_groups);
+      const int lu = u - b * frame_tiles * n_groups;  // the unit in its frame
+      const int s0 = (lu / n_groups) * 2 * E_WG;
       int bt[2 * E_WG], tx0[2 * E_WG];
-      for (int sg = 0; sg < 2 * E_WG; ++sg)
-        segment(s0 + sg, seg_row, bt[sg], tx0[sg]);
+      for (int sg = 0; sg < 2 * E_WG; ++sg) {
+        if (s0 + sg < frame_seg) {
+          segment(b * frame_seg + s0 + sg, seg_row, bt[sg], tx0[sg]);
+        } else {  // past the frame's last segment: zero-filled loads
+          bt[sg] = n_rows;
+          tx0[sg] = 0;
+        }
+      }
       for (int i = 0; i < PS * PS; ++i) {
-        const int q = (i + u) % (PS * PS);  // pixel (dy, dx) = (q / 8, q % 8)
+        const int q = (i + lu) % (PS * PS);  // pixel (dy, dx) = (q / 8, q % 8)
         S::mbar_wait(&empty[stage], phase ^ 1);
         unsigned char* st = stages + stage * L::STAGE;
         S::mbar_expect_tx(&full[stage], L::STAGE);
@@ -206,7 +219,8 @@ embed_kernel(const __grid_constant__ CUtensorMap fmap,
   int stage = 0;
   uint32_t phase = 0;
   for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-    const int mu = u / n_groups;
+    const int b = u / (frame_tiles * n_groups);
+    const int s0 = ((u - b * frame_tiles * n_groups) / n_groups) * 2 * E_WG;
     const int n0 = (u % n_groups) * E_NG;
     int prev = 0;
     for (int q = 0; q < PS * PS; ++q) {
@@ -280,10 +294,10 @@ embed_kernel(const __grid_constant__ CUtensorMap fmap,
     S::named_sync(1 + wg, 128);
     if (wtid == 0) {
       for (int sg = 0; sg < 2; ++sg) {
-        const int s = mu * 2 * E_WG + 2 * wg + sg;
-        if (s >= n_seg) break;
+        const int s = s0 + 2 * wg + sg;
+        if (s >= frame_seg) break;
         int bt, tx0;
-        segment(s, seg_row, bt, tx0);
+        segment(b * frame_seg + s, seg_row, bt, tx0);
         for (int cc = 0; cc < E_NC && n0 + cc * 64 < D; ++cc)
           S::tma_store_3d(&tmap, my_out + cc * TILE + sg * (TILE / 2),
                           n0 + cc * 64, tx0, bt);
@@ -526,16 +540,17 @@ int launch_embed(const CUtensorMap& f, const CUtensorMap& w,
       embed_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
   const int seg_row = (Wt + SEG - 1) / SEG;
-  const int n_seg = B * Ht * seg_row;
+  const int frame_seg = Ht * seg_row;
+  const int frame_tiles = (frame_seg + 2 * E_WG - 1) / (2 * E_WG);
   const int n_groups = (D + E_NG - 1) / E_NG;
-  const int n_units = (n_seg + 2 * E_WG - 1) / (2 * E_WG) * n_groups;
+  const int n_units = B * frame_tiles * n_groups;
   const int grid = n_units < S::sm_count(device) ? n_units
                                                  : S::sm_count(device);
   embed_kernel<I8>
       <<<grid, E_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
           f, w, tk, static_cast<const float*>(bias),
-          static_cast<const float*>(in_scale), D, seg_row, n_seg, n_groups,
-          n_units);
+          static_cast<const float*>(in_scale), D, seg_row, frame_seg,
+          frame_tiles, n_groups, n_units, B * Ht);
   return int(cudaGetLastError());
 }
 

@@ -160,7 +160,8 @@ dtype), so the branch add, the squash and the clip run in f32; "conv1" runs
 conv1 on the pre-cast f32 input as exact uint8 values (where JAX's
 deinterleaved conv1 runs, and only for an f32 input); "squash" is JAX's
 squash at ``Precision.HIGH``, which on the CPU is its exact f32, as the
-port's f32 squash always is.
+port's f32 squash always is; it also bands the squash under
+``TUX_BANDED_RESIZE`` "auto", as JAX's precision does.
 
 ``fold_pre=False`` (or ``TUX_FOLD_PRE=0``; the int8 scopes force the fold,
 :746-749) runs the factored B tail: decoder_conv2 (3x3 64->3), then the
@@ -195,6 +196,10 @@ trace time:
   Pallas path embeds as the all-XLA path does (the int8 GEMM under "full"
   and "residual"), likewise without "unembed"; the tails scope on its
   Pallas tails keeps both kernels (:481-493).
+- ``TUX_BANDED_RESIZE`` (ops/resize.py): "1" bands every resize, "0"
+  none; unset or "auto" bands the squash where it runs in float32 (the
+  exact path of an f32 model, the f32 tails of ``serve_quality``) or under
+  the "squash" part, as JAX's ``_banded_on`` does (ops/resize.py:156-174).
 
 ``fix_ratio_bug`` (fast_transformer.py:51, 300, 434) compares ``res_out``
 with the output extent instead of the reference's (H, H) on both paths.
@@ -782,10 +787,12 @@ class FastTransformer(FusedTrunk, nn.Module):
         # The branch add, the squash or the shuffle, the clip (:946-961).
         # JAX runs the squash at Precision.HIGH under the "squash" part; its
         # f32 products on the CPU are exact, as the port's f32 products are
-        # (matmuls run without TF32 unless a caller enables it): no switch.
+        # (matmuls run without TF32 unless a caller enables it). The flag
+        # still picks the banded squash under TUX_BANDED_RESIZE "auto".
         out = a + bt
         if squash:
-            out = resize_shuffled(out, scale, res_out)
+            out = resize_shuffled(out, scale, res_out,
+                                  precise="squash" in r.qparts)
         else:
             out = pixel_shuffle(out, scale)
         return out.clamp(0.0, 1.0)

@@ -19,7 +19,8 @@ from transformerupscaler_torch.weights import init_params, params_from_jax
 
 
 class ShardedUpscaler:
-    """One model replica per data-axis device of ``mesh``. ``params``: a
+    """One model replica per data-axis device of ``mesh``, taking frames as
+    floats in [0, 1] as the JAX upscaler does. ``params``: a
     JAX tree (or ``{"params": tree}``) for every replica; None draws
     ``weights.init_params`` with seed 0, as JAX's ``model.init`` with
     ``PRNGKey(0)``. ``model_kw``: the model's fields and route flags."""
@@ -37,15 +38,17 @@ class ShardedUpscaler:
             params = init_params(self.replicas[0], 0, self.devices[0])
         for model in self.replicas:
             params_from_jax(model, params)
-        self._255 = [torch.full((), 255.0, device=d) for d in self.devices]
 
     def upscale_batch(self, batch_nhwc: np.ndarray,
                       res_out: tuple[int, int]) -> list[torch.Tensor]:
-        """Upscale an NHWC batch (uint8, normalized on the device, or float
-        in [0, 1]) to ``res_out``. Returns the outputs shard by shard in
-        batch order, each on its replica's device and in the model's dtype,
-        the zero padding cut off (a shard of padding alone comes back with
-        no rows); the work is queued, not waited for."""
+        """Upscale an NHWC batch of frames, floats in [0, 1], to ``res_out``.
+        The batch reaches each replica as JAX's ``jnp.asarray(batch,
+        dtype)`` gives it: cast to the upscaler's dtype on the device, a
+        uint8 batch not divided by 255 (it is copied across the bus as
+        uint8). Returns the outputs shard by shard in batch order, each on
+        its replica's device and in the model's dtype, the zero padding cut
+        off (a shard of padding alone comes back with no rows); the work is
+        queued, not waited for."""
         batch = np.asarray(batch_nhwc)
         b = batch.shape[0]
         pad = -b % self.n_data
@@ -60,9 +63,7 @@ class ShardedUpscaler:
             x = host[rows]
             if dev.type == "cuda":
                 x = x.pin_memory()
-            x = x.to(dev, non_blocking=True)
-            x = x.float() / self._255[i] if x.dtype == torch.uint8 \
-                else x.float()
+            x = x.to(dev, non_blocking=True).to(self.dtype)
             y = model(x, res_out=tuple(res_out))
             outs.append(y[:max(0, min(rows.stop, b) - rows.start)])
         return outs

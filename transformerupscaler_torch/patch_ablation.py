@@ -79,7 +79,7 @@ EDITS = {
     "unembed_one_stage_less": [
         ("static constexpr int STAGES = (WG == 2 && KC <= 3) ? 3 : 2;",
          "static constexpr int STAGES = (WG == 2 && KC <= 3) ? 2 : 1;")],
-    "embed_no_rotation": [("        const int q = (i + u) % (PS * PS);",
+    "embed_no_rotation": [("        const int q = (i + lu) % (PS * PS);",
                            "        const int q = i;")],
 }
 

@@ -1,7 +1,12 @@
 """Model lookup by name (JAX counterpart: transformerupscaler_tpu
-registry.py:38).
+registry.py).
 
-The port serves the four models of the JAX package:
+``register_model(name, description)`` decorates a factory (a class or a
+function taking the model's fields as keywords and returning a
+``torch.nn.Module``) and enters it as a ``ModelEntry``, as JAX's does;
+``get_model``, ``list_models``, the engine and the command lines'
+``--model`` then find it. The port registers the four models of the JAX
+package:
 
 - ``FastTransformer``: the exact path (JAX ``__call__``, the default
   fields, ``compose_tails`` and ``fix_ratio_bug`` either way), and its
@@ -34,6 +39,8 @@ model: the flags the JAX command lines pass with ``--fast``
 from __future__ import annotations
 
 import inspect
+from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -48,10 +55,35 @@ from transformerupscaler_torch.models.window_transformer import (
     WindowTransformer,
 )
 
-_MODELS = {"BicubicInterpolation": BicubicInterpolation,
-           "FastTransformer": FastTransformer,
-           "ResidualTransformer": ResidualTransformer,
-           "WindowTransformer": WindowTransformer}
+
+@dataclass(frozen=True)
+class ModelEntry:
+    name: str
+    factory: Callable  # (**fields) -> torch.nn.Module
+    description: str = ""
+
+
+_REGISTRY: dict[str, ModelEntry] = {}
+
+
+def register_model(name: str, description: str = ""):
+    """Decorator: enter ``factory`` under ``name`` (a later registration
+    of the name replaces it) and return it unchanged."""
+    def wrap(factory):
+        _REGISTRY[name] = ModelEntry(name=name, factory=factory,
+                                     description=description)
+        return factory
+    return wrap
+
+
+for _cls, _what in (
+        (BicubicInterpolation, "parameterless bicubic baseline"),
+        (FastTransformer, "flagship: learned pixel-shuffle SR, 6.45M params"),
+        (ResidualTransformer, "global-attention SR, fixed 720p, 3.21M "
+                              "params"),
+        (WindowTransformer, "Swin-style window-attention SR, 2.76M params")):
+    register_model(_cls.__name__, _what)(_cls)
+
 # Per model: the ``attn_impl`` values the port serves (a model not named
 # takes any).
 ATTN_IMPLS = {"FastTransformer": TRUNK_IMPLS, "WindowTransformer": TRUNK_IMPLS}
@@ -66,7 +98,15 @@ IGNORED = ("dropout", "compose_tails", "packed_serve", "pallas_serve",
 
 
 def list_models() -> list[str]:
-    return sorted(_MODELS)
+    return sorted(_REGISTRY)
+
+
+def _fields(factory) -> set[str] | None:
+    """The keyword fields ``factory`` takes; None if it takes any."""
+    params = inspect.signature(factory).parameters.values()
+    if any(p.kind is p.VAR_KEYWORD for p in params):
+        return None
+    return {p.name for p in params}
 
 
 def get_model(name: str, device=None, dtype=torch.float32, **config):
@@ -76,7 +116,7 @@ def get_model(name: str, device=None, dtype=torch.float32, **config):
     flags; an ``attn_impl`` the port does not serve raises
     ``NotImplementedError``.
     """
-    if name not in _MODELS:
+    if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {list_models()}")
     impls = ATTN_IMPLS.get(name)
     if impls is not None and config.get("attn_impl", "xla") not in impls:
@@ -84,10 +124,11 @@ def get_model(name: str, device=None, dtype=torch.float32, **config):
             f"attn_impl={config['attn_impl']!r}: the port serves {name} "
             f"with attn_impl in {impls}")
     dev = resolve_device(device)
-    cls = _MODELS[name]
-    fields = set(inspect.signature(cls.__init__).parameters) - {"self"}
-    config = {k: v for k, v in config.items()
-              if k in fields or k not in IGNORED}
-    if "dtype" in fields:
+    factory = _REGISTRY[name].factory
+    fields = _fields(factory)
+    if fields is not None:
+        config = {k: v for k, v in config.items()
+                  if k in fields or k not in IGNORED}
+    if fields is None or "dtype" in fields:
         config["dtype"] = dtype
-    return cls(**config).to(dev)
+    return factory(**config).to(dev)

@@ -23,8 +23,9 @@ average per image).
   e.g. a scale outside {2, 3, 4, 6}) is skipped and counted.
 - ``--mesh N`` (-1: every device) serves batches over a mesh's data axis
   (``parallel.batch_infer.ShardedUpscaler``, bf16, the model's default
-  route): samples grouped by geometry, one warm-up batch per geometry,
-  chunks of the data-axis size, the same report. Under ``--device cpu``
+  route) on the dataset's float frames, as JAX's does: samples grouped by
+  geometry, one warm-up batch per geometry, chunks of the data-axis size,
+  the same report. Under ``--device cpu``
   the mesh repeats the CPU.
 """
 
@@ -132,7 +133,7 @@ def main_sharded(args, device) -> dict:
     print("Loaded checkpoint" if params else "No checkpoint; random init")
     upscaler = ShardedUpscaler(args.model, mesh, params=params)
 
-    dataset = HighresImageDataset(args.data_dir, uint8=True)
+    dataset = HighresImageDataset(args.data_dir)
     groups: dict = {}
     skipped = 0
     for lr, _ in dataset:

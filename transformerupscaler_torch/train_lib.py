@@ -74,7 +74,7 @@ from transformerupscaler_torch.data.bucketing import (
     prefetched,
 )
 from transformerupscaler_torch.device import resolve_device
-from transformerupscaler_torch.ops.resize import resize
+from transformerupscaler_torch.ops.resize import resize_antialias_bilinear
 from transformerupscaler_torch.parallel.context import activation_sharding
 from transformerupscaler_torch.parallel.mesh import Mesh
 from transformerupscaler_torch.registry import get_model
@@ -226,8 +226,7 @@ class Trainer:
         out = model(lrs, res_out=tuple(hrs.shape[1:3]), require_ratio=False,
                     generator=generator)
         if out.shape[1:3] != hrs.shape[1:3]:
-            out = resize(out, tuple(hrs.shape[1:3]), "bilinear",
-                         antialias=True)
+            out = resize_antialias_bilinear(out, tuple(hrs.shape[1:3]))
         per_sample = (out.float() - hrs.float()).abs().mean(dim=(1, 2, 3))
         if weights is not None:
             per_sample = per_sample * weights.to(dev)
