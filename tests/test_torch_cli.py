@@ -259,23 +259,13 @@ def test_speed_test_skips_what_the_model_refuses(tmp_path, capsys,
     assert "Skipped 4 samples with unsupported scales" in out
 
 
-def test_profiling_sampler_and_trace(tmp_path, capsys):
-    """``profiling.traceback_display`` returns the function's result and
-    prints the per-depth summary naming the sampled function;
-    ``profiling.trace`` writes a Chrome trace of the block."""
+def test_profiling_sampler_and_trace(tmp_path):
+    """``profiling.trace`` (``train --traceback``) writes a Chrome trace of
+    the block."""
     import json
-    import time
 
     from transformerupscaler_torch import profiling
 
-    @profiling.traceback_display
-    def busy():
-        time.sleep(0.3)
-        return 7
-
-    assert busy() == 7
-    out = capsys.readouterr().out
-    assert "Stack sampling summary" in out and "busy" in out
     with profiling.trace(str(tmp_path / "tr")):
         torch.ones(64, 64) @ torch.ones(64, 64)
     with open(tmp_path / "tr" / "trace.json") as f:

@@ -1362,6 +1362,57 @@ def test_stream_pipeline_graphed_equals_eager(gen, case):
         assert np.array_equal(got, pipe.step(f))
 
 
+def test_stream_pipeline_frame_trace_on_the_card(gen):
+    """With a trace set, each frame's events run in order on the host
+    clock (copy-in start <= graph start <= graph end <= copy-out end <=
+    fetch-wait end), its spans lie inside their parents, the counters count
+    one capture, the bytes copied and the output arrays the sink kept, and
+    the anchor places a marker recorded right after a synchronize within
+    50 us of the host's reading."""
+    import time
+
+    from transformerupscaler_torch import profiling
+    from transformerupscaler_torch.stream_lib import StreamPipeline
+
+    captures = dict(profiling.COUNTERS)["graph_captures"]
+    pipe = StreamPipeline("BicubicInterpolation", (64, 128), (96, 192),
+                          dtype=torch.float32)
+    pipe.warmup()
+    assert dict(profiling.COUNTERS)["graph_captures"] == captures + 1
+    trace = profiling.FrameTrace(16)
+    pipe.trace = trace
+    before, outs = dict(profiling.COUNTERS), []
+    frames = _frames(9)
+    pipe.run(iter(frames), sink=outs.append)
+    grew = {k: v - before[k] for k, v in dict(profiling.COUNTERS).items()}
+    assert grew == dict(bytes_in=8 * 64 * 128 * 3, bytes_out=8 * 96 * 192 * 3,
+                        new_frame_arrays=8, graph_captures=0, kernel_builds=0)
+    assert np.array_equal(outs[3], pipe.step(frames[3]))
+    recs = list(trace.frames)
+    assert [r.n for r in recs] == list(range(8))
+    slack = profiling.REANCHOR_S
+    for r in recs:
+        t = r.times
+        copy_in, graph, copy_out = (t[k] for k in profiling.DEVICE_SPANS)
+        assert copy_in[0] <= copy_in[1] == graph[0] <= graph[1] == \
+            copy_out[0] <= copy_out[1]
+        assert t["pipeline.enqueue"][0] - slack <= copy_in[0]
+        assert copy_out[1] <= t["pipeline.fetch_wait"][1] + slack
+        spans = {s.name: s for s in r.spans()}
+        for s in spans.values():
+            if s.parent is not None:
+                p = spans[s.parent]
+                assert p.start <= s.start and s.end <= p.end, s.name
+        assert r.events is None
+    time.sleep(0.1)
+    torch.cuda.synchronize()
+    marker = torch.cuda.Event(enable_timing=True)
+    marker.record()
+    t = time.perf_counter()
+    marker.synchronize()
+    assert abs(trace.on_host(marker) - t) < 50e-6
+
+
 def test_engine_normalizes_uint8_on_the_card_as_numpy(gen, tmp_path):
     """The engine's uint8 / 255 on the card equals numpy's f32 division (the
     JAX engine's) at all 256 levels, bit for bit."""

@@ -37,6 +37,7 @@ from transformerupscaler_torch.checkpoint import (
     load_checkpoint,
     param_count,
 )
+from transformerupscaler_torch.counters import COUNTERS
 from transformerupscaler_torch.device import resolve_device
 from transformerupscaler_torch.kernels import add_launches, launch_counts
 from transformerupscaler_torch.models.common import resolve_geometry
@@ -83,6 +84,7 @@ class CapturedForward:
                          for k, n in launch_counts().items()
                          if n != before[k]}
         add_launches({k: -n for k, n in self.launches.items()})
+        COUNTERS["graph_captures"] += 1
 
     def replay(self) -> torch.Tensor:
         """Run the captured forward on ``static_in``; returns ``out``, which

@@ -21,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 
+from transformerupscaler_torch.counters import COUNTERS
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -114,6 +116,7 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, float]:
             failed.append(f"nvcc {n}.cu failed ({proc.returncode}):\n{log}")
         else:
             os.replace(tmp, _lib_path(n))
+    COUNTERS["kernel_builds"] += len(todo) - len(failed)
     if failed:
         raise RuntimeError("\n".join(failed))
     return secs

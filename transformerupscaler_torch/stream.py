@@ -1,7 +1,8 @@
 """Headless streaming upscale (JAX counterpart: the root stream.py).
 
     python -m transformerupscaler_torch.stream --model FastTransformer \\
-        --res_in 720 --res_out 1080 --fast [--frames 100] [--device cpu]
+        --res_in 720 --res_out 1080 --fast [--frames 100] [--device cpu] \\
+        [--trace_out frames.json]
 
 Feeds frames (synthetic by default, or the images of a ``--source``
 directory, cycled) through ``stream_lib.StreamPipeline`` at a fixed
@@ -16,7 +17,10 @@ the counterpart of the JAX CLI's choice on a TPU (stream.py:47-59); with
 with ``attn_impl="xla"`` (``cli.serve_flags``). ``--source`` reads the
 ``.png`` images of a directory (``png.read_png``) and ``--save_last``
 writes a ``.png`` (``png.write_png``); a ``.jpg`` in either raises, naming
-the missing JPEG codec: the card's host has no PIL.
+the missing JPEG codec: the card's host has no PIL. ``--trace_out`` records
+every frame's spans (``profiling.FrameTrace``) and writes them as a Chrome
+trace: host spans on their threads, the card's copies and replay on a track
+of their own, one clock.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import os
 import numpy as np
 import torch
 
+from transformerupscaler_torch import profiling
 from transformerupscaler_torch.cli import (
     on_card,
     read_image,
@@ -91,6 +96,8 @@ def main(args):
     print(f"Streaming on device: {dev} ({name}) | {res_in} -> {res_out}")
     print(f"checkpoint loaded: {pipe.from_checkpoint}")
     print(f"compiled in {pipe.warmup():.1f}s")
+    if args.trace_out:
+        pipe.trace = profiling.FrameTrace(max(args.frames, 1))
 
     last = {}
 
@@ -103,6 +110,11 @@ def main(args):
           f"-> {stats['fps']:.2f} fps")
     print("Profiling results:")
     print(stats["report"])
+
+    if args.trace_out:
+        pipe.trace.write_chrome_trace(args.trace_out)
+        print(f"{len(pipe.trace.frames)} frames' spans written to "
+              f"{args.trace_out}")
 
     if args.save_last and "frame" in last:
         write_image(args.save_last, last["frame"])
@@ -137,6 +149,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default the card ('cpu' to run "
                         "without one)")
+    p.add_argument("--trace_out", type=str, default=None,
+                   help="write each frame's spans to this file as a Chrome "
+                        "trace")
     return p
 
 

@@ -27,12 +27,18 @@ Each output frame is a numpy array of its own, as the JAX pipeline's are;
 an array the sink has let go of (no reference left but the pipeline's) is
 reused for a later frame rather than a new one allocated.
 
+With ``pipe.trace = profiling.FrameTrace(capacity)`` each frame's host
+spans and, on the card, its device intervals are recorded
+(``profiling``); with ``pipe.trace`` None, the default, the loop tests
+that once a stage and records nothing.
+
 With ``device="cpu"`` the step runs eagerly, with the same stages and the
 same frames; ``step`` runs it eagerly on the card too, to compare with.
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -40,8 +46,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from transformerupscaler_torch import native
+from transformerupscaler_torch import native, profiling
 from transformerupscaler_torch.checkpoint import load_latest_params
+from transformerupscaler_torch.counters import COUNTERS
 from transformerupscaler_torch.device import resolve_device
 from transformerupscaler_torch.infer_lib import CapturedForward
 from transformerupscaler_torch.ops.quant import quantize_linear_params
@@ -134,7 +141,21 @@ class StreamPipeline:
                                   dtype=torch.float32, device=self.device)
         self.cuda_graphs = self.device.type == "cuda"
         self._graph = None
+        self._trace = None
         self.timer = StageTimer(STAGES)
+
+    @property
+    def trace(self) -> profiling.FrameTrace | None:
+        """Where each frame's spans are recorded (``profiling.FrameTrace``),
+        or None: no span, no event beyond the two a frame the pipeline
+        needs. Setting a trace anchors the card's clock to the host's."""
+        return self._trace
+
+    @trace.setter
+    def trace(self, trace: profiling.FrameTrace | None):
+        if trace is not None:
+            trace.attach(self.device)
+        self._trace = trace
 
     def _step(self, frame_u8: torch.Tensor) -> torch.Tensor:
         """HWC uint8 frame on the device -> HWC uint8 ``res_out`` frame, with
@@ -172,6 +193,7 @@ class StreamPipeline:
                               for _ in range(2)]
             self._in_done = [None, None]
             self._out_done = [None, None]
+            self._marks = [None, None]
             self._handed = []
         return self._graph
 
@@ -186,32 +208,78 @@ class StreamPipeline:
             self.step(np.zeros((*self.res_in, 3), np.uint8))
         return time.perf_counter() - t0
 
-    def _dispatch(self, frame: np.ndarray, slot: int):
+    def _dispatch(self, frame: np.ndarray, slot: int, rec=None):
         """Enqueue one preprocessed frame; returns its handle for
-        ``_fetch``."""
+        ``_fetch``. ``rec``: the frame's ``profiling.FrameRecord``, or
+        None."""
         if not self.cuda_graphs:
             return self._step(torch.from_numpy(frame).to(self.device))
         g = self._capture()
-        if self._in_done[slot] is not None:
-            self._in_done[slot].synchronize()
-        self._host_in[slot].numpy()[...] = frame
-        g.static_in.copy_(self._host_in[slot], non_blocking=True)
-        self._in_done[slot] = torch.cuda.Event()
-        self._in_done[slot].record()
-        g.replay()
-        self._host_out[slot].copy_(g.out, non_blocking=True)
-        self._out_done[slot] = torch.cuda.Event()
-        self._out_done[slot].record()
+        COUNTERS["bytes_in"] += self._host_in[slot].nbytes
+        if rec is not None:
+            rec.timed("pipeline.slot_wait", self._slot_wait, slot)
+            rec.timed("pipeline.stage_in", self._stage_in, frame, slot)
+            if self._marks[slot] is None:
+                self._marks[slot] = [torch.cuda.Event(enable_timing=True)
+                                     for _ in range(4)]
+            rec.events = self._marks[slot]
+            rec.timed("pipeline.enqueue", self._enqueue, g, slot, rec.events)
+            return slot
+        self._slot_wait(slot)
+        self._stage_in(frame, slot)
+        self._enqueue(g, slot)
         return slot
 
-    def _fetch(self, handle) -> np.ndarray:
+    def _slot_wait(self, slot: int):
+        """Wait until the slot's last copy in has read its pinned input."""
+        if self._in_done[slot] is not None:
+            self._in_done[slot].synchronize()
+
+    def _stage_in(self, frame: np.ndarray, slot: int):
+        self._host_in[slot].numpy()[...] = frame
+
+    def _enqueue(self, g: CapturedForward, slot: int, marks=None):
+        """The copy in, the replay and the copy out, with the slot's
+        ``_in_done`` recorded after the copy in and its ``_out_done`` after
+        the copy out: two new events, or a traced frame's four timing
+        ``marks`` (the slot keeps them for its next traced frame: this
+        frame's are resolved once it has left the sink, before the slot is
+        dispatched again), which add one before the copy in and one after
+        the replay."""
+        if marks is None:
+            self._in_done[slot] = torch.cuda.Event()
+            self._out_done[slot] = torch.cuda.Event()
+        else:
+            marks[0].record()
+            self._in_done[slot], self._out_done[slot] = marks[1], marks[3]
+        g.static_in.copy_(self._host_in[slot], non_blocking=True)
+        self._in_done[slot].record()
+        g.replay()
+        if marks is not None:
+            marks[2].record()
+        self._host_out[slot].copy_(g.out, non_blocking=True)
+        self._out_done[slot].record()
+
+    def _fetch(self, handle, rec=None) -> np.ndarray:
         """The frame of a dispatch, on the host, waiting for it: copied out
-        of its pinned slot into a frame array of its own."""
+        of its pinned slot into a frame array of its own. ``rec``: the
+        frame's ``profiling.FrameRecord``, or None."""
         if not self.cuda_graphs:
             return np.asarray(handle)
+        if rec is not None:
+            rec.timed("pipeline.fetch_wait",
+                      self._out_done[handle].synchronize)
+            made = COUNTERS["new_frame_arrays"]
+            out = rec.timed("pipeline.copy_out", self._copy_out, handle)[0]
+            rec.new_array = COUNTERS["new_frame_arrays"] != made
+            return out
         self._out_done[handle].synchronize()
+        return self._copy_out(handle)
+
+    def _copy_out(self, handle) -> np.ndarray:
         out = self._frame_array()
         np.copyto(out, self._host_out[handle].numpy())
+        COUNTERS["bytes_out"] += out.nbytes
         return out
 
     def _frame_array(self) -> np.ndarray:
@@ -227,6 +295,7 @@ class StreamPipeline:
                 break
         else:
             out = np.empty(self._host_out[0].shape, np.uint8)
+            COUNTERS["new_frame_arrays"] += 1
         self._handed = self._handed[-(HANDED - 1):] + [out]
         return out
 
@@ -248,6 +317,15 @@ class StreamPipeline:
         it, so the stages may sum past the wall clock); postprocess, the
         time blocked in the fetch; display, the sink.
 
+        With a ``trace`` set, each stage's two readings are also its span in
+        the frame's record (capture: ``pipeline.pull``; preprocess:
+        ``pipeline.preprocess_wait``, which also hands the next frame to the
+        worker; postprocess: ``pipeline.fetch``; display:
+        ``pipeline.sink``; inference: from ``pipeline.dispatch``'s start to
+        ``pipeline.fetch``'s end). The trace is read at every frame's pull,
+        so it may be set or cleared while the pipeline runs (frames pulled
+        while it was set finish their records).
+
         Returns {"frames", "wall_s", "fps", "report"}."""
 
         def default_preprocess(frame):
@@ -256,55 +334,83 @@ class StreamPipeline:
             return np.ascontiguousarray(frame, dtype=np.uint8)
 
         preprocess = preprocess or default_preprocess
+        if sink is None:
+            sink = lambda frame: None  # noqa: E731
         executor = ThreadPoolExecutor(max_workers=1)
         timer = self.timer
 
+        def handoff(future, work, frame):
+            return future.result(), executor.submit(work, frame)
+
         def finish(pending):
-            handle, t_dispatch = pending
-            t0 = time.perf_counter()
-            out_np = self._fetch(handle)
-            t1 = time.perf_counter()
+            handle, t_dispatch, rec = pending
+            if rec is None:
+                t0 = time.perf_counter()
+                out_np = self._fetch(handle)
+                t1 = t2 = time.perf_counter()
+                sink(out_np)
+                t3 = time.perf_counter()
+            else:
+                out_np, t0, t1 = rec.timed("pipeline.fetch", self._fetch,
+                                           handle, rec)
+                _, t2, t3 = rec.timed("pipeline.sink", sink, out_np)
+                rec.trace.end(rec, t3)
             timer.add("postprocess", t1 - t0)
             timer.add("inference", t1 - t_dispatch)
-            t0 = time.perf_counter()
-            if sink is not None:
-                sink(out_np)
-            timer.add("display", time.perf_counter() - t0)
+            timer.add("display", t3 - t2)
             timer.iterations += 1
 
-        pre_future = None
-        pending = None  # (handle, dispatch time) of frame i-1
+        pre_future = pre_rec = None  # the worker's frame and its record
+        pending = None  # (handle, dispatch time, record) of frame i-1
         n = 0
         t_loop = time.perf_counter()
         src = iter(source)
         try:
             while max_frames is None or n < max_frames:
-                t0 = time.perf_counter()
-                frame = next(src, None)
+                trace = self._trace
+                if trace is None:
+                    t0 = time.perf_counter()
+                    frame = next(src, None)
+                    t1 = time.perf_counter()
+                    rec, work = None, preprocess
+                else:
+                    rec, frame, t0, t1 = trace.pull(
+                        src, n + (pre_future is not None))
+                    work = functools.partial(rec.preprocess, preprocess)
                 if frame is None:
                     break
-                timer.add("capture", time.perf_counter() - t0)
+                timer.add("capture", t1 - t0)
 
-                t0 = time.perf_counter()
                 if pre_future is None:
-                    pre_future = executor.submit(preprocess, frame)
+                    pre_future, pre_rec = executor.submit(work, frame), rec
                     continue
-                ready = pre_future.result()
-                pre_future = executor.submit(preprocess, frame)
-                timer.add("preprocess", time.perf_counter() - t0)
-
-                # Dispatch frame i, then retire frame i-1.
-                t_dispatch = time.perf_counter()
-                handle = self._dispatch(ready, n % 2)
+                ready_rec, pre_rec = pre_rec, rec
+                # Take frame i from the worker, hand it frame i+1, dispatch
+                # frame i, then retire frame i-1.
+                if ready_rec is None:
+                    t0 = time.perf_counter()
+                    ready, pre_future = handoff(pre_future, work, frame)
+                    t1 = t_dispatch = time.perf_counter()
+                    handle = self._dispatch(ready, n % 2)
+                else:
+                    (ready, pre_future), t0, t1 = ready_rec.timed(
+                        "pipeline.preprocess_wait", handoff, pre_future, work,
+                        frame)
+                    handle, t_dispatch, _ = ready_rec.timed(
+                        "pipeline.dispatch", self._dispatch, ready, n % 2,
+                        ready_rec)
+                timer.add("preprocess", t1 - t0)
                 if pending is not None:
                     finish(pending)
-                pending = (handle, t_dispatch)
+                pending = (handle, t_dispatch, ready_rec)
                 n += 1
             if pending is not None:
                 finish(pending)
                 pending = None
         finally:
             executor.shutdown(wait=False)
+            if self._trace is not None:
+                self._trace.close_loop()
 
         wall = time.perf_counter() - t_loop
         return {
