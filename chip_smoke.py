@@ -2147,13 +2147,12 @@ def phase_trunk_static() -> dict:
 
 
 def _stream_run(pipe, frames, n, sink="last", traced=False) -> dict:
-    """``pipe.run`` over ``n`` + 1 frames cycled from ``frames`` (the first
-    only primes the worker) with a fresh timer and the launch counts set to
-    zero just before. ``sink``: "last" keeps the last output, as the stream
-    CLI does; "keep" keeps every output (no frame array is reused); a list,
-    the eager step's frame for each of ``frames``, holds output k against
-    entry k % len as it arrives (a 6.2 MB comparison a frame: not a run to
-    time). ``traced``: under torch.profiler (CUDA activity), whose device
+    """``pipe.run`` over ``n`` frames cycled from ``frames`` with a fresh
+    timer and the launch counts set to zero just before. ``sink``: "last"
+    keeps the last output, as the stream CLI does; "keep" keeps every
+    output (no frame array is reused); a list, the eager step's frame for
+    each of ``frames``, holds output k against entry k % len as it arrives
+    (a 6.2 MB comparison a frame: not a run to time). ``traced``: under torch.profiler (CUDA activity), whose device
     events (kernels, copies) sum to the busy time. Raises where a checked
     or kept output differs from the eager step's frame. Returns the run's
     stats with stage averages, launches per frame and busy ms (or None)."""
@@ -2178,7 +2177,7 @@ def _stream_run(pipe, frames, n, sink="last", traced=False) -> dict:
         fn = outs.append
     else:
         fn = lambda out: last.update(frame=out)  # noqa: E731
-    src = itertools.islice(itertools.cycle(frames), n + 1)
+    src = itertools.islice(itertools.cycle(frames), n)
     torch.cuda.synchronize()
     K.reset_launches()
     busy = None
@@ -2192,7 +2191,7 @@ def _stream_run(pipe, frames, n, sink="last", traced=False) -> dict:
         stats = pipe.run(src, sink=fn)
     launches = K.launch_counts()
     if stats["frames"] != n or pipe.timer.iterations != n:
-        raise AssertionError(f"stream: {stats['frames']} frames of {n + 1}")
+        raise AssertionError(f"stream: {stats['frames']} frames of {n}")
     if sink == "keep":
         differ = [k for k, out in enumerate(outs)
                   if not np.array_equal(out, pipe.step(frames[k % len(
@@ -2252,7 +2251,7 @@ def phase_stream() -> dict:
     n_resized = native.CALLS["resize_bilinear_u8"] - calls
     if n_resized < STREAM_SHORT - 1:
         raise AssertionError(f"stream: the native resize ran {n_resized} "
-                             f"times for {STREAM_SHORT} frames")
+                             f"times for {STREAM_SHORT - 1} frames")
     _stream_run(pipe, big, 5, sink=[
         pipe.step(native.resize_bilinear_u8(f, pipe.res_in)) for f in big])
 
@@ -2275,7 +2274,11 @@ def phase_stream() -> dict:
                            tuple(fix["res_out"]), **STREAM_FAST)
     f_outs = []
     fpipe.run(iter(list(fix["frames"])), sink=f_outs.append)
-    d = np.abs(np.stack(f_outs).astype(np.int64) - fix["y"])
+    # JAX's pipeline gives one frame fewer: the port's last is its own.
+    if not np.array_equal(f_outs[-1], fpipe.step(fix["frames"][-1])):
+        raise AssertionError("stream: the last frame differs from the eager "
+                             "step's")
+    d = np.abs(np.stack(f_outs[:len(fix["y"])]).astype(np.int64) - fix["y"])
     f_max, f_mean = int(d.max()), float(d.mean())
     say("stream", command="python3 -m transformerupscaler_torch.stream "
         "--fast (bgr_out, as the overlays)", model="FastTransformer",

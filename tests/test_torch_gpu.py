@@ -1354,12 +1354,44 @@ def test_stream_pipeline_graphed_equals_eager(gen, case):
     frames = _frames(4) + _frames(3, (128, 256))
     outs = []
     stats = pipe.run(iter(frames), sink=outs.append)
-    assert stats["frames"] == len(outs) == len(frames) - 1
+    assert stats["frames"] == len(outs) == len(frames)
     for f, got in zip(frames, outs):
         if f.shape[:2] != (64, 128):
             f = native.resize_bilinear_u8(f, (64, 128))
         assert got.shape == (96, 192, 3) and got.dtype == np.uint8
         assert np.array_equal(got, pipe.step(f))
+
+
+def test_stream_pipeline_retires_alone_and_behind_as_eager(gen):
+    """A source that runs paced (a frame every 20 ms, longer than a frame's
+    work: retired alone), then in a burst (no wait: retired behind the
+    next frame's dispatch), then pauses, paced and in a burst again, an odd
+    number of frames a phase so that each retire order meets both pinned
+    slots: every frame equals the eager step's bit for bit, in order."""
+    import time
+
+    from transformerupscaler_torch.counters import COUNTERS
+    from transformerupscaler_torch.stream_lib import StreamPipeline
+
+    name, flags = STREAM_CASES["fast"]
+    pipe = StreamPipeline(name, (64, 128), (96, 192), **flags)
+    pipe.warmup()
+    frames = _frames(7)
+    waits = [0.02] * 5 + [0.0] * 9 + [0.1] + [0.02] * 5 + [0.0] * 7
+
+    def source():
+        for j, wait in enumerate(waits):
+            time.sleep(wait)
+            yield frames[j % len(frames)]
+
+    before, outs = dict(COUNTERS), []
+    stats = pipe.run(source(), sink=outs.append)
+    alone, behind = (COUNTERS[k] - before[k] for k in (
+        "frames_retired_alone", "frames_retired_behind"))
+    assert stats["frames"] == len(outs) == alone + behind == len(waits)
+    assert alone > 0 and behind > 0, (alone, behind)
+    for j, got in enumerate(outs):
+        assert np.array_equal(got, pipe.step(frames[j % len(frames)])), j
 
 
 def test_stream_pipeline_frame_trace_on_the_card(gen):
@@ -1385,11 +1417,13 @@ def test_stream_pipeline_frame_trace_on_the_card(gen):
     frames = _frames(9)
     pipe.run(iter(frames), sink=outs.append)
     grew = {k: v - before[k] for k, v in dict(profiling.COUNTERS).items()}
-    assert grew == dict(bytes_in=8 * 64 * 128 * 3, bytes_out=8 * 96 * 192 * 3,
-                        new_frame_arrays=8, graph_captures=0, kernel_builds=0)
+    assert grew.pop("frames_retired_alone") + grew.pop(
+        "frames_retired_behind") == 9
+    assert grew == dict(bytes_in=9 * 64 * 128 * 3, bytes_out=9 * 96 * 192 * 3,
+                        new_frame_arrays=9, graph_captures=0, kernel_builds=0)
     assert np.array_equal(outs[3], pipe.step(frames[3]))
     recs = list(trace.frames)
-    assert [r.n for r in recs] == list(range(8))
+    assert [r.n for r in recs] == list(range(9))
     slack = profiling.REANCHOR_S
     for r in recs:
         t = r.times

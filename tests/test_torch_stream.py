@@ -18,18 +18,23 @@ interpret mode): at most 4 levels and a mean under 0.15 level (measured 2
 and 0.035: the bf16 routes differ from JAX by up to ~1e-2, about 3 levels,
 plus the final rounding's level).
 
-Behaviour: n frames from the source give n - 1, the first only primes the
-preprocess worker; frames of another size go through the native resize;
+Behaviour: n frames from the source give n, in order (JAX's pipeline gives
+n - 1: the port's first n - 1 are compared with JAX's, its last with its
+own eager step); frames of another size go through the native resize;
 ``serve_quality`` reaches FastTransformer with an f32 input and is dropped
 for the other models; the two frames in flight overlap host and device
 stages, with a stand-in device step whose fetch blocks (as
-tests/test_stream.py:77-132 proves it for JAX).
+tests/test_stream.py:77-132 proves it for JAX); a frame is retired alone
+where no next frame is waiting (a paced source) and behind the next
+frame's dispatch where one is (a closed loop); the producer thread's
+errors reach the caller, and it stops pulling when the run ends.
 
 Regenerate the fixture with ``PYTHONPATH=. JAX_PLATFORMS=cpu python
 tests/test_torch_stream.py`` (~25 s).
 """
 
 import os
+import threading
 import time
 
 import jax.numpy as jnp
@@ -39,6 +44,7 @@ import torch
 
 from _torch_threads import one_torch_thread  # noqa: F401
 from transformerupscaler_torch import native
+from transformerupscaler_torch.counters import COUNTERS
 from transformerupscaler_torch.stream_lib import StageTimer, StreamPipeline
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -167,12 +173,13 @@ def test_bicubic_pipeline_frames_are_jax():
     tp = StreamPipeline("BicubicInterpolation", (32, 48), (64, 96),
                         dtype=torch.float32, device="cpu")
     (want, js), (got, ts) = _run(jp, frames), _run(tp, frames)
-    assert ts["frames"] == js["frames"] == len(frames) - 1
-    assert len(got) == len(want) == len(frames) - 1
+    assert js["frames"] == len(want) == len(frames) - 1
+    assert ts["frames"] == len(got) == len(frames)
     for g, w in zip(got, want):
         assert g.shape == (64, 96, 3) and g.dtype == np.uint8
         d = np.abs(g.astype(int) - w)
         assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), d.mean())
+    np.testing.assert_array_equal(got[-1], tp.step(frames[-1]))
     assert set(ts) == set(js) and "inference" in ts["report"]
 
 
@@ -196,9 +203,11 @@ def test_small_fast_transformer_pipeline_matches_jax():
                             dtype=torch.float32, params=tree, device="cpu",
                             config=SMALL, **flags)
         (want, _), (got, stats) = _run(jp, frames), _run(tp, frames)
-        assert stats["frames"] == len(got) == len(frames) - 1
+        assert len(want) == len(frames) - 1
+        assert stats["frames"] == len(got) == len(frames)
         for g, w in zip(got, want):
             assert np.abs(g.astype(int) - w).max() <= 1, flags
+        np.testing.assert_array_equal(got[-1], tp.step(frames[-1]))
 
 
 def fixture_frames():
@@ -249,9 +258,11 @@ def test_trained_fast_pipeline_matches_jax_fixture():
                         **FAST_CARD)
     assert tp.from_checkpoint and tp.dtype == torch.bfloat16
     got, stats = _run(tp, list(fix["frames"]))
-    assert stats["frames"] == len(fix["y"]) == FIX_FRAMES - 1
-    emax, emean = level_errors(np.stack(got), fix["y"])
+    assert len(fix["y"]) == FIX_FRAMES - 1
+    assert stats["frames"] == len(got) == FIX_FRAMES
+    emax, emean = level_errors(np.stack(got[:-1]), fix["y"])
     assert emax <= FIX_TOL[0] and emean <= FIX_TOL[1], (emax, emean)
+    np.testing.assert_array_equal(got[-1], tp.step(fix["frames"][-1]))
 
 
 def test_oversized_frames_go_through_the_native_resize():
@@ -260,15 +271,16 @@ def test_oversized_frames_go_through_the_native_resize():
                         dtype=torch.float32, device="cpu")
     before = native.CALLS["resize_bilinear_u8"]
     got, stats = _run(tp, frames)
-    assert stats["frames"] == 2 and got[0].shape == (32, 40, 3)
-    # The first two frames preprocessed (the third one ahead, never
-    # dispatched, may still be in the worker).
-    assert native.CALLS["resize_bilinear_u8"] - before >= 2
+    assert stats["frames"] == 3 and got[0].shape == (32, 40, 3)
+    # Every frame preprocessed once, on the producer thread.
+    assert native.CALLS["resize_bilinear_u8"] - before == 3
     np.testing.assert_array_equal(
         got[0], tp.step(native.resize_bilinear_u8(frames[0], (16, 20))))
     jp = _jax_pipeline("BicubicInterpolation", (16, 20), (32, 40),
                        dtype=jnp.float32)
     np.testing.assert_array_equal(got[1], _run(jp, frames)[0][1])
+    np.testing.assert_array_equal(
+        got[2], tp.step(native.resize_bilinear_u8(frames[2], (16, 20))))
 
 
 def test_serve_quality_mode_and_its_no_op_elsewhere():
@@ -298,35 +310,59 @@ def test_serve_quality_mode_and_its_no_op_elsewhere():
     assert b16.in_dtype == torch.bfloat16
 
 
+class _Pending:
+    """A stand-in device's frame: fetching it blocks until it is ready,
+    like a copy back."""
+
+    def __init__(self, ready_at):
+        self.ready_at = ready_at
+
+    def __array__(self, dtype=None, copy=None):
+        dt = self.ready_at - time.perf_counter()
+        if dt > 0:
+            time.sleep(dt)
+        return np.zeros((32, 32, 3), np.uint8)
+
+
+class _StandInDevice:
+    """A serial device queue in place of a 16x16 -> 32x32 CPU pipeline's
+    step: frame i is ready at max(dispatch_i, ready_{i-1}) + ``d_dev``.
+    ``spans``: each frame's (start, ready) on the device."""
+
+    def __init__(self, pipe, d_dev):
+        self.d_dev = d_dev
+        self.free = 0.0
+        self.spans = []
+        pipe._step = self.step
+
+    def step(self, frame):
+        start = max(time.perf_counter(), self.free)
+        self.free = start + self.d_dev
+        self.spans.append((start, self.free))
+        return _Pending(self.free)
+
+
+def _stand_in_pipe(d_dev):
+    pipe = StreamPipeline("BicubicInterpolation", (16, 16), (32, 32),
+                          load_checkpoint=False, device="cpu")
+    return pipe, _StandInDevice(pipe, d_dev)
+
+
+def _retired(before) -> tuple[int, int]:
+    return (COUNTERS["frames_retired_alone"] - before["frames_retired_alone"],
+            COUNTERS["frames_retired_behind"]
+            - before["frames_retired_behind"])
+
+
 def test_two_in_flight_overlap_beats_serial_sum():
     """A stand-in device step models a serial device queue (ready_i =
     max(dispatch_i, ready_{i-1}) + d_dev) whose fetch blocks like a copy
-    back; with capture and sink on the main thread and preprocess in the
-    worker, the wall clock lands well under the serial sum of the stages
-    and above the device's floor."""
+    back; with capture and preprocess on the producer thread and the sink
+    on the main thread, the wall clock lands well under the serial sum of
+    the stages and above the device's floor."""
     d_cap, d_pre, d_dev, d_sink = 0.005, 0.020, 0.030, 0.005
     n_frames = 20
-    pipe = StreamPipeline("BicubicInterpolation", (16, 16), (32, 32),
-                          load_checkpoint=False, device="cpu")
-
-    class Pending:
-        def __init__(self, ready_at):
-            self.ready_at = ready_at
-
-        def __array__(self, dtype=None, copy=None):
-            dt = self.ready_at - time.perf_counter()
-            if dt > 0:
-                time.sleep(dt)
-            return np.zeros((32, 32, 3), np.uint8)
-
-    queue_free = [0.0]
-
-    def fake_step(frame):
-        start = max(time.perf_counter(), queue_free[0])
-        queue_free[0] = start + d_dev
-        return Pending(queue_free[0])
-
-    pipe._step = fake_step
+    pipe, _ = _stand_in_pipe(d_dev)
 
     def source():
         for _ in range(n_frames):
@@ -339,11 +375,11 @@ def test_two_in_flight_overlap_beats_serial_sum():
 
     stats = pipe.run(source(), sink=lambda out: time.sleep(d_sink),
                      preprocess=preprocess)
-    assert stats["frames"] == n_frames - 1
+    assert stats["frames"] == n_frames
     serial_sum = stats["frames"] * (d_cap + d_pre + d_dev + d_sink)
     assert stats["wall_s"] < 0.75 * serial_sum, (stats["wall_s"], serial_sum)
     assert stats["wall_s"] > stats["frames"] * d_dev * 0.9
-    assert pipe.timer.iterations == n_frames - 1
+    assert pipe.timer.iterations == n_frames
     assert pipe.timer.totals["capture"] > 0.0
 
 
@@ -373,3 +409,93 @@ def test_output_frames_are_reused_only_when_let_go():
     kept = [pipe._frame_array() for _ in range(5)]
     assert len({k.ctypes.data for k in kept}) == 5
     assert len(pipe._handed) <= 3
+
+
+def test_a_paced_source_retires_each_frame_alone():
+    """Frame j due at t0 + j * period, slower than the stand-in device's
+    work: each frame reaches the sink before the next is due, about the
+    device's time after its own due time, retired with no next frame
+    waiting."""
+    period, d_dev, n = 0.050, 0.008, 8
+    pipe, _ = _stand_in_pipe(d_dev)
+    due, arrivals = [], []
+
+    def source():
+        t0 = time.perf_counter() + 0.01
+        for j in range(n):
+            due.append(t0 + j * period)
+            wait = due[j] - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            yield np.zeros((16, 16, 3), np.uint8)
+
+    before = dict(COUNTERS)
+    stats = pipe.run(source(), sink=lambda out: arrivals.append(
+        time.perf_counter()))
+    assert stats["frames"] == len(arrivals) == n
+    assert _retired(before) == (n, 0)
+    latency = [a - d for a, d in zip(arrivals, due)]
+    assert max(latency) < period, latency
+    assert d_dev <= np.median(latency) < d_dev + 0.25 * period, latency
+
+
+def test_a_closed_loop_retires_each_frame_behind_the_next():
+    """A source that never waits: each frame but the last is fetched after
+    the next frame's dispatch (the last has no next frame)."""
+    n = 12
+    pipe, device = _stand_in_pipe(0.006)
+    before = dict(COUNTERS)
+    stats = pipe.run(iter([np.zeros((16, 16, 3), np.uint8)] * n))
+    assert stats["frames"] == len(device.spans) == n
+    assert _retired(before) == (1, n - 1)
+
+
+def test_errors_on_the_producer_thread_reach_the_caller():
+    pipe, _ = _stand_in_pipe(0.001)
+
+    def source():
+        yield np.zeros((16, 16, 3), np.uint8)
+        yield np.zeros((16, 16, 3), np.uint8)
+        raise ValueError("the capture was lost")
+
+    with pytest.raises(ValueError, match="the capture was lost"):
+        pipe.run(source())
+
+    def preprocess(frame):
+        raise RuntimeError("no resize")
+
+    with pytest.raises(RuntimeError, match="no resize"):
+        pipe.run(iter(_frames(3, (16, 16))), preprocess=preprocess)
+
+
+def _counting_source(pulls):
+    while True:
+        pulls.append(time.perf_counter())
+        yield np.zeros((16, 16, 3), np.uint8)
+
+
+def test_an_interrupted_run_pulls_no_further_frame():
+    pipe, _ = _stand_in_pipe(0.002)
+    pulls, shown = [], []
+
+    def sink(out):
+        shown.append(out)
+        if len(shown) == 3:
+            raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        pipe.run(_counting_source(pulls), sink=sink)
+    pulled = len(pulls)
+    # The frame in flight and the one pulled ahead, at most.
+    assert len(shown) == 3 and pulled <= len(shown) + 2
+    time.sleep(0.05)
+    assert len(pulls) == pulled
+    assert not any(t.name == "StreamPipeline.producer"
+                   for t in threading.enumerate())
+
+
+def test_max_frames_bounds_the_pulls():
+    pipe, _ = _stand_in_pipe(0.001)
+    pulls = []
+    stats = pipe.run(_counting_source(pulls), max_frames=3)
+    assert stats["frames"] == len(pulls) == 3

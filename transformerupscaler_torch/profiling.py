@@ -6,18 +6,23 @@ transformerupscaler_tpu/tools/profiling.py).
 is set (``pipe.trace = FrameTrace(capacity)``; None, the default, records
 nothing). Each frame gets one ``FrameRecord``, keyed by the frame's index:
 its host spans (``SPANS``), read on ``time.perf_counter`` by the pipeline's
-loop (the same readings its ``StageTimer`` adds up), and on the card its
+producer thread (the pull and the preprocess) and its main loop (the rest;
+the same readings its ``StageTimer`` adds up), and on the card its
 device intervals, from CUDA events the pipeline records around the frame's
 copy in, graph replay and copy out, placed on the host clock by an anchor
 event (``FrameTrace.on_host``). Records go into a ring of fixed capacity and
 are written out only when asked (``write_chrome_trace``). While a
 ``torch.profiler`` session is active, each host span is also a
-``record_function`` range of the same name, each turn of the pipeline's loop
-(from one pull to the next) a range ``pipeline.loop``, and the resolution of
-a frame's events a range ``pipeline.resolve`` (``profiler.first_resolve``
-for the first in a session, which holds the profiler's start-up), so the
-program's names sit in the profiler's trace beside the kernels and cover the
-loop's host time.
+``record_function`` range of the same name, each turn of the pipeline's main
+loop (from one take of a frame to the next) a range ``pipeline.loop``, and
+the resolution of a frame's events a range ``pipeline.resolve``
+(``profiler.first_resolve`` for the first in a session, which holds the
+profiler's start-up), so the program's names sit in the profiler's trace
+beside the kernels and cover the loop's host time. A session records only
+the thread that started it, so the producer's spans are in the records
+alone; the main loop's take of the next frame, where it waits for the
+producer, is the range ``pipeline.preprocess_wait`` whether or not a trace
+is set (``profiler_range``).
 
 ``COUNTERS`` are the port's counters (``counters``), re-exported here.
 
@@ -63,6 +68,8 @@ SPANS = {
     "device.copy_out": "pipeline.frame",
 }
 DEVICE_SPANS = ("device.copy_in", "device.graph", "device.copy_out")
+# The spans the pipeline's producer thread records.
+PRODUCER_SPANS = ("pipeline.pull", "pipeline.preprocess")
 # Re-anchor once the anchor has drifted this far from the host clock, or
 # has aged this long (``elapsed_time`` is a float32 count of ms: 4 us a
 # step at 60 s); probe at most this often.
@@ -75,7 +82,7 @@ _Range = getattr(torch._C._profiler, "_RecordFunctionFast",
                  torch.profiler.record_function)
 
 
-def _range(name: str):
+def profiler_range(name: str):
     """A profiler range while a session is active (a range costs
     microseconds even when none is), else a no-op context."""
     if _autograd_profiler._is_profiler_enabled:
@@ -95,7 +102,9 @@ class Span(NamedTuple):
 class FrameRecord:
     """One frame's spans: ``times`` maps a name of ``SPANS`` to its (start,
     end) on ``time.perf_counter``. ``events`` holds the frame's CUDA events
-    from its dispatch until the frame has left the sink."""
+    from its dispatch until the frame has left the sink. Made on the
+    producer thread (``worker_tid``), which records ``PRODUCER_SPANS``; the
+    main loop records the rest from its take on (``tid``)."""
 
     __slots__ = ("trace", "n", "times", "tid", "worker_tid", "events",
                  "new_array")
@@ -104,33 +113,33 @@ class FrameRecord:
         self.trace = trace
         self.n = n
         self.times: dict[str, tuple[float, float]] = {}
-        self.tid = threading.current_thread().native_id
-        self.worker_tid = None
+        self.tid = None
+        self.worker_tid = threading.current_thread().native_id
         self.events = None
         self.new_array = False
 
     def timed(self, name: str, fn, *args):
         """``fn(*args)`` as the span ``name``: returns its result and the two
         readings around it."""
-        with _range(name):
+        with profiler_range(name):
             t0 = time.perf_counter()
             out = fn(*args)
             t1 = time.perf_counter()
         self.times[name] = (t0, t1)
         return out, t0, t1
 
-    def preprocess(self, fn, frame):
-        """``fn(frame)`` on the preprocess worker, as the span
-        ``pipeline.preprocess`` with the worker's thread id."""
-        self.worker_tid = threading.current_thread().native_id
-        return self.timed("pipeline.preprocess", fn, frame)[0]
+    def taken(self, t0: float, t1: float):
+        """The main loop took the frame: its wait from ``t0`` to ``t1`` is
+        the span ``pipeline.preprocess_wait``, on the main thread."""
+        self.tid = threading.current_thread().native_id
+        self.times["pipeline.preprocess_wait"] = (t0, t1)
 
     def spans(self) -> list[Span]:
         out = []
         for name, parent in SPANS.items():
             if name in self.times:
                 tid = (None if name.startswith("device.") else
-                       self.worker_tid if name == "pipeline.preprocess"
+                       self.worker_tid if name in PRODUCER_SPANS
                        else self.tid)
                 out.append(Span(name, *self.times[name], self.n, parent, tid))
         return out
@@ -176,16 +185,20 @@ class FrameTrace:
         return t + a.elapsed_time(event) * 1e-3
 
     def pull(self, src, n: int):
-        """``next(src, None)`` as frame ``n``'s span ``pipeline.pull``:
-        (its new record, the frame, the two readings). Ends the loop's last
-        turn and starts the next."""
+        """``next(src, None)`` as frame ``n``'s span ``pipeline.pull``, on
+        the pipeline's producer thread: (its new record, the frame, the two
+        readings)."""
+        rec = FrameRecord(self, n)
+        frame, t0, t1 = rec.timed("pipeline.pull", next, src, None)
+        return rec, frame, t0, t1
+
+    def turn(self):
+        """Ends the main loop's last turn and starts the next (at each take
+        of a frame)."""
         self.close_loop()
         if _autograd_profiler._is_profiler_enabled:
             self._loop = _Range("pipeline.loop")
             self._loop.__enter__()
-        rec = FrameRecord(self, n)
-        frame, t0, t1 = rec.timed("pipeline.pull", next, src, None)
-        return rec, frame, t0, t1
 
     def close_loop(self):
         """End the loop's open turn (the pipeline's run ends)."""
@@ -224,7 +237,7 @@ class FrameTrace:
         its way to the sink, and its record goes into the ring."""
         rec.times["pipeline.frame"] = (rec.times["pipeline.pull"][0], t)
         if rec.events is not None:
-            with _range(self._resolve_range()):
+            with profiler_range(self._resolve_range()):
                 self._resolve(rec)
         self.frames.append(rec)
 

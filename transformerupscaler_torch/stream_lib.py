@@ -2,8 +2,11 @@
 transformerupscaler_tpu/stream_lib.py:31-221).
 
 The headless core of the live overlay: frames come from a source, are
-preprocessed one frame ahead in a worker thread, upscaled and quantized back
-to uint8 on the device, and handed to a sink, with two frames in flight.
+pulled and preprocessed one frame ahead on a producer thread, upscaled and
+quantized back to uint8 on the device, and handed to a sink, with at most
+two frames in flight: a frame is retired as soon as no next frame is
+waiting, and behind the next frame's dispatch when one is (``run``). Every
+frame of the source is delivered, where JAX's pipeline drops the last.
 ``stream``, ``overlay`` and ``app_overlay`` are its frontends.
 
 On the card the step, from a static uint8 input frame to a static uint8
@@ -12,8 +15,9 @@ and the cast), runs as one CUDA graph (``infer_lib.CapturedForward``). The
 host holds two pinned input slots and two pinned output slots. Frame i's
 host-to-device copy, its replay and its device-to-host copy are enqueued in
 that order on one stream, and an event is recorded after each copy; frame i
-is dispatched before frame i-1 is fetched, and a fetch waits on its output
-slot's event and copies the frame out of the pinned slot. So:
+may be dispatched before frame i-1 is fetched, never before frame i-2 is,
+and a fetch waits on its output slot's event and copies the frame out of
+the pinned slot. So:
 
 - replay i+1 cannot overwrite the static output before frame i's copy out
   has read it: the copy is enqueued before the replay, on the same stream;
@@ -38,10 +42,10 @@ same frames; ``step`` runs it eagerly on the card too, to compare with.
 
 from __future__ import annotations
 
-import functools
+import queue
 import sys
+import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -301,30 +305,46 @@ class StreamPipeline:
 
     def run(self, source, sink=None, max_frames: int | None = None,
             preprocess=None) -> dict:
-        """Drive the pipeline with two frames in flight (JAX
-        stream_lib.py:126-221, the same stages and result).
+        """Drive the pipeline, frame i+1 dispatched before frame i is
+        fetched wherever it is already waiting (JAX stream_lib.py:126-221,
+        the same stages and result).
 
         source: an iterator of HWC uint8 frames of any size; preprocess
         defaults to the native resize to ``res_in`` of a frame of another
-        size; sink: a callable taking each output frame, or None. The
-        first frame only primes the preprocess worker, and the source's last
-        frame is preprocessed but never dispatched: a source of n frames
-        gives n - 1.
+        size; sink: a callable taking each output frame, or None;
+        max_frames: at most this many frames are pulled. A source of n
+        frames gives n, in order (JAX's pipeline gives n - 1: it dispatches
+        a frame only once the next one is pulled, so its last is never
+        dispatched).
 
-        Stages: capture, pulling the next frame from the source; preprocess,
-        waiting for the one-ahead worker; inference, from frame i's dispatch
-        to its fetch (device latency with the copies; host work overlaps
-        it, so the stages may sum past the wall clock); postprocess, the
-        time blocked in the fetch; display, the sink.
+        A producer thread pulls each frame and preprocesses it, at most one
+        frame ahead of the dispatch; the main thread takes it, dispatches
+        it, fetches it and hands it to the sink. Before each take, a frame
+        still in flight is retired at once if no next frame is waiting: the
+        producer, once it has begun the next pull, is blocked in the source
+        with nothing ready (a live source: the frame is not held until the
+        next one is due; ``COUNTERS["frames_retired_alone"]``). Otherwise
+        the next frame is dispatched first and the one in flight retired
+        after it (a source that keeps up: host and device overlap;
+        ``COUNTERS["frames_retired_behind"]``). An exception in the source
+        or the preprocess is raised here; once the run ends or raises, the
+        producer pulls no further frame.
+
+        Stages: capture, the producer's pull from the source; preprocess,
+        the main thread's wait to take the next frame; inference, from
+        frame i's dispatch to its fetch (device latency with the copies;
+        host work overlaps it, so the stages may sum past the wall clock);
+        postprocess, the time blocked in the fetch; display, the sink.
 
         With a ``trace`` set, each stage's two readings are also its span in
-        the frame's record (capture: ``pipeline.pull``; preprocess:
-        ``pipeline.preprocess_wait``, which also hands the next frame to the
-        worker; postprocess: ``pipeline.fetch``; display:
-        ``pipeline.sink``; inference: from ``pipeline.dispatch``'s start to
-        ``pipeline.fetch``'s end). The trace is read at every frame's pull,
-        so it may be set or cleared while the pipeline runs (frames pulled
-        while it was set finish their records).
+        the frame's record (capture: ``pipeline.pull``, and the preprocess
+        itself ``pipeline.preprocess``, on the producer's thread;
+        preprocess: ``pipeline.preprocess_wait``; postprocess:
+        ``pipeline.fetch``; display: ``pipeline.sink``; inference: from
+        ``pipeline.dispatch``'s start to ``pipeline.fetch``'s end). The
+        trace is read at every frame's pull, so it may be set or cleared
+        while the pipeline runs (frames pulled while it was set finish
+        their records).
 
         Returns {"frames", "wall_s", "fps", "report"}."""
 
@@ -336,14 +356,31 @@ class StreamPipeline:
         preprocess = preprocess or default_preprocess
         if sink is None:
             sink = lambda frame: None  # noqa: E731
-        executor = ThreadPoolExecutor(max_workers=1)
         timer = self.timer
+        src = iter(source)
 
-        def handoff(future, work, frame):
-            return future.result(), executor.submit(work, frame)
+        def pull(k):
+            trace = self._trace
+            if trace is None:
+                t0 = time.perf_counter()
+                frame = next(src, None)
+                t1 = time.perf_counter()
+                rec = None
+            else:
+                rec, frame, t0, t1 = trace.pull(src, k)
+            if frame is not None:
+                timer.add("capture", t1 - t0)
+            return frame, rec
 
-        def finish(pending):
+        def prepare(frame, rec):
+            if rec is None:
+                return preprocess(frame), None
+            return rec.timed("pipeline.preprocess", preprocess, frame)[0], rec
+
+        def finish(pending, alone):
             handle, t_dispatch, rec = pending
+            COUNTERS["frames_retired_alone" if alone
+                     else "frames_retired_behind"] += 1
             if rec is None:
                 t0 = time.perf_counter()
                 out_np = self._fetch(handle)
@@ -360,57 +397,48 @@ class StreamPipeline:
             timer.add("display", t3 - t2)
             timer.iterations += 1
 
-        pre_future = pre_rec = None  # the worker's frame and its record
-        pending = None  # (handle, dispatch time, record) of frame i-1
+        pending = None  # (handle, dispatch time, record): the frame in flight
+        looped = None  # the trace whose ``pipeline.loop`` range is open
         n = 0
         t_loop = time.perf_counter()
-        src = iter(source)
+        producer = _Producer(pull, prepare, max_frames)
         try:
-            while max_frames is None or n < max_frames:
+            while True:
+                if pending is not None and not producer.waiting():
+                    finish(pending, alone=True)
+                    pending = None
                 trace = self._trace
-                if trace is None:
+                if looped is not None and looped is not trace:
+                    looped.close_loop()
+                looped = trace
+                if trace is not None:
+                    trace.turn()
+                with profiling.profiler_range("pipeline.preprocess_wait"):
                     t0 = time.perf_counter()
-                    frame = next(src, None)
+                    item = producer.take()
                     t1 = time.perf_counter()
-                    rec, work = None, preprocess
-                else:
-                    rec, frame, t0, t1 = trace.pull(
-                        src, n + (pre_future is not None))
-                    work = functools.partial(rec.preprocess, preprocess)
-                if frame is None:
+                if item is None:
                     break
-                timer.add("capture", t1 - t0)
-
-                if pre_future is None:
-                    pre_future, pre_rec = executor.submit(work, frame), rec
-                    continue
-                ready_rec, pre_rec = pre_rec, rec
-                # Take frame i from the worker, hand it frame i+1, dispatch
-                # frame i, then retire frame i-1.
-                if ready_rec is None:
-                    t0 = time.perf_counter()
-                    ready, pre_future = handoff(pre_future, work, frame)
-                    t1 = t_dispatch = time.perf_counter()
-                    handle = self._dispatch(ready, n % 2)
-                else:
-                    (ready, pre_future), t0, t1 = ready_rec.timed(
-                        "pipeline.preprocess_wait", handoff, pre_future, work,
-                        frame)
-                    handle, t_dispatch, _ = ready_rec.timed(
-                        "pipeline.dispatch", self._dispatch, ready, n % 2,
-                        ready_rec)
                 timer.add("preprocess", t1 - t0)
+                frame, rec = item
+                if rec is None:
+                    t_dispatch = time.perf_counter()
+                    handle = self._dispatch(frame, n % 2)
+                else:
+                    rec.taken(t0, t1)
+                    handle, t_dispatch, _ = rec.timed(
+                        "pipeline.dispatch", self._dispatch, frame, n % 2,
+                        rec)
                 if pending is not None:
-                    finish(pending)
-                pending = (handle, t_dispatch, ready_rec)
+                    finish(pending, alone=False)
+                pending = (handle, t_dispatch, rec)
                 n += 1
             if pending is not None:
-                finish(pending)
-                pending = None
+                finish(pending, alone=True)
         finally:
-            executor.shutdown(wait=False)
-            if self._trace is not None:
-                self._trace.close_loop()
+            producer.stop()
+            if looped is not None:
+                looped.close_loop()
 
         wall = time.perf_counter() - t_loop
         return {
@@ -419,3 +447,83 @@ class StreamPipeline:
             "fps": n / wall if wall > 0 else 0.0,
             "report": self.timer.report(),
         }
+
+
+class _Producer:
+    """The pipeline's producer thread: ``pull(k)`` gives frame k of the
+    source and its record (the frame None at the source's end), and
+    ``prepare(frame, record)`` preprocesses it. Frame k is pulled only once
+    the main thread has taken frame k - 1, so one frame at most is ahead of
+    the dispatch; at most ``max_frames`` are pulled. An exception raised
+    here is raised again by ``take``."""
+
+    def __init__(self, pull, prepare, max_frames: int | None):
+        self._pull, self._prepare, self._max = pull, prepare, max_frames
+        self._ready = queue.SimpleQueue()  # (frame, record), _Failed or None
+        self._cv = threading.Condition()
+        self._taken = 0  # frames the main thread took
+        self._started = 0  # pulls begun
+        self._in_source = False  # blocked in the source's next()
+        self._ended = self._stopped = False
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="StreamPipeline.producer")
+        self._thread.start()
+
+    def _run(self):
+        k = 0
+        try:
+            while self._max is None or k < self._max:
+                with self._cv:
+                    self._cv.wait_for(
+                        lambda: self._taken >= k or self._stopped)
+                    if self._stopped:
+                        return
+                    self._started, self._in_source = k + 1, True
+                    self._cv.notify_all()
+                frame, rec = self._pull(k)
+                self._in_source = False
+                if frame is None:
+                    break
+                self._ready.put(self._prepare(frame, rec))
+                k += 1
+            self._ready.put(None)
+        except BaseException as e:
+            self._ready.put(_Failed(e))
+        finally:
+            with self._cv:
+                self._ended = True
+                self._cv.notify_all()
+
+    def waiting(self) -> bool:
+        """Whether the next frame is on its way: waits until the producer
+        has begun the pull after the last take (or ended), then False only
+        while it is blocked in the source with nothing ready."""
+        with self._cv:
+            self._cv.wait_for(
+                lambda: self._started > self._taken or self._ended)
+            return not (self._in_source and self._ready.empty())
+
+    def take(self):
+        """The next (frame, record), None at the source's end, waiting for
+        it; the producer may then pull the one after."""
+        item = self._ready.get()
+        with self._cv:
+            self._taken += 1
+            self._cv.notify_all()
+        if isinstance(item, _Failed):
+            raise item.error
+        return item
+
+    def stop(self):
+        """No further pull; returns once the thread has ended."""
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
+        self._thread.join()
+
+
+class _Failed:
+    """An exception raised on the producer thread, for the main thread."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
